@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels and drive its main path once on one GPU.
+"""Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -6,17 +6,28 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 0. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-1. build both kernels from nuradiomc_tpu_torch/csrc/ (sm_90a);
-2. each kernel against its plain PyTorch version on the card at the
-   headline shapes, float32 and float64, with CUDA-event timings;
-3. the headline slice: 65536 groups of the bench workload through
-   ``simulate_batch`` (both kernels), held to the per-group ``veff_trig``
-   pin of tests/golden/bench_pins.npz (at most 56 flips) and to the plain
-   path on the same card (identical decisions), with its events/s;
-4. the 3000-event golden needs the HDF5 reader, and the card's Python has no
-   h5py: it runs in tests/test_torch_simulation.py on the CPU instead.
+1. build the three kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
+   nvcc per source, started together;
+2. each kernel against its plain PyTorch version on the card at its path's
+   shapes, float32 and float64, with CUDA-event timings;
+3. the headline (dipole Veff) slice: 65536 groups of the bench workload
+   through ``simulate_batch`` (placement + trigger kernels), held to the
+   per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
+   flips) and to the plain path on the same card (identical decisions),
+   with its events/s;
+4. the 3000-event dipole golden through ``Simulation`` on the card, read
+   from the ``.npz`` export of its input (the card has no h5py): float64
+   with NuRadioMC's triggered set and Veff 0.22978 km^3, float32 (bench
+   settings) with at most group 1272 extra;
+5. the phased-array slice: 16384 groups of the bench's phased-array
+   workload (``convert.make_pa_inputs``, float32, placement + phased-array
+   kernels): noiseless decisions against the ``pa_nl_trig`` pin (at most 6
+   source events flip), the noisy count in [107, 249], the kernel path
+   against the plain path with the same noise (at most 8 groups differ,
+   each within 1e-3 of the threshold), with its events/s.
 
-The line before the last is the per-kernel JSON summary; the last line is
+Every printed time carries the card's name and power limit. The line before
+the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device; imports no jax.
 """
 
@@ -35,13 +46,24 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from nuradiomc_tpu.utils import units  # noqa: E402
+from nuradiomc_tpu_torch import convert  # noqa: E402
 from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
-from nuradiomc_tpu_torch.ops import _build, placement, trigger_fused  # noqa: E402
+from nuradiomc_tpu_torch.ops import (_build, noise, pa_trigger, phased_array,  # noqa: E402
+                                     placement, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
+from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000  # noqa: E402
 
 N_GROUPS = 65536
 FLIP_BOUND = 56          # bench.py:130, veff_trig
 PIN = os.path.join(HERE, "tests", "golden", "bench_pins.npz")
+E2E_GOLDEN = os.path.join(HERE, "tests", "golden", "e2e_reference.npz")
+PA_GROUPS = 16384        # bench.py:390
+PA_SOURCE_FLIPS = 6      # bench.py:132, pa_nl_trig, counted per source event
+PA_NOISY = (107, 249)    # bench.py:80 and :197-199, 178 +- 40%
+PA_CROSS_GROUPS = 8      # bench.py:451
+KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger")
+CARD = ""                # nvidia-smi name and power limit, set by main()
 
 
 def _median_ms(fn, n_warm=2, n_runs=10):
@@ -141,7 +163,7 @@ def phase_kernels(dev):
         plain_ms = _median_ms(lambda: placement.chain_placement_reduce_plain(*args, **kw))
         print(f"phase 2 placement_chain {tag}: max |kernel - plain| / row peak "
               f"= {worst:.3e} (limit {tol_place:g}), max abs {max_abs:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({CARD})")
         if not worst <= tol_place:
             raise AssertionError(f"placement kernel {tag} disagrees: {worst:.3e}")
         if dtype == torch.float32:
@@ -162,7 +184,7 @@ def phase_kernels(dev):
         print(f"phase 2 irfft_trigger {tag}: fired differ in {d_fired} of "
               f"{N_GROUPS} groups ({n_fired} fired), first bins differ in "
               f"{d_first}, amp max rel err {amp_rel:.3e} (limit {tol_amp:g}); "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({CARD})")
         if d_fired or d_first or not amp_rel <= tol_amp:
             raise AssertionError(f"trigger kernel {tag} disagrees with the plain version")
         if dtype == torch.float32:
@@ -196,7 +218,7 @@ def phase_headline(dev):
     launches = {"placement_chain": placement.launches,
                 "irfft_trigger": trigger_fused.launches}
     print(f"phase 3 launches in the main-path run: {launches}; first call "
-          f"{first_s:.3f} s")
+          f"{first_s:.3f} s ({CARD})")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
     for name in ("max_amplitude", "trigger_time", "c0"):
@@ -234,7 +256,193 @@ def phase_headline(dev):
             walls.append(time.perf_counter() - t0)
         wall = statistics.median(walls)
         print(f"phase 3 {name} path: step {wall * 1e3:.1f} ms (median of 5), "
-              f"{N_GROUPS / wall:.1f} events/s")
+              f"{N_GROUPS / wall:.1f} events/s ({CARD})")
+    return launches
+
+
+def _pa_kernel_inputs(dtype, dev, gen):
+    """Kernel-3 inputs at the bench shapes: 16384 groups x 4 channels,
+    K_base 512, n_base 2048, n_dec 512 (0.5 GHz ADC), n_up 1024 (x2), the 11
+    beams of the 4-channel array, window 16, step 8; band-limited noise
+    spectra and an ADC range of 15 counts per noise Vrms, as the workload."""
+    C, K, n_base = 4, 512, 2048
+    spec = noise.bandlimited_noise_spectrum(
+        gen, (PA_GROUPS * C,), n_base, 2.0, torch.tensor(1e-5, dtype=dtype, device=dev),
+        dtype=dtype)[:, :K]
+    I_r, I_i = pipeline._device_matrices("irfft", (n_base,), K, dtype, dev)
+    Dd_r, Dd_i = pipeline._device_matrices("decimate", (n_base, 5120, 10), K, dtype, dev)
+    U = pipeline._device_matrices("upsample", (512, 2), None, dtype, dev)
+    spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()
+    scale_dec = 5.0 / np.sqrt(2.0)
+    vrms = float(((spec_re[:4096] @ Dd_r + spec_im[:4096] @ Dd_i) * scale_dec).std())
+    adc_range = vrms * 255 / 15
+    rolls = phased_array.beam_rolls([-197.0 - i for i in range(C)], [1051.0] * C,
+                                    phased_array.default_angles, 1.75, 1.0)
+    return (spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U), dict(
+        scale_full=2.0 / np.sqrt(2.0), scale_dec=scale_dec, rolls=rolls, window=16,
+        step=8, v_min=-adc_range / 2, lsb=adc_range / 255, n_counts=256, C=C)
+
+
+def phase_pa_kernel(dev):
+    """Kernel 3 vs its plain version at the bench shapes, at a threshold
+    where most groups fire and one where few do; returns the float32
+    summary. The plain power sum is a cumsum difference and the kernel's a
+    direct sum, so a decision may differ only within 1e-4 of the threshold."""
+    summary = {}
+    for dtype, tol_amp in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261016)
+        tag = str(dtype).replace("torch.", "")
+        args, kw = _pa_kernel_inputs(dtype, dev, gen)
+        max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=float("inf"), **kw)[3]
+        amp_abs = 0.0
+        for q in (0.3, 0.9):
+            thr = float(torch.quantile(max_power, q))
+            kf, kframe, kamp = pa_trigger.fused_pa_trigger(*args, threshold=thr, **kw)
+            pf, pframe, pamp, pmax = pa_trigger.fused_pa_trigger_plain(*args, threshold=thr, **kw)
+            torch.cuda.synchronize()
+            margin = (pmax - thr).abs() / thr
+            diff = kf != pf
+            margins = sorted(float(m) for m in margin[diff])
+            solid = (margin >= 1e-4) & kf & pf
+            d_frame = int((kframe != pframe)[solid].sum())
+            amp_rel = float(((kamp - pamp).abs() / pamp.abs()).max())
+            amp_abs = max(amp_abs, float((kamp - pamp).abs().max()))
+            print(f"phase 2 pa_trigger {tag} threshold at quantile {q}: {int(pf.sum())} of "
+                  f"{PA_GROUPS} groups fire, fired differs in {len(margins)} (plain-path "
+                  f"margins {['%.2e' % m for m in margins]}), frames differ in {d_frame} "
+                  f"solid groups, amp max rel err {amp_rel:.3e} (limit {tol_amp:g})")
+            if margins and margins[-1] >= 1e-4:
+                raise AssertionError(f"pa_trigger {tag}: a decision differs at margin "
+                                     f"{margins[-1]:.3e} >= 1e-4")
+            if d_frame or not amp_rel <= tol_amp:
+                raise AssertionError(f"pa_trigger {tag} disagrees with the plain version")
+        ms = _median_ms(lambda: pa_trigger.fused_pa_trigger(*args, threshold=thr, **kw))
+        plain_ms = _median_ms(lambda: pa_trigger.fused_pa_trigger_plain(
+            *args, threshold=thr, **kw))
+        print(f"phase 2 pa_trigger {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+              f"(median of 10; {CARD})")
+        if dtype == torch.float32:
+            summary["pa_trigger"] = dict(max_abs_err=amp_abs, ms=ms, plain_ms=plain_ms)
+        del args
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _triggered_groups(res):
+    return set(int(g) for g in res["group_ids"][res["triggered"] & (res["weights"] >= 1e-5)])
+
+
+def phase_simulation(dev):
+    """The 3000-event dipole golden through ``Simulation`` on the card, from
+    the .npz export of its input, float64 and float32 (bench settings)."""
+    golden = np.load(E2E_GOLDEN)
+    ref = set(int(g) for g in np.unique(golden["group_ids"]))
+    placement.launches = trigger_fused.launches = 0
+    t0 = time.perf_counter()
+    res = convert.dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024, device=dev,
+                                    dtype=torch.float64).run()
+    wall = time.perf_counter() - t0
+    mine = _triggered_groups(res)
+    veff = res["veff"] / units.km ** 3
+    launches = (placement.launches, trigger_fused.launches)
+    print(f"phase 4 Simulation float64 on the card: {len(mine)} groups triggered "
+          f"(golden {len(ref)}), {len(mine ^ ref)} differ, Veff {veff:.5f} km^3 (golden "
+          f"0.22978), kernel launches {launches}, {wall:.2f} s with set-up ({CARD})")
+    if mine != ref or round(veff, 5) != 0.22978 or min(launches) < 1:
+        raise AssertionError("the float64 3000-event golden does not hold on the card")
+    res = convert.dipole_simulation(
+        str(INPUT_1E18_N3000),
+        {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28},
+         "perf": {"band_limit_eps": 1e-2}},
+        chunk_size=1024, device=dev, dtype=torch.float32).run()
+    mine = _triggered_groups(res)
+    print(f"phase 4 Simulation float32 (bench settings): missing {sorted(ref - mine)}, "
+          f"extra {sorted(mine - ref)} (allowed: 1272)")
+    if ref - mine or mine - ref - {1272}:
+        raise AssertionError("the float32 3000-event golden does not hold on the card")
+
+
+def phase_pa(dev):
+    """The phased-array slice through the kernels, against the noiseless pin,
+    the noisy band and the plain path; returns the launch counts of the
+    main-path (noisy, kernel path) run."""
+    import dataclasses
+
+    settings, ch, batch = convert.make_pa_inputs(PA_GROUPS, device=dev, dtype=torch.float32)
+    pins = np.load(PIN)
+    ref = pins["pa_nl_trig"].astype(np.int64)
+    g0 = int(pins["pa_g0"])
+    if len(ref) != PA_GROUPS:
+        raise AssertionError(f"pa_nl_trig pin has {len(ref)} groups, the run "
+                             f"{PA_GROUPS}: a stale pin is a failure")
+    noiseless = pipeline.simulate_batch(batch, ch, dataclasses.replace(settings, add_noise=False))
+    trig_nl = noiseless.triggered.cpu().numpy().astype(np.int64)
+    sources = sorted({int(i) % g0 for i in np.flatnonzero(trig_nl != ref)})
+    print(f"phase 5 noiseless: {int(trig_nl.sum())} of {PA_GROUPS} groups triggered, pin "
+          f"{int(ref.sum())}, source events flipped {sources} (bound {PA_SOURCE_FLIPS})")
+    if len(sources) > PA_SOURCE_FLIPS:
+        raise AssertionError(f"{len(sources)} source events flip against pa_nl_trig")
+
+    def generator():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return gen
+
+    placement.launches = pa_trigger.launches = 0
+    torch.cuda.synchronize()
+    out = pipeline.simulate_batch(batch, ch, settings, noise_generator=generator())
+    trig = out.triggered.cpu().numpy()
+    launches = {"placement_chain": placement.launches, "pa_trigger": pa_trigger.launches}
+    print(f"phase 5 launches in the main-path run: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    if (tuple(out.max_amplitude.shape) != (PA_GROUPS, 4)
+            or not bool(torch.isfinite(out.max_amplitude).all())
+            or not bool(torch.isfinite(out.trigger_time).all())):
+        raise AssertionError("phased-array output has the wrong shape or is not finite")
+    count = int(trig.sum())
+    print(f"phase 5 noisy: {count} of {PA_GROUPS} groups triggered (band {PA_NOISY})")
+    if not PA_NOISY[0] <= count <= PA_NOISY[1]:
+        raise AssertionError(f"noisy count {count} outside {PA_NOISY}")
+
+    plain = dataclasses.replace(settings, placement_impl="plain", trigger_impl="plain")
+    seen = []
+    plain_fn = pa_trigger.fused_pa_trigger_plain
+
+    def recording(*args, **kw):       # keeps the plain path's max beam power
+        result = plain_fn(*args, **kw)
+        seen.append((result[3], kw["threshold"]))
+        return result
+
+    pa_trigger.fused_pa_trigger_plain = recording
+    trig_plain = pipeline.simulate_batch(batch, ch, plain,
+                                         noise_generator=generator()).triggered.cpu().numpy()
+    pa_trigger.fused_pa_trigger_plain = plain_fn
+    max_power, thr = seen[0]
+    margin = ((max_power - thr).abs() / thr).cpu().numpy()
+    diff = np.flatnonzero(trig_plain != trig)
+    print(f"phase 5 kernel path vs plain path, same noise: {len(diff)} groups differ "
+          f"(bound {PA_CROSS_GROUPS}), plain-path margins "
+          f"{['%.2e' % m for m in margin[diff]]}")
+    if len(diff) > PA_CROSS_GROUPS or (len(diff) and margin[diff].max() >= 1e-3):
+        raise AssertionError("kernel and plain phased-array paths differ beyond razor margins")
+
+    def step(s):
+        pipeline.simulate_batch(batch, ch, s, noise_generator=generator()).triggered.sum().item()
+
+    for name, s in (("kernel", settings), ("plain", plain)):
+        step(s)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(s)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        print(f"phase 5 {name} path, noisy step: {wall * 1e3:.1f} ms (median of 5), "
+              f"{PA_GROUPS / wall:.1f} events/s ({CARD})")
     return launches
 
 
@@ -245,15 +453,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full FP32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    global CARD
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"phase 0 torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    for name in ("placement_chain", "irfft_trigger"):
+    _build.build(KERNELS)
+    for name in KERNELS:
         _build.load(name)
         info = _build.build_info[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -261,22 +471,20 @@ def main() -> int:
         print(f"phase 1 built {name} in {info['seconds']:.1f} s: " + " | ".join(ptxas))
     print(f"phase 1 build total {time.perf_counter() - t0:.1f} s")
 
-    summary = phase_kernels(dev)
+    summary = {**phase_kernels(dev), **phase_pa_kernel(dev)}
     launches = phase_headline(dev)
-    print("phase 4 skipped: the card's Python has no h5py, which the HDF5 event "
-          "reader needs; the 3000-event golden runs on the CPU in "
-          "tests/test_torch_simulation.py")
-
-    kernels = [
-        {"name": "placement_chain", "route": "cuda",
-         "source": "nuradiomc_tpu_torch/csrc/placement_chain.cu",
-         "replaces": "nuradiomc_tpu/ops/placement_pallas.py:452",
-         "launches": launches["placement_chain"], **summary["placement_chain"]},
-        {"name": "irfft_trigger", "route": "cuda",
-         "source": "nuradiomc_tpu_torch/csrc/irfft_trigger.cu",
-         "replaces": "nuradiomc_tpu/ops/trigger_pallas.py:172",
-         "launches": launches["irfft_trigger"], **summary["irfft_trigger"]},
-    ]
+    phase_simulation(dev)
+    pa_launches = phase_pa(dev)
+    # launches: the counts of the two main-path runs (phases 3 and 5)
+    for name, n in pa_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452",
+                "irfft_trigger": "nuradiomc_tpu/ops/trigger_pallas.py:172",
+                "pa_trigger": "nuradiomc_tpu/ops/pa_pallas.py:181"}
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"nuradiomc_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces[name], "launches": launches[name], **summary[name]}
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

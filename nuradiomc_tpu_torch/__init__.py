@@ -5,10 +5,14 @@ easy to find:
 
 ``utils``   fft conventions, geometry
 ``models``  ice models
-``ops``     ray tracing, attenuation, Askaryan, antenna, trace, triggers, and
-            the two hand-written Hopper kernels (``ops/placement.py``,
-            ``ops/trigger_fused.py``, sources in ``csrc/``)
-``sim``     the batched pipeline and the ``Simulation`` orchestrator
+``ops``     ray tracing (with implicit focusing), attenuation, Askaryan
+            (Alvarez2000, Alvarez2009), antenna, trace, noise, trigger ADC,
+            phased array, triggers, and the three hand-written Hopper
+            kernels (``ops/placement.py``, ``ops/trigger_fused.py``,
+            ``ops/pa_trigger.py``, sources in ``csrc/``)
+``sim``     the batched pipeline, the ``Simulation`` orchestrator and the
+            h5py-free ``.npz`` event-list input (``sim/io_input.py``)
+``data``    the ``.npz`` export of the 3000-event 1e18 eV input
 
 It imports ``torch`` and never ``jax``. From ``nuradiomc_tpu`` it imports only
 modules that are jax-free themselves (detector, HDF5 I/O, weights, units,

@@ -8,7 +8,9 @@ importing them, so the port never imports jax.
 :func:`make_headline_inputs` reproduces ``__graft_entry__.
 _make_settings_and_inputs`` (the headline workload of ``bench.py``) bit for
 bit, with the same ``default_rng(0)`` draw order, so the card can build it
-without jax.
+without jax. :func:`make_pa_inputs` builds the phased-array workload of
+``bench._pa_setup`` through the port's ``Simulation`` on the ``.npz`` export
+of its input, so the card builds it without jax and without h5py.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from nuradiomc_tpu.ops import filters
+from nuradiomc_tpu.utils import config as config_util
 from nuradiomc_tpu.utils import units
 from nuradiomc_tpu_torch.models import ice as ice_models
 from nuradiomc_tpu_torch.ops import antenna
@@ -174,3 +177,99 @@ def make_headline_inputs(n_groups=8, n_showers=2, n_channels=4, n_internal=256,
     return (settings,
             channels_from_jax(ChannelParams(**ch), device=device, dtype=dtype),
             batch_from_jax(ShowerBatch(**batch), device=device, dtype=dtype))
+
+
+# ---- the dipole 3000-event golden (tests/test_e2e.py, tests/test_torch_simulation.py)
+
+DIPOLE_DETECTOR = {
+    "channels": {"1": {
+        "adc_n_samples": 256, "adc_sampling_frequency": 1.0,
+        "ant_orientation_phi": 0.0, "ant_orientation_theta": 0.0,
+        "ant_position_x": 0.0, "ant_position_y": 0.0, "ant_position_z": -100.0,
+        "ant_rotation_phi": 90.0, "ant_rotation_theta": 90.0,
+        "ant_type": "XFDTD_Vpol_CrossFeed_150mmHole_n1.78",
+        "amp_type": "300", "cab_time_delay": 19.8, "adc_nbits": None,
+        "channel_id": 0, "station_id": 101,
+    }},
+    "stations": {"1": {"pos_altitude": 0, "pos_easting": 0, "pos_northing": 0,
+                       "pos_site": "southpole", "station_id": 101}},
+}
+DIPOLE_CONFIG = {"sampling_rate": 2.0, "propagation": {"ice_model": "southpole_2015"},
+                 "signal": {"model": "Alvarez2000"},
+                 "weights": {"weight_mode": "core_mantle_crust_simple",
+                             "cross_section_type": "ctw"}}
+
+
+def dipole_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of the dipole golden: one VPol at 100 m, the
+    butterworth chain, a 2-sigma high/low trigger (``config`` merged on top
+    of DIPOLE_CONFIG; ``kwargs`` go to ``Simulation``)."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    return Simulation(
+        inputfilename, DIPOLE_DETECTOR,
+        config=config_util.merge_config(config, DIPOLE_CONFIG),
+        filter_chain=[
+            FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
+            FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
+        ],
+        trigger=TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
+        antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78": "analytic_VPol"},
+        **kwargs)
+
+
+# ---- the phased-array workload (bench._pa_setup, tests/test_e2e_phased_array.py)
+
+# a 4-channel RNO-G-style deep phased array, 1 m spacing below 197 m
+PA_DETECTOR = {
+    "channels": {str(i + 1): {
+        "adc_n_samples": 256, "adc_sampling_frequency": 0.5, "adc_nbits": 8,
+        "ant_orientation_phi": 0.0, "ant_orientation_theta": 0.0,
+        "ant_position_x": 0.0, "ant_position_y": 0.0, "ant_position_z": -197.0 - i,
+        "ant_rotation_phi": 90.0, "ant_rotation_theta": 90.0,
+        "ant_type": "RNOG_vpol_v1_n1.73", "amp_type": "",
+        "cab_time_delay": 1051.0, "channel_id": i, "station_id": 1,
+    } for i in range(4)},
+    "stations": {"1": {"station_id": 1, "pos_altitude": 0,
+                       "pos_easting": 0, "pos_northing": 0}},
+}
+PA_CONFIG = {"sampling_rate": 2.0, "noise": True,
+             "propagation": {"ice_model": "southpole_2015", "focusing": True},
+             "signal": {"model": "Alvarez2009"},
+             "weights": {"weight_mode": "core_mantle_crust_simple",
+                         "cross_section_type": "ctw"}}
+
+
+def pa_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of the phased-array workload: PA_DETECTOR,
+    PA_CONFIG (``config`` merged on top), the cheby1 chain and the default
+    phased-array trigger; ``kwargs`` go to ``Simulation``."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    return Simulation(
+        inputfilename, PA_DETECTOR,
+        config=config_util.merge_config(config, PA_CONFIG),
+        filter_chain=[
+            FilterStage((96 * units.MHz, 100 * units.GHz), "cheby1", {"order": 4, "rp": 0.1}),
+            FilterStage((0, 220 * units.MHz), "cheby1", {"order": 7, "rp": 0.1}),
+        ],
+        trigger=TriggerSpec(trigger_type="phased_array"),
+        antenna_replacements={"RNOG_vpol_v1_n1.73": "analytic_VPol"},
+        **kwargs)
+
+
+def make_pa_inputs(n_groups=16384, *, device="cpu", dtype=torch.float32):
+    """(settings, ch, batch) of ``bench.bench_pa``: the 3000 groups of the
+    1e18 eV input (its ``.npz`` export) with the bench's solver settings,
+    tiled to ``n_groups``, band limit 1e-3, noise on."""
+    import dataclasses as dc
+
+    from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
+    sim = pa_simulation(
+        INPUT_1E18_N3000,
+        {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28}},
+        device=device, dtype=dtype)
+    batch0 = sim._build_batches()[-1]
+    reps = -(-n_groups // batch0.energies.shape[0])
+    batch = ShowerBatch(*[None if a is None else torch.as_tensor(
+        np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:n_groups]),
+        device=device) for a in batch0])
+    return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/kernels/`` at the repository root (gitignored), named by
 a hash of its source so an edited kernel is rebuilt, and loaded with
-``ctypes``. Nothing here runs at import time.
+``ctypes``. :func:`build` compiles several sources at once, one nvcc process
+each. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,28 +40,40 @@ def _nvcc() -> str:
                        "where the CUDA toolkit is installed")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
-    if name in _libs:
-        return _libs[name]
+def _paths(name: str):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    info = {"seconds": 0.0, "log": ""}
-    if not so.exists():
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names) -> None:
+    """Compile the named kernels that are not built yet, one nvcc process
+    per source, all started together."""
+    running = []
+    for name in names:
+        src, so = _paths(name)
+        if name in _libs or so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, src, so, tmp, proc, time.perf_counter()))
+    for name, src, so, tmp, proc, t0 in running:
+        log = proc.communicate()[0]
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{info['log']}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         os.replace(tmp, so)
-    build_info[name] = info
-    _libs[name] = ctypes.CDLL(str(so))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    if name not in _libs:
+        build([name])
+        build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+        _libs[name] = ctypes.CDLL(str(_paths(name)[1]))
     return _libs[name]
 
 

@@ -7,8 +7,10 @@ observables (launch/receive angles, Bouma path length and travel time), the
 Gauss-Legendre quadrature. Every function is elementwise over the leading
 batch axes: the JAX package's ``vmap`` over flattened pairs is a batch
 dimension here, and each fixed-count ``fori_loop`` is a fixed-count Python
-loop. Bottom reflections (``find_solutions_all``), focusing and the
-ice-to-air solver are not ported yet (ROADMAP queue 1 items 9, 14, 17).
+loop. ``focusing_dtheta_dz`` gives the implicit-mode focusing derivative.
+Bottom reflections (``find_solutions_all``), the numeric focusing re-solve
+and the ice-to-air solver are not ported yet (ROADMAP queue 1 items 9, 14,
+17).
 """
 
 from __future__ import annotations
@@ -472,6 +474,45 @@ def to_2d(x1, x2) -> Geometry2D:
         swapped=swap, dphi=dphi,
         ux=torch.where(zero, 1.0, d[..., 0] / safe_r),
         uy=torch.where(zero, 0.0, d[..., 1] / safe_r))
+
+
+def focusing_dtheta_dz(geom: Geometry2D, sols: RaySolutions, ice: IceModelSimple):
+    """|d(launch angle at the emitter) / d(receiver depth)| at the solved
+    roots (raytrace.py:1040): the dz -> 0 limit of the displaced-receiver
+    focusing (get_focusing, analyticraytracing.py:2778-2888) by implicit
+    differentiation of miss(logC0; z1, z2) = 0, both partials by central
+    differences of the closed-form miss function. Shaped like ``sols.c0``;
+    values at masked-out slots are meaningless."""
+    dtype = sols.c0.dtype
+    tiny = torch.tensor(1e-30, dtype=dtype, device=sols.c0.device)
+    logc0 = torch.log(torch.maximum(sols.c0 - 1.0 / ice.n_ice, tiny))
+    dy_target = (geom.x2y - geom.x1y)[..., None]
+    is_mirror = sols.sol_type != SOL_DIRECT
+    z1 = geom.x1z[..., None].expand(logc0.shape)
+    z2 = geom.x2z[..., None].expand(logc0.shape)
+
+    def miss(lg, z1_, z2_):
+        md, mm = _branch_misses(lg, z1_, z2_, dy_target, ice)
+        return torch.where(is_mirror, mm, md)
+
+    # the steps change numbers: 1e-6 (float64) / 1e-3 (float32) in logC0,
+    # the receiver displaced by +-5 mm
+    h_l = (1e-6 if dtype == torch.float64 else 1e-3) * torch.clamp(torch.abs(logc0), min=1.0)
+    h_z = 0.005
+    g_l = (miss(logc0 + h_l, z1, z2) - miss(logc0 - h_l, z1, z2)) / (2 * h_l)
+    # the true receiver is the 2D x1 when the pair was swapped
+    swapped = geom.swapped[..., None].expand(logc0.shape)
+    g_zr = (miss(logc0, torch.where(swapped, z1 + h_z, z1), torch.where(swapped, z2, z2 + h_z))
+            - miss(logc0, torch.where(swapped, z1 - h_z, z1),
+                   torch.where(swapped, z2, z2 - h_z))) / (2 * h_z)
+    dlog_dzr = -g_zr / torch.where(torch.abs(g_l) > tiny, g_l, tiny)
+
+    # emitter-side angle: launch angle at 2D x1, receive angle at 2D x2
+    theta_e = torch.where(swapped, sols.receive_angle, sols.launch_angle)
+    dth_dc0 = torch.sin(theta_e) / (sols.c0 * torch.clamp(torch.abs(torch.cos(theta_e)),
+                                                            min=1e-6))
+    dc0_dlog = sols.c0 - 1.0 / ice.n_ice
+    return torch.abs(dth_dc0 * dc0_dlog * dlog_dzr)
 
 
 def launch_receive_vectors(geom: Geometry2D, sols: RaySolutions):

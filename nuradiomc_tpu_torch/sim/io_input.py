@@ -1,0 +1,101 @@
+"""Event-list input without h5py: an ``.npz`` export of an input HDF5 file.
+
+The card's Python has no h5py, so the port's ``Simulation`` also reads an
+``.npz`` file that holds exactly what ``nuradiomc_tpu/sim/io_hdf5.py::
+read_input_hdf5`` builds from the HDF5 file: the per-shower columns as
+``col_<name>``, the file attributes as ``attr_<name>`` and emitter columns as
+``emitter_<name>``. :class:`EventInput` is a copy of the JAX package's
+container (io_hdf5.py:24-53), so reading needs neither h5py nor jax.
+
+Export an input file on a machine with h5py:
+
+    python -m nuradiomc_tpu_torch.sim.io_input tests/data/1e18_n3000.hdf5 \\
+        nuradiomc_tpu_torch/data/1e18_n3000.npz
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+
+DATA_DIR = Path(__file__).resolve().parents[1] / "data"
+# the export of tests/data/1e18_n3000.hdf5 (3000 events, 3724 showers)
+INPUT_1E18_N3000 = DATA_DIR / "1e18_n3000.npz"
+
+
+@dataclasses.dataclass
+class EventInput:
+    """Per-shower flat arrays as read from the input file."""
+
+    event_group_ids: np.ndarray
+    shower_ids: np.ndarray
+    xx: np.ndarray
+    yy: np.ndarray
+    zz: np.ndarray
+    zeniths: np.ndarray
+    azimuths: np.ndarray
+    energies: np.ndarray          # neutrino energy
+    shower_energies: np.ndarray
+    shower_type: np.ndarray       # 'had' / 'em'
+    flavors: np.ndarray
+    interaction_type: np.ndarray  # 'cc' / 'nc'
+    inelasticity: np.ndarray
+    vertex_times: np.ndarray
+    attrs: dict
+    shower_realization_Alvarez2009: np.ndarray = None
+    shower_realization_ARZ: np.ndarray = None
+    emitter: dict = None
+
+    @property
+    def n_showers(self) -> int:
+        return len(self.shower_ids)
+
+
+_ARRAYS = [f.name for f in dataclasses.fields(EventInput)
+           if f.name not in ("attrs", "emitter")]
+
+
+def write_input_npz(inp, path) -> None:
+    """Write an ``EventInput`` (of either package) to ``path``."""
+    out = {f"col_{name}": np.asarray(getattr(inp, name)) for name in _ARRAYS
+           if getattr(inp, name) is not None}
+    out.update({f"attr_{k}": np.asarray(v) for k, v in inp.attrs.items()})
+    out.update({f"emitter_{k}": np.asarray(v) for k, v in (inp.emitter or {}).items()})
+    np.savez_compressed(path, **out)
+
+
+def read_input_npz(path) -> EventInput:
+    """The ``EventInput`` of an export written by :func:`write_input_npz`."""
+    with np.load(path, allow_pickle=False) as z:
+        cols = {k[4:]: z[k] for k in z.files if k.startswith("col_")}
+        attrs = {k[5:]: z[k][()] if z[k].ndim == 0 else z[k]
+                 for k in z.files if k.startswith("attr_")}
+        emitter = {k[8:]: z[k] for k in z.files if k.startswith("emitter_")}
+    return EventInput(**cols, attrs=attrs, emitter=emitter or None)
+
+
+def read_input(path) -> EventInput:
+    """An ``.npz`` export without h5py; any other file through the JAX
+    package's jax-free HDF5 reader."""
+    if str(path).endswith(".npz"):
+        return read_input_npz(path)
+    from nuradiomc_tpu.sim import io_hdf5
+    return io_hdf5.read_input_hdf5(path)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 2:
+        print("usage: python -m nuradiomc_tpu_torch.sim.io_input IN.hdf5 OUT.npz",
+              file=sys.stderr)
+        return 2
+    from nuradiomc_tpu.sim import io_hdf5
+    write_input_npz(io_hdf5.read_input_hdf5(argv[0]), argv[1])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,22 +1,24 @@
 """The batched end-to-end MC pipeline (torch), factored single-window path.
 
-Counterpart of ``nuradiomc_tpu/sim/pipeline.py::simulate_batch`` on the path
-the dipole effective-volume run takes (pipeline.py:679-1160, :1174-1290,
-:1312-1331, :1386-1435, :1462-1553 with n_windows = 1). One call runs the
-whole chain over a padded batch [group G x shower S x channel C x ray 2]
-with validity masks in place of early exits:
+Counterpart of ``nuradiomc_tpu/sim/pipeline.py::simulate_batch`` on the paths
+of the dipole effective-volume run and the phased-array run
+(pipeline.py:541-632, :679-1160, :1174-1435, :1462-1553 with n_windows = 1).
+One call runs the whole chain over a padded batch [group G x shower S x
+channel C x ray 2] with validity masks in place of early exits:
 
 1. ray tracing                      (ops.raytrace)
 2. viewing angle and delta_C cut
-3. Alvarez2000 spectra              (ops.askaryan)
-4. polarization, Fresnel factors, analytic VEL mix folded into one complex
-   scalar per (shower, channel, ray)
+3. Alvarez2000 / Alvarez2009 spectra (ops.askaryan)
+4. polarization, Fresnel and focusing factors, analytic VEL mix folded into
+   one complex scalar per (shower, channel, ray)
 5. SP1 attenuation on a sparse frequency grid
 6. per-solution Hilbert-envelope maxima and the candidate cut
 7. placement on the common time base + (shower, ray) reduction
    (ops.placement, kernel 1)
-8. filter multiply, irfft, high/low trigger and majority logic
-   (ops.trigger_fused, kernel 2)
+8. noise (ops.noise), filter multiply, and the triggers: irfft, high/low
+   trigger and majority logic (ops.trigger_fused, kernel 2), or the
+   phased-array chain of trigger ADC, upsampling, beams and power sums
+   (ops.pa_trigger, kernel 3)
 
 ``placement_impl`` / ``trigger_impl`` = "kernel" (default) go through the
 kernel wrappers, which launch the CUDA kernels on CUDA tensors and run their
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
-from nuradiomc_tpu_torch.ops import (antenna, askaryan, placement, raytrace,
+from nuradiomc_tpu_torch.ops import (antenna, askaryan, noise as noise_ops,
+                                     pa_trigger, phased_array, placement, raytrace,
                                      trace as trace_ops, trigger_fused)
 from nuradiomc_tpu_torch.utils import fft, geometry
 
@@ -202,6 +205,30 @@ def _irfft_matrices(n_base: int):
     return I_r, I_i
 
 
+# copied from nuradiomc_tpu/sim/pipeline.py:348 (_decimating_irfft_matrices)
+@functools.lru_cache(maxsize=8)
+def _decimating_irfft_matrices(n_base: int, n_hi: int, decim: int):
+    """irfft(spec, n=n_hi)[::decim] as two [F_base, n_hi//decim] matrices
+    (spectrum zero-padding is implicit in irfft's n= argument)."""
+    import numpy as _np
+    F = n_base // 2 + 1
+    eye = _np.eye(F)
+    D_r = _np.fft.irfft(eye, n=n_hi, axis=1)[:, ::decim]
+    D_i = _np.fft.irfft(1j * eye, n=n_hi, axis=1)[:, ::decim]
+    return D_r, D_i
+
+
+# copied from nuradiomc_tpu/sim/pipeline.py:360 (_fft_upsample_matrix)
+@functools.lru_cache(maxsize=8)
+def _fft_upsample_matrix(n_in: int, factor: int):
+    """rfft -> zero-pad -> irfft FFT upsampling as one [n_in, n_in*factor]
+    matrix; the V/GHz density convention makes the net scale = factor."""
+    import numpy as _np
+    eye = _np.eye(n_in)
+    return _np.fft.irfft(_np.fft.rfft(eye, axis=1),
+                         n=n_in * factor, axis=1) * factor
+
+
 # copied from nuradiomc_tpu/sim/pipeline.py:370 (_band_support)
 def _band_support(responses, eps, full):
     """Highest frequency index (exclusive) whose |response| exceeds
@@ -290,18 +317,24 @@ def _attenuation_freq_grid(ff, n_freq, max_detector_freq=None):
 
 # ---- device constants ------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
-def _device_matrices(kind: str, n_a: int, n_b: int, k: int, dtype, device):
-    """Host matrices moved to the device once per (shape, dtype, device):
-    'placement' -> (D_r, D_i)[:k] complex, 'irfft' -> (I_r, I_i)[:k] real."""
+_HOST_MATRICES = {"placement": _placement_matrices, "irfft": _irfft_matrices,
+                  "decimate": _decimating_irfft_matrices,
+                  "upsample": _fft_upsample_matrix}
+
+
+@functools.lru_cache(maxsize=32)
+def _device_matrices(kind: str, shape: tuple, k, dtype, device):
+    """A host matrix builder's output moved to the device once per (shape,
+    dtype, device), rows cut to ``k`` (None keeps all): 'placement' ->
+    (D_r, D_i) complex; 'irfft' -> (I_r, I_i); 'decimate' -> (Dd_r, Dd_i);
+    'upsample' -> U."""
+    out = _HOST_MATRICES[kind](*shape)
     if kind == "placement":
-        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
-        D_r, D_i = _placement_matrices(n_a, n_b)
-        return (torch.as_tensor(D_r[:k], dtype=ctype, device=device),
-                torch.as_tensor(D_i[:k], dtype=ctype, device=device))
-    I_r, I_i = _irfft_matrices(n_a)
-    return (torch.as_tensor(I_r[:k], dtype=dtype, device=device),
-            torch.as_tensor(I_i[:k], dtype=dtype, device=device))
+        dtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    if kind == "upsample":
+        return torch.as_tensor(out[:k], dtype=dtype, device=device).contiguous()
+    return tuple(torch.as_tensor(m[:k], dtype=dtype, device=device).contiguous()
+                 for m in out)
 
 
 def _not_ported(what: str, item: str):
@@ -309,16 +342,14 @@ def _not_ported(what: str, item: str):
 
 
 def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
-                 noise_key, keep_traces, keep_efields, emitter, arz_library):
-    if s.add_noise or noise_key is not None:
-        _not_ported("noise", "11, noise")
-    if s.apply_focusing:
-        _not_ported("focusing", "9, focusing")
+                 keep_traces, keep_efields, emitter, arz_library):
+    if s.apply_focusing and s.focusing_mode != "implicit":
+        _not_ported(f"focusing_mode={s.focusing_mode!r} (the displaced-receiver "
+                    "re-solve)", "9, numeric focusing")
     if emitter is not None:
         _not_ported("emitter mode", "15, the non-factored chain")
-    if arz_library is not None or s.askaryan_model != "Alvarez2000":
-        _not_ported(f"Askaryan model {s.askaryan_model}",
-                    "10, Alvarez2009 and ZHS1992; ARZ: 15")
+    if arz_library is not None or s.askaryan_model not in ("Alvarez2000", "Alvarez2009"):
+        _not_ported(f"Askaryan model {s.askaryan_model}", "10, ZHS1992; ARZ: 15")
     if s.birefringence:
         _not_ported("birefringence", "15, the non-factored chain")
     if s.n_reflections > 0 or s.n_windows != 1:
@@ -347,21 +378,62 @@ def _trigger_list(s: PipelineSettings):
             number_of_coincidences=s.number_of_coincidences,
             channel_coincidence=s.channel_coincidence),)
     for t in trig_list:
-        if t.trigger_type not in ("high_low", "simple_threshold"):
-            _not_ported(f"trigger type {t.trigger_type}", "12, phased array + ADC")
+        if t.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
+            raise NotImplementedError(f"trigger type {t.trigger_type}")
         if len(t.channels):
             _not_ported("per-trigger channel subsets", "13, multi-trigger and separate trigger chains")
     return trig_list
 
 
+def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, I_r, I_i,
+                          s: PipelineSettings, C: int):
+    """One phased-array trigger on the filtered spectra [G*C, K]
+    (pipeline.py:575-632 in matmul form, :1336-1380 for the kernel route):
+    (fired [G], first frame [G], amp [G, C], seconds per frame)."""
+    G = spec_re.shape[0] // C
+    K = spec_re.shape[1]
+    dtype, dev = spec_re.dtype, spec_re.device
+    scale_full = s.sampling_rate / math.sqrt(2.0)
+    up = int(t.pa_upsampling)
+    if t.pa_digitize:
+        # irfft at 5 GHz, stride-decimated to the ADC rate, as one matmul from
+        # the filtered spectrum; then ADC, upsampling, beams and power sums
+        fs_hi = 5.0
+        n_hi = int(round(s.n_base * fs_hi / s.sampling_rate))
+        Dd_r, Dd_i = _device_matrices(
+            "decimate", (s.n_base, n_hi, int(round(fs_hi / t.pa_adc_fs))), K, dtype, dev)
+        U = _device_matrices("upsample", (Dd_r.shape[1], up), None, dtype, dev)
+        fn = (pa_trigger.fused_pa_trigger if s.trigger_impl == "kernel"
+              else pa_trigger.fused_pa_trigger_plain)
+        fired, frame, amp = fn(
+            spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U, scale_full=scale_full,
+            scale_dec=fs_hi / math.sqrt(2.0), rolls=t.pa_rolls,
+            threshold=t.pa_threshold, window=t.pa_window, step=t.pa_step,
+            v_min=-t.pa_adc_range / 2, lsb=t.pa_adc_range / (2 ** t.pa_adc_nbits - 1),
+            n_counts=2 ** t.pa_adc_nbits, C=C)[:3]
+        return fired, frame, amp, t.pa_step / (t.pa_adc_fs * up)
+    # no ADC: the trigger traces at the internal rate, optionally upsampled
+    tr = (spec_re @ I_r + spec_im @ I_i) * scale_full
+    amp = torch.amax(torch.abs(tr), dim=-1).reshape(G, C)
+    if up > 1:
+        tr = tr @ _device_matrices("upsample", (s.n_base, up), None, dtype, dev)
+    fired, frame, _, _ = phased_array.phased_power_trigger(
+        tr.reshape(G, C, -1), t.pa_rolls, t.pa_threshold, t.pa_window, t.pa_step)
+    return fired, frame, amp, t.pa_step / (s.sampling_rate * up)
+
+
 def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
-                   noise_key=None, keep_traces: bool = False,
-                   keep_efields: bool = False, emitter=None,
-                   arz_library=None) -> PipelineOutput:
+                   noise_generator: Optional[torch.Generator] = None,
+                   keep_traces: bool = False, keep_efields: bool = False,
+                   emitter=None, arz_library=None) -> PipelineOutput:
     """Run the chain on a padded batch. All tensors share one device; the
-    real dtype is ``batch.vertices.dtype`` (float32 or float64)."""
-    _check_slice(batch, ch, s, noise_key, keep_traces, keep_efields, emitter,
-                 arz_library)
+    real dtype is ``batch.vertices.dtype`` (float32 or float64). With
+    ``s.add_noise`` the noise is drawn from ``noise_generator`` (a
+    ``torch.Generator`` on that device), one realization per (group,
+    channel), where the JAX function takes a ``noise_key``."""
+    _check_slice(batch, ch, s, keep_traces, keep_efields, emitter, arz_library)
+    if s.add_noise and noise_generator is None:
+        raise ValueError("add_noise=True requires a noise_generator")
     trig_list = _trigger_list(s)
     G, S = batch.energies.shape
     C = ch.positions.shape[0]
@@ -412,7 +484,8 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     spec = askaryan.get_frequency_spectrum(
         batch.energies[:, :, None, None].expand(bshape), viewing_angle,
         s.n_internal, dt, batch.is_em[:, :, None, None].expand(bshape),
-        n_vertex[:, :, None, None].expand(bshape), R_safe, s.askaryan_model)
+        n_vertex[:, :, None, None].expand(bshape), R_safe, s.askaryan_model,
+        k_L=batch.k_L[:, :, None, None].expand(bshape))
 
     # ---- 4. polarization on-sky at the vertex ------------------------------
     axis = batch.prop_dir[:, :, None, None, :].expand(*bshape, 3)
@@ -453,7 +526,23 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                                              sols.refl_case, z_turn_slots)
     a_p = torch.where(n_touch > 0, r_p, torch.ones_like(r_p))
     a_s = torch.where(n_touch > 0, r_s, torch.ones_like(r_s))
-    foc = torch.ones(bshape, dtype=real_dtype, device=dev)
+    if s.apply_focusing:
+        # implicit mode (pipeline.py:947-989): the exact dz -> 0 derivative
+        # of the launch angle toward a displaced receiver at the solved root
+        lau_ang = torch.arccos(torch.clamp(launch[..., 2], -1.0, 1.0))
+        rec_ang = torch.arccos(torch.clamp(-receive[..., 2], -1.0, 1.0))
+        d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
+        r_h = torch.abs(geom.x2y - geom.x1y)[..., None]
+        dist = torch.clamp(sols.path_length, min=1.0)
+        foc = torch.sqrt(dist / torch.clamp(torch.sin(rec_ang), min=1e-6) * d_launch_dz)
+        foc = foc * torch.sqrt(dist * torch.sin(lau_ang) / torch.clamp(r_h, min=1e-6))
+        foc = torch.clamp(torch.where(sols.mask, foc, 1.0), max=s.focusing_limit)
+        # refractive-index correction between emitter and receiver
+        n1 = s.ice.index_of_refraction(batch.vertices[..., 2])[:, :, None, None]
+        n2 = s.ice.index_of_refraction(ch.positions[:, 2])[None, None, :, None]
+        foc = foc * torch.sqrt(n1 / n2)
+    else:
+        foc = torch.ones(bshape, dtype=real_dtype, device=dev)
     amp_t_c = (pol_onsky[..., 1] * foc).to(ctype) * a_p
     amp_p_c = (pol_onsky[..., 2] * foc).to(ctype) * a_s
 
@@ -517,7 +606,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     tpl_idx = (c_idx * 3 + sector).to(torch.int32)
     dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
     tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
-    D_r, D_i = _device_matrices("placement", s.n_internal, s.n_base, K_int,
+    D_r, D_i = _device_matrices("placement", (s.n_internal, s.n_base), K_int,
                                 real_dtype, dev)
     place = (placement.chain_placement_reduce if s.placement_impl == "kernel"
              else placement.chain_placement_reduce_plain)
@@ -532,47 +621,73 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     chan_spec = torch.complex(out_re, out_im)
     if K_place < F_base:
         chan_spec = torch.nn.functional.pad(chan_spec, (0, F_base - K_place))
-    chan_spec = chan_spec.reshape(G, C, F_base) * ch.filter_response[None, :, :]
+    chan_spec = chan_spec.reshape(G, C, F_base)
 
-    # ---- 8. irfft + triggers -----------------------------------------------
-    scale = s.sampling_rate / math.sqrt(2.0)
+    # ---- 8. noise, filter multiply, triggers -------------------------------
+    if s.add_noise:
+        # one realization per (group, channel), added before the filter
+        # (pipeline.py:1294-1310)
+        chan_spec = chan_spec + noise_ops.bandlimited_noise_spectrum(
+            noise_generator, (G, C), s.n_base, s.sampling_rate,
+            ch.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
+            type=s.noise_type, dtype=real_dtype, sampler=s.noise_sampler)
+    chan_spec = chan_spec * ch.filter_response[None, :, :]
+
     Rc = G * C
-    th_hi_cols, th_lo_cols, kspecs = [], [], []
-    for t in trig_list:
-        if t.threshold_high is not None:
-            hi = torch.full((Rc,), t.threshold_high, dtype=real_dtype, device=dev)
-        else:
-            hi = ch.threshold_high.to(real_dtype).repeat(G)
-        if t.trigger_type == "high_low":
-            if t.threshold_low is not None:
-                lo = torch.full((Rc,), t.threshold_low, dtype=real_dtype, device=dev)
-            else:
-                lo = ch.threshold_low.to(real_dtype).repeat(G)
-            nb_hl = max(int(round(t.highlow_coincidence / dt)), 1)
-        else:
-            lo = torch.zeros((Rc,), dtype=real_dtype, device=dev)
-            nb_hl = 1
-        th_hi_cols.append(hi)
-        th_lo_cols.append(lo)
-        kspecs.append(trigger_fused.TriggerSpecStatic(
-            kind=t.trigger_type, n_bins_hl=nb_hl,
-            n_bins_maj=min(max(int(round(t.channel_coincidence / dt)), 1), s.n_base),
-            n_coinc=t.number_of_coincidences))
-    I_r, I_i = _device_matrices("irfft", s.n_base, 0, K_base, real_dtype, dev)
-    trig = (trigger_fused.fused_irfft_trigger if s.trigger_impl == "kernel"
-            else trigger_fused.fused_irfft_trigger_plain)
     spec_k = chan_spec.reshape(Rc, F_base)[:, :K_base]
-    fired, first, amp = trig(
-        spec_k.real.contiguous(), spec_k.imag.contiguous(),
-        torch.stack(th_hi_cols, dim=-1), torch.stack(th_lo_cols, dim=-1),
-        I_r, I_i, scale=scale, triggers=tuple(kspecs), C=C)
+    spec_re, spec_im = spec_k.real.contiguous(), spec_k.imag.contiguous()
+    I_r, I_i = _device_matrices("irfft", (s.n_base,), K_base, real_dtype, dev)
+    hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
+    pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
+    if hl and pa and s.trigger_impl == "kernel":
+        _not_ported("phased-array and high/low triggers in one list under "
+                    "trigger_impl='kernel'", "13, multi-trigger and separate trigger chains")
+    fired_cols, time_cols = {}, {}
+    amp = None
+    if hl:
+        th_hi_cols, th_lo_cols, kspecs = [], [], []
+        for t in (trig_list[i] for i in hl):
+            if t.threshold_high is not None:
+                hi = torch.full((Rc,), t.threshold_high, dtype=real_dtype, device=dev)
+            else:
+                hi = ch.threshold_high.to(real_dtype).repeat(G)
+            if t.trigger_type == "high_low":
+                if t.threshold_low is not None:
+                    lo = torch.full((Rc,), t.threshold_low, dtype=real_dtype, device=dev)
+                else:
+                    lo = ch.threshold_low.to(real_dtype).repeat(G)
+                nb_hl = max(int(round(t.highlow_coincidence / dt)), 1)
+            else:
+                lo = torch.zeros((Rc,), dtype=real_dtype, device=dev)
+                nb_hl = 1
+            th_hi_cols.append(hi)
+            th_lo_cols.append(lo)
+            kspecs.append(trigger_fused.TriggerSpecStatic(
+                kind=t.trigger_type, n_bins_hl=nb_hl,
+                n_bins_maj=min(max(int(round(t.channel_coincidence / dt)), 1), s.n_base),
+                n_coinc=t.number_of_coincidences))
+        trig = (trigger_fused.fused_irfft_trigger if s.trigger_impl == "kernel"
+                else trigger_fused.fused_irfft_trigger_plain)
+        fired, first, amp = trig(
+            spec_re, spec_im, torch.stack(th_hi_cols, dim=-1),
+            torch.stack(th_lo_cols, dim=-1), I_r, I_i,
+            scale=s.sampling_rate / math.sqrt(2.0), triggers=tuple(kspecs), C=C)
+        for j, i in enumerate(hl):
+            fired_cols[i] = fired[:, j]
+            time_cols[i] = t0_w + first[:, j].to(real_dtype) * dt
+    for i in pa:
+        fired, frame, amp_i, frame_s = _phased_array_trigger(
+            trig_list[i], spec_re, spec_im, I_r, I_i, s, C)
+        fired_cols[i] = fired
+        time_cols[i] = t0_w + frame.to(real_dtype) * frame_s
+        amp = amp_i if amp is None else torch.maximum(amp, amp_i)
 
     # single window: a window without pulses never triggers; requires-gating
     # ANDs a trigger with an earlier-declared one (pipeline.py:1491-1532)
     name_to_col = {t.name: i for i, t in enumerate(trig_list)}
     cols, times = [], []
     for i, t in enumerate(trig_list):
-        c = fired[:, i] & any_valid & candidate
+        c = fired_cols[i] & any_valid & candidate
         if t.requires:
             if t.requires not in name_to_col or name_to_col[t.requires] >= i:
                 raise ValueError(
@@ -580,7 +695,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                     "must be declared earlier in the trigger list")
             c = c & cols[name_to_col[t.requires]]
         cols.append(c)
-        times.append(t0_w + first[:, i].to(real_dtype) * dt)
+        times.append(time_cols[i])
     triggered_per = torch.stack(cols, dim=-1)
     trigger_times_per = torch.stack(times, dim=-1)
     triggered = torch.any(triggered_per, dim=-1)

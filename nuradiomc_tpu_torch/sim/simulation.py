@@ -1,16 +1,24 @@
-"""Host-side simulation orchestrator (torch), the dipole Veff main path.
+"""Host-side simulation orchestrator (torch): the dipole Veff and the
+phased-array runs.
 
 Counterpart of ``nuradiomc_tpu/sim/simulation.py::Simulation``: it merges
 the config, calibrates Vrms from the filter chain's bandwidth, builds the
-per-channel tensors and the padded [group x shower] batch, runs
-:func:`pipeline.simulate_batch` chunk by chunk on ``device``, computes the
-weights and Veff, and writes the output HDF5 through the JAX package's
-jax-free ``io_hdf5.write_output_hdf5``. A plain chunk loop takes the place of
-the JAX package's packed executor.
+per-channel tensors, the trigger settings (high/low, threshold and the
+phased array with its trigger ADC) and the padded [group x shower] batch
+with the Alvarez2009 ``k_L`` draws, runs :func:`pipeline.simulate_batch`
+chunk by chunk on ``device`` (noise from one ``torch.Generator`` on that
+device, seeded from ``config["seed"]``), computes the weights and Veff, and
+writes the output HDF5 through the JAX package's jax-free
+``io_hdf5.write_output_hdf5``. A plain chunk loop takes the place of the JAX
+package's packed executor.
 
-Not ported yet (they raise): emitter inputs, ARZ, phased-array triggers,
-a separate trigger filter chain, tabulated antennas, noise, focusing,
-bottom reflections, ``.nur`` output and device meshes.
+The input is an HDF5 event list (read with h5py) or its ``.npz`` export
+(``sim/io_input.py``), which needs no h5py: that is how ``Simulation`` runs
+where h5py is missing. Writing an output file needs h5py.
+
+Not ported yet (they raise): emitter inputs, ZHS1992 and ARZ, a separate
+trigger filter chain, per-trigger channel subsets, tabulated antennas,
+numeric focusing, bottom reflections, ``.nur`` output and device meshes.
 """
 
 from __future__ import annotations
@@ -23,12 +31,13 @@ import torch
 
 from nuradiomc_tpu.detector.detector import Detector
 from nuradiomc_tpu.ops import filters
-from nuradiomc_tpu.sim import earth_attenuation, io_hdf5
+from nuradiomc_tpu.sim import earth_attenuation
 from nuradiomc_tpu.utils import config as config_util
 from nuradiomc_tpu.utils import units
 from nuradiomc_tpu.utils.constants import boltzmann
 from nuradiomc_tpu_torch.models import ice as ice_models
-from nuradiomc_tpu_torch.ops import antenna
+from nuradiomc_tpu_torch.ops import antenna, askaryan, phased_array
+from nuradiomc_tpu_torch.sim.io_input import read_input
 from nuradiomc_tpu_torch.sim.pipeline import (ChannelParams, PipelineSettings,
                                               ShowerBatch, TriggerSettings,
                                               simulate_batch)
@@ -46,14 +55,45 @@ class FilterStage:
 @dataclasses.dataclass
 class TriggerSpec:
     name: str = "default_high_low"
-    trigger_type: str = "high_low"          # 'high_low' | 'simple_threshold'
+    trigger_type: str = "high_low"   # 'high_low' | 'simple_threshold' | 'phased_array'
     channels: tuple = ()
     threshold_high_sigma: float = 2.0       # in units of Vrms
     threshold_low_sigma: float = -2.0
     highlow_coincidence: float = 5.0        # ns
     number_of_coincidences: int = 1
     channel_coincidence: float = 200.0      # ns
+    # phased-array settings (trigger_type == 'phased_array'), as the JAX
+    # package's TriggerSpec (simulation.py:61-72)
+    pa_phasing_angles: tuple = tuple(np.arcsin(np.linspace(
+        np.sin(np.deg2rad(-59.54968597864437)),
+        np.sin(np.deg2rad(59.54968597864437)), 11)))
+    pa_ref_index: float = 1.75
+    pa_window_ns: float = 16.0
+    pa_step_ns: float = 8.0
+    pa_upsampling: int = 2
+    pa_threshold_factor: float = 30.85      # threshold = factor * Vrms^2
+    pa_digitize: bool = True                # trigger ADC before phasing
+    pa_adc_noise_count: int = None          # 15 if None
     requires: str = None
+
+
+# copied from nuradiomc_tpu/sim/evtgen.py:509 (group_into_events)
+def group_into_events(start_times, split_time_gap=1e6):
+    """Split showers of one event group into separate events when their
+    signal arrival times gap by more than ``split_time_gap``
+    (simulation.group_into_events:906-1016).
+
+    Returns an integer sub-event index per shower (sorted stably).
+    """
+    start_times = np.asarray(start_times)
+    order = np.argsort(start_times, kind="stable")
+    event_idx = np.zeros(len(start_times), dtype=int)
+    current = 0
+    for k in range(1, len(order)):
+        if start_times[order[k]] - start_times[order[k - 1]] > split_time_gap:
+            current += 1
+        event_idx[order[k]] = current
+    return event_idx
 
 
 def _group_showers(group_ids):
@@ -77,11 +117,12 @@ def _pad_columns(columns: dict, order, start, count, s_max: int):
 
 
 class Simulation:
-    """End-to-end MC simulation (dipole Veff path).
+    """End-to-end MC simulation of the ported paths.
 
-    Parameters as in the JAX package's ``Simulation``; ``device`` and
-    ``dtype`` say where and in which precision the pipeline runs (float64 is
-    the production default, float32 the benchmark configuration).
+    Parameters as in the JAX package's ``Simulation``; ``inputfilename`` is
+    an HDF5 event list or its ``.npz`` export; ``device`` and ``dtype`` say
+    where and in which precision the pipeline runs (float64 is the
+    production default, float32 the benchmark configuration).
     """
 
     def __init__(self, inputfilename: str, detector, config=None,
@@ -110,16 +151,13 @@ class Simulation:
         self.station_id = self.det.get_station_ids()[0]
         ch = self.det.get_station(self.station_id).channels
         cfg = self.config
-        if cfg["noise"]:
-            raise NotImplementedError("noise is not ported yet (ROADMAP queue 1 "
-                                      "item 11, noise)")
-        if cfg["signal"]["model"] != "Alvarez2000":
+        if cfg["signal"]["model"] not in ("Alvarez2000", "Alvarez2009"):
             raise NotImplementedError(
                 f"signal model {cfg['signal']['model']} is not ported yet "
-                "(ROADMAP queue 1 item 10, Alvarez2009 and ZHS1992)")
-        if cfg["propagation"]["focusing"]:
-            raise NotImplementedError("focusing is not ported yet (ROADMAP "
-                                      "queue 1 item 9, focusing)")
+                "(ROADMAP queue 1 item 10, ZHS1992; ARZ: item 15)")
+        if cfg["propagation"].get("focusing_mode", "implicit") not in (None, "implicit"):
+            raise NotImplementedError("numeric focusing is not ported yet (ROADMAP "
+                                      "queue 1 item 9, numeric focusing)")
         self.internal_rate = float(cfg["sampling_rate"])
         dt = 1.0 / self.internal_rate
         # detector samples at the internal rate (simulation.py:151-153), and
@@ -156,6 +194,8 @@ class Simulation:
         self.max_amplification = self.max_amplification_per_channel[ids0[0]]
         self.Vrms = self.Vrms_per_channel[ids0[0]]
         self.Vrms_efield = self.Vrms / self.max_amplification / units.m
+        # with no separate trigger chain the trigger Vrms is the readout Vrms
+        self.Vrms_trigger = self.Vrms
 
         self.channel_params_per_station = {
             sid: self._build_channel_params(sid) for sid in self.det.get_station_ids()}
@@ -191,9 +231,15 @@ class Simulation:
             **({"n_bisect": int(prop["n_bisect"])} if prop.get("n_bisect") else {}),
             **({"band_limit_eps": float(cfg["perf"]["band_limit_eps"])}
                if cfg.get("perf", {}).get("band_limit_eps") else {}),
+            **({"noise_sampler": str(cfg["perf"]["noise_sampler"])}
+               if cfg.get("perf", {}).get("noise_sampler") else {}),
             attenuate_ice=bool(prop["attenuate_ice"]),
+            apply_focusing=bool(prop["focusing"]),
+            focusing_limit=float(prop["focusing_limit"]),
+            add_noise=bool(cfg["noise"]),
+            noise_type="rayleigh",
         )
-        self.input = io_hdf5.read_input_hdf5(inputfilename)
+        self.input = read_input(inputfilename)
         mode = self.input.attrs.get("simulation_mode", "neutrino")
         mode = mode.decode() if isinstance(mode, bytes) else str(mode)
         if mode == "emitter":
@@ -206,24 +252,42 @@ class Simulation:
         return filters.chain_response(freqs, stages, fs=self.internal_rate)
 
     def _build_trigger_settings(self, spec: TriggerSpec) -> TriggerSettings:
-        """Absolute thresholds in volts (simulation.py:472); with no separate
-        trigger chain the trigger Vrms is the readout Vrms."""
-        if spec.trigger_type not in ("high_low", "simple_threshold"):
-            raise NotImplementedError(
-                f"trigger type {spec.trigger_type} is not ported yet (ROADMAP "
-                "queue 1 item 12, phased array + ADC)")
+        """Absolute thresholds in volts and the phased-array beam and ADC
+        configuration (simulation.py:472-526)."""
+        if spec.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
+            raise NotImplementedError(f"trigger type {spec.trigger_type}")
         if spec.channels:
             raise NotImplementedError("per-trigger channel subsets are not ported "
                                       "yet (ROADMAP queue 1 item 13, multi-trigger "
                                       "and separate trigger chains)")
+        pa = {}
+        if spec.trigger_type == "phased_array":
+            ch = self.det.get_station(self.station_id).channels
+            det_fs = float(ch.sampling_frequency[0])
+            # with digitization the trigger runs at the ADC rate x upsampling
+            fs_up = (det_fs if spec.pa_digitize else self.internal_rate) * spec.pa_upsampling
+            rolls = phased_array.beam_rolls(ch.positions[:, 2], ch.cable_delay,
+                                            np.asarray(spec.pa_phasing_angles),
+                                            spec.pa_ref_index, fs_up)
+            n_bits = int(ch.adc_nbits[0]) if ch.adc_nbits[0] > 0 else 8
+            pa = dict(
+                pa_rolls=tuple(tuple(int(v) for v in row) for row in rolls),
+                pa_window=int(spec.pa_window_ns * det_fs * spec.pa_upsampling),
+                pa_step=int(spec.pa_step_ns * det_fs * spec.pa_upsampling),
+                pa_upsampling=spec.pa_upsampling,
+                pa_threshold=spec.pa_threshold_factor * self.Vrms_trigger ** 2,
+                pa_digitize=spec.pa_digitize, pa_adc_fs=det_fs, pa_adc_nbits=n_bits,
+                # ADC range from the noise occupancy (_get_adc_parameters:216-241)
+                pa_adc_range=(self.Vrms_trigger * (2 ** n_bits - 1)
+                              / (spec.pa_adc_noise_count or 15)))
         return TriggerSettings(
             name=spec.name, trigger_type=spec.trigger_type, channels=(),
-            threshold_high=float(spec.threshold_high_sigma * self.Vrms),
-            threshold_low=float(spec.threshold_low_sigma * self.Vrms),
+            threshold_high=float(spec.threshold_high_sigma * self.Vrms_trigger),
+            threshold_low=float(spec.threshold_low_sigma * self.Vrms_trigger),
             highlow_coincidence=spec.highlow_coincidence,
             number_of_coincidences=spec.number_of_coincidences,
             channel_coincidence=spec.channel_coincidence,
-            requires=spec.requires)
+            requires=spec.requires, **pa)
 
     def _build_channel_params(self, station_id) -> ChannelParams:
         """Per-channel tensors of one station (simulation.py:528)."""
@@ -294,7 +358,6 @@ class Simulation:
         if np.any(count > 1):
             # split a group into sub-events where vertex times gap by more
             # than split_event_time_diff (simulation.py:678-695)
-            from nuradiomc_tpu.sim.evtgen import group_into_events
             new_order, new_start, new_count, new_gids = [], [], [], []
             pos = 0
             for g in range(len(group_ids)):
@@ -324,10 +387,28 @@ class Simulation:
         zen, az = cols["zeniths"].astype(dt), cols["azimuths"].astype(dt)
         axis = np.stack([np.sin(zen) * np.cos(az), np.sin(zen) * np.sin(az),
                          np.cos(zen)], axis=-1)
+        is_em = cols["is_em"] > 0.5
+        k_L = np.zeros_like(energies)
+        self._realizations = {}
+        if self.config["signal"]["model"] == "Alvarez2009":
+            # per-shower k_L: drawn on the host in the JAX package's order
+            # (simulation.py:734-745), or reused from the input file
+            rng = np.random.default_rng(np.random.Philox(int(self.config["seed"])))
+            k_L = askaryan.draw_alvarez2009_k_L(np.maximum(energies, 1.0), is_em,
+                                                rng).astype(dt)
+            if inp.shower_realization_Alvarez2009 is not None:
+                reuse, _ = _pad_columns(
+                    {"k_L": inp.shower_realization_Alvarez2009}, order, start, count, S)
+                k_L = reuse["k_L"].astype(dt)
+            # unpadded per input row, for the output (simulation.py:762-775)
+            flat = np.zeros(inp.n_showers)
+            for g in range(len(start)):
+                flat[order[start[g]:start[g] + count[g]]] = k_L[g, :count[g]]
+            self._realizations["shower_realization_Alvarez2009"] = flat
         batch = ShowerBatch(
             vertices=np.stack([cols["xx"], cols["yy"], cols["zz"]], axis=-1).astype(dt),
-            energies=energies, is_em=cols["is_em"] > 0.5, shower_mask=mask,
-            prop_dir=(-axis).astype(dt), k_L=np.zeros_like(energies),
+            energies=energies, is_em=is_em, shower_mask=mask,
+            prop_dir=(-axis).astype(dt), k_L=k_L,
             vertex_times=cols["vertex_times"].astype(dt))
         return group_ids, start, count, order, batch
 
@@ -342,9 +423,15 @@ class Simulation:
             vertex_position=np.c_[inp.xx[first], inp.yy[first], inp.zz[first]],
             phi_nu=inp.azimuths[first])
 
-    def _run_station(self, station_id, batch):
-        """The pipeline over all groups of one station, chunk by chunk."""
+    def _run_station(self, station_id, batch, seed_offset=0):
+        """The pipeline over all groups of one station, chunk by chunk; the
+        noise comes from one generator on the device, seeded from
+        ``config["seed"] + seed_offset`` and advanced chunk by chunk."""
         G = batch.energies.shape[0]
+        gen = None
+        if self.settings.add_noise:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(self.config["seed"]) + seed_offset)
         chp = self.channel_params_per_station[station_id]
         C = chp.positions.shape[0]
         T = len(self.triggers)
@@ -364,7 +451,7 @@ class Simulation:
             sl = slice(c0, min(c0 + self.chunk_size, G))
             chunk = ShowerBatch(*[None if a is None else torch.as_tensor(
                 np.ascontiguousarray(a[sl]), device=self.device) for a in batch])
-            out = simulate_batch(chunk, chp, self.settings)
+            out = simulate_batch(chunk, chp, self.settings, noise_generator=gen)
             trig = out.triggered.cpu().numpy()
             triggered[sl] = trig
             max_amp[sl] = out.max_amplitude.cpu().numpy()
@@ -414,8 +501,8 @@ class Simulation:
         trigger_times = np.full(G, np.inf)
         multiple_triggers = np.zeros((G, T), dtype=bool)
         trigger_times_per = np.full((G, T), np.inf)
-        for sid in self.det.get_station_ids():
-            trig_s, amp_s, tt_s, rows_s, trigper_s, ttper_s = self._run_station(sid, batch)
+        for k, sid in enumerate(self.det.get_station_ids()):
+            trig_s, amp_s, tt_s, rows_s, trigper_s, ttper_s = self._run_station(sid, batch, k)
             per_station[sid] = (trig_s, amp_s, tt_s, rows_s, trigper_s)
             triggered |= trig_s
             trigger_times = np.where(trig_s, np.minimum(trigger_times, tt_s), trigger_times)
@@ -452,13 +539,15 @@ class Simulation:
             "trigger_names": list(self.trigger_names),
             "veff": veff, "veff_per_trigger": veff_per_trigger,
             "n_triggered": int(np.sum(trig_parent)),
+            **self._realizations,
         }
         if self.outputfilename is not None:
             self._write_output(results, per_station, group_ids, start, count, order)
         return results
 
     def _write_output(self, results, per_station, group_ids, start, count, order):
-        """Output HDF5 through the JAX package's jax-free writer."""
+        """Output HDF5 through the JAX package's jax-free writer (needs h5py)."""
+        from nuradiomc_tpu.sim import io_hdf5
         G = len(group_ids)
         T = len(self.triggers)
         n = self.input.n_showers
@@ -481,6 +570,7 @@ class Simulation:
             self.outputfilename, self.input,
             {"triggered": trig_shower, "weights": w_shower,
              "multiple_triggers": mt_shower, "trigger_times": tt_shower,
+             **self._realizations,
              **{f"station_{sid}": grp for sid, grp in station_groups.items()}},
             {"Veff": results["veff"], "n_triggered": results["n_triggered"],
              "Vrms": self.Vrms, "bandwidth": self.bandwidth,

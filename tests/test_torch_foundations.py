@@ -130,7 +130,7 @@ def test_alvarez2000_spectrum():
     assert np.all(np.abs(port.numpy() - ref) <= 1e-9 * peak)
     with pytest.raises(NotImplementedError):
         taskaryan.get_frequency_spectrum(t(energy), t(theta), 512, 0.5, t(is_em),
-                                         t(n_index), t(R), "Alvarez2009")
+                                         t(n_index), t(R), "ZHS1992")
 
 
 def test_analytic_vel_mix():
@@ -202,6 +202,9 @@ def test_port_imports_without_jax(tmp_path):
         import nuradiomc_tpu_torch.convert
         import nuradiomc_tpu_torch.ops.placement
         import nuradiomc_tpu_torch.ops.trigger_fused
+        import nuradiomc_tpu_torch.ops.pa_trigger
+        import nuradiomc_tpu_torch.ops.noise
+        import nuradiomc_tpu_torch.sim.io_input
         import chip_smoke
         assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
         print("ok")

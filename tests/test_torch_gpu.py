@@ -8,7 +8,10 @@ conftest:
 
 Tolerances as in chip_smoke.py: placement within 1e-4 (float32) / 1e-10
 (float64) of each output row's peak; trigger decisions and first bins
-exact, amplitudes rtol 1e-5 / 1e-12.
+exact, amplitudes rtol 1e-5 / 1e-12. The phased-array kernel sums its power
+windows directly where the plain version takes a cumsum difference, so its
+decisions are held on groups whose best beam power lies more than 1e-4 from
+the threshold, its first frames where both fire, amplitudes as above.
 """
 
 import dataclasses
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from nuradiomc_tpu_torch.convert import make_headline_inputs
-from nuradiomc_tpu_torch.ops import placement, trigger_fused
+from nuradiomc_tpu_torch.ops import noise, pa_trigger, phased_array, placement, trigger_fused
 from nuradiomc_tpu_torch.sim import pipeline
 
 pytestmark = pytest.mark.gpu
@@ -135,3 +138,97 @@ def test_simulate_batch_kernel_path_matches_plain_path(dev):
     assert torch.equal(out.triggered, plain.triggered)
     assert bool(out.triggered.any())
     torch.testing.assert_close(out.max_amplitude, plain.max_amplitude, rtol=1e-4, atol=0)
+
+
+def _pa_args(dtype, dev, G, C, K=512, n_base=2048, up=2, n_bits=8):
+    """Kernel-3 inputs at the bench's per-group shapes: band-limited noise
+    spectra (first K bins), the decimating irfft to 0.5 GHz, x``up``
+    upsampling, 11 beams, an ADC range of 15 noise counts per Vrms."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    spec = noise.bandlimited_noise_spectrum(gen, (G * C,), n_base, 2.0,
+                                            torch.tensor(1e-5, dtype=dtype, device=dev),
+                                            dtype=dtype)[:, :K]
+    Dd = pipeline._decimating_irfft_matrices(n_base, n_base * 5 // 2, 10)
+    mats = [torch.as_tensor(m[:K], dtype=dtype, device=dev).contiguous()
+            for m in (*pipeline._irfft_matrices(n_base), *Dd)]
+    U = torch.as_tensor(pipeline._fft_upsample_matrix(Dd[0].shape[1], up), dtype=dtype,
+                        device=dev)
+    spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()
+    scale_dec = 5.0 / np.sqrt(2.0)
+    vrms = float(((spec_re @ mats[2] + spec_im @ mats[3]) * scale_dec).std())
+    adc_range = vrms * (2 ** n_bits - 1) / 15
+    rolls = phased_array.beam_rolls([-197.0 - i for i in range(C)], [0.0] * C,
+                                    phased_array.default_angles, 1.75, 0.5 * up)
+    kw = dict(scale_full=2.0 / np.sqrt(2.0), scale_dec=scale_dec, rolls=rolls,
+              window=16, step=8, v_min=-adc_range / 2, lsb=adc_range / (2 ** n_bits - 1),
+              n_counts=2 ** n_bits, C=C)
+    return (spec_re, spec_im, *mats, U), kw
+
+
+@pytest.mark.parametrize("dtype, tol, C, K, n_base", [
+    (torch.float32, 1e-5, 4, 512, 2048), (torch.float32, 1e-5, 20, 512, 2048),
+    (torch.float32, 1e-5, 4, 1025, 2048), (torch.float32, 1e-5, 4, 300, 1000),
+    (torch.float64, 1e-12, 4, 512, 2048), (torch.float64, 1e-12, 12, 512, 2048),
+    (torch.float64, 1e-12, 4, 1025, 2048)])
+def test_pa_kernel_matches_plain(dev, dtype, tol, C, K, n_base):
+    """C = 20 (float32) and 12 (float64) exceed the rows one pass holds, so
+    the traces are computed in several row chunks; K = 1025 is the full band
+    (no band limit), whose last spectrum tile holds one frequency; n_base =
+    1000 (n_dec 250, n_up 500) leaves the last threads' columns outside."""
+    G = 603                       # not a multiple of the groups per block
+    args, kw = _pa_args(dtype, dev, G=G, C=C, K=K, n_base=n_base)
+    _, _, _, max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=1.0, **kw)
+    for q in (0.3, 0.8):          # most groups fire / few do
+        thr = float(torch.quantile(max_power, q)) * 1.001
+        before = pa_trigger.launches
+        kf, kframe, kamp = pa_trigger.fused_pa_trigger(*args, threshold=thr, **kw)
+        assert pa_trigger.launches == before + 1
+        pf, pframe, pamp, pmax = pa_trigger.fused_pa_trigger_plain(*args, threshold=thr, **kw)
+        solid = (pmax - thr).abs() / thr > 1e-4
+        assert int(solid.sum()) >= G - 10
+        assert torch.equal(kf[solid], pf[solid])
+        both = solid & kf & pf
+        assert 0 < int(both.sum()) < G
+        assert torch.equal(kframe[both], pframe[both])
+        assert bool((kframe[~kf] == 0).all())
+        assert bool(((kamp - pamp).abs() <= tol * pamp.abs()).all())
+
+
+def test_pa_kernel_refuses_oversized_groups(dev):
+    args, kw = _pa_args(torch.float64, dev, G=2, C=4)
+    U = torch.zeros(4096, 8192, dtype=torch.float64, device=dev)   # 4 x 12288 x 8 B
+    Dd = torch.zeros(512, 4096, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="shared"):
+        pa_trigger.fused_pa_trigger(*args[:4], Dd, Dd, U, threshold=1.0, **kw)
+
+
+def test_simulate_batch_pa_kernel_path_matches_plain_path(dev):
+    from nuradiomc_tpu_torch.convert import make_pa_inputs
+    s, ch, b = make_pa_inputs(512, device=dev, dtype=torch.float32)
+    s = dataclasses.replace(s, add_noise=False)
+    out = pipeline.simulate_batch(b, ch, s)
+    plain = pipeline.simulate_batch(b, ch, dataclasses.replace(s, trigger_impl="plain"))
+    assert int((out.triggered != plain.triggered).sum()) <= 1
+    assert bool(plain.triggered.any())
+    torch.testing.assert_close(out.max_amplitude, plain.max_amplitude, rtol=1e-4, atol=0)
+
+
+def test_pa_simulation_float64_on_card(dev):
+    """The noisy phased-array golden's rules (tests/test_e2e_phased_array.py)
+    through ``Simulation`` on the card from the .npz input, float64, full
+    band (K_base 1025), through the kernels."""
+    import os
+
+    from nuradiomc_tpu_torch.convert import pa_simulation
+    from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
+    before = (placement.launches, pa_trigger.launches)
+    res = pa_simulation(str(INPUT_1E18_N3000), chunk_size=1024, device=dev,
+                        dtype=torch.float64).run()
+    assert placement.launches > before[0] and pa_trigger.launches > before[1]
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "e2e_pa_reference.npz"))
+    ref = set(int(g) for g in np.unique(golden["group_ids"][golden["triggered"]]))
+    mine = set(int(g) for g in res["group_ids"][res["triggered"] & (res["weights"] >= 1e-5)])
+    assert abs(len(mine) - len(ref)) <= 3 * np.sqrt(len(ref))
+    assert len(mine & ref) >= 0.6 * len(ref)
+    rel_err = 2.0 / np.sqrt(int(golden["n_triggered"]))
+    assert abs(res["veff"] / float(golden["veff"]) - 1) < 2 * rel_err

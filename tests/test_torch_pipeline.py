@@ -129,9 +129,9 @@ def test_plain_impl_equals_kernel_impl_on_cpu(case32):
 def test_unported_options_raise():
     s, ch, b = _make_settings_and_inputs()
     ps, pc, pb = from_jax(s, ch, b, dtype=torch.float32)
-    for change in ({"add_noise": True}, {"apply_focusing": True},
+    for change in ({"apply_focusing": True, "focusing_mode": "numeric"},
                    {"birefringence": True}, {"n_reflections": 1},
-                   {"askaryan_model": "Alvarez2009"}):
+                   {"askaryan_model": "ZHS1992"}):
         with pytest.raises(NotImplementedError):
             tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, **change))
     for kw in ({"keep_efields": True}, {"keep_traces": True}):

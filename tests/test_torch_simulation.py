@@ -20,46 +20,20 @@ import pytest
 import torch
 
 from nuradiomc_tpu.utils import units
-from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+from nuradiomc_tpu_torch.convert import DIPOLE_DETECTOR, dipole_simulation
+from nuradiomc_tpu_torch.sim.simulation import Simulation
 
 torch.set_num_threads(1)
 HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "golden", "e2e_reference.npz")
 INPUT = os.path.join(HERE, "data", "1e18_n3000.hdf5")
-DETECTOR = {
-    "channels": {"1": {
-        "adc_n_samples": 256, "adc_sampling_frequency": 1.0,
-        "ant_orientation_phi": 0.0, "ant_orientation_theta": 0.0,
-        "ant_position_x": 0.0, "ant_position_y": 0.0, "ant_position_z": -100.0,
-        "ant_rotation_phi": 90.0, "ant_rotation_theta": 90.0,
-        "ant_type": "XFDTD_Vpol_CrossFeed_150mmHole_n1.78",
-        "amp_type": "300", "cab_time_delay": 19.8, "adc_nbits": None,
-        "channel_id": 0, "station_id": 101,
-    }},
-    "stations": {"1": {
-        "pos_altitude": 0, "pos_easting": 0, "pos_northing": 0,
-        "pos_site": "southpole", "station_id": 101,
-    }},
-}
 MIN_W = 1e-5
 
 
 def _simulation(dtype, outputfilename=None, propagation=None, perf=None):
-    return Simulation(
-        INPUT, DETECTOR,
-        config={"sampling_rate": 2.0,
-                "propagation": {"ice_model": "southpole_2015", **(propagation or {})},
-                "signal": {"model": "Alvarez2000"},
-                "weights": {"weight_mode": "core_mantle_crust_simple",
-                            "cross_section_type": "ctw"},
-                "perf": perf or {}},
-        filter_chain=[
-            FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
-            FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
-        ],
-        trigger=TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
-        antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78": "analytic_VPol"},
-        chunk_size=1024, device="cpu", dtype=dtype, outputfilename=outputfilename)
+    return dipole_simulation(INPUT, {"propagation": propagation or {}, "perf": perf or {}},
+                             chunk_size=1024, device="cpu", dtype=dtype,
+                             outputfilename=outputfilename)
 
 
 @pytest.fixture(scope="module")
@@ -130,8 +104,8 @@ def test_float32_bench_config_reproduces_golden(golden):
 
 def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
-        Simulation(INPUT, DETECTOR, config={"signal": {"model": "Alvarez2009"}},
+        Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "ZHS1992"}},
                    antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78":
                                          "analytic_VPol"})
     with pytest.raises(NotImplementedError):
-        Simulation(INPUT, DETECTOR)     # tabulated antenna without a replacement
+        Simulation(INPUT, DIPOLE_DETECTOR)   # tabulated antenna without a replacement
