@@ -6,10 +6,12 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 0. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-1. build the three kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
+1. build the four kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
    nvcc per source, started together;
 2. each kernel against its plain PyTorch version on the card at its path's
-   shapes, float32 and float64, with CUDA-event timings;
+   shapes, float32 and float64, with CUDA-event timings: kernel 1 also at
+   s2 20 and 40 (multi-shower groups), kernel 4 at the gen2 path's shape
+   and at the profiling tool's (with its no-phase variant);
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -24,7 +26,14 @@ result line):
    kernels): noiseless decisions against the ``pa_nl_trig`` pin (at most 6
    source events flip), the noisy count in [107, 249], the kernel path
    against the plain path with the same noise (at most 8 groups differ,
-   each within 1e-3 of the threshold), with its events/s.
+   each within 1e-3 of the threshold), with its events/s;
+6. the Gen2 composed slice: 256 groups of the tau input, three stations,
+   birefringence, float32 (``convert.make_gen2_inputs``, kernels 4 and 2):
+   the per-group station counts against the ``gen2_trig`` pin (at most 8
+   flips), the kernel path against the plain path, events/s at 256 and at
+   2048 groups (the whole file) with peak device memory, and the whole file
+   through ``Simulation`` in float64 with birefringence on (kernel 4) and
+   off (the factored chain: kernel 1 at s2 20).
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -52,7 +61,7 @@ from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.ops import (_build, noise, pa_trigger, phased_array,  # noqa: E402
                                      placement, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
-from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000  # noqa: E402
+from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000, INPUT_GEN2  # noqa: E402
 
 N_GROUPS = 65536
 FLIP_BOUND = 56          # bench.py:130, veff_trig
@@ -62,7 +71,9 @@ PA_GROUPS = 16384        # bench.py:390
 PA_SOURCE_FLIPS = 6      # bench.py:132, pa_nl_trig, counted per source event
 PA_NOISY = (107, 249)    # bench.py:80 and :197-199, 178 +- 40%
 PA_CROSS_GROUPS = 8      # bench.py:451
-KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger")
+GEN2_GROUPS = 256        # bench.py:575
+GEN2_FLIPS = 8           # bench.py:135, gen2_trig
+KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce")
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
 
@@ -82,12 +93,12 @@ def _median_ms(fn, n_warm=2, n_runs=10):
     return statistics.median(times)
 
 
-def _placement_inputs(dtype, dev, gen):
+def _placement_inputs(dtype, dev, gen, G_out=N_GROUPS, s2=4):
     """Kernel-1 inputs at the headline shapes: R = 65536*1*2*2 rows,
     K_int 208, 24 sparse frequencies, K_place 816; a third of the rows are
     masked and carry NaN spectra."""
-    n_int, n_base, K_int, K_place, s2 = 512, 2048, 208, 816, 4
-    R = N_GROUPS * s2
+    n_int, n_base, K_int, K_place = 512, 2048, 208, 816
+    R = G_out * s2
     ff = np.fft.rfftfreq(n_int, 0.5)
     sparse = pipeline._attenuation_freq_grid(tuple(ff), 16, 0.5)
     W = torch.as_tensor(pipeline._interp_matrix(tuple(sparse), tuple(ff))[:, :K_int],
@@ -137,6 +148,48 @@ def _trigger_inputs(dtype, dev, gen):
     return (spec_re, spec_im, th, -th, I_r, I_i), dict(scale=scale, triggers=trig, C=1)
 
 
+def _check_placement(label, kernel, plain, args, kw, tol, timed=True):
+    """A placement kernel (1 or 4) against its plain version: the worst
+    |kernel - plain| over each output row's peak must stay within ``tol``;
+    returns (max abs error, kernel ms, plain ms), the times None untimed."""
+    k_re, k_im = kernel(*args, **kw)
+    p_re, p_im = plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(k_re).all() and torch.isfinite(k_im).all()):
+        raise AssertionError(f"{label}: non-finite output (masked NaN rows leaked)")
+    err = torch.maximum((k_re - p_re).abs(), (k_im - p_im).abs())
+    peak = torch.maximum(p_re.abs(), p_im.abs()).amax(dim=1)
+    row_err = err.amax(dim=1)
+    rel = torch.where(peak > 0, row_err / torch.where(peak > 0, peak, 1.0), row_err)
+    worst, max_abs = float(rel.max()), float(err.max())
+    del k_re, k_im, p_re, p_im, err
+    ms = plain_ms = None
+    times = ""
+    if timed:
+        ms = _median_ms(lambda: kernel(*args, **kw))
+        plain_ms = _median_ms(lambda: plain(*args, **kw))
+        times = f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({CARD})"
+    print(f"phase 2 {label}: max |kernel - plain| / row peak = {worst:.3e} "
+          f"(limit {tol:g}), max abs {max_abs:.3e}{times}")
+    if not worst <= tol:
+        raise AssertionError(f"{label} disagrees with its plain version: {worst:.3e}")
+    return max_abs, ms, plain_ms
+
+
+def _reduce_inputs(dtype, dev, gen, R, s2, K_int=257, K_place=1025):
+    """Kernel-4 inputs: a voltage spectrum [R, K_int] with a third of the
+    rows zero (masked solutions), offsets over the time base's 768 ns of
+    headroom, the 512 -> 2048 placement DFT (band limit off)."""
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    D_r, D_i = (torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=dev)
+                for m in pipeline._placement_matrices(512, 2048))
+    keep = (torch.rand(R, 1, generator=gen, device=dev) < 0.67).to(dtype)
+    v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
+    v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
+    offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0
+    return (v_re, v_im, offs, D_r, D_i), dict(s2=s2, df=2.0 / 2048)
+
+
 def phase_kernels(dev):
     """Kernel vs plain version on the card; returns the float32 summary."""
     summary = {}
@@ -147,29 +200,12 @@ def phase_kernels(dev):
         tag = str(dtype).replace("torch.", "")
 
         args, kw = _placement_inputs(dtype, dev, gen)
-        k_re, k_im = placement.chain_placement_reduce(*args, **kw)
-        p_re, p_im = placement.chain_placement_reduce_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(k_re).all() and torch.isfinite(k_im).all()):
-            raise AssertionError(f"placement kernel {tag}: non-finite output "
-                                 "(masked NaN rows leaked)")
-        err = torch.maximum((k_re - p_re).abs(), (k_im - p_im).abs())
-        peak = torch.maximum(p_re.abs(), p_im.abs()).amax(dim=1)
-        row_err = err.amax(dim=1)
-        rel = torch.where(peak > 0, row_err / torch.where(peak > 0, peak, 1.0), row_err)
-        worst = float(rel.max())
-        max_abs = float(err.max())
-        ms = _median_ms(lambda: placement.chain_placement_reduce(*args, **kw))
-        plain_ms = _median_ms(lambda: placement.chain_placement_reduce_plain(*args, **kw))
-        print(f"phase 2 placement_chain {tag}: max |kernel - plain| / row peak "
-              f"= {worst:.3e} (limit {tol_place:g}), max abs {max_abs:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({CARD})")
-        if not worst <= tol_place:
-            raise AssertionError(f"placement kernel {tag} disagrees: {worst:.3e}")
+        max_abs, ms, plain_ms = _check_placement(
+            f"placement_chain {tag}", placement.chain_placement_reduce,
+            placement.chain_placement_reduce_plain, args, kw, tol_place)
         if dtype == torch.float32:
             summary["placement_chain"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-        del args, k_re, k_im, p_re, p_im, err
-
+        del args
         args, kw = _trigger_inputs(dtype, dev, gen)
         kf, kfirst, kamp = trigger_fused.fused_irfft_trigger(*args, **kw)
         pf, pfirst, pamp = trigger_fused.fused_irfft_trigger_plain(*args, **kw)
@@ -189,6 +225,34 @@ def phase_kernels(dev):
             raise AssertionError(f"trigger kernel {tag} disagrees with the plain version")
         if dtype == torch.float32:
             summary["irfft_trigger"] = dict(max_abs_err=amp_abs, ms=ms, plain_ms=plain_ms)
+        del args
+        torch.cuda.empty_cache()
+
+        for s2 in (20, 40):
+            # multi-shower groups: an output row spans several row chunks
+            args, kw = _placement_inputs(dtype, dev, gen, G_out=2560, s2=s2)
+            _check_placement(f"placement_chain {tag} s2 {s2} ({2560 * s2} rows)",
+                             placement.chain_placement_reduce,
+                             placement.chain_placement_reduce_plain, args, kw, tol_place,
+                             timed=False)
+            del args
+
+        R_gen2 = GEN2_GROUPS * 2 * 20
+        print(f"phase 2 placement_reduce shapes: gen2 path R {R_gen2}, s2 20, "
+              f"K_int 257, K_place 1025 (band limit 0); tool R 262144, s2 4")
+        args, kw = _reduce_inputs(dtype, dev, gen, R_gen2, 20)
+        max_abs, ms, plain_ms = _check_placement(
+            f"placement_reduce {tag} gen2 shape", placement.placement_reduce,
+            placement.placement_reduce_plain, args, kw, tol_place)
+        if dtype == torch.float32:
+            summary["placement_reduce"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        del args
+        args, kw = _reduce_inputs(dtype, dev, gen, 262144, 4)
+        _check_placement(f"placement_reduce {tag} tool shape", placement.placement_reduce,
+                         placement.placement_reduce_plain, args, kw, tol_place)
+        _check_placement(f"placement_reduce {tag} tool shape, no phase (matmul_only)",
+                         placement.placement_reduce, placement.placement_reduce_plain,
+                         args, {**kw, "phase": False}, tol_place)
         del args
         torch.cuda.empty_cache()
     return summary
@@ -446,6 +510,106 @@ def phase_pa(dev):
     return launches
 
 
+def _gen2_step(batch, chps, settings):
+    """One gen2 step: the per-group station-count vector over the stations."""
+    return sum(pipeline.simulate_batch(batch, ch, settings).triggered.long() for ch in chps)
+
+
+def _median_step(fn, n=5):
+    fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def phase_gen2(dev):
+    """The Gen2 composed slice through kernels 4 and 2, against the pin and
+    the plain path, with its events/s; returns the launch counts of the
+    main-path run."""
+    import dataclasses
+
+    settings, chps, batch = convert.make_gen2_inputs(GEN2_GROUPS, device=dev,
+                                                     dtype=torch.float32)
+    ref = np.load(PIN)["gen2_trig"].astype(np.int64)
+    if len(ref) != GEN2_GROUPS:
+        raise AssertionError(f"gen2_trig pin has {len(ref)} groups, the run "
+                             f"{GEN2_GROUPS}: a stale pin is a failure")
+    placement.launches = placement.reduce_launches = trigger_fused.launches = 0
+    torch.cuda.synchronize()
+    outs = [pipeline.simulate_batch(batch, ch, settings) for ch in chps]
+    vec = sum(o.triggered.long() for o in outs).cpu().numpy()
+    launches = {"placement_chain": placement.launches,
+                "placement_reduce": placement.reduce_launches,
+                "irfft_trigger": trigger_fused.launches}
+    print(f"phase 6 launches in the main-path run: {launches}")
+    if min(launches["placement_reduce"], launches["irfft_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    for o in outs:
+        if (tuple(o.max_amplitude.shape) != (GEN2_GROUPS, 2)
+                or not bool(torch.isfinite(o.max_amplitude).all())
+                or not bool(torch.isfinite(o.max_amp_per_solution[o.sol_mask]).all())):
+            raise AssertionError("gen2 output has the wrong shape or is not finite")
+    flips = np.flatnonzero(vec != ref)
+    print(f"phase 6 gen2: station-count sum {int(vec.sum())} over {GEN2_GROUPS} groups, "
+          f"pin {int(ref.sum())}, {len(flips)} flipped groups {flips.tolist()} "
+          f"(bound {GEN2_FLIPS})")
+    if len(flips) > GEN2_FLIPS:
+        raise AssertionError(f"{len(flips)} flips against gen2_trig exceed {GEN2_FLIPS}")
+
+    plain = dataclasses.replace(settings, placement_impl="plain", trigger_impl="plain")
+    differ = []
+    for sid, ch, o in zip((101, 102, 103), chps, outs):
+        p = pipeline.simulate_batch(batch, ch, plain)
+        # margin: the plain path's largest channel amplitude over the high threshold
+        margin = (p.max_amplitude / ch.threshold_high.abs()).amax(dim=1) - 1.0
+        for g in torch.nonzero(p.triggered != o.triggered).flatten().tolist():
+            differ.append((sid, g, float(margin[g])))
+    print(f"phase 6 kernel path vs plain path on the card: {len(differ)} (station, group) "
+          f"decisions differ {[(a, b, '%.2e' % m) for a, b, m in differ]}")
+    if any(abs(m) >= 1e-3 for _, _, m in differ):
+        raise AssertionError("kernel and plain gen2 paths differ beyond razor margins")
+
+    for name, s in (("kernel", settings), ("plain", plain)):
+        wall = _median_step(lambda: _gen2_step(batch, chps, s).sum().item())
+        print(f"phase 6 {name} path: step {wall * 1e3:.1f} ms (median of 5, 3 stations), "
+              f"{GEN2_GROUPS / wall:.1f} events/s ({CARD})")
+    del batch, outs
+    torch.cuda.empty_cache()
+
+    settings, chps, batch = convert.make_gen2_inputs(2048, device=dev, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    wall = _median_step(lambda: _gen2_step(batch, chps, settings).sum().item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_trig = int((_gen2_step(batch, chps, settings) > 0).sum())
+    print(f"phase 6 kernel path at 2048 groups (the whole file): step {wall * 1e3:.1f} ms "
+          f"(median of 5), {2048 / wall:.1f} events/s, peak device memory {peak:.2f} GiB, "
+          f"{n_trig} groups triggered ({CARD})")
+    del batch
+    torch.cuda.empty_cache()
+
+    for bire in (True, False):
+        placement.launches = placement.reduce_launches = 0
+        t0 = time.perf_counter()
+        res = convert.gen2_simulation(
+            str(INPUT_GEN2), {"propagation": {"birefringence": bire}}, chunk_size=1024,
+            device=dev, dtype=torch.float64).run()
+        wall = time.perf_counter() - t0
+        print(f"phase 6 Simulation float64, birefringence {bire}: "
+              f"{res['n_triggered']} of {len(res['triggered'])} groups triggered, Veff "
+              f"{res['veff'] / units.km ** 3:.5f} km^3, launches kernel 1 "
+              f"{placement.launches}, kernel 4 {placement.reduce_launches}, "
+              f"{wall:.2f} s with set-up ({CARD})")
+        used = placement.reduce_launches if bire else placement.launches
+        if used < 1 or res["n_triggered"] < 1 or not np.isfinite(res["veff"]):
+            raise AssertionError(f"the float64 gen2 Simulation (birefringence {bire}) failed")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -475,12 +639,16 @@ def main() -> int:
     launches = phase_headline(dev)
     phase_simulation(dev)
     pa_launches = phase_pa(dev)
-    # launches: the counts of the two main-path runs (phases 3 and 5)
-    for name, n in pa_launches.items():
-        launches[name] = launches.get(name, 0) + n
-    replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452",
+    gen2_launches = phase_gen2(dev)
+    # launches: the counts of the three main-path runs (phases 3, 5 and 6)
+    for counts in (pa_launches, gen2_launches):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "
+                                   "nuradiomc_tpu/ops/placement_pallas.py:209",
                 "irfft_trigger": "nuradiomc_tpu/ops/trigger_pallas.py:172",
-                "pa_trigger": "nuradiomc_tpu/ops/pa_pallas.py:181"}
+                "pa_trigger": "nuradiomc_tpu/ops/pa_pallas.py:181",
+                "placement_reduce": "nuradiomc_tpu/ops/placement_pallas.py:512"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"nuradiomc_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name], **summary[name]}

@@ -9,8 +9,10 @@ importing them, so the port never imports jax.
 _make_settings_and_inputs`` (the headline workload of ``bench.py``) bit for
 bit, with the same ``default_rng(0)`` draw order, so the card can build it
 without jax. :func:`make_pa_inputs` builds the phased-array workload of
-``bench._pa_setup`` through the port's ``Simulation`` on the ``.npz`` export
-of its input, so the card builds it without jax and without h5py.
+``bench._pa_setup`` and :func:`make_gen2_inputs` the Gen2 composed workload
+of ``bench._gen2_setup`` through the port's ``Simulation`` on the ``.npz``
+export of their inputs, so the card builds them without jax and without
+h5py.
 """
 
 from __future__ import annotations
@@ -267,9 +269,75 @@ def make_pa_inputs(n_groups=16384, *, device="cpu", dtype=torch.float32):
         INPUT_1E18_N3000,
         {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28}},
         device=device, dtype=dtype)
-    batch0 = sim._build_batches()[-1]
+    batch = _tiled(sim._build_batches()[-1], n_groups, device)
+    return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch
+
+
+def _tiled(batch0, n_groups, device):
+    """The numpy batch tiled (or cut) to ``n_groups`` groups, on ``device``."""
     reps = -(-n_groups // batch0.energies.shape[0])
-    batch = ShowerBatch(*[None if a is None else torch.as_tensor(
+    return ShowerBatch(*[None if a is None else torch.as_tensor(
         np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:n_groups]),
         device=device) for a in batch0])
-    return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch
+
+
+# ---- the Gen2 composed workload (bench._gen2_setup, tests/test_gen2_array.py)
+
+def _gen2_channel(cid, sid, z):
+    return {"adc_n_samples": 256, "adc_sampling_frequency": 1.0,
+            "ant_orientation_phi": 0.0, "ant_orientation_theta": 0.0,
+            "ant_position_x": 0.0, "ant_position_y": 0.0, "ant_position_z": z,
+            "ant_rotation_phi": 90.0, "ant_rotation_theta": 90.0,
+            "ant_type": "analytic_VPol", "amp_type": "",
+            "cab_time_delay": 10.0, "adc_nbits": None,
+            "channel_id": cid, "station_id": sid}
+
+
+# three deep stations of two VPols (100 m and 150 m) on a 1.7 km triangle
+GEN2_DETECTOR = {
+    "channels": {
+        "1": _gen2_channel(0, 101, -100.0), "2": _gen2_channel(1, 101, -150.0),
+        "3": _gen2_channel(0, 102, -100.0), "4": _gen2_channel(1, 102, -150.0),
+        "5": _gen2_channel(0, 103, -100.0), "6": _gen2_channel(1, 103, -150.0),
+    },
+    "stations": {
+        "1": {"station_id": 101, "pos_easting": 0.0, "pos_northing": 0.0, "pos_altitude": 0},
+        "2": {"station_id": 102, "pos_easting": 1700.0, "pos_northing": 0.0,
+              "pos_altitude": 0},
+        "3": {"station_id": 103, "pos_easting": 850.0, "pos_northing": 1470.0,
+              "pos_altitude": 0},
+    },
+}
+GEN2_CONFIG = {"sampling_rate": 2.0,
+               "propagation": {"ice_model": "southpole_2015", "birefringence": True,
+                               "birefringence_model": "southpole_A",
+                               "n_freq": 16, "attenuation_steps": 8, "n_bisect": 28},
+               "signal": {"model": "Alvarez2000"},
+               "weights": {"weight_mode": "core_mantle_crust_simple",
+                           "cross_section_type": "ctw"}}
+
+
+def gen2_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of the Gen2 composed workload: GEN2_DETECTOR,
+    GEN2_CONFIG (``config`` merged on top; birefringence on), the butterworth
+    chain and a 2-sigma high/low trigger (``kwargs`` go to ``Simulation``)."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    return Simulation(
+        inputfilename, GEN2_DETECTOR,
+        config=config_util.merge_config(config, GEN2_CONFIG),
+        filter_chain=[
+            FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
+            FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
+        ],
+        trigger=TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
+        **kwargs)
+
+
+def make_gen2_inputs(n_groups=256, *, device="cpu", dtype=torch.float32):
+    """(settings, [ch per station], batch) of ``bench.bench_gen2``: the first
+    ``n_groups`` groups of the 2048-event tau input (its ``.npz`` export;
+    tiled past 2048) for the three stations, birefringence on."""
+    from nuradiomc_tpu_torch.sim.io_input import INPUT_GEN2
+    sim = gen2_simulation(INPUT_GEN2, device=device, dtype=dtype)
+    chps = [sim.channel_params_per_station[sid] for sid in sim.det.get_station_ids()]
+    return sim.settings, chps, _tiled(sim._build_batches()[-1], n_groups, device)

@@ -22,139 +22,74 @@
 // headline shape (262144 rows, K_int 208, K_place 816) that is ~3.6e11 FLOP
 // of plain FMA, compute-bound against the 67 TFLOP/s FP32 (34 FP64) of the
 // CUDA cores. The design keeps everything else off the critical path: V is
-// built once per block in shared memory (f-major, so the inner loop reads
+// built RB rows at a time in shared memory (f-major, so the inner loop reads
 // rows at compile-time offsets), each thread owns one output column k and
 // keeps RB rows of Xb in registers, so each D element loaded from L2 feeds
-// 4*RB FMAs, and the s2 reduction happens in registers (no atomics: the
-// result is deterministic). Tensor cores (wgmma/TMA) are later work.
+// 4*RB FMAs, and the s2 reduction happens in registers across as many RB-row
+// chunks as s2 needs (no atomics: the result is deterministic). The DFT,
+// phase and reduction are placement_common.cuh, shared with kernel 4.
+// Tensor cores (wgmma/TMA) are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "placement_common.cuh"
 
 namespace {
 
-constexpr int KT = 128;   // output columns per block == threads per block
+using placement::KT;
 
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
+// the factored chain into V for input rows row0 .. row0 + n - 1
+template <typename T, int RB>
+struct ChainStage {
+  const T *spec_re, *spec_im, *att_sparse, *comb_re, *comb_im;
+  const uint8_t* mask;
+  const int32_t* tpl_idx;
+  const T *W, *tpl_re, *tpl_im;
+  int K_int, n_sparse;
 
-__device__ inline void sincos_t(float x, float* s, float* c) { sincosf(x, s, c); }
-__device__ inline void sincos_t(double x, double* s, double* c) { sincos(x, s, c); }
+  __device__ void operator()(typename placement::Vec2<T>::type* V, int row0,
+                             int n) const {
+    for (int i = threadIdx.x; i < RB * K_int; i += KT) {
+      const int r = i / K_int;
+      const int f = i - r * K_int;
+      typename placement::Vec2<T>::type v;
+      v.x = T(0);
+      v.y = T(0);
+      if (r < n) {
+        const int row = row0 + r;
+        if (mask[row]) {
+          const T* a = att_sparse + (size_t)row * n_sparse;
+          T att = T(0);
+          for (int s = 0; s < n_sparse; ++s) att += a[s] * W[(size_t)s * K_int + f];
+          const size_t o = (size_t)row * K_int + f;
+          const T sr = spec_re[o] * att;
+          const T si = spec_im[o] * att;
+          const T cr = comb_re[row];
+          const T ci = comb_im[row];
+          const T csr = cr * sr - ci * si;
+          const T csi = cr * si + ci * sr;
+          const size_t t = (size_t)tpl_idx[row] * K_int + f;
+          const T tr = tpl_re[t];
+          const T ti = tpl_im[t];
+          v.x = tr * csr - ti * csi;
+          v.y = tr * csi + ti * csr;
+        }
+      }
+      V[f * RB + r] = v;
+    }
+  }
+};
 
 template <typename T, int RB>
 __global__ void __launch_bounds__(KT) placement_chain_kernel(
-    const T* __restrict__ spec_re, const T* __restrict__ spec_im,
-    const T* __restrict__ att_sparse,
-    const T* __restrict__ comb_re, const T* __restrict__ comb_im,
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ tpl_idx,
-    const T* __restrict__ offsets, const T* __restrict__ W,
-    const T* __restrict__ tpl_re, const T* __restrict__ tpl_im,
+    ChainStage<T, RB> stage, const T* __restrict__ offsets,
     const T* __restrict__ drr, const T* __restrict__ dri,
     const T* __restrict__ dir_, const T* __restrict__ dii,
     T* __restrict__ out_re, T* __restrict__ out_im,
-    int R, int s2, int K_int, int n_sparse, int K_place, T theta_c) {
-  using T2 = typename Vec2<T>::type;
+    int R, int s2, int K_place, T theta_c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T2* V = reinterpret_cast<T2*>(smem_raw);          // [K_int][RB], f-major
-
-  const int gpb = RB / s2;                          // output rows per block
-  const int G_out = R / s2;
-  const int g0 = blockIdx.x * gpb;
-  const int n_out = min(gpb, G_out - g0);
-  const int rows = n_out * s2;
-  const int r0 = g0 * s2;
-  const int k = blockIdx.y * KT + threadIdx.x;
-  const bool k_ok = k < K_place;
-
-  // 1. the factored chain, once per block
-  for (int i = threadIdx.x; i < RB * K_int; i += KT) {
-    const int r = i / K_int;
-    const int f = i - r * K_int;
-    T2 v;
-    v.x = T(0);
-    v.y = T(0);
-    if (r < rows) {
-      const int row = r0 + r;
-      if (mask[row]) {
-        const T* a = att_sparse + (size_t)row * n_sparse;
-        T att = T(0);
-        for (int s = 0; s < n_sparse; ++s) att += a[s] * W[(size_t)s * K_int + f];
-        const size_t o = (size_t)row * K_int + f;
-        const T sr = spec_re[o] * att;
-        const T si = spec_im[o] * att;
-        const T cr = comb_re[row];
-        const T ci = comb_im[row];
-        const T csr = cr * sr - ci * si;
-        const T csi = cr * si + ci * sr;
-        const size_t t = (size_t)tpl_idx[row] * K_int + f;
-        const T tr = tpl_re[t];
-        const T ti = tpl_im[t];
-        v.x = tr * csr - ti * csi;
-        v.y = tr * csi + ti * csr;
-      }
-    }
-    V[f * RB + r] = v;
-  }
-  __syncthreads();
-
-  // 2. placement DFT: Xb[r, k] for the block's rows, column k per thread
-  T xr[RB], xi[RB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    xr[r] = T(0);
-    xi[r] = T(0);
-  }
-  const int kk = k_ok ? k : 0;
-  T d0 = drr[kk], d1 = dri[kk], d2 = dir_[kk], d3 = dii[kk];
-  for (int f = 0; f < K_int; ++f) {
-    T n0 = T(0), n1 = T(0), n2 = T(0), n3 = T(0);
-    if (f + 1 < K_int) {                     // prefetch the next D row
-      const size_t o = (size_t)(f + 1) * K_place + kk;
-      n0 = drr[o];
-      n1 = dri[o];
-      n2 = dir_[o];
-      n3 = dii[o];
-    }
-    const T2* Vf = V + f * RB;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const T2 v = Vf[r];
-      xr[r] += v.x * d0 + v.y * d2;
-      xi[r] += v.x * d1 + v.y * d3;
-    }
-    d0 = n0;
-    d1 = n1;
-    d2 = n2;
-    d3 = n3;
-  }
-
-  // 3. phase ramp and (shower, ray) reduction in registers
-  const int a32 = (k / 32) * 32;
-  const int b = k - a32;
-  T acc_r = T(0), acc_i = T(0);
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    if (r < rows) {
-      const T theta = theta_c * offsets[r0 + r];
-      T sa, ca, sb, cb;
-      sincos_t(theta * T(a32), &sa, &ca);
-      sincos_t(theta * T(b), &sb, &cb);
-      const T pr = ca * cb - sa * sb;
-      const T pi = ca * sb + sa * cb;
-      acc_r += xr[r] * pr - xi[r] * pi;
-      acc_i += xr[r] * pi + xi[r] * pr;
-      if ((r + 1) % s2 == 0) {
-        if (k_ok) {
-          const size_t o = (size_t)(g0 + r / s2) * K_place + k;
-          out_re[o] = acc_r;
-          out_im[o] = acc_i;
-        }
-        acc_r = T(0);
-        acc_i = T(0);
-      }
-    }
-  }
+  auto* V = reinterpret_cast<typename placement::Vec2<T>::type*>(smem_raw);
+  placement::place_block<T, RB, true>(stage, V, offsets, drr, dri, dir_, dii,
+                                      out_re, out_im, R, s2, stage.K_int,
+                                      K_place, theta_c);
 }
 
 template <typename T, int RB>
@@ -164,19 +99,19 @@ int launch(const T* spec_re, const T* spec_im, const T* att_sparse,
            const T* tpl_re, const T* tpl_im, const T* drr, const T* dri,
            const T* dir_, const T* dii, T* out_re, T* out_im, int R, int s2,
            int K_int, int n_sparse, int K_place, T theta_c, void* stream) {
-  using T2 = typename Vec2<T>::type;
+  using T2 = typename placement::Vec2<T>::type;
   const size_t smem = (size_t)RB * K_int * sizeof(T2);
   cudaError_t err = cudaFuncSetAttribute(
       placement_chain_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int gpb = RB / s2;
-  const int G_out = R / s2;
-  dim3 grid((G_out + gpb - 1) / gpb, (K_place + KT - 1) / KT);
-  placement_chain_kernel<T, RB><<<grid, KT, smem, (cudaStream_t)stream>>>(
-      spec_re, spec_im, att_sparse, comb_re, comb_im, mask, tpl_idx, offsets,
-      W, tpl_re, tpl_im, drr, dri, dir_, dii, out_re, out_im, R, s2, K_int,
-      n_sparse, K_place, theta_c);
+  const ChainStage<T, RB> stage{spec_re, spec_im, att_sparse, comb_re, comb_im,
+                                mask,    tpl_idx, W,          tpl_re,  tpl_im,
+                                K_int,   n_sparse};
+  placement_chain_kernel<T, RB>
+      <<<placement::grid_of(R, s2, K_place, RB), KT, smem, (cudaStream_t)stream>>>(
+          stage, offsets, drr, dri, dir_, dii, out_re, out_im, R, s2, K_place,
+          theta_c);
   return (int)cudaGetLastError();
 }
 
@@ -184,8 +119,8 @@ int launch(const T* spec_re, const T* spec_im, const T* att_sparse,
 
 extern "C" {
 
-// rows held per block (a multiple of s2 of them is used): the wrapper reads
-// these to validate s2 and the shared-memory size before launching
+// input rows staged per chunk: the wrapper reads these to check the
+// shared-memory size before launching
 int placement_rows_per_block_f32() { return 32; }
 int placement_rows_per_block_f64() { return 16; }
 

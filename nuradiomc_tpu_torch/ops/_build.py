@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/kernels/`` at the repository root (gitignored), named by
-a hash of its source so an edited kernel is rebuilt, and loaded with
+a hash of its source and the shared ``csrc/*.cuh`` headers so an edited
+kernel is rebuilt, and loaded with
 ``ctypes``. :func:`build` compiles several sources at once, one nvcc process
 each. Nothing here runs at import time.
 """
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 

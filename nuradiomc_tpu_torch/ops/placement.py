@@ -1,15 +1,21 @@
-"""Placement chain: factored propagation chain + placement DFT + phase ramp +
-(shower, ray) reduction (kernel 1).
+"""Placement: the placement DFT onto the common time base + phase ramp +
+(shower, ray) reduction, with the factored propagation chain in front
+(kernel 1) or on a materialized voltage spectrum (kernel 4).
 
-Replaces ``nuradiomc_tpu/ops/placement_pallas.py::chain_placement_reduce_v3``
-(placement_pallas.py:365, kernel ``_chain_kernel_v3`` :282). The CUDA kernel
-is ``csrc/placement_chain.cu``; its source note says what bounds it on the
-H100 and how the design answers that. :func:`chain_placement_reduce` launches
-it for CUDA tensors and runs :func:`chain_placement_reduce_plain` for CPU
-tensors; there is no other fallback.
+Kernel 1 replaces ``nuradiomc_tpu/ops/placement_pallas.py::
+chain_placement_reduce_v3`` (placement_pallas.py:365, kernel
+``_chain_kernel_v3`` :282) and, with the same contract, the v2
+``chain_placement_reduce`` (:142); its CUDA source is
+``csrc/placement_chain.cu``. Kernel 4 replaces ``placement_reduce`` (:465,
+kernel ``_kernel`` :33) and the profiling tool's epilogue variants
+(tools/profile_placement_variants.py); its CUDA source is
+``csrc/placement_reduce.cu``. Both share ``csrc/placement_common.cuh``,
+whose note says what bounds them on the H100 and how the design answers
+that. Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; there is no other fallback. Both take any ``s2``.
 
-Contract (rows channel-major, (shower, ray) fastest, ``s2`` rows per output
-row; R = G*C*s2):
+Kernel 1 contract (rows channel-major, (shower, ray) fastest, ``s2`` rows
+per output row; R = G*C*s2):
 
     spec_re, spec_im  [R, K_int]      Askaryan spectra (may be NaN where masked)
     att_sparse        [R, n_sparse]   attenuation at the sparse frequencies
@@ -22,10 +28,19 @@ row; R = G*C*s2):
     D_r, D_i          [K_int, K_place]   complex placement DFT matrices
     returns (out_re, out_im) [R // s2, K_place]
 
-The plain version is the XLA path of the JAX pipeline (pipeline.py:1280-1289,
-einsum plus the factored phase ramp of ``trace.time_shift_phase_uniform``).
-On the card it runs in full FP32: ``torch.backends.cuda.matmul.allow_tf32``
-must stay False (PyTorch's default), which ``chip_smoke.py`` sets.
+Kernel 4 contract (same row order):
+
+    volt_re, volt_im  [R, K_int]      the voltage spectrum, rows already masked
+    offsets           [R]
+    D_r, D_i          [K_int, K_place]
+    returns (out_re, out_im) [R // s2, K_place], the K_place columns (not the
+    TPU kernel's 128-padded width)
+
+The plain versions are the XLA path of the JAX pipeline (pipeline.py:
+1280-1289, einsum plus the factored phase ramp of
+``trace.time_shift_phase_uniform``). On the card they run in full FP32:
+``torch.backends.cuda.matmul.allow_tf32`` must stay False (PyTorch's
+default), which ``chip_smoke.py`` sets.
 """
 
 from __future__ import annotations
@@ -38,8 +53,9 @@ import torch
 from nuradiomc_tpu_torch.ops import _build
 from nuradiomc_tpu_torch.ops.trace import time_shift_phase_uniform
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: kernel 1, kernel 4
 launches = 0
+reduce_launches = 0
 
 _SMEM_LIMIT = 232448          # bytes of shared memory one block may use
 
@@ -60,28 +76,63 @@ def chain_placement_reduce_plain(spec_re, spec_im, att_sparse, comb_re,
     m = mask[:, None]
     v_re = torch.where(m, tr * cs_re - ti * cs_im, 0.0)
     v_im = torch.where(m, tr * cs_im + ti * cs_re, 0.0)
-    xb = torch.complex(v_re @ D_r.real + v_im @ D_i.real,
-                       v_re @ D_r.imag + v_im @ D_i.imag)       # [R, K_place]
-    ph = time_shift_phase_uniform(D_r.shape[1], df, offsets)
-    R = spec_re.shape[0]
-    out = (xb * ph).reshape(R // s2, s2, -1).sum(dim=1)
+    return placement_reduce_plain(v_re, v_im, offsets, D_r, D_i, s2=s2, df=df)
+
+
+def placement_reduce_plain(volt_re, volt_im, offsets, D_r, D_i, *, s2: int,
+                           df: float, phase: bool = True):
+    """Plain PyTorch version of kernel 4 (see the module docstring for the
+    contract); ``phase=False`` drops the phase ramp (the profiling
+    variant)."""
+    xb = torch.complex(volt_re @ D_r.real + volt_im @ D_i.real,
+                       volt_re @ D_r.imag + volt_im @ D_i.imag)   # [R, K_place]
+    if phase:
+        xb = xb * time_shift_phase_uniform(D_r.shape[1], df, offsets)
+    R = volt_re.shape[0]
+    out = xb.reshape(R // s2, s2, -1).sum(dim=1)
     return out.real, out.imag
 
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+_ARGTYPES = {"placement_chain": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5,
+             "placement_reduce": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5}
+_ROWS_PER_BLOCK = {"placement_chain": "placement_rows_per_block",
+                   "placement_reduce": "placement_reduce_rows_per_block"}
 
 
-def _kernel_fn(dtype):
-    lib = _build.load("placement_chain")
-    if dtype == torch.float32:
-        fn, rb = lib.placement_chain_f32, lib.placement_rows_per_block_f32()
-        scalar = ctypes.c_float
-    else:
-        fn, rb = lib.placement_chain_f64, lib.placement_rows_per_block_f64()
-        scalar = ctypes.c_double
-    fn.argtypes = _ARGTYPES + [scalar, ctypes.c_void_p]
+def _kernel_fn(name, dtype):
+    lib = _build.load(name)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    scalar = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+    fn = getattr(lib, f"{name}_{tag}")
+    fn.argtypes = _ARGTYPES[name] + [scalar, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, rb, scalar
+    return fn, getattr(lib, f"{_ROWS_PER_BLOCK[name]}_{tag}")(), scalar
+
+
+def _check(what, ref, raw, split):
+    """Device, shape, dtype (and for ``raw``, contiguity) of the kernel's
+    inputs: {name: (tensor, shape, dtype)}."""
+    for name, (t, shape, dt) in {**raw, **split}.items():
+        if t.device != ref.device:
+            raise ValueError(f"{what}: {name} on {t.device}, {ref.device} expected")
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dt}")
+        if name in raw and not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _check_rows(what, R, s2, K_int, rb, elem):
+    if s2 < 1 or R % s2:
+        raise ValueError(f"{what}: R={R} is not a multiple of s2={s2}")
+    smem = rb * K_int * 2 * elem
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: K_int={K_int} needs {smem} bytes of "
+                         f"shared memory, more than {_SMEM_LIMIT}")
+
+
+def _split(*mats):
+    return [p for m in mats for p in (m.real.contiguous(), m.imag.contiguous())]
 
 
 def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
@@ -115,27 +166,10 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
         "templates": (templates, (n_tpl, K_int), ctype),
         "D_r": (D_r, (K_int, K_place), ctype), "D_i": (D_i, (K_int, K_place), ctype),
     }
-    for name, (t, shape, dt) in {**raw, **split}.items():
-        if t.device != spec_re.device:
-            raise ValueError(f"placement chain: {name} on {t.device}, spec on {spec_re.device}")
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"placement chain: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dt}")
-        if name in raw and not t.is_contiguous():
-            raise ValueError(f"placement chain: {name} is not contiguous")
-    if s2 < 1 or R % s2:
-        raise ValueError(f"placement chain: R={R} is not a multiple of s2={s2}")
-    fn, rb, scalar = _kernel_fn(dtype)
-    if s2 > rb:
-        raise ValueError(f"placement chain: s2={s2} (showers x rays per output "
-                         f"row) exceeds the kernel's {rb} rows per block")
-    smem = rb * K_int * 2 * spec_re.element_size()
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"placement chain: K_int={K_int} needs {smem} bytes of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
-    parts = [templates.real.contiguous(), templates.imag.contiguous(),
-             D_r.real.contiguous(), D_r.imag.contiguous(),
-             D_i.real.contiguous(), D_i.imag.contiguous()]
+    _check("placement chain", spec_re, raw, split)
+    fn, rb, scalar = _kernel_fn("placement_chain", dtype)
+    _check_rows("placement chain", R, s2, K_int, rb, spec_re.element_size())
+    parts = _split(templates, D_r, D_i)
     G_out = R // s2
     out_re = torch.empty((G_out, K_place), dtype=dtype, device=spec_re.device)
     out_im = torch.empty_like(out_re)
@@ -146,4 +180,39 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
              _build.current_stream_ptr(spec_re.device))
     _build.check(err, "placement chain kernel")
     launches += 1
+    return out_re, out_im
+
+
+def placement_reduce(volt_re, volt_im, offsets, D_r, D_i, *, s2: int, df: float,
+                     phase: bool = True):
+    """Placement of a materialized voltage spectrum: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors (see the module docstring for
+    the contract); ``phase=False`` launches the no-phase profiling variant."""
+    global reduce_launches
+    if volt_re.device.type == "cpu":
+        return placement_reduce_plain(volt_re, volt_im, offsets, D_r, D_i,
+                                      s2=s2, df=df, phase=phase)
+    if volt_re.device.type != "cuda":
+        raise ValueError(f"placement reduce: unsupported device {volt_re.device}")
+    dtype = volt_re.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"placement reduce: dtype {dtype} is not float32/float64")
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    R, K_int = volt_re.shape
+    K_place = D_r.shape[1]
+    _check("placement reduce", volt_re,
+           {"volt_re": (volt_re, (R, K_int), dtype), "volt_im": (volt_im, (R, K_int), dtype),
+            "offsets": (offsets, (R,), dtype)},
+           {"D_r": (D_r, (K_int, K_place), ctype), "D_i": (D_i, (K_int, K_place), ctype)})
+    fn, rb, scalar = _kernel_fn("placement_reduce", dtype)
+    _check_rows("placement reduce", R, s2, K_int, rb, volt_re.element_size())
+    parts = _split(D_r, D_i)
+    out_re = torch.empty((R // s2, K_place), dtype=dtype, device=volt_re.device)
+    out_im = torch.empty_like(out_re)
+    err = fn(volt_re.data_ptr(), volt_im.data_ptr(), offsets.data_ptr(),
+             *[t.data_ptr() for t in parts], out_re.data_ptr(), out_im.data_ptr(),
+             R, s2, K_int, K_place, int(phase), scalar(-2.0 * math.pi * df),
+             _build.current_stream_ptr(volt_re.device))
+    _build.check(err, "placement reduce kernel")
+    reduce_launches += 1
     return out_re, out_im

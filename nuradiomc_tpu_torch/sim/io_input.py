@@ -24,6 +24,9 @@ import numpy as np
 DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 # the export of tests/data/1e18_n3000.hdf5 (3000 events, 3724 showers)
 INPUT_1E18_N3000 = DATA_DIR / "1e18_n3000.npz"
+# the export of .bench_cache/gen2_taus_2048_seed21.hdf5 (2048 tau-neutrino CC
+# events at 1e19 eV with stochastic secondaries: 3866 showers, <= 10 per group)
+INPUT_GEN2 = DATA_DIR / "gen2_taus_2048_seed21.npz"
 
 
 @dataclasses.dataclass

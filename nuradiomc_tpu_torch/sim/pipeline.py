@@ -1,20 +1,24 @@
-"""The batched end-to-end MC pipeline (torch), factored single-window path.
+"""The batched end-to-end MC pipeline (torch), single-window path.
 
 Counterpart of ``nuradiomc_tpu/sim/pipeline.py::simulate_batch`` on the paths
-of the dipole effective-volume run and the phased-array run
-(pipeline.py:541-632, :679-1160, :1174-1435, :1462-1553 with n_windows = 1).
-One call runs the whole chain over a padded batch [group G x shower S x
-channel C x ray 2] with validity masks in place of early exits:
+of the dipole effective-volume run, the phased-array run and the Gen2
+composed run (pipeline.py:541-632, :679-1160, :1174-1435, :1462-1553 with
+n_windows = 1). One call runs the whole chain over a padded batch [group G x
+shower S x channel C x ray 2] with validity masks in place of early exits:
 
 1. ray tracing                      (ops.raytrace)
 2. viewing angle and delta_C cut
 3. Alvarez2000 / Alvarez2009 spectra (ops.askaryan)
-4. polarization, Fresnel and focusing factors, analytic VEL mix folded into
-   one complex scalar per (shower, channel, ray)
+4. polarization, Fresnel and focusing factors, analytic VEL mix: folded into
+   one complex scalar per (shower, channel, ray) on the factored chain; on
+   the non-factored chain (birefringence or ``keep_efields``) the efield
+   (eTheta, ePhi) spectra are materialized and, with birefringence,
+   propagated through the ice's eigenbasis (ops.birefringence)
 5. SP1 attenuation on a sparse frequency grid
 6. per-solution Hilbert-envelope maxima and the candidate cut
 7. placement on the common time base + (shower, ray) reduction
-   (ops.placement, kernel 1)
+   (ops.placement: kernel 1 on the factored chain, kernel 4 on the
+   materialized voltage spectrum of the non-factored one)
 8. noise (ops.noise), filter multiply, and the triggers: irfft, high/low
    trigger and majority logic (ops.trigger_fused, kernel 2), or the
    phased-array chain of trigger ADC, upsampling, beams and power sums
@@ -38,9 +42,10 @@ import numpy as np
 import torch
 
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
-from nuradiomc_tpu_torch.ops import (antenna, askaryan, noise as noise_ops,
-                                     pa_trigger, phased_array, placement, raytrace,
-                                     trace as trace_ops, trigger_fused)
+from nuradiomc_tpu_torch.ops import (antenna, askaryan, birefringence,
+                                     noise as noise_ops, pa_trigger, phased_array,
+                                     placement, raytrace, trace as trace_ops,
+                                     trigger_fused)
 from nuradiomc_tpu_torch.utils import fft, geometry
 
 
@@ -185,7 +190,7 @@ class PipelineOutput(NamedTuple):
     focusing: torch.Tensor         # [G, S, C, 2]
     reflection: Optional[torch.Tensor] = None
     refl_case: Optional[torch.Tensor] = None
-    efields: Optional[torch.Tensor] = None
+    efields: Optional[torch.Tensor] = None           # [2, G, S, C, 2, F] (keep_efields)
     triggered_per: Optional[torch.Tensor] = None      # [G, T]
     trigger_times_per: Optional[torch.Tensor] = None  # [G, T]
 
@@ -342,7 +347,7 @@ def _not_ported(what: str, item: str):
 
 
 def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
-                 keep_traces, keep_efields, emitter, arz_library):
+                 keep_traces, emitter, arz_library):
     if s.apply_focusing and s.focusing_mode != "implicit":
         _not_ported(f"focusing_mode={s.focusing_mode!r} (the displaced-receiver "
                     "re-solve)", "9, numeric focusing")
@@ -350,16 +355,12 @@ def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         _not_ported("emitter mode", "15, the non-factored chain")
     if arz_library is not None or s.askaryan_model not in ("Alvarez2000", "Alvarez2009"):
         _not_ported(f"Askaryan model {s.askaryan_model}", "10, ZHS1992; ARZ: 15")
-    if s.birefringence:
-        _not_ported("birefringence", "15, the non-factored chain")
     if s.n_reflections > 0 or s.n_windows != 1:
         _not_ported("bottom reflections / sub-event windows", "14, Moore's Bay reflections")
     if ch.antenna_table is not None:
         _not_ported("tabulated antennas", "15, the non-factored chain")
     if ch.trigger_filter_response is not None:
         _not_ported("a separate trigger chain", "13, multi-trigger and separate trigger chains")
-    if keep_efields:
-        _not_ported("keep_efields", "15, the non-factored chain")
     if keep_traces:
         _not_ported("keep_traces (the .nur writer's traces)", "17, the rest")
     if s.attenuation_model != "SP1":
@@ -422,6 +423,30 @@ def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, I_r, I_i,
     return fired, frame, amp, t.pa_step / (s.sampling_rate * up)
 
 
+def _birefringence(e_theta, e_phi, valid, geom: raytrace.Geometry2D, c0, ff_int,
+                   s: PipelineSettings):
+    """Birefringent propagation of the valid paths' efields, applied last
+    (pipeline.py:993-1014, apply_propagation_effects:3020-3030); invalid
+    paths keep their spectra (a select, as ``where(valid, ...)`` there).
+    Only the valid paths are propagated: their results are the same, and
+    the segment loop's work shrinks with the delta_C cut."""
+    F = e_theta.shape[-1]
+    sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    shape = valid.shape
+
+    def per_path(x):
+        return x[..., None].expand(shape).reshape(-1)[sel]
+
+    g = raytrace.Geometry2D(*(per_path(f) for f in geom))
+    path = birefringence.path_points_3d(c0.reshape(-1)[sel], g, s.ice, s.birefringence_points,
+                                        iceflow_angle=s.birefringence_iceflow)
+    bt, bp = birefringence.propagate_pulse(
+        e_theta.reshape(-1, F)[sel], e_phi.reshape(-1, F)[sel], path, ff_int, s.ice,
+        s.birefringence_model)
+    return (e_theta.reshape(-1, F).index_copy(0, sel, bt).reshape(e_theta.shape),
+            e_phi.reshape(-1, F).index_copy(0, sel, bp).reshape(e_phi.shape))
+
+
 def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                    noise_generator: Optional[torch.Generator] = None,
                    keep_traces: bool = False, keep_efields: bool = False,
@@ -431,7 +456,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     ``s.add_noise`` the noise is drawn from ``noise_generator`` (a
     ``torch.Generator`` on that device), one realization per (group,
     channel), where the JAX function takes a ``noise_key``."""
-    _check_slice(batch, ch, s, keep_traces, keep_efields, emitter, arz_library)
+    _check_slice(batch, ch, s, keep_traces, emitter, arz_library)
     if s.add_noise and noise_generator is None:
         raise ValueError("add_noise=True requires a noise_generator")
     trig_list = _trigger_list(s)
@@ -493,6 +518,13 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     pol = pol / torch.clamp(torch.linalg.vector_norm(pol, dim=-1, keepdim=True), min=1e-30)
     zen_l, az_l = geometry.cartesian_to_spherical(launch)
     pol_onsky = geometry.ground_to_onsky(pol, zen_l, az_l)
+    # the scalar propagation factors fold into one complex scalar per path
+    # unless the efield must be materialized: birefringence mixes the two
+    # polarizations segment by segment, keep_efields returns them
+    factored = not (s.birefringence or keep_efields)
+    if not factored:
+        e_theta = pol_onsky[..., 1:2] * spec                   # [G,S,C,2,F]
+        e_phi = pol_onsky[..., 2:3] * spec
 
     # ---- 5. SP1 attenuation on the sparse grid -----------------------------
     F_int = ff_int.shape[0]
@@ -508,7 +540,11 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         att_W = torch.as_tensor(_interp_matrix(tuple(sparse_np), tuple(ff_int_np)),
                                 dtype=real_dtype, device=dev)
         att = torch.where(ff_int > 0, att_vals @ att_W, 1.0)
-        spec_att = spec * att
+        if factored:
+            spec_att = spec * att
+        else:
+            e_theta = e_theta * att
+            e_phi = e_phi * att
     else:
         # a unit attenuation keeps the kernel's contract: ones @ ones = 1
         att_vals = torch.ones((*bshape, 1), dtype=real_dtype, device=dev)
@@ -526,6 +562,9 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                                              sols.refl_case, z_turn_slots)
     a_p = torch.where(n_touch > 0, r_p, torch.ones_like(r_p))
     a_s = torch.where(n_touch > 0, r_s, torch.ones_like(r_s))
+    if not factored:
+        e_theta = e_theta * a_p[..., None]
+        e_phi = e_phi * a_s[..., None]
     if s.apply_focusing:
         # implicit mode (pipeline.py:947-989): the exact dz -> 0 derivative
         # of the launch angle toward a displaced receiver at the solved root
@@ -541,10 +580,16 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         n1 = s.ice.index_of_refraction(batch.vertices[..., 2])[:, :, None, None]
         n2 = s.ice.index_of_refraction(ch.positions[:, 2])[None, None, :, None]
         foc = foc * torch.sqrt(n1 / n2)
+        if not factored:
+            e_theta = e_theta * foc[..., None]
+            e_phi = e_phi * foc[..., None]
     else:
         foc = torch.ones(bshape, dtype=real_dtype, device=dev)
-    amp_t_c = (pol_onsky[..., 1] * foc).to(ctype) * a_p
-    amp_p_c = (pol_onsky[..., 2] * foc).to(ctype) * a_s
+    if s.birefringence:
+        e_theta, e_phi = _birefringence(e_theta, e_phi, valid, geom, sols.c0, ff_int, s)
+    if factored:
+        amp_t_c = (pol_onsky[..., 1] * foc).to(ctype) * a_p
+        amp_p_c = (pol_onsky[..., 2] * foc).to(ctype) * a_s
 
     # ---- 6a. candidate cut (simulation.py:283-286) -------------------------
     min_eff = ch.min_efield_amplitude
@@ -552,9 +597,11 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         ef_max = torch.zeros(bshape, dtype=real_dtype, device=dev)
         candidate = torch.ones((G,), dtype=torch.bool, device=dev)
     else:
-        ef_traces = fft.freq2time(
-            torch.stack([amp_t_c[..., None] * spec_att, amp_p_c[..., None] * spec_att]),
-            s.sampling_rate, n=s.n_internal)
+        if factored:
+            pols = [amp_t_c[..., None] * spec_att, amp_p_c[..., None] * spec_att]
+        else:
+            pols = [e_theta, e_phi]
+        ef_traces = fft.freq2time(torch.stack(pols), s.sampling_rate, n=s.n_internal)
         ef_max = torch.amax(torch.abs(ef_traces), dim=(0, -1))
         ef_max = torch.where(valid, ef_max, 0.0)
         candidate = torch.any((ef_max > min_eff[None, None, :, None]).reshape(G, -1), dim=-1)
@@ -565,10 +612,14 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     kind_b = ch.kind[None, None, :, None].expand(bshape)
     mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b)
     c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
-    combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,2]
+    T = ch.templates[c_idx, sector]                                    # [G,S,C,2,F]
+    if factored:
+        combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,2]
+        volt_spec = T * combined[..., None] * spec_att
+    else:
+        volt_spec = (T * mix_t[..., None]) * e_theta + (T * mix_p[..., None]) * e_phi
 
     # per-solution Hilbert-envelope maximum after the filter chain
-    volt_spec = ch.templates[c_idx, sector] * combined[..., None] * spec_att
     volt_spec = torch.where(valid[..., None], volt_spec, 0.0)
     volt_spec = torch.where(ff_int < 5e-3, 0.0, volt_spec)        # DC removal
     sol_spec_filtered = volt_spec * ch.filter_response_int[None, None, :, None, :]
@@ -603,21 +654,30 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         # [G, S, C, 2, ...] -> rows (g, c, s, r), (s, r) fastest
         return torch.movedim(x, 2, 1).reshape(R, *x.shape[4:]).contiguous()
 
-    tpl_idx = (c_idx * 3 + sector).to(torch.int32)
-    dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
-    tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
     D_r, D_i = _device_matrices("placement", (s.n_internal, s.n_base), K_int,
                                 real_dtype, dev)
-    place = (placement.chain_placement_reduce if s.placement_impl == "kernel"
-             else placement.chain_placement_reduce_plain)
-    out_re, out_im = place(
-        ch_major(spec.real)[:, :K_int].contiguous(),
-        ch_major(spec.imag)[:, :K_int].contiguous(),
-        ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag),
-        ch_major(in_w), ch_major(tpl_idx), ch_major(offset),
-        att_W[:, :K_int].contiguous(), tpl_table[:, :K_int].contiguous(),
-        D_r[:, :K_place].contiguous(), D_i[:, :K_place].contiguous(),
-        s2=s2, df=float(s.sampling_rate / s.n_base))
+    D_r, D_i = D_r[:, :K_place].contiguous(), D_i[:, :K_place].contiguous()
+    df_base = float(s.sampling_rate / s.n_base)
+    kernel = s.placement_impl == "kernel"
+    if factored:
+        tpl_idx = (c_idx * 3 + sector).to(torch.int32)
+        dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
+        tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
+        place = (placement.chain_placement_reduce if kernel
+                 else placement.chain_placement_reduce_plain)
+        out_re, out_im = place(
+            ch_major(spec.real)[:, :K_int].contiguous(),
+            ch_major(spec.imag)[:, :K_int].contiguous(),
+            ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag),
+            ch_major(in_w), ch_major(tpl_idx), ch_major(offset),
+            att_W[:, :K_int].contiguous(), tpl_table[:, :K_int].contiguous(),
+            D_r, D_i, s2=s2, df=df_base)
+    else:
+        # the in-window voltage spectrum, placed as it is (pipeline.py:1262-1268)
+        V = ch_major(torch.where(in_w[..., None], volt_spec, 0.0)[..., :K_int])
+        place = placement.placement_reduce if kernel else placement.placement_reduce_plain
+        out_re, out_im = place(V.real.contiguous(), V.imag.contiguous(), ch_major(offset),
+                               D_r, D_i, s2=s2, df=df_base)
     chan_spec = torch.complex(out_re, out_im)
     if K_place < F_base:
         chan_spec = torch.nn.functional.pad(chan_spec, (0, F_base - K_place))
@@ -721,5 +781,5 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         max_amp_per_solution=max_amp_sol,
         focusing=foc,
         reflection=sols.reflection, refl_case=sols.refl_case,
-        efields=None,
+        efields=torch.stack([e_theta, e_phi]) if keep_efields else None,
     )

@@ -1,5 +1,5 @@
-"""Host-side simulation orchestrator (torch): the dipole Veff and the
-phased-array runs.
+"""Host-side simulation orchestrator (torch): the dipole Veff, the
+phased-array and the Gen2 (multi-station, birefringence) runs.
 
 Counterpart of ``nuradiomc_tpu/sim/simulation.py::Simulation``: it merges
 the config, calibrates Vrms from the filter chain's bandwidth, builds the
@@ -18,7 +18,8 @@ where h5py is missing. Writing an output file needs h5py.
 
 Not ported yet (they raise): emitter inputs, ZHS1992 and ARZ, a separate
 trigger filter chain, per-trigger channel subsets, tabulated antennas,
-numeric focusing, bottom reflections, ``.nur`` output and device meshes.
+numeric focusing, bottom reflections, numeric birefringence propagation,
+``.nur`` output and device meshes.
 """
 
 from __future__ import annotations
@@ -205,9 +206,6 @@ class Simulation:
         if int(prop.get("n_reflections", 0) or 0):
             raise NotImplementedError("bottom reflections are not ported yet "
                                       "(ROADMAP queue 1 item 14, Moore's Bay reflections)")
-        if prop.get("birefringence", False):
-            raise NotImplementedError("birefringence is not ported yet (ROADMAP "
-                                      "queue 1 item 15, the non-factored chain)")
         self.settings = PipelineSettings(
             triggers=tuple(self._build_trigger_settings(t) for t in self.triggers),
             ice=self.ice,
@@ -236,9 +234,19 @@ class Simulation:
             attenuate_ice=bool(prop["attenuate_ice"]),
             apply_focusing=bool(prop["focusing"]),
             focusing_limit=float(prop["focusing_limit"]),
+            birefringence=bool(prop.get("birefringence", False)),
+            birefringence_model=str(prop.get("birefringence_model", "southpole_A")),
+            # the path is rotated into the ice-flow frame by angle_to_iceflow
+            # (deg), -131 in the default config (simulation.py:307-311)
+            birefringence_iceflow=float(np.deg2rad(prop.get("angle_to_iceflow", -131.0))),
             add_noise=bool(cfg["noise"]),
             noise_type="rayleigh",
         )
+        if (self.settings.birefringence
+                and prop.get("birefringence_propagation", "analytical") != "analytical"):
+            raise NotImplementedError(
+                "only analytical birefringence propagation is implemented "
+                "(config propagation.birefringence_propagation)")
         self.input = read_input(inputfilename)
         mode = self.input.attrs.get("simulation_mode", "neutrino")
         mode = mode.decode() if isinstance(mode, bytes) else str(mode)

@@ -6,8 +6,8 @@ conftest:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Tolerances as in chip_smoke.py: placement within 1e-4 (float32) / 1e-10
-(float64) of each output row's peak; trigger decisions and first bins
+Tolerances as in chip_smoke.py: placement (kernels 1 and 4) within 1e-4
+(float32) / 1e-10 (float64) of each output row's peak; trigger decisions and first bins
 exact, amplitudes rtol 1e-5 / 1e-12. The phased-array kernel sums its power
 windows directly where the plain version takes a cumsum difference, so its
 decisions are held on groups whose best beam power lies more than 1e-4 from
@@ -64,19 +64,50 @@ def _placement_args(dtype, dev, G_out=300, s2=4, n_int=512, n_base=2048, K_int=2
         dict(s2=s2, df=2.0 / n_base)
 
 
-@pytest.mark.parametrize("dtype, tol, _", DTYPES)
-@pytest.mark.parametrize("s2", [2, 4, 6])
-def test_placement_kernel_matches_plain(dev, dtype, tol, _, s2):
-    """s2 = 6 leaves rows of each block unused (32 // 6 output rows)."""
-    args, kw = _placement_args(dtype, dev, s2=s2)
-    before = placement.launches
-    k = placement.chain_placement_reduce(*args, **kw)
-    assert placement.launches == before + 1
-    p = placement.chain_placement_reduce_plain(*args, **kw)
+def _close_rows(k, p, tol):
     assert torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()
     err = torch.maximum((k[0] - p[0]).abs(), (k[1] - p[1]).abs()).amax(dim=1)
     peak = torch.maximum(p[0].abs(), p[1].abs()).amax(dim=1)
     assert bool((err <= tol * peak).all())
+
+
+@pytest.mark.parametrize("dtype, tol, _", DTYPES)
+@pytest.mark.parametrize("s2", [2, 4, 6, 20, 40])
+def test_placement_kernel_matches_plain(dev, dtype, tol, _, s2):
+    """s2 = 6 leaves rows of each block unused (32 // 6 output rows); s2 = 20
+    and 40 exceed the 32 (float32) / 16 (float64) rows of one chunk, so each
+    output row is summed over several chunks (tau secondaries: 10 showers x
+    2 rays)."""
+    args, kw = _placement_args(dtype, dev, s2=s2)
+    before = placement.launches
+    k = placement.chain_placement_reduce(*args, **kw)
+    assert placement.launches == before + 1
+    _close_rows(k, placement.chain_placement_reduce_plain(*args, **kw), tol)
+
+
+@pytest.mark.parametrize("dtype, tol, _", DTYPES)
+@pytest.mark.parametrize("s2", [2, 20, 40])
+@pytest.mark.parametrize("phase", [True, False])
+def test_placement_reduce_kernel_matches_plain(dev, dtype, tol, _, s2, phase):
+    """Kernel 4 on a materialized voltage spectrum at the gen2 widths (K_int
+    257, K_place 1025, whose last column tile holds one column); 301 output
+    rows are not a multiple of any block's rows. ``phase=False`` is the
+    profiling variant without the phase ramp."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    G_out, K_int, K_place = 301, 257, 1025
+    R = G_out * s2
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    D_r, D_i = (torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=dev)
+                for m in pipeline._placement_matrices(512, 2048))
+    v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
+    v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
+    offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0
+    kw = dict(s2=s2, df=2.0 / 2048, phase=phase)
+    before = placement.reduce_launches
+    k = placement.placement_reduce(v_re, v_im, offs, D_r, D_i, **kw)
+    assert placement.reduce_launches == before + 1
+    assert k[0].shape == (G_out, K_place)
+    _close_rows(k, placement.placement_reduce_plain(v_re, v_im, offs, D_r, D_i, **kw), tol)
 
 
 @pytest.mark.parametrize("dtype, tol, C, n_base", [
@@ -127,6 +158,12 @@ def test_wrappers_refuse_non_contiguous_and_mixed_dtypes(dev):
     bad[3] = args[3].double()
     with pytest.raises(ValueError):
         placement.chain_placement_reduce(*bad, **kw)
+    v = args[0][:, :16].contiguous()
+    D = args[10][:16]
+    with pytest.raises(ValueError, match="contiguous"):
+        placement.placement_reduce(v.t().contiguous().t(), v, args[7], D, D, **kw)
+    with pytest.raises(ValueError):
+        placement.placement_reduce(v, v.double(), args[7], D, D, **kw)
 
 
 def test_simulate_batch_kernel_path_matches_plain_path(dev):
@@ -232,3 +269,34 @@ def test_pa_simulation_float64_on_card(dev):
     assert len(mine & ref) >= 0.6 * len(ref)
     rel_err = 2.0 / np.sqrt(int(golden["n_triggered"]))
     assert abs(res["veff"] / float(golden["veff"]) - 1) < 2 * rel_err
+
+
+def test_gen2_kernel_path_matches_plain_path(dev):
+    """The Gen2 composed workload (birefringence, S 10, 3 stations) through
+    kernels 4 and 2 against the plain path on the card, float32."""
+    from nuradiomc_tpu_torch.convert import make_gen2_inputs
+    s, chps, b = make_gen2_inputs(256, device=dev, dtype=torch.float32)
+    plain = dataclasses.replace(s, placement_impl="plain", trigger_impl="plain")
+    before = placement.reduce_launches
+    for ch in chps:
+        out = pipeline.simulate_batch(b, ch, s)
+        ref = pipeline.simulate_batch(b, ch, plain)
+        assert torch.equal(out.triggered, ref.triggered)
+        torch.testing.assert_close(out.max_amplitude, ref.max_amplitude, rtol=1e-4, atol=0)
+    assert placement.reduce_launches == before + 3
+
+
+def test_factored_multishower_float64_on_card(dev):
+    """Tau input without birefringence: the factored chain at s2 = 20 in
+    float64, through kernel 1, against the plain path."""
+    from nuradiomc_tpu_torch.convert import make_gen2_inputs
+    s, chps, b = make_gen2_inputs(256, device=dev, dtype=torch.float64)
+    s = dataclasses.replace(s, birefringence=False)
+    plain = dataclasses.replace(s, placement_impl="plain", trigger_impl="plain")
+    before = placement.launches
+    fired = 0
+    for ch in chps:
+        out = pipeline.simulate_batch(b, ch, s)
+        assert torch.equal(out.triggered, pipeline.simulate_batch(b, ch, plain).triggered)
+        fired += int(out.triggered.sum())
+    assert placement.launches == before + 3 and fired > 0

@@ -130,10 +130,11 @@ def test_unported_options_raise():
     s, ch, b = _make_settings_and_inputs()
     ps, pc, pb = from_jax(s, ch, b, dtype=torch.float32)
     for change in ({"apply_focusing": True, "focusing_mode": "numeric"},
-                   {"birefringence": True}, {"n_reflections": 1},
-                   {"askaryan_model": "ZHS1992"}):
+                   {"n_reflections": 1}, {"askaryan_model": "ZHS1992"}):
         with pytest.raises(NotImplementedError):
             tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, **change))
-    for kw in ({"keep_efields": True}, {"keep_traces": True}):
+    for kw in ({"emitter": object()}, {"keep_traces": True}):
         with pytest.raises(NotImplementedError):
             tpipe.simulate_batch(pb, pc, ps, **kw)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tpipe.simulate_batch(pb, pc._replace(antenna_table=object()), ps)
