@@ -3,21 +3,30 @@
 The package mirrors the JAX package's layout so each module's counterpart is
 easy to find:
 
-``utils``   fft conventions, geometry
-``models``  ice models
-``ops``     ray tracing (with implicit focusing), attenuation, Askaryan
-            (Alvarez2000, Alvarez2009), antenna, trace, noise, trigger ADC,
-            phased array, triggers, and the three hand-written Hopper
-            kernels (``ops/placement.py``, ``ops/trigger_fused.py``,
-            ``ops/pa_trigger.py``, sources in ``csrc/``)
-``sim``     the batched pipeline, the ``Simulation`` orchestrator and the
-            h5py-free ``.npz`` event-list input (``sim/io_input.py``)
-``data``    the ``.npz`` export of the 3000-event 1e18 eV input
+``utils``     units, constants, layered config, fft conventions, geometry
+``models``    ice models
+``detector``  the JSON detector description
+``ops``       ray tracing (with implicit focusing), attenuation, Askaryan
+              (Alvarez2000, Alvarez2009), antenna, filters, trace, noise,
+              trigger ADC, phased array, birefringence, triggers, the FFT
+              tables of the kernels (``ops/fft_plan.py``) and the four
+              hand-written Hopper kernels (``ops/placement.py``,
+              ``ops/trigger_fused.py``, ``ops/pa_trigger.py``, sources in
+              ``csrc/``)
+``sim``       the batched pipeline, the ``Simulation`` orchestrator, Earth
+              attenuation weights, HDF5 I/O and the h5py-free ``.npz``
+              event-list input (``sim/io_input.py``)
+``data``      the ``.npz`` exports of the 3000-event 1e18 eV input and the
+              Gen2 tau input, and the birefringence ice models
 
-It imports ``torch`` and never ``jax``. From ``nuradiomc_tpu`` it imports only
-modules that are jax-free themselves (detector, HDF5 I/O, weights, units,
-config, filters). Importing this package builds no kernel: a kernel is built
-on its first launch on a CUDA tensor.
+It imports ``torch``, numpy, scipy, yaml and the standard library (h5py only
+inside the functions that read or write HDF5), and nothing of ``jax`` or of
+``nuradiomc_tpu``: what it shares with the JAX package it keeps as its own
+copy, each marked with the file and lines it was copied from. Its entry
+points (``Simulation``, ``convert.from_jax``, ``convert.make_*_inputs``)
+run on the CUDA card unless the caller passes ``device="cpu"``. Importing
+this package builds no kernel: a kernel is built on its first launch on a
+CUDA tensor.
 """
 
 __version__ = "0.1.0"

@@ -22,13 +22,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from nuradiomc_tpu.ops import filters
-from nuradiomc_tpu.utils import config as config_util
-from nuradiomc_tpu.utils import units
+from nuradiomc_tpu_torch.ops import filters
+from nuradiomc_tpu_torch.utils import config as config_util
+from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.models import ice as ice_models
 from nuradiomc_tpu_torch.ops import antenna
 from nuradiomc_tpu_torch.sim.pipeline import (ChannelParams, PipelineSettings,
                                               ShowerBatch, TriggerSettings)
+from nuradiomc_tpu_torch.utils import device as device_util
 
 # JAX PipelineSettings fields that select TPU lowerings or profiling modes;
 # they have no counterpart in the port
@@ -102,9 +103,11 @@ def batch_from_jax(batch, *, device, dtype) -> ShowerBatch:
                           for name in ShowerBatch._fields})
 
 
-def from_jax(settings, ch, batch, *, device="cpu", dtype=torch.float64):
+def from_jax(settings, ch, batch, *, device=device_util.DEFAULT, dtype=torch.float64):
     """(PipelineSettings, ChannelParams, ShowerBatch) of the port from the
-    JAX package's, on ``device`` in ``dtype``."""
+    JAX package's, on ``device`` (the card unless "cpu" is asked for) in
+    ``dtype``."""
+    device = device_util.resolve(device)
     return (settings_from_jax(settings),
             channels_from_jax(ch, device=device, dtype=dtype),
             batch_from_jax(batch, device=device, dtype=dtype))
@@ -162,10 +165,12 @@ def _headline_numpy(n_groups, n_showers, n_channels, n_internal, n_base):
 
 
 def make_headline_inputs(n_groups=8, n_showers=2, n_channels=4, n_internal=256,
-                         n_base=512, *, device="cpu", dtype=torch.float32):
+                         n_base=512, *, device=device_util.DEFAULT, dtype=torch.float32):
     """(settings, ch, batch) of the headline workload as the port's types:
     the arrays of ``__graft_entry__._make_settings_and_inputs`` (float32
-    there) moved to ``device`` and cast to ``dtype``."""
+    there) moved to ``device`` (the card unless "cpu" is asked for) and cast
+    to ``dtype``."""
+    device = device_util.resolve(device)
     settings = PipelineSettings(
         ice=ice_models.southpole_2015,
         attenuation_model="SP1",
@@ -258,7 +263,7 @@ def pa_simulation(inputfilename, config=None, **kwargs):
         **kwargs)
 
 
-def make_pa_inputs(n_groups=16384, *, device="cpu", dtype=torch.float32):
+def make_pa_inputs(n_groups=16384, *, device=device_util.DEFAULT, dtype=torch.float32):
     """(settings, ch, batch) of ``bench.bench_pa``: the 3000 groups of the
     1e18 eV input (its ``.npz`` export) with the bench's solver settings,
     tiled to ``n_groups``, band limit 1e-3, noise on."""
@@ -269,7 +274,7 @@ def make_pa_inputs(n_groups=16384, *, device="cpu", dtype=torch.float32):
         INPUT_1E18_N3000,
         {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28}},
         device=device, dtype=dtype)
-    batch = _tiled(sim._build_batches()[-1], n_groups, device)
+    batch = _tiled(sim._build_batches()[-1], n_groups, sim.device)
     return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch
 
 
@@ -333,11 +338,11 @@ def gen2_simulation(inputfilename, config=None, **kwargs):
         **kwargs)
 
 
-def make_gen2_inputs(n_groups=256, *, device="cpu", dtype=torch.float32):
+def make_gen2_inputs(n_groups=256, *, device=device_util.DEFAULT, dtype=torch.float32):
     """(settings, [ch per station], batch) of ``bench.bench_gen2``: the first
     ``n_groups`` groups of the 2048-event tau input (its ``.npz`` export;
     tiled past 2048) for the three stations, birefringence on."""
     from nuradiomc_tpu_torch.sim.io_input import INPUT_GEN2
     sim = gen2_simulation(INPUT_GEN2, device=device, dtype=dtype)
     chps = [sim.channel_params_per_station[sid] for sid in sim.det.get_station_ids()]
-    return sim.settings, chps, _tiled(sim._build_batches()[-1], n_groups, device)
+    return sim.settings, chps, _tiled(sim._build_batches()[-1], n_groups, sim.device)

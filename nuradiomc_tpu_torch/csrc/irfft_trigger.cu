@@ -2,9 +2,10 @@
 // logic for Hopper (sm_90a).
 //
 // Replaces nuradiomc_tpu/ops/trigger_pallas.py::fused_irfft_trigger (kernel
-// _kernel, _swa). Per event group g (rows (g, c), channel fastest):
+// _kernel, _swa; pallas_call at trigger_pallas.py:172). Per event group g
+// (rows (g, c), channel fastest):
 //
-//   v[c, n]   = scale * (Re(X[c, :]) @ I_r[:, n] + Im(X[c, :]) @ I_i[:, n])
+//   v[c, :]   = scale * irfft(X[c, :K] zero-padded to n_base/2 + 1, n = n_base)
 //   amp[c]    = max_n |v[c, n]|
 //   tts[c, n] = any(v >= hi over the last n_bins_hl bins)
 //               & any(v <= lo over the last n_bins_hl bins)       (high_low)
@@ -12,30 +13,46 @@
 //   ttt[n]    = sum_c any(tts[c, last n_bins_maj bins]) >= n_coinc
 //   fired     = any_n ttt,  first = fired ? min{n : ttt[n]} : 0
 //
-// Comparisons are the strict >= / <= of ops/triggers.py, windows are
-// left-zero-padded, and each sliding-window "any" is a prefix count
-// (P[i] - P[i - w]) > 0, taken by a block-wide scan.
+// The irfft is numpy's (backward normalisation 1/n; Im of the DC bin, and of
+// the Nyquist bin for even n, dropped). Comparisons are the strict >= / <= of
+// ops/triggers.py, windows are left-zero-padded, and each sliding-window "any"
+// is a prefix count (P[i] - P[i - w]) > 0, taken by a block-wide scan.
 //
-// What bounds it on the H100: the irfft is 4 FLOP per (row, f, n); at the
-// headline shape (65536 rows, K_base 816, n_base 2048) that is ~4.4e11 FLOP
-// of plain FMA, compute-bound against the CUDA cores (67 TFLOP/s FP32, 34
-// FP64); the trigger logic is O(n_base) per row. The design keeps the traces
-// in shared memory (they never reach device memory), computes them for a
-// whole block of rows at once so each I element read from L2 feeds up to
-// 2*RBMAX FMAs, holds RBMAX x SPT accumulators per thread in registers and
-// stages the spectra through shared memory in tiles of FT frequencies.
-// Groups whose C traces do not fit shared memory are refused by the wrapper.
+// What bounds it on the H100: bytes. The function reads each row's K complex
+// bins once and writes three small outputs; at the headline shape (65536
+// rows, K 816, n_base 2048) that is 428.6 MB in float32 (857 MB in float64),
+// 0.128 ms (0.256 ms) at 3.35 TB/s, while its FFTs and trigger logic need
+// ~5e9 FLOP, 0.08 ms at 67 TFLOP/s. (The TPU kernel's dense irfft matrix, 4.4e11 FLOP, fed the
+// MXU; on the CUDA cores it made the kernel compute-bound at 35-70 ms.)
+//
+// The design: the trace is made by an inverse real FFT in shared memory
+// (fft_common.cuh: the half-length complex Stockham FFT with the Hermitian
+// pre-step, mixed radix 16/4/2/3/5/any prime, twiddles from a float64 host
+// table), whose natural-order output IS the real trace, so the FFT's last
+// stage writes the channel's trace slot directly. A group's C traces stay in
+// shared memory for the trigger logic. Blocks are persistent and small (128
+// threads, 4-6 resident per SM): the grid is as many blocks as fit on the
+// card, at most one per group, and each block walks groups G/grid apart. The
+// next row's spectrum is copied into shared memory with cp.async (16-byte
+// copies where the row is aligned) as soon as the current row's pre-step has
+// read the staging buffer, so it arrives during the current row's FFT stages
+// and trigger logic. The trigger logic keeps each thread's samples in
+// registers and pads its prefix-count array by a word every 32, so the
+// threads' contiguous runs fall on distinct banks; that array shares its
+// memory with the FFT's ping-pong buffer, used only before it. Groups whose
+// C traces do not fit shared memory are refused by the wrapper.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fft_common.cuh"
 
 namespace {
 
-constexpr int NTH = 256;     // threads per block
+constexpr int NTH = 128;     // threads per block
 constexpr int NWARP = NTH / 32;
-constexpr int SPT = 4;       // samples per thread per sample chunk
-constexpr int FT = 32;       // frequencies per staged spectrum tile
-constexpr int EMAX = 16;     // contiguous trigger samples per thread (n_base <= 4096)
+// blocks per SM the registers must allow: 6 in float32 (<= 85 registers a
+// thread), 4 in float64 (<= 128: the radix-16 stage holds 16 complex doubles)
+template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 6 : 4; }
+constexpr int EMAX_LARGE = 32;   // contiguous trigger samples per thread (n_base <= 4096)
+constexpr int EMAX_SMALL = 16;   // the instantiation for n_base <= 2048
 constexpr int TMAX = 4;      // triggers per launch
 constexpr int KIND_HIGH_LOW = 0;
 
@@ -46,10 +63,6 @@ struct TriggerParams {
   int n_bins_maj[TMAX];
   int n_coinc[TMAX];
 };
-
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
 
 // exclusive block-wide prefix sum of one int per thread
 __device__ int block_exclusive_scan(int x, int* warp_sums) {
@@ -106,110 +119,148 @@ __device__ T block_max(T x, T* warp_buf) {
   return m;
 }
 
-// smem layout: trace [rows][n_base] T | spec tile [FT][RBMAX] T2 |
-//              P [n_base] int | warp scratch (32 T, 32 int)
-template <typename T, int RBMAX>
-__global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
+// shared-memory layout, each part 16-byte aligned:
+//   trace [C][n_base] T | fft [max(fft buffers, P)] | stage [2][K] T | scratch
+struct Layout {
+  size_t trace, fft, stage, scratch, total;
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout_of(int C, int n_base, int K) {
+  using T2 = typename fftc::Vec2<T>::type;
+  Layout l;
+  const size_t L = (n_base % 2 == 0) ? n_base / 2 : n_base;
+  // n even: one L-point buffer besides the trace slot; n odd: two n-point ones
+  const size_t fft_bytes = (n_base % 2 == 0) ? L * sizeof(T2) : 2 * L * sizeof(T2);
+  const size_t p_bytes = (size_t)(n_base + n_base / 32 + 1) * sizeof(int);   // padded
+  l.trace = 0;
+  l.fft = fftc::align16((size_t)C * n_base * sizeof(T));
+  l.stage = l.fft + fftc::align16(fft_bytes > p_bytes ? fft_bytes : p_bytes);
+  l.scratch = l.stage + fftc::align16(2 * (size_t)K * sizeof(T));
+  l.total = l.scratch + 32 * sizeof(T) + 32 * sizeof(int);
+  return l;
+}
+
+template <typename T>
+struct StagedRow {   // X[k] from the staging buffer: re [0, K), im [K, 2K)
+  const T* s;
+  int K;
+  __device__ typename fftc::Vec2<T>::type operator()(int k) const {
+    typename fftc::Vec2<T>::type v;
+    v.x = s[k];
+    v.y = s[K + k];
+    return v;
+  }
+};
+
+// the prefix-count array is padded by one word every 32, so that the block's
+// threads, each owning EMAX contiguous samples, hit distinct banks
+__device__ __forceinline__ int pidx(int n) { return n + (n >> 5); }
+
+// 16 bytes of the trace into registers
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  out[0] = q.x;
+  out[1] = q.y;
+  out[2] = q.z;
+  out[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* out) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  out[0] = q.x;
+  out[1] = q.y;
+}
+
+template <typename T, int EMAX>
+__global__ void __launch_bounds__(NTH, min_blocks<T>()) irfft_trigger_kernel(
     const T* __restrict__ spec_re, const T* __restrict__ spec_im,
     const T* __restrict__ th_hi, const T* __restrict__ th_lo,
-    const T* __restrict__ I_r, const T* __restrict__ I_i,
+    const typename fftc::Vec2<T>::type* __restrict__ E,
     uint8_t* __restrict__ fired_out, int32_t* __restrict__ first_out,
-    T* __restrict__ amp_out, int G, int C, int K, int n_base, int gpb,
-    T scale, TriggerParams tp) {
-  using T2 = typename Vec2<T>::type;
+    T* __restrict__ amp_out, int G, int C, int K, T norm,
+    const __grid_constant__ fftc::Plan plan, const __grid_constant__ TriggerParams tp) {
+  using T2 = typename fftc::Vec2<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
-  const int g0 = blockIdx.x * gpb;
-  const int n_g = min(gpb, G - g0);
-  const int rows = n_g * C;
-  const int row0 = g0 * C;
-
-  T* trace = reinterpret_cast<T*>(smem_raw);
-  T2* S = reinterpret_cast<T2*>(trace + (size_t)gpb * C * n_base);
-  int* P = reinterpret_cast<int*>(S + FT * RBMAX);
-  T* tscratch = reinterpret_cast<T*>(P + n_base);
+  const int n_base = plan.n;
+  const Layout lay = layout_of<T>(C, n_base, K);
+  T* trace = reinterpret_cast<T*>(smem_raw + lay.trace);
+  T2* fbuf = reinterpret_cast<T2*>(smem_raw + lay.fft);
+  int* P = reinterpret_cast<int*>(smem_raw + lay.fft);      // shares fbuf's memory
+  T* stage = reinterpret_cast<T*>(smem_raw + lay.stage);
+  T* tscratch = reinterpret_cast<T*>(smem_raw + lay.scratch);
   int* iscratch = reinterpret_cast<int*>(tscratch + 32);
+  const bool even = n_base % 2 == 0;
 
-  // ---- 1. traces into shared memory --------------------------------------
-  for (int rc = 0; rc < rows; rc += RBMAX) {
-    const int nr = min(RBMAX, rows - rc);
-    for (int n0 = 0; n0 < n_base; n0 += NTH * SPT) {
-      T acc[RBMAX][SPT];
-#pragma unroll
-      for (int r = 0; r < RBMAX; ++r)
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) acc[r][s] = T(0);
-      for (int f0 = 0; f0 < K; f0 += FT) {
-        __syncthreads();                         // previous tile consumed
-        for (int i = tid; i < RBMAX * FT; i += NTH) {
-          const int r = i / FT;
-          const int ff = i - r * FT;
-          T2 v;
-          v.x = T(0);
-          v.y = T(0);
-          if (r < nr && f0 + ff < K) {
-            const size_t o = (size_t)(row0 + rc + r) * K + f0 + ff;
-            v.x = spec_re[o];
-            v.y = spec_im[o];
-          }
-          S[ff * RBMAX + r] = v;
-        }
-        __syncthreads();
-        const int fmax = min(FT, K - f0);
-        for (int ff = 0; ff < fmax; ++ff) {
-          const size_t base = (size_t)(f0 + ff) * n_base;
-          T ir[SPT], ii[SPT];
-#pragma unroll
-          for (int s = 0; s < SPT; ++s) {
-            const int n = n0 + s * NTH + tid;
-            ir[s] = n < n_base ? I_r[base + n] : T(0);
-            ii[s] = n < n_base ? I_i[base + n] : T(0);
-          }
-          const T2* Sf = S + ff * RBMAX;
-#pragma unroll
-          for (int r = 0; r < RBMAX; ++r) {
-            const T2 v = Sf[r];
-#pragma unroll
-            for (int s = 0; s < SPT; ++s) acc[r][s] += v.x * ir[s] + v.y * ii[s];
-          }
-        }
+  // this block's rows, in order: (g, c) for g = blockIdx.x, + gridDim.x, ...
+  int g = blockIdx.x;
+  if (g >= G) return;
+  auto fetch = [&](int row) {
+    fftc::row_async(stage, spec_re + (size_t)row * K, K);
+    fftc::row_async(stage + K, spec_im + (size_t)row * K, K);
+    fftc::cp_async_commit();
+  };
+  fetch(g * C);
+
+  for (; g < G; g += gridDim.x) {
+    const int row0 = g * C;
+    // ---- 1. the group's C traces into shared memory, one FFT per row -------
+    for (int c = 0; c < C; ++c) {
+      fftc::cp_async_wait_all();
+      __syncthreads();                           // row arrived; traces free
+      T2* slot = reinterpret_cast<T2*>(trace + (size_t)c * n_base);
+      T2 *first, *other;
+      if (even) {   // the last stage must land in the trace slot
+        first = (plan.nst % 2 == 0) ? slot : fbuf;
+        other = (plan.nst % 2 == 0) ? fbuf : slot;
+      } else {
+        first = fbuf;
+        other = fbuf + plan.L;
       }
-#pragma unroll
-      for (int r = 0; r < RBMAX; ++r) {
-        if (r < nr) {
-#pragma unroll
-          for (int s = 0; s < SPT; ++s) {
-            const int n = n0 + s * NTH + tid;
-            if (n < n_base) trace[(size_t)(rc + r) * n_base + n] = acc[r][s] * scale;
-          }
-        }
+      fftc::fill(first, plan.L, fftc::IrfftIn<T, StagedRow<T>>{StagedRow<T>{stage, K}, K,
+                                                               n_base, plan.L, E, norm});
+      // the staging buffer is read: the next row's copy into it starts
+      const int next_g = (c + 1 < C) ? g : g + gridDim.x;
+      const int next_c = (c + 1 < C) ? c + 1 : 0;
+      if (next_g < G) fetch(next_g * C + next_c);
+      T2* res = fftc::run<T, +1>(first, other, plan, E);
+      if (!even) {                               // the trace is Re of the result
+        for (int t = tid; t < n_base; t += NTH) trace[(size_t)c * n_base + t] = res[t].x;
+        __syncthreads();
       }
     }
-  }
-  __syncthreads();
 
-  // ---- 2. max |trace| per row --------------------------------------------
-  for (int r = 0; r < rows; ++r) {
-    const T* v = trace + (size_t)r * n_base;
-    T m = T(0);
-    for (int n = tid; n < n_base; n += NTH) m = max(m, abs(v[n]));
-    m = block_max(m, tscratch);
-    if (tid == 0) amp_out[row0 + r] = m;
-  }
+    // ---- 2. max |trace| per row ---------------------------------------------
+    for (int r = 0; r < C; ++r) {
+      const T* v = trace + (size_t)r * n_base;
+      T m = T(0);
+      for (int n = tid; n < n_base; n += NTH) m = max(m, abs(v[n]));
+      m = block_max(m, tscratch);
+      if (tid == 0) amp_out[row0 + r] = m;
+    }
 
-  // ---- 3. triggers: thread owns samples [e0, e0 + E) -----------------------
-  const int E = (n_base + NTH - 1) / NTH;
-  const int e0 = tid * E;
-  for (int gl = 0; gl < n_g; ++gl) {
+    // ---- 3. triggers: thread owns samples [e0, e0 + Es) ----------------------
+    const int Es = (n_base + NTH - 1) / NTH;
+    const int e0 = tid * Es;
+    constexpr int V = 16 / sizeof(T);            // values per 16-byte load
+    const bool vec = Es % V == 0 && n_base % V == 0;   // 16-byte aligned runs
     for (int t = 0; t < tp.n; ++t) {
       int cnt[EMAX];
 #pragma unroll
       for (int e = 0; e < EMAX; ++e) cnt[e] = 0;
       for (int c = 0; c < C; ++c) {
-        const int r = gl * C + c;
-        const T* v = trace + (size_t)r * n_base;
-        const T hi = th_hi[(size_t)(row0 + r) * tp.n + t];
-        const T lo = th_lo[(size_t)(row0 + r) * tp.n + t];
+        const T* v = trace + (size_t)c * n_base;
+        T val[EMAX];                             // the thread's samples, in registers
+        if (vec) {
+#pragma unroll
+          for (int e = 0; e < EMAX; e += V)
+            if (e < Es) load16(v + e0 + e, val + e);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EMAX; ++e) val[e] = (e < Es && e0 + e < n_base) ? v[e0 + e] : T(0);
+        }
+        const T hi = th_hi[(size_t)(row0 + c) * tp.n + t];
+        const T lo = th_lo[(size_t)(row0 + c) * tp.n + t];
         bool tts[EMAX];
         if (tp.kind[t] == KIND_HIGH_LOW) {
           // packed prefix count: hi crossings in bits 0-15, lo in 16-31
@@ -218,15 +269,15 @@ __global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
 #pragma unroll
           for (int e = 0; e < EMAX; ++e) {
             const int n = e0 + e;
-            if (e < E && n < n_base)
-              run += (v[n] >= hi ? 1 : 0) + (v[n] <= lo ? (1 << 16) : 0);
+            if (e < Es && n < n_base)
+              run += (val[e] >= hi ? 1 : 0) + (val[e] <= lo ? (1 << 16) : 0);
             pref[e] = run;
           }
           const int off = block_exclusive_scan(run, iscratch);
 #pragma unroll
           for (int e = 0; e < EMAX; ++e) {
             const int n = e0 + e;
-            if (e < E && n < n_base) P[n] = off + pref[e];
+            if (e < Es && n < n_base) P[pidx(n)] = off + pref[e];
           }
           __syncthreads();
           const int w = tp.n_bins_hl[t];
@@ -234,8 +285,8 @@ __global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
           for (int e = 0; e < EMAX; ++e) {
             const int n = e0 + e;
             tts[e] = false;
-            if (e < E && n < n_base) {
-              const int d = P[n] - (n >= w ? P[n - w] : 0);
+            if (e < Es && n < n_base) {
+              const int d = off + pref[e] - (n >= w ? P[pidx(n - w)] : 0);
               tts[e] = ((d & 0xffff) > 0) && ((d >> 16) > 0);
             }
           }
@@ -244,7 +295,7 @@ __global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
 #pragma unroll
           for (int e = 0; e < EMAX; ++e) {
             const int n = e0 + e;
-            tts[e] = (e < E && n < n_base) ? (abs(v[n]) >= hi) : false;
+            tts[e] = (e < Es && n < n_base) ? (abs(val[e]) >= hi) : false;
           }
         }
         // widen over the majority window
@@ -259,14 +310,15 @@ __global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
 #pragma unroll
         for (int e = 0; e < EMAX; ++e) {
           const int n = e0 + e;
-          if (e < E && n < n_base) P[n] = off + pref[e];
+          if (e < Es && n < n_base) P[pidx(n)] = off + pref[e];
         }
         __syncthreads();
         const int wm = tp.n_bins_maj[t];
 #pragma unroll
         for (int e = 0; e < EMAX; ++e) {
           const int n = e0 + e;
-          if (e < E && n < n_base) cnt[e] += (P[n] - (n >= wm ? P[n - wm] : 0)) > 0 ? 1 : 0;
+          if (e < Es && n < n_base)
+            cnt[e] += (off + pref[e] - (n >= wm ? P[pidx(n - wm)] : 0)) > 0 ? 1 : 0;
         }
         __syncthreads();
       }
@@ -274,26 +326,63 @@ __global__ void __launch_bounds__(NTH) irfft_trigger_kernel(
 #pragma unroll
       for (int e = EMAX - 1; e >= 0; --e) {
         const int n = e0 + e;
-        if (e < E && n < n_base && cnt[e] >= tp.n_coinc[t]) first = n;
+        if (e < Es && n < n_base && cnt[e] >= tp.n_coinc[t]) first = n;
       }
       first = block_min(first, iscratch);
       if (tid == 0) {
-        const size_t o = (size_t)(g0 + gl) * tp.n + t;
+        const size_t o = (size_t)g * tp.n + t;
         fired_out[o] = first < n_base ? 1 : 0;
         first_out[o] = first < n_base ? first : 0;
       }
     }
   }
+  fftc::cp_async_wait_all();
 }
 
-template <typename T, int RBMAX>
+// blocks of one launch: as many as fit on the card, at most one per group
+template <typename T, int EMAX>
+cudaError_t grid_of(int G, size_t smem, int* n_blocks) {
+  cudaError_t err = cudaFuncSetAttribute(irfft_trigger_kernel<T, EMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_trigger_kernel<T, EMAX>,
+                                                      NTH, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long cap = (long)per_sm * fftc::sm_count();
+  *n_blocks = (int)(G < cap ? G : cap);
+  return cudaSuccess;
+}
+
+template <typename T, int EMAX>
+int launch_with(const T* spec_re, const T* spec_im, const T* th_hi, const T* th_lo,
+                const void* table, uint8_t* fired, int32_t* first, T* amp, int G, int C,
+                int K, T norm, const fftc::Plan& plan, const TriggerParams& tp,
+                void* stream) {
+  using T2 = typename fftc::Vec2<T>::type;
+  const size_t smem = layout_of<T>(C, plan.n, K).total;
+  int n_blocks = 0;
+  const cudaError_t err = grid_of<T, EMAX>(G, smem, &n_blocks);
+  if (err != cudaSuccess) return (int)err;
+  irfft_trigger_kernel<T, EMAX><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
+      spec_re, spec_im, th_hi, th_lo, static_cast<const T2*>(table), fired, first, amp, G,
+      C, K, norm, plan, tp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(const T* spec_re, const T* spec_im, const T* th_hi, const T* th_lo,
-           const T* I_r, const T* I_i, uint8_t* fired, int32_t* first,
-           T* amp, const int* kinds, const int* n_bins_hl,
-           const int* n_bins_maj, const int* n_coinc, int n_trig, int G,
-           int C, int K, int n_base, int gpb, T scale, void* stream) {
-  using T2 = typename Vec2<T>::type;
-  if (n_trig < 1 || n_trig > TMAX || n_base > EMAX * NTH) return (int)cudaErrorInvalidValue;
+           const void* table, uint8_t* fired, int32_t* first, T* amp,
+           const int* kinds, const int* n_bins_hl, const int* n_bins_maj,
+           const int* n_coinc, int n_trig, int G, int C, int K, int n_base,
+           const int* radix, int nst, T norm, void* stream) {
+  if (n_trig < 1 || n_trig > TMAX || n_base > EMAX_LARGE * NTH || n_base < 2 || G < 1 ||
+      C < 1 || K < 1 || K > n_base / 2 + 1)
+    return (int)cudaErrorInvalidValue;
+  const fftc::Plan plan = fftc::make_plan(n_base, radix, nst);
+  if (!fftc::plan_ok(plan)) return (int)cudaErrorInvalidValue;
   TriggerParams tp;
   tp.n = n_trig;
   for (int t = 0; t < TMAX; ++t) {
@@ -302,53 +391,59 @@ int launch(const T* spec_re, const T* spec_im, const T* th_hi, const T* th_lo,
     tp.n_bins_maj[t] = t < n_trig ? n_bins_maj[t] : 1;
     tp.n_coinc[t] = t < n_trig ? n_coinc[t] : 1;
   }
-  const size_t smem = (size_t)gpb * C * n_base * sizeof(T) +
-                      (size_t)FT * RBMAX * sizeof(T2) + (size_t)n_base * sizeof(int) +
-                      32 * sizeof(T) + 32 * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(irfft_trigger_kernel<T, RBMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_blocks = (G + gpb - 1) / gpb;
-  irfft_trigger_kernel<T, RBMAX><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
-      spec_re, spec_im, th_hi, th_lo, I_r, I_i, fired, first, amp, G, C, K,
-      n_base, gpb, scale, tp);
-  return (int)cudaGetLastError();
+  if (n_base <= EMAX_SMALL * NTH)
+    return launch_with<T, EMAX_SMALL>(spec_re, spec_im, th_hi, th_lo, table, fired, first,
+                                      amp, G, C, K, norm, plan, tp, stream);
+  return launch_with<T, EMAX_LARGE>(spec_re, spec_im, th_hi, th_lo, table, fired, first, amp,
+                                    G, C, K, norm, plan, tp, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// launch geometry the wrapper needs to size shared memory and validate input
-int irfft_trigger_rows_per_pass_f32() { return 16; }
-int irfft_trigger_rows_per_pass_f64() { return 8; }
-int irfft_trigger_spec_tile() { return FT; }
+// limits and sizes the wrapper validates against before launching
 int irfft_trigger_max_triggers() { return TMAX; }
-int irfft_trigger_max_samples() { return EMAX * NTH; }
+int irfft_trigger_max_samples() { return EMAX_LARGE * NTH; }
+long irfft_trigger_smem_bytes(int C, int n_base, int K, int f64) {
+  return (long)(f64 ? layout_of<double>(C, n_base, K).total
+                    : layout_of<float>(C, n_base, K).total);
+}
+// the grid a launch of these sizes uses (blocks), or -1
+int irfft_trigger_grid(int G, int C, int n_base, int K, int f64) {
+  int n = 0;
+  cudaError_t err;
+  const bool small = n_base <= EMAX_SMALL * NTH;
+  if (f64) {
+    const size_t smem = layout_of<double>(C, n_base, K).total;
+    err = small ? grid_of<double, EMAX_SMALL>(G, smem, &n) : grid_of<double, EMAX_LARGE>(G, smem, &n);
+  } else {
+    const size_t smem = layout_of<float>(C, n_base, K).total;
+    err = small ? grid_of<float, EMAX_SMALL>(G, smem, &n) : grid_of<float, EMAX_LARGE>(G, smem, &n);
+  }
+  return err == cudaSuccess ? n : -1;
+}
 
 int irfft_trigger_f32(const float* spec_re, const float* spec_im,
-                      const float* th_hi, const float* th_lo, const float* I_r,
-                      const float* I_i, uint8_t* fired, int32_t* first,
-                      float* amp, const int* kinds, const int* n_bins_hl,
-                      const int* n_bins_maj, const int* n_coinc, int n_trig,
-                      int G, int C, int K, int n_base, int gpb, float scale,
-                      void* stream) {
-  return launch<float, 16>(spec_re, spec_im, th_hi, th_lo, I_r, I_i, fired,
-                           first, amp, kinds, n_bins_hl, n_bins_maj, n_coinc,
-                           n_trig, G, C, K, n_base, gpb, scale, stream);
+                      const float* th_hi, const float* th_lo, const void* table,
+                      uint8_t* fired, int32_t* first, float* amp, const int* kinds,
+                      const int* n_bins_hl, const int* n_bins_maj, const int* n_coinc,
+                      int n_trig, int G, int C, int K, int n_base, const int* radix,
+                      int nst, float norm, void* stream) {
+  return launch<float>(spec_re, spec_im, th_hi, th_lo, table, fired, first, amp, kinds,
+                       n_bins_hl, n_bins_maj, n_coinc, n_trig, G, C, K, n_base, radix, nst,
+                       norm, stream);
 }
 
 int irfft_trigger_f64(const double* spec_re, const double* spec_im,
-                      const double* th_hi, const double* th_lo,
-                      const double* I_r, const double* I_i, uint8_t* fired,
-                      int32_t* first, double* amp, const int* kinds,
-                      const int* n_bins_hl, const int* n_bins_maj,
-                      const int* n_coinc, int n_trig, int G, int C, int K,
-                      int n_base, int gpb, double scale, void* stream) {
-  return launch<double, 8>(spec_re, spec_im, th_hi, th_lo, I_r, I_i, fired,
-                           first, amp, kinds, n_bins_hl, n_bins_maj, n_coinc,
-                           n_trig, G, C, K, n_base, gpb, scale, stream);
+                      const double* th_hi, const double* th_lo, const void* table,
+                      uint8_t* fired, int32_t* first, double* amp, const int* kinds,
+                      const int* n_bins_hl, const int* n_bins_maj, const int* n_coinc,
+                      int n_trig, int G, int C, int K, int n_base, const int* radix,
+                      int nst, double norm, void* stream) {
+  return launch<double>(spec_re, spec_im, th_hi, th_lo, table, fired, first, amp, kinds,
+                        n_bins_hl, n_bins_maj, n_coinc, n_trig, G, C, K, n_base, radix,
+                        nst, norm, stream);
 }
 
 }  // extern "C"

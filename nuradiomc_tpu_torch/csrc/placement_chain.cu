@@ -1,117 +1,279 @@
 // Placement chain kernel for Hopper (sm_90a): the factored propagation chain,
-// the placement DFT onto the common time base, the sub-bin phase ramp and the
+// the placement onto the common time base, the sub-bin phase ramp and the
 // (shower, ray) reduction, in one pass.
 //
 // Replaces nuradiomc_tpu/ops/placement_pallas.py::chain_placement_reduce_v3
-// (kernel _chain_kernel_v3). Contract (rows channel-major, (shower, ray)
-// fastest, s2 consecutive rows per output row):
+// (kernel _chain_kernel_v3; pallas_call at placement_pallas.py:452) and, with
+// the same contract, the v2 chain_placement_reduce (pallas_call at :209).
+// Contract (rows channel-major, (shower, ray) fastest, s2 consecutive rows
+// per output row):
 //
 //   att[r, f]  = sum_s att_sparse[r, s] * W[s, f]
 //   V[r, f]    = mask[r] ? tpl[tpl_idx[r], f] * comb[r] * spec[r, f] * att[r, f] : 0
-//   Xb[r, k]   = Re(V[r, :]) @ D_r[:, k] + Im(V[r, :]) @ D_i[:, k]      (complex)
+//   Xb[r, :]   = rfft(pad(irfft(V[r, :K_int], n_int), n_base))[:K_place]
 //   out[g, k]  = sum_{j < s2} Xb[g*s2 + j, k] * exp(-2 pi i k df offset[g*s2 + j])
 //
-// The mask is a select, not a multiply: a masked row may carry NaN spectra.
-// The phase follows trace.time_shift_phase_uniform's factorization
-// k = 32a + b, w^k = e^{i theta 32a} e^{i theta b} with theta = c * offset and
-// c = -2 pi df rounded to T, so the kernel evaluates the same arguments as the
-// plain version (at the headline theta*k reaches ~4.8e3 rad; both sides take
-// the same f32 rounding of the argument).
+// The mask is a select, not a multiply: a masked row may carry NaN spectra; it
+// adds nothing, so the kernel skips its work. The irfft and rfft are numpy's
+// (Im of the DC bin, and of the Nyquist bin for even n_int, dropped; 1/n_int
+// on the inverse only): the TPU kernel's dense placement matrices
+// (pipeline._placement_matrices) are exactly this map. The phase follows
+// trace.time_shift_phase_uniform's factorization k = 32a + b,
+// w^k = e^{i theta 32a} e^{i theta b} with theta = c * offset and c = -2 pi df
+// rounded to T, so the kernel evaluates the same arguments as the plain
+// version; the 32 + ceil(K_place/32) factors of a row are made once per row.
 //
-// What bounds it on the H100: the DFT is 8 FLOP per (row, f, k); at the
-// headline shape (262144 rows, K_int 208, K_place 816) that is ~3.6e11 FLOP
-// of plain FMA, compute-bound against the 67 TFLOP/s FP32 (34 FP64) of the
-// CUDA cores. The design keeps everything else off the critical path: V is
-// built RB rows at a time in shared memory (f-major, so the inner loop reads
-// rows at compile-time offsets), each thread owns one output column k and
-// keeps RB rows of Xb in registers, so each D element loaded from L2 feeds
-// 4*RB FMAs, and the s2 reduction happens in registers across as many RB-row
-// chunks as s2 needs (no atomics: the result is deterministic). The DFT,
-// phase and reduction are placement_common.cuh, shared with kernel 4.
-// Tensor cores (wgmma/TMA) are later work.
+// What bounds it on the H100: bytes and operations about equally. The
+// function reads each unmasked input row's spectra, attenuation nodes and
+// scalars once and writes K_place complex bins per output row; at the
+// headline shape (262144 rows, 2/3 unmasked, K_int 208, 24 sparse
+// frequencies, K_place 816, s2 4) that is ~740 MB in float32 (~1480 MB in
+// float64), 0.221 ms (0.442 ms) at 3.35 TB/s. Its transforms (an inverse
+// real FFT of n_int and a forward one of n_base pruned to its n_int nonzero
+// inputs) and the chain need ~1.5e10 FLOP, 0.226 ms at 67 TFLOP/s.
+// (The TPU kernel's dense placement DFT, 3.6e11 FLOP, fed the MXU; on the
+// CUDA cores it made the kernel compute-bound at 21-30 ms.)
+//
+// The design: a block (128 threads) owns whole output rows (persistent
+// blocks, G_out/grid apart) with all of their K_place bins, so the chain
+// stage runs once per input row. Each unmasked input row is built into
+// shared memory (V), placed by two FFTs in shared memory (fft_common.cuh) --
+// an inverse real FFT of length n_int (half-length complex Stockham with the
+// Hermitian pre-step), whose packed output is already the forward
+// transform's packed input, then a forward real FFT of length n_base of the
+// zero-padded trace -- and its K_place bins are multiplied by the phase and
+// summed into the output row's accumulator in shared memory, one thread per
+// bin, in row order: no atomics, deterministic, any s2. The next unmasked
+// row's spectra and attenuation nodes are copied in with cp.async while the
+// current row is transformed. The time grows with the unmasked rows only.
 
-#include "placement_common.cuh"
+#include "fft_common.cuh"
 
 namespace {
 
-using placement::KT;
+constexpr int NTH = 128;     // threads per block
+constexpr int PB = 32;       // phase factorization block (trace.time_shift_phase_uniform)
 
-// the factored chain into V for input rows row0 .. row0 + n - 1
-template <typename T, int RB>
-struct ChainStage {
+using fftc::Vec2;
+
+template <typename T>
+struct ChainArgs {
   const T *spec_re, *spec_im, *att_sparse, *comb_re, *comb_im;
   const uint8_t* mask;
   const int32_t* tpl_idx;
-  const T *W, *tpl_re, *tpl_im;
-  int K_int, n_sparse;
+  const T *offsets, *W, *tpl_re, *tpl_im;
+};
 
-  __device__ void operator()(typename placement::Vec2<T>::type* V, int row0,
-                             int n) const {
-    for (int i = threadIdx.x; i < RB * K_int; i += KT) {
-      const int r = i / K_int;
-      const int f = i - r * K_int;
-      typename placement::Vec2<T>::type v;
-      v.x = T(0);
-      v.y = T(0);
-      if (r < n) {
-        const int row = row0 + r;
-        if (mask[row]) {
-          const T* a = att_sparse + (size_t)row * n_sparse;
-          T att = T(0);
-          for (int s = 0; s < n_sparse; ++s) att += a[s] * W[(size_t)s * K_int + f];
-          const size_t o = (size_t)row * K_int + f;
-          const T sr = spec_re[o] * att;
-          const T si = spec_im[o] * att;
-          const T cr = comb_re[row];
-          const T ci = comb_im[row];
-          const T csr = cr * sr - ci * si;
-          const T csi = cr * si + ci * sr;
-          const size_t t = (size_t)tpl_idx[row] * K_int + f;
-          const T tr = tpl_re[t];
-          const T ti = tpl_im[t];
-          v.x = tr * csr - ti * csi;
-          v.y = tr * csi + ti * csr;
-        }
-      }
-      V[f * RB + r] = v;
-    }
+__device__ inline void sincos_t(float x, float* s, float* c) { sincosf(x, s, c); }
+__device__ inline void sincos_t(double x, double* s, double* c) { sincos(x, s, c); }
+
+// shared-memory layout, each part 16-byte aligned:
+//   staged row [2 K_int + n_sparse] T | V [K_int] T2 | A, B [Lmax] T2 |
+//   acc [K_place] T2 | wb [32] T2 | wa [NA] T2
+struct Layout {
+  size_t stg, V, A, B, acc, wb, wa, total;
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout_of(int K_int, int n_sparse, int K_place, int L1,
+                                            int L2) {
+  using T2 = typename Vec2<T>::type;
+  const size_t Lmax = L1 > L2 ? L1 : L2;
+  const size_t na = (K_place + PB - 1) / PB;
+  Layout l;
+  l.stg = 0;
+  l.V = fftc::align16((2 * (size_t)K_int + n_sparse) * sizeof(T));
+  l.A = l.V + fftc::align16((size_t)K_int * sizeof(T2));
+  l.B = l.A + fftc::align16(Lmax * sizeof(T2));
+  l.acc = l.B + fftc::align16(Lmax * sizeof(T2));
+  l.wb = l.acc + fftc::align16((size_t)K_place * sizeof(T2));
+  l.wa = l.wb + fftc::align16(PB * sizeof(T2));
+  l.total = l.wa + na * sizeof(T2);
+  return l;
+}
+
+template <typename T>
+struct Spectrum {   // V[f] from shared memory
+  const typename Vec2<T>::type* V;
+  __device__ typename Vec2<T>::type operator()(int f) const { return V[f]; }
+};
+
+template <typename T>
+struct Trace {      // the inverse transform's real samples x(t)
+  const typename Vec2<T>::type* r;
+  bool packed;      // n_int even: r holds x(2m) + i x(2m+1); odd: x(t) = Re r[t]
+  __device__ T operator()(int t) const {
+    return packed ? reinterpret_cast<const T*>(r)[t] : r[t].x;
   }
 };
 
-template <typename T, int RB>
-__global__ void __launch_bounds__(KT) placement_chain_kernel(
-    ChainStage<T, RB> stage, const T* __restrict__ offsets,
-    const T* __restrict__ drr, const T* __restrict__ dri,
-    const T* __restrict__ dir_, const T* __restrict__ dii,
-    T* __restrict__ out_re, T* __restrict__ out_im,
-    int R, int s2, int K_place, T theta_c) {
+template <typename T>
+__global__ void __launch_bounds__(NTH) placement_chain_kernel(
+    ChainArgs<T> a, const typename Vec2<T>::type* __restrict__ E1,
+    const typename Vec2<T>::type* __restrict__ E2, T* __restrict__ out_re,
+    T* __restrict__ out_im, int R, int s2, int K_int, int n_sparse, int K_place,
+    T theta_c, T norm1, const __grid_constant__ fftc::Plan p1,
+    const __grid_constant__ fftc::Plan p2) {
+  using T2 = typename Vec2<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* V = reinterpret_cast<typename placement::Vec2<T>::type*>(smem_raw);
-  placement::place_block<T, RB, true>(stage, V, offsets, drr, dri, dir_, dii,
-                                      out_re, out_im, R, s2, stage.K_int,
-                                      K_place, theta_c);
+  const Layout lay = layout_of<T>(K_int, n_sparse, K_place, p1.L, p2.L);
+  T* stg = reinterpret_cast<T*>(smem_raw + lay.stg);
+  T2* V = reinterpret_cast<T2*>(smem_raw + lay.V);
+  T2* A = reinterpret_cast<T2*>(smem_raw + lay.A);
+  T2* B = reinterpret_cast<T2*>(smem_raw + lay.B);
+  T2* acc = reinterpret_cast<T2*>(smem_raw + lay.acc);
+  T2* wb = reinterpret_cast<T2*>(smem_raw + lay.wb);
+  T2* wa = reinterpret_cast<T2*>(smem_raw + lay.wa);
+  const int tid = threadIdx.x;
+  const int G_out = R / s2;
+  const int na = (K_place + PB - 1) / PB;
+
+  // The block's input rows in order are g * s2 + j for g = blockIdx.x,
+  // + gridDim.x, ... and j < s2. The next unmasked one's spectra and
+  // attenuation nodes are copied into ``stg`` (cp.async) while the current
+  // one is transformed, its scalars loaded into registers.
+  auto live_from = [&](int g, int j) {           // first unmasked row at (g, j) or
+    for (; g < G_out; g += gridDim.x, j = 0)     // later; -1 when none is left
+      for (; j < s2; ++j)
+        if (a.mask[g * s2 + j]) return g * s2 + j;
+    return -1;
+  };
+  T cr = T(0), ci = T(0), off = T(0);
+  int tpl = 0;
+  auto fetch = [&](int row) {
+    fftc::row_async(stg, a.spec_re + (size_t)row * K_int, K_int);
+    fftc::row_async(stg + K_int, a.spec_im + (size_t)row * K_int, K_int);
+    fftc::row_async(stg + 2 * K_int, a.att_sparse + (size_t)row * n_sparse, n_sparse);
+    fftc::cp_async_commit();
+    cr = a.comb_re[row];
+    ci = a.comb_im[row];
+    off = a.offsets[row];
+    tpl = a.tpl_idx[row];
+  };
+  const int first = live_from(blockIdx.x, 0);
+  if (first >= 0) fetch(first);
+
+  for (int g = blockIdx.x; g < G_out; g += gridDim.x) {
+    for (int k = tid; k < K_place; k += NTH) {   // each thread owns bins k
+      acc[k].x = T(0);
+      acc[k].y = T(0);
+    }
+    for (int j = 0; j < s2; ++j) {
+      const int row = g * s2 + j;
+      if (!a.mask[row]) continue;                // the same for the whole block
+
+      // ---- the factored chain into V, and the row's phase factors ----------
+      fftc::cp_async_wait_all();
+      __syncthreads();                           // the row is staged
+      const T* as = stg + 2 * K_int;
+      const size_t tpl0 = (size_t)tpl * K_int;
+      for (int f = tid; f < K_int; f += NTH) {
+        T att = T(0);
+#pragma unroll 8
+        for (int s = 0; s < n_sparse; ++s) att += as[s] * __ldg(a.W + (size_t)s * K_int + f);
+        const T sr = stg[f] * att;
+        const T si = stg[K_int + f] * att;
+        const T csr = cr * sr - ci * si;
+        const T csi = cr * si + ci * sr;
+        const T tr = a.tpl_re[tpl0 + f];
+        const T ti = a.tpl_im[tpl0 + f];
+        T2 v;
+        v.x = tr * csr - ti * csi;
+        v.y = tr * csi + ti * csr;
+        V[f] = v;
+      }
+      const T theta = theta_c * off;
+      for (int i = tid; i < PB + na; i += NTH) {
+        const T arg = i < PB ? theta * T(i) : theta * T((i - PB) * PB);
+        T s, c;
+        sincos_t(arg, &s, &c);
+        T2 w;
+        w.x = c;
+        w.y = s;
+        if (i < PB) wb[i] = w;
+        else wa[i - PB] = w;
+      }
+      __syncthreads();                           // stg consumed
+      const int nxt = live_from(g, j + 1);
+      if (nxt >= 0) fetch(nxt);
+
+      // ---- irfft(V, n_int), then rfft of the trace padded to n_base ---------
+      fftc::fill(A, p1.L,
+                 fftc::IrfftIn<T, Spectrum<T>>{Spectrum<T>{V}, K_int, p1.n, p1.L, E1, norm1});
+      T2* r1 = fftc::run<T, +1>(A, B, p1, E1);
+      T2* z2 = (r1 == A) ? B : A;
+      fftc::fill(z2, p2.L, fftc::RfftIn<T, Trace<T>>{Trace<T>{r1, p1.n % 2 == 0}, p1.n, p2.n});
+      const T2* r2 = fftc::run<T, -1>(z2, r1, p2, E2);
+
+      // ---- phase ramp and (shower, ray) sum --------------------------------
+      for (int k = tid; k < K_place; k += NTH) {
+        const T2 xb = fftc::rfft_post<T>(r2, k, p2, E2);
+        const T2 pa = wa[k / PB];
+        const T2 pb = wb[k % PB];
+        const T pr = pa.x * pb.x - pa.y * pb.y;
+        const T pi = pa.x * pb.y + pa.y * pb.x;
+        T2 s = acc[k];
+        s.x += xb.x * pr - xb.y * pi;
+        s.y += xb.x * pi + xb.y * pr;
+        acc[k] = s;
+      }
+      __syncthreads();                           // V, A, B and the factors reused
+    }
+    for (int k = tid; k < K_place; k += NTH) {
+      const size_t o = (size_t)g * K_place + k;
+      out_re[o] = acc[k].x;
+      out_im[o] = acc[k].y;
+    }
+  }
 }
 
-template <typename T, int RB>
-int launch(const T* spec_re, const T* spec_im, const T* att_sparse,
-           const T* comb_re, const T* comb_im, const uint8_t* mask,
-           const int32_t* tpl_idx, const T* offsets, const T* W,
-           const T* tpl_re, const T* tpl_im, const T* drr, const T* dri,
-           const T* dir_, const T* dii, T* out_re, T* out_im, int R, int s2,
-           int K_int, int n_sparse, int K_place, T theta_c, void* stream) {
-  using T2 = typename placement::Vec2<T>::type;
-  const size_t smem = (size_t)RB * K_int * sizeof(T2);
+template <typename T>
+size_t smem_of(int K_int, int n_sparse, int K_place, int n_int, int n_base) {
+  const int L1 = n_int % 2 == 0 ? n_int / 2 : n_int;
+  const int L2 = n_base % 2 == 0 ? n_base / 2 : n_base;
+  return layout_of<T>(K_int, n_sparse, K_place, L1, L2).total;
+}
+
+// blocks of one launch: as many as fit on the card, at most one per output row
+template <typename T>
+cudaError_t grid_of(int G_out, size_t smem, int* n_blocks) {
   cudaError_t err = cudaFuncSetAttribute(
-      placement_chain_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      placement_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, placement_chain_kernel<T>,
+                                                      NTH, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long cap = (long)per_sm * fftc::sm_count();
+  *n_blocks = (int)(G_out < cap ? G_out : cap);
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(const T* spec_re, const T* spec_im, const T* att_sparse, const T* comb_re,
+           const T* comb_im, const uint8_t* mask, const int32_t* tpl_idx, const T* offsets,
+           const T* W, const T* tpl_re, const T* tpl_im, const void* table_int,
+           const void* table_base, T* out_re, T* out_im, int R, int s2, int K_int,
+           int n_sparse, int K_place, int n_int, int n_base, const int* radix_int,
+           int nst_int, const int* radix_base, int nst_base, T theta_c, T norm1,
+           void* stream) {
+  using T2 = typename Vec2<T>::type;
+  if (s2 < 1 || R < s2 || R % s2 || K_int < 1 || K_int > n_int / 2 + 1 || K_place < 1 ||
+      K_place > n_base / 2 + 1 || n_int < 2 || n_int > n_base)
+    return (int)cudaErrorInvalidValue;
+  const fftc::Plan p1 = fftc::make_plan(n_int, radix_int, nst_int);
+  const fftc::Plan p2 = fftc::make_plan(n_base, radix_base, nst_base);
+  if (!fftc::plan_ok(p1) || !fftc::plan_ok(p2)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_of<T>(K_int, n_sparse, K_place, n_int, n_base);
+  int n_blocks = 0;
+  const cudaError_t err = grid_of<T>(R / s2, smem, &n_blocks);
   if (err != cudaSuccess) return (int)err;
-  const ChainStage<T, RB> stage{spec_re, spec_im, att_sparse, comb_re, comb_im,
-                                mask,    tpl_idx, W,          tpl_re,  tpl_im,
-                                K_int,   n_sparse};
-  placement_chain_kernel<T, RB>
-      <<<placement::grid_of(R, s2, K_place, RB), KT, smem, (cudaStream_t)stream>>>(
-          stage, offsets, drr, dri, dir_, dii, out_re, out_im, R, s2, K_place,
-          theta_c);
+  const ChainArgs<T> args{spec_re, spec_im, att_sparse, comb_re, comb_im, mask,
+                          tpl_idx, offsets, W,        tpl_re,  tpl_im};
+  placement_chain_kernel<T><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
+      args, static_cast<const T2*>(table_int), static_cast<const T2*>(table_base), out_re,
+      out_im, R, s2, K_int, n_sparse, K_place, theta_c, norm1, p1, p2);
   return (int)cudaGetLastError();
 }
 
@@ -119,41 +281,49 @@ int launch(const T* spec_re, const T* spec_im, const T* att_sparse,
 
 extern "C" {
 
-// input rows staged per chunk: the wrapper reads these to check the
-// shared-memory size before launching
-int placement_rows_per_block_f32() { return 32; }
-int placement_rows_per_block_f64() { return 16; }
+// shared memory one block needs: the wrapper refuses sizes beyond a block's
+long placement_chain_smem_bytes(int K_int, int n_sparse, int K_place, int n_int, int n_base,
+                                int f64) {
+  return (long)(f64 ? smem_of<double>(K_int, n_sparse, K_place, n_int, n_base)
+                    : smem_of<float>(K_int, n_sparse, K_place, n_int, n_base));
+}
+// the grid a launch of these sizes uses (blocks), or -1
+int placement_chain_grid(int G_out, int K_int, int n_sparse, int K_place, int n_int,
+                         int n_base, int f64) {
+  int n = 0;
+  const cudaError_t err =
+      f64 ? grid_of<double>(G_out, smem_of<double>(K_int, n_sparse, K_place, n_int, n_base), &n)
+          : grid_of<float>(G_out, smem_of<float>(K_int, n_sparse, K_place, n_int, n_base), &n);
+  return err == cudaSuccess ? n : -1;
+}
 
-int placement_chain_f32(const float* spec_re, const float* spec_im,
-                        const float* att_sparse, const float* comb_re,
-                        const float* comb_im, const uint8_t* mask,
-                        const int32_t* tpl_idx, const float* offsets,
-                        const float* W, const float* tpl_re,
-                        const float* tpl_im, const float* drr,
-                        const float* dri, const float* dir_, const float* dii,
-                        float* out_re, float* out_im, int R, int s2, int K_int,
-                        int n_sparse, int K_place, float theta_c,
-                        void* stream) {
-  return launch<float, 32>(spec_re, spec_im, att_sparse, comb_re, comb_im,
-                           mask, tpl_idx, offsets, W, tpl_re, tpl_im, drr, dri,
-                           dir_, dii, out_re, out_im, R, s2, K_int, n_sparse,
-                           K_place, theta_c, stream);
+int placement_chain_f32(const float* spec_re, const float* spec_im, const float* att_sparse,
+                        const float* comb_re, const float* comb_im, const uint8_t* mask,
+                        const int32_t* tpl_idx, const float* offsets, const float* W,
+                        const float* tpl_re, const float* tpl_im, const void* table_int,
+                        const void* table_base, float* out_re, float* out_im, int R, int s2,
+                        int K_int, int n_sparse, int K_place, int n_int, int n_base,
+                        const int* radix_int, int nst_int, const int* radix_base,
+                        int nst_base, float theta_c, float norm1, void* stream) {
+  return launch<float>(spec_re, spec_im, att_sparse, comb_re, comb_im, mask, tpl_idx,
+                       offsets, W, tpl_re, tpl_im, table_int, table_base, out_re, out_im, R,
+                       s2, K_int, n_sparse, K_place, n_int, n_base, radix_int, nst_int,
+                       radix_base, nst_base, theta_c, norm1, stream);
 }
 
 int placement_chain_f64(const double* spec_re, const double* spec_im,
                         const double* att_sparse, const double* comb_re,
-                        const double* comb_im, const uint8_t* mask,
-                        const int32_t* tpl_idx, const double* offsets,
-                        const double* W, const double* tpl_re,
-                        const double* tpl_im, const double* drr,
-                        const double* dri, const double* dir_,
-                        const double* dii, double* out_re, double* out_im,
-                        int R, int s2, int K_int, int n_sparse, int K_place,
-                        double theta_c, void* stream) {
-  return launch<double, 16>(spec_re, spec_im, att_sparse, comb_re, comb_im,
-                            mask, tpl_idx, offsets, W, tpl_re, tpl_im, drr,
-                            dri, dir_, dii, out_re, out_im, R, s2, K_int,
-                            n_sparse, K_place, theta_c, stream);
+                        const double* comb_im, const uint8_t* mask, const int32_t* tpl_idx,
+                        const double* offsets, const double* W, const double* tpl_re,
+                        const double* tpl_im, const void* table_int, const void* table_base,
+                        double* out_re, double* out_im, int R, int s2, int K_int,
+                        int n_sparse, int K_place, int n_int, int n_base,
+                        const int* radix_int, int nst_int, const int* radix_base,
+                        int nst_base, double theta_c, double norm1, void* stream) {
+  return launch<double>(spec_re, spec_im, att_sparse, comb_re, comb_im, mask, tpl_idx,
+                        offsets, W, tpl_re, tpl_im, table_int, table_base, out_re, out_im,
+                        R, s2, K_int, n_sparse, K_place, n_int, n_base, radix_int, nst_int,
+                        radix_base, nst_base, theta_c, norm1, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// The placement epilogue shared by placement_chain.cu (kernel 1) and
-// placement_reduce.cu (kernel 4): the placement DFT of V rows staged in shared
-// memory, the sub-bin phase ramp and the (shower, ray) reduction.
+// The placement epilogue of placement_reduce.cu (kernel 4): the dense
+// placement DFT of V rows staged in shared memory, the sub-bin phase ramp and
+// the (shower, ray) reduction. (Kernel 1, placement_chain.cu, places by FFT
+// since it was redesigned; moving kernel 4 onto that FFT core is queued.)
 //
 //   Xb[r, k]  = Re(V[r, :]) @ D_r[:, k] + Im(V[r, :]) @ D_i[:, k]      (complex)
 //   out[g, k] = sum_{j < s2} Xb[g*s2 + j, k] * exp(-2 pi i k df offset[g*s2 + j])

@@ -13,7 +13,8 @@
 //
 // K_place output columns, not the TPU kernel's 128-padded width (a lane-layout
 // artifact there). The DFT, phase and reduction are placement_common.cuh, the
-// same code as kernel 1's; only the staging differs (a copy of the V rows).
+// epilogue kernel 1 had before it placed by FFT; the staging is a copy of the
+// V rows.
 //
 // What bounds it on the H100: 8 FLOP per (row, f, k) of plain FMA. On the
 // gen2 path (10240 rows per station, K_int 257, K_place 1025, s2 20) that is

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from nuradiomc_tpu.utils import units
+from nuradiomc_tpu_torch.utils import units
 
 
 @dataclasses.dataclass(frozen=True)

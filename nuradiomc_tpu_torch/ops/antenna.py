@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nuradiomc_tpu.utils import units
+from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils import geometry
 
 KIND_LPDA = 0

@@ -20,8 +20,8 @@ import math
 import numpy as np
 import torch
 
-from nuradiomc_tpu.utils import units
-from nuradiomc_tpu.utils.constants import speed_of_light
+from nuradiomc_tpu_torch.utils import units
+from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 
 def _freqs(N: int, dt: float, like: torch.Tensor):

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from nuradiomc_tpu.utils import units
+from nuradiomc_tpu_torch.utils import units
 
 _MIN_LENGTH = 1.0 * units.m
 

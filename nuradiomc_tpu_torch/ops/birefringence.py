@@ -25,12 +25,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nuradiomc_tpu.utils.constants import speed_of_light
+from nuradiomc_tpu_torch.utils.constants import speed_of_light
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
 from nuradiomc_tpu_torch.ops import raytrace
 from nuradiomc_tpu_torch.utils import geometry
 
-_MODEL_DIR = Path(__file__).resolve().parents[2] / "nuradiomc_tpu" / "data" / "birefringence_models"
+_MODEL_DIR = Path(__file__).resolve().parents[1] / "data" / "birefringence_models"
 
 
 # copied from nuradiomc_tpu/ops/birefringence.py:37 (load_model)

@@ -1,0 +1,119 @@
+"""Host tables of the placement and trigger transforms.
+
+Two kinds of tables live here, both built on the host with numpy in float64
+and cached on the device per (length, dtype, device):
+
+* the FFT plan of the hand-written kernels (``csrc/fft_common.cuh``): the
+  stage radices of a real length's complex transform (:func:`radices`,
+  :func:`plan`) and its twiddle table E[k] = exp(+2 pi i k / n), k < n
+  (:func:`twiddles`), from which the kernels take every factor;
+* the dense real-linear matrices of the same maps, numpy's own irfft and
+  rfft o pad o irfft written out as matrices (copies of the JAX package's
+  ``_irfft_matrices`` and ``_placement_matrices``), which the kernels' plain
+  versions multiply by: they are the reference the FFTs are held to.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+# copied from nuradiomc_tpu/sim/pipeline.py:336 (_irfft_matrices)
+@functools.lru_cache(maxsize=8)
+def _irfft_matrices(n_base: int):
+    """Real-linear irfft as two dense [F_base, n_base] matrices:
+    x = I_r Re(X) + I_i Im(X) (irfft is real-linear in (Re, Im))."""
+    import numpy as _np
+    F = n_base // 2 + 1
+    eye = _np.eye(F)
+    I_r = _np.fft.irfft(eye, n=n_base, axis=1)
+    I_i = _np.fft.irfft(1j * eye, n=n_base, axis=1)
+    return I_r, I_i
+
+
+# copied from nuradiomc_tpu/sim/pipeline.py:396 (_placement_matrices)
+@functools.lru_cache(maxsize=8)
+def _placement_matrices(n_int: int, n_base: int):
+    """Dense real-linear maps from a short rFFT spectrum to the spectrum of
+    the zero-padded trace on the n_base grid: X_base = D_r Re(V) + D_i Im(V)
+    (irfft is real-linear, not complex-linear, so two matrices are needed).
+    Built column-by-column with numpy's own irfft/rfft, so edge-bin handling
+    matches the FFT exactly."""
+    import numpy as _np
+    F_int = n_int // 2 + 1
+    eye = _np.eye(F_int)
+    x_r = _np.fft.irfft(eye, n=n_int, axis=1)
+    x_i = _np.fft.irfft(1j * eye, n=n_int, axis=1)
+    pad = ((0, 0), (0, n_base - n_int))
+    D_r = _np.fft.rfft(_np.pad(x_r, pad), axis=1)
+    D_i = _np.fft.rfft(_np.pad(x_i, pad), axis=1)
+    return D_r, D_i
+
+
+@functools.lru_cache(maxsize=32)
+def irfft_dense(n_base: int, K: int, dtype, device):
+    """(I_r, I_i) [K, n_base] on the device: the trigger kernel's plain
+    version multiplies by them."""
+    return tuple(torch.as_tensor(m[:K], dtype=dtype, device=device).contiguous()
+                 for m in _irfft_matrices(n_base))
+
+
+@functools.lru_cache(maxsize=32)
+def placement_dense(n_int: int, n_base: int, K_int: int, K_place: int, dtype, device):
+    """(D_r, D_i) [K_int, K_place] complex on the device (``dtype`` is the
+    real dtype): the placement kernels' plain versions multiply by them."""
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    return tuple(torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=device).contiguous()
+                 for m in _placement_matrices(n_int, n_base))
+
+
+@functools.lru_cache(maxsize=64)
+def radices(L: int) -> tuple:
+    """The stage radices of an L-point complex transform, in the order the
+    kernels run them: 16s (a register radix-16 stage) when L >= 1024, where
+    a radix-16 stage still gives every thread of a block a butterfly, then
+    4s, a 2, 3s, 5s, then any other prime factors in ascending order (each a
+    generic prime stage)."""
+    if L < 1:
+        raise ValueError(f"transform length {L} < 1")
+    out = []
+    for r in ((16, 4, 2, 3, 5) if L >= 1024 else (4, 2, 3, 5)):
+        while L % r == 0:
+            out.append(r)
+            L //= r
+    p = 7
+    while L > 1:
+        while L % p == 0:
+            out.append(p)
+            L //= p
+        p += 2
+    return tuple(out)
+
+
+def complex_length(n: int) -> int:
+    """The complex length a real transform of length n runs at: n / 2 for
+    even n (half-length with the Hermitian step), n for odd n."""
+    return n // 2 if n % 2 == 0 else n
+
+
+def plan(n: int):
+    """(complex length L, stage radices) of a real transform of length n."""
+    L = complex_length(n)
+    return L, radices(L)
+
+
+@functools.lru_cache(maxsize=32)
+def twiddle_table(n: int) -> np.ndarray:
+    """E[k] = exp(+2 pi i k / n), k < n, float64, as [n, 2] (re, im)."""
+    ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1)
+
+
+@functools.lru_cache(maxsize=32)
+def twiddles(n: int, dtype, device) -> torch.Tensor:
+    """The twiddle table of length n cast to ``dtype`` on ``device``,
+    [n, 2] contiguous: the kernels read it as n complex values."""
+    return torch.as_tensor(twiddle_table(n), dtype=dtype, device=device).contiguous()

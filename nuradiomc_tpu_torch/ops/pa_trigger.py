@@ -10,7 +10,7 @@ there is no other fallback.
 Contract (rows (group, channel), channel fastest, R = G * C):
 
     spec_re, spec_im  [R, K]        filtered (noise-added) rFFT spectra
-    I_r, I_i          [K, n_base]   full irfft (pipeline._irfft_matrices)
+    I_r, I_i          [K, n_base]   full irfft (fft_plan._irfft_matrices)
     Dd_r, Dd_i        [K, n_dec]    decimating irfft to the ADC rate
                                     (pipeline._decimating_irfft_matrices)
     U                 [n_dec, n_up] FFT upsampling (pipeline._fft_upsample_matrix)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nuradiomc_tpu.utils.constants import speed_of_light
+from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 main_low_angle = np.deg2rad(-55.0)
 main_high_angle = -main_low_angle

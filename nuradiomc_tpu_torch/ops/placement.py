@@ -4,15 +4,17 @@
 
 Kernel 1 replaces ``nuradiomc_tpu/ops/placement_pallas.py::
 chain_placement_reduce_v3`` (placement_pallas.py:365, kernel
-``_chain_kernel_v3`` :282) and, with the same contract, the v2
-``chain_placement_reduce`` (:142); its CUDA source is
-``csrc/placement_chain.cu``. Kernel 4 replaces ``placement_reduce`` (:465,
-kernel ``_kernel`` :33) and the profiling tool's epilogue variants
-(tools/profile_placement_variants.py); its CUDA source is
-``csrc/placement_reduce.cu``. Both share ``csrc/placement_common.cuh``,
-whose note says what bounds them on the H100 and how the design answers
-that. Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors; there is no other fallback. Both take any ``s2``.
+``_chain_kernel_v3`` :282, pallas_call :452) and, with the same contract,
+the v2 ``chain_placement_reduce`` (:142, pallas_call :209); its CUDA source
+is ``csrc/placement_chain.cu``, which places each row by two FFTs in shared
+memory (``csrc/fft_common.cuh``). Kernel 4 replaces ``placement_reduce``
+(:465, kernel ``_kernel`` :33, pallas_call :512) and the profiling tool's
+epilogue variants (tools/profile_placement_variants.py); its CUDA source is
+``csrc/placement_reduce.cu`` with the dense DFT epilogue of
+``csrc/placement_common.cuh``. Each source note says what bounds the kernel
+on the H100 and how the design answers that. Each wrapper launches its
+kernel for CUDA tensors and runs its plain version for CPU tensors; there is
+no other fallback. Both take any ``s2``.
 
 Kernel 1 contract (rows channel-major, (shower, ray) fastest, ``s2`` rows
 per output row; R = G*C*s2):
@@ -25,22 +27,25 @@ per output row; R = G*C*s2):
     offsets           [R]             pulse start relative to the time base (ns)
     W                 [n_sparse, K_int]  sparse -> dense interpolation
     templates         [n_tpl, K_int]  complex VEL templates, DC bins zeroed
-    D_r, D_i          [K_int, K_place]   complex placement DFT matrices
+    n_int, n_base     the placement: rfft(pad(irfft(V, n_int), n_base)),
+                      K_int <= n_int/2 + 1 <= n_base/2 + 1
+    K_place           output bins, <= n_base/2 + 1
     returns (out_re, out_im) [R // s2, K_place]
 
 Kernel 4 contract (same row order):
 
     volt_re, volt_im  [R, K_int]      the voltage spectrum, rows already masked
     offsets           [R]
-    D_r, D_i          [K_int, K_place]
+    D_r, D_i          [K_int, K_place]   complex placement DFT matrices
     returns (out_re, out_im) [R // s2, K_place], the K_place columns (not the
     TPU kernel's 128-padded width)
 
 The plain versions are the XLA path of the JAX pipeline (pipeline.py:
-1280-1289, einsum plus the factored phase ramp of
-``trace.time_shift_phase_uniform``). On the card they run in full FP32:
-``torch.backends.cuda.matmul.allow_tf32`` must stay False (PyTorch's
-default), which ``chip_smoke.py`` sets.
+1280-1289, einsum with the dense placement matrices, kernel 1's from the
+cached ``fft_plan._placement_matrices(n_int, n_base)``, plus the factored
+phase ramp of ``trace.time_shift_phase_uniform``). On the card they run in
+full FP32: ``torch.backends.cuda.matmul.allow_tf32`` must stay False
+(PyTorch's default), which ``chip_smoke.py`` sets.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import math
 
 import torch
 
-from nuradiomc_tpu_torch.ops import _build
+from nuradiomc_tpu_torch.ops import _build, fft_plan
 from nuradiomc_tpu_torch.ops.trace import time_shift_phase_uniform
 
 # kernel launches since the count was last set to 0: kernel 1, kernel 4
@@ -62,8 +67,11 @@ _SMEM_LIMIT = 232448          # bytes of shared memory one block may use
 
 def chain_placement_reduce_plain(spec_re, spec_im, att_sparse, comb_re,
                                  comb_im, mask, tpl_idx, offsets, W,
-                                 templates, D_r, D_i, *, s2: int, df: float):
+                                 templates, *, s2: int, df: float, n_int: int,
+                                 n_base: int, K_place: int):
     """Plain PyTorch version of the placement chain (same contract)."""
+    D_r, D_i = fft_plan.placement_dense(n_int, n_base, spec_re.shape[1], K_place,
+                                        spec_re.dtype, spec_re.device)
     att = att_sparse @ W                                        # [R, K_int]
     sa_re = spec_re * att
     sa_im = spec_im * att
@@ -93,20 +101,32 @@ def placement_reduce_plain(volt_re, volt_im, offsets, D_r, D_i, *, s2: int,
     return out.real, out.imag
 
 
-_ARGTYPES = {"placement_chain": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5,
-             "placement_reduce": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5}
-_ROWS_PER_BLOCK = {"placement_chain": "placement_rows_per_block",
-                   "placement_reduce": "placement_reduce_rows_per_block"}
+def _typed(dtype):
+    """(symbol suffix, ctypes scalar) of a dtype's kernel instantiation."""
+    return ("f32", ctypes.c_float) if dtype == torch.float32 else ("f64", ctypes.c_double)
 
 
-def _kernel_fn(name, dtype):
-    lib = _build.load(name)
-    tag = "f32" if dtype == torch.float32 else "f64"
-    scalar = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    fn = getattr(lib, f"{name}_{tag}")
-    fn.argtypes = _ARGTYPES[name] + [scalar, ctypes.c_void_p]
+def _chain_fn(dtype):
+    lib = _build.load("placement_chain")
+    tag, scalar = _typed(dtype)
+    fn = getattr(lib, f"placement_chain_{tag}")
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] * 2
+                   + [scalar, scalar, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn, getattr(lib, f"{_ROWS_PER_BLOCK[name]}_{tag}")(), scalar
+    lib.placement_chain_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.placement_chain_smem_bytes.restype = ctypes.c_long
+    return fn, lib, scalar
+
+
+def _reduce_fn(dtype):
+    lib = _build.load("placement_reduce")
+    tag, scalar = _typed(dtype)
+    fn = getattr(lib, f"placement_reduce_{tag}")
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [scalar, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows_per_block = getattr(lib, f"placement_reduce_rows_per_block_{tag}")()
+    return fn, rows_per_block, scalar
 
 
 def _check(what, ref, raw, split):
@@ -122,13 +142,10 @@ def _check(what, ref, raw, split):
             raise ValueError(f"{what}: {name} is not contiguous")
 
 
-def _check_rows(what, R, s2, K_int, rb, elem):
-    if s2 < 1 or R % s2:
-        raise ValueError(f"{what}: R={R} is not a multiple of s2={s2}")
-    smem = rb * K_int * 2 * elem
+def _check_smem(what, smem):
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"{what}: K_int={K_int} needs {smem} bytes of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
+        raise ValueError(f"{what}: needs {smem} bytes of shared memory, more than "
+                         f"{_SMEM_LIMIT}")
 
 
 def _split(*mats):
@@ -136,15 +153,16 @@ def _split(*mats):
 
 
 def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
-                           mask, tpl_idx, offsets, W, templates, D_r, D_i, *,
-                           s2: int, df: float):
+                           mask, tpl_idx, offsets, W, templates, *, s2: int,
+                           df: float, n_int: int, n_base: int, K_place: int):
     """Placement chain: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (see the module docstring for the contract)."""
     global launches
     if spec_re.device.type == "cpu":
         return chain_placement_reduce_plain(
             spec_re, spec_im, att_sparse, comb_re, comb_im, mask, tpl_idx,
-            offsets, W, templates, D_r, D_i, s2=s2, df=df)
+            offsets, W, templates, s2=s2, df=df, n_int=n_int, n_base=n_base,
+            K_place=K_place)
     if spec_re.device.type != "cuda":
         raise ValueError(f"placement chain: unsupported device {spec_re.device}")
     dtype = spec_re.dtype
@@ -153,8 +171,14 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
     ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
     R, K_int = spec_re.shape
     n_sparse = att_sparse.shape[1]
-    K_place = D_r.shape[1]
     n_tpl = templates.shape[0]
+    if not (2 <= n_int <= n_base and 1 <= K_int <= n_int // 2 + 1
+            and 1 <= K_place <= n_base // 2 + 1):
+        raise ValueError(f"placement chain: K_int={K_int}, n_int={n_int}, n_base={n_base}, "
+                         f"K_place={K_place} need K_int <= n_int/2 + 1, n_int <= n_base "
+                         "and K_place <= n_base/2 + 1")
+    if s2 < 1 or R % s2:
+        raise ValueError(f"placement chain: R={R} is not a multiple of s2={s2}")
     raw = {   # passed to the kernel as they are: checked for contiguity
         "spec_re": (spec_re, (R, K_int), dtype), "spec_im": (spec_im, (R, K_int), dtype),
         "att_sparse": (att_sparse, (R, n_sparse), dtype),
@@ -162,22 +186,27 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
         "mask": (mask, (R,), torch.bool), "tpl_idx": (tpl_idx, (R,), torch.int32),
         "offsets": (offsets, (R,), dtype), "W": (W, (n_sparse, K_int), dtype),
     }
-    split = {   # split into real and imaginary parts below
-        "templates": (templates, (n_tpl, K_int), ctype),
-        "D_r": (D_r, (K_int, K_place), ctype), "D_i": (D_i, (K_int, K_place), ctype),
-    }
-    _check("placement chain", spec_re, raw, split)
-    fn, rb, scalar = _kernel_fn("placement_chain", dtype)
-    _check_rows("placement chain", R, s2, K_int, rb, spec_re.element_size())
-    parts = _split(templates, D_r, D_i)
-    G_out = R // s2
-    out_re = torch.empty((G_out, K_place), dtype=dtype, device=spec_re.device)
+    _check("placement chain", spec_re, raw,
+           {"templates": (templates, (n_tpl, K_int), ctype)})
+    fn, lib, scalar = _chain_fn(dtype)
+    _check_smem("placement chain", lib.placement_chain_smem_bytes(
+        K_int, n_sparse, K_place, n_int, n_base, int(dtype == torch.float64)))
+    tpl_re, tpl_im = _split(templates)
+    dev = spec_re.device
+    st_int, st_base = fft_plan.plan(n_int)[1], fft_plan.plan(n_base)[1]
+    tables = (fft_plan.twiddles(n_int, dtype, dev), fft_plan.twiddles(n_base, dtype, dev))
+    out_re = torch.empty((R // s2, K_place), dtype=dtype, device=dev)
     out_im = torch.empty_like(out_re)
-    theta_c = -2.0 * math.pi * df
+
+    def ints(vals):
+        return (ctypes.c_int * max(len(vals), 1))(*vals)
+
     ptrs = [t.data_ptr() for t, _, _ in raw.values()] + [
-        t.data_ptr() for t in parts + [out_re, out_im]]
-    err = fn(*ptrs, R, s2, K_int, n_sparse, K_place, scalar(theta_c),
-             _build.current_stream_ptr(spec_re.device))
+        t.data_ptr() for t in (tpl_re, tpl_im, *tables, out_re, out_im)]
+    err = fn(*ptrs, R, s2, K_int, n_sparse, K_place, n_int, n_base,
+             ints(st_int), len(st_int), ints(st_base), len(st_base),
+             scalar(-2.0 * math.pi * df), scalar(1.0 / n_int),
+             _build.current_stream_ptr(dev))
     _build.check(err, "placement chain kernel")
     launches += 1
     return out_re, out_im
@@ -204,8 +233,10 @@ def placement_reduce(volt_re, volt_im, offsets, D_r, D_i, *, s2: int, df: float,
            {"volt_re": (volt_re, (R, K_int), dtype), "volt_im": (volt_im, (R, K_int), dtype),
             "offsets": (offsets, (R,), dtype)},
            {"D_r": (D_r, (K_int, K_place), ctype), "D_i": (D_i, (K_int, K_place), ctype)})
-    fn, rb, scalar = _kernel_fn("placement_reduce", dtype)
-    _check_rows("placement reduce", R, s2, K_int, rb, volt_re.element_size())
+    if s2 < 1 or R % s2:
+        raise ValueError(f"placement reduce: R={R} is not a multiple of s2={s2}")
+    fn, rb, scalar = _reduce_fn(dtype)
+    _check_smem("placement reduce", rb * K_int * 2 * volt_re.element_size())
     parts = _split(D_r, D_i)
     out_re = torch.empty((R // s2, K_place), dtype=dtype, device=volt_re.device)
     out_im = torch.empty_like(out_re)

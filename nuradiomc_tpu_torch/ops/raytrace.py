@@ -22,8 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nuradiomc_tpu.utils import units
-from nuradiomc_tpu.utils.constants import speed_of_light
+from nuradiomc_tpu_torch.utils import units
+from nuradiomc_tpu_torch.utils.constants import speed_of_light
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
 from nuradiomc_tpu_torch.ops import attenuation as attenuation_ops
 

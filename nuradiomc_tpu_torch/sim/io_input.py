@@ -1,11 +1,11 @@
 """Event-list input without h5py: an ``.npz`` export of an input HDF5 file.
 
-The card's Python has no h5py, so the port's ``Simulation`` also reads an
-``.npz`` file that holds exactly what ``nuradiomc_tpu/sim/io_hdf5.py::
-read_input_hdf5`` builds from the HDF5 file: the per-shower columns as
-``col_<name>``, the file attributes as ``attr_<name>`` and emitter columns as
-``emitter_<name>``. :class:`EventInput` is a copy of the JAX package's
-container (io_hdf5.py:24-53), so reading needs neither h5py nor jax.
+Where h5py is missing, the port's ``Simulation`` reads an ``.npz`` file that
+holds exactly what ``io_hdf5.read_input_hdf5`` builds from the HDF5 file:
+the per-shower columns as ``col_<name>``, the file attributes as
+``attr_<name>`` and emitter columns as ``emitter_<name>``, read back into
+``io_hdf5.EventInput`` (the port's copy, which imports h5py only inside its
+HDF5 functions), so reading needs neither h5py nor jax.
 
 Export an input file on a machine with h5py:
 
@@ -21,6 +21,9 @@ from pathlib import Path
 
 import numpy as np
 
+from nuradiomc_tpu_torch.sim import io_hdf5
+from nuradiomc_tpu_torch.sim.io_hdf5 import EventInput
+
 DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 # the export of tests/data/1e18_n3000.hdf5 (3000 events, 3724 showers)
 INPUT_1E18_N3000 = DATA_DIR / "1e18_n3000.npz"
@@ -29,40 +32,12 @@ INPUT_1E18_N3000 = DATA_DIR / "1e18_n3000.npz"
 INPUT_GEN2 = DATA_DIR / "gen2_taus_2048_seed21.npz"
 
 
-@dataclasses.dataclass
-class EventInput:
-    """Per-shower flat arrays as read from the input file."""
-
-    event_group_ids: np.ndarray
-    shower_ids: np.ndarray
-    xx: np.ndarray
-    yy: np.ndarray
-    zz: np.ndarray
-    zeniths: np.ndarray
-    azimuths: np.ndarray
-    energies: np.ndarray          # neutrino energy
-    shower_energies: np.ndarray
-    shower_type: np.ndarray       # 'had' / 'em'
-    flavors: np.ndarray
-    interaction_type: np.ndarray  # 'cc' / 'nc'
-    inelasticity: np.ndarray
-    vertex_times: np.ndarray
-    attrs: dict
-    shower_realization_Alvarez2009: np.ndarray = None
-    shower_realization_ARZ: np.ndarray = None
-    emitter: dict = None
-
-    @property
-    def n_showers(self) -> int:
-        return len(self.shower_ids)
-
-
 _ARRAYS = [f.name for f in dataclasses.fields(EventInput)
            if f.name not in ("attrs", "emitter")]
 
 
 def write_input_npz(inp, path) -> None:
-    """Write an ``EventInput`` (of either package) to ``path``."""
+    """Write an ``EventInput`` (the port's or the JAX package's) to ``path``."""
     out = {f"col_{name}": np.asarray(getattr(inp, name)) for name in _ARRAYS
            if getattr(inp, name) is not None}
     out.update({f"attr_{k}": np.asarray(v) for k, v in inp.attrs.items()})
@@ -81,11 +56,10 @@ def read_input_npz(path) -> EventInput:
 
 
 def read_input(path) -> EventInput:
-    """An ``.npz`` export without h5py; any other file through the JAX
-    package's jax-free HDF5 reader."""
+    """An ``.npz`` export without h5py; any other file through the HDF5
+    reader (needs h5py)."""
     if str(path).endswith(".npz"):
         return read_input_npz(path)
-    from nuradiomc_tpu.sim import io_hdf5
     return io_hdf5.read_input_hdf5(path)
 
 
@@ -95,7 +69,6 @@ def main(argv=None) -> int:
         print("usage: python -m nuradiomc_tpu_torch.sim.io_input IN.hdf5 OUT.npz",
               file=sys.stderr)
         return 2
-    from nuradiomc_tpu.sim import io_hdf5
     write_input_npz(io_hdf5.read_input_hdf5(argv[0]), argv[1])
     return 0
 

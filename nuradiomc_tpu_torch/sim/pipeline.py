@@ -46,6 +46,7 @@ from nuradiomc_tpu_torch.ops import (antenna, askaryan, birefringence,
                                      noise as noise_ops, pa_trigger, phased_array,
                                      placement, raytrace, trace as trace_ops,
                                      trigger_fused)
+from nuradiomc_tpu_torch.ops import fft_plan
 from nuradiomc_tpu_torch.utils import fft, geometry
 
 
@@ -196,19 +197,7 @@ class PipelineOutput(NamedTuple):
 
 
 # ---- numpy host helpers, verbatim copies of the JAX package's ------------
-
-# copied from nuradiomc_tpu/sim/pipeline.py:336 (_irfft_matrices)
-@functools.lru_cache(maxsize=8)
-def _irfft_matrices(n_base: int):
-    """Real-linear irfft as two dense [F_base, n_base] matrices:
-    x = I_r Re(X) + I_i Im(X) (irfft is real-linear in (Re, Im))."""
-    import numpy as _np
-    F = n_base // 2 + 1
-    eye = _np.eye(F)
-    I_r = _np.fft.irfft(eye, n=n_base, axis=1)
-    I_i = _np.fft.irfft(1j * eye, n=n_base, axis=1)
-    return I_r, I_i
-
+# (_irfft_matrices and _placement_matrices are in ops/fft_plan.py)
 
 # copied from nuradiomc_tpu/sim/pipeline.py:348 (_decimating_irfft_matrices)
 @functools.lru_cache(maxsize=8)
@@ -260,25 +249,6 @@ def _band_support(responses, eps, full):
     return int(min(full, -(-k // 8) * 8))
 
 
-# copied from nuradiomc_tpu/sim/pipeline.py:396 (_placement_matrices)
-@functools.lru_cache(maxsize=8)
-def _placement_matrices(n_int: int, n_base: int):
-    """Dense real-linear maps from a short rFFT spectrum to the spectrum of
-    the zero-padded trace on the n_base grid: X_base = D_r Re(V) + D_i Im(V)
-    (irfft is real-linear, not complex-linear, so two matrices are needed).
-    Built column-by-column with numpy's own irfft/rfft, so edge-bin handling
-    matches the FFT exactly."""
-    import numpy as _np
-    F_int = n_int // 2 + 1
-    eye = _np.eye(F_int)
-    x_r = _np.fft.irfft(eye, n=n_int, axis=1)
-    x_i = _np.fft.irfft(1j * eye, n=n_int, axis=1)
-    pad = ((0, 0), (0, n_base - n_int))
-    D_r = _np.fft.rfft(_np.pad(x_r, pad), axis=1)
-    D_i = _np.fft.rfft(_np.pad(x_i, pad), axis=1)
-    return D_r, D_i
-
-
 # copied from nuradiomc_tpu/sim/pipeline.py:414 (_interp_matrix)
 @functools.lru_cache(maxsize=8)
 def _interp_matrix(x_sparse: tuple, x_dense: tuple):
@@ -322,20 +292,17 @@ def _attenuation_freq_grid(ff, n_freq, max_detector_freq=None):
 
 # ---- device constants ------------------------------------------------------
 
-_HOST_MATRICES = {"placement": _placement_matrices, "irfft": _irfft_matrices,
-                  "decimate": _decimating_irfft_matrices,
+_HOST_MATRICES = {"decimate": _decimating_irfft_matrices,
                   "upsample": _fft_upsample_matrix}
 
 
 @functools.lru_cache(maxsize=32)
 def _device_matrices(kind: str, shape: tuple, k, dtype, device):
     """A host matrix builder's output moved to the device once per (shape,
-    dtype, device), rows cut to ``k`` (None keeps all): 'placement' ->
-    (D_r, D_i) complex; 'irfft' -> (I_r, I_i); 'decimate' -> (Dd_r, Dd_i);
-    'upsample' -> U."""
+    dtype, device), rows cut to ``k`` (None keeps all): 'decimate' ->
+    (Dd_r, Dd_i); 'upsample' -> U. (The irfft and placement matrices are
+    ``fft_plan.irfft_dense`` / ``placement_dense``.)"""
     out = _HOST_MATRICES[kind](*shape)
-    if kind == "placement":
-        dtype = torch.complex64 if dtype == torch.float32 else torch.complex128
     if kind == "upsample":
         return torch.as_tensor(out[:k], dtype=dtype, device=device).contiguous()
     return tuple(torch.as_tensor(m[:k], dtype=dtype, device=device).contiguous()
@@ -654,9 +621,6 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         # [G, S, C, 2, ...] -> rows (g, c, s, r), (s, r) fastest
         return torch.movedim(x, 2, 1).reshape(R, *x.shape[4:]).contiguous()
 
-    D_r, D_i = _device_matrices("placement", (s.n_internal, s.n_base), K_int,
-                                real_dtype, dev)
-    D_r, D_i = D_r[:, :K_place].contiguous(), D_i[:, :K_place].contiguous()
     df_base = float(s.sampling_rate / s.n_base)
     kernel = s.placement_impl == "kernel"
     if factored:
@@ -671,10 +635,12 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
             ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag),
             ch_major(in_w), ch_major(tpl_idx), ch_major(offset),
             att_W[:, :K_int].contiguous(), tpl_table[:, :K_int].contiguous(),
-            D_r, D_i, s2=s2, df=df_base)
+            s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base, K_place=K_place)
     else:
         # the in-window voltage spectrum, placed as it is (pipeline.py:1262-1268)
         V = ch_major(torch.where(in_w[..., None], volt_spec, 0.0)[..., :K_int])
+        D_r, D_i = fft_plan.placement_dense(s.n_internal, s.n_base, K_int, K_place,
+                                            real_dtype, dev)
         place = placement.placement_reduce if kernel else placement.placement_reduce_plain
         out_re, out_im = place(V.real.contiguous(), V.imag.contiguous(), ch_major(offset),
                                D_r, D_i, s2=s2, df=df_base)
@@ -696,9 +662,10 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     Rc = G * C
     spec_k = chan_spec.reshape(Rc, F_base)[:, :K_base]
     spec_re, spec_im = spec_k.real.contiguous(), spec_k.imag.contiguous()
-    I_r, I_i = _device_matrices("irfft", (s.n_base,), K_base, real_dtype, dev)
     hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
     pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
+    if pa:
+        I_r, I_i = fft_plan.irfft_dense(s.n_base, K_base, real_dtype, dev)
     if hl and pa and s.trigger_impl == "kernel":
         _not_ported("phased-array and high/low triggers in one list under "
                     "trigger_impl='kernel'", "13, multi-trigger and separate trigger chains")
@@ -730,7 +697,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                 else trigger_fused.fused_irfft_trigger_plain)
         fired, first, amp = trig(
             spec_re, spec_im, torch.stack(th_hi_cols, dim=-1),
-            torch.stack(th_lo_cols, dim=-1), I_r, I_i,
+            torch.stack(th_lo_cols, dim=-1), n_base=s.n_base,
             scale=s.sampling_rate / math.sqrt(2.0), triggers=tuple(kspecs), C=C)
         for j, i in enumerate(hl):
             fired_cols[i] = fired[:, j]

@@ -8,8 +8,8 @@ phased array with its trigger ADC) and the padded [group x shower] batch
 with the Alvarez2009 ``k_L`` draws, runs :func:`pipeline.simulate_batch`
 chunk by chunk on ``device`` (noise from one ``torch.Generator`` on that
 device, seeded from ``config["seed"]``), computes the weights and Veff, and
-writes the output HDF5 through the JAX package's jax-free
-``io_hdf5.write_output_hdf5``. A plain chunk loop takes the place of the JAX
+writes the output HDF5 through ``io_hdf5.write_output_hdf5`` (the port's
+copy; needs h5py). A plain chunk loop takes the place of the JAX
 package's packed executor.
 
 The input is an HDF5 event list (read with h5py) or its ``.npz`` export
@@ -30,12 +30,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nuradiomc_tpu.detector.detector import Detector
-from nuradiomc_tpu.ops import filters
-from nuradiomc_tpu.sim import earth_attenuation
-from nuradiomc_tpu.utils import config as config_util
-from nuradiomc_tpu.utils import units
-from nuradiomc_tpu.utils.constants import boltzmann
+from nuradiomc_tpu_torch.detector.detector import Detector
+from nuradiomc_tpu_torch.ops import filters
+from nuradiomc_tpu_torch.sim import earth_attenuation
+from nuradiomc_tpu_torch.utils import config as config_util
+from nuradiomc_tpu_torch.utils import units
+from nuradiomc_tpu_torch.utils import device as device_util
+from nuradiomc_tpu_torch.utils.constants import boltzmann
 from nuradiomc_tpu_torch.models import ice as ice_models
 from nuradiomc_tpu_torch.ops import antenna, askaryan, phased_array
 from nuradiomc_tpu_torch.sim.io_input import read_input
@@ -122,8 +123,9 @@ class Simulation:
 
     Parameters as in the JAX package's ``Simulation``; ``inputfilename`` is
     an HDF5 event list or its ``.npz`` export; ``device`` and ``dtype`` say
-    where and in which precision the pipeline runs (float64 is the
-    production default, float32 the benchmark configuration).
+    where and in which precision the pipeline runs: the CUDA card unless
+    ``device="cpu"`` is asked for (without a card the default raises);
+    float64 is the production default, float32 the benchmark configuration.
     """
 
     def __init__(self, inputfilename: str, detector, config=None,
@@ -133,10 +135,10 @@ class Simulation:
                  outputfilename: Optional[str] = None,
                  antenna_replacements: Optional[dict] = None,
                  chunk_size: int = 256, n_base: int = 2048,
-                 device="cpu", dtype=torch.float64):
+                 device=device_util.DEFAULT, dtype=torch.float64):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-        self.device = torch.device(device)
+        self.device = device_util.resolve(device)
         self.dtype = dtype
         self.config = config_util.get_config(config)
         self.det = detector if isinstance(detector, Detector) else Detector(detector)
@@ -554,8 +556,8 @@ class Simulation:
         return results
 
     def _write_output(self, results, per_station, group_ids, start, count, order):
-        """Output HDF5 through the JAX package's jax-free writer (needs h5py)."""
-        from nuradiomc_tpu.sim import io_hdf5
+        """Output HDF5 through the port's copy of the HDF5 writer (needs h5py)."""
+        from nuradiomc_tpu_torch.sim import io_hdf5
         G = len(group_ids)
         T = len(self.triggers)
         n = self.input.n_showers

@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("shape", [(8, 2, 4, 256, 512), (64, 2, 1, 512, 2048)])
 def test_make_headline_inputs_matches_graft_entry(shape):
     s, ch, b = _make_settings_and_inputs(*shape)
-    ps, pc, pb = convert.make_headline_inputs(*shape)
+    ps, pc, pb = convert.make_headline_inputs(*shape, device="cpu")
     for name in ChannelParams._fields:
         ref = getattr(ch, name)
         if ref is None:
@@ -53,7 +53,7 @@ def test_from_jax_round_trips(dtype):
     s, ch, b = _make_settings_and_inputs()
     s = dataclasses.replace(s, band_limit_eps=1e-2, triggers=(
         jpipe.TriggerSettings(name="a", threshold_high=1e-5, threshold_low=-1e-5),))
-    ps, pc, pb = convert.from_jax(s, ch, b, dtype=dtype)
+    ps, pc, pb = convert.from_jax(s, ch, b, device="cpu", dtype=dtype)
     for name, ref in ch._asdict().items():
         if ref is None:
             assert getattr(pc, name) is None
@@ -70,4 +70,4 @@ def test_from_jax_round_trips(dtype):
     assert ps.triggers[0].name == "a" and ps.triggers[0].threshold_high == 1e-5
     assert ps.placement_impl == "kernel"
     with pytest.raises(ValueError):
-        convert.from_jax(dataclasses.replace(s, stop_after="ray"), ch, b)
+        convert.from_jax(dataclasses.replace(s, stop_after="ray"), ch, b, device="cpu")

@@ -1,0 +1,242 @@
+"""The kernels' FFT decomposition, mirrored in plain torch, on the CPU.
+
+``csrc/fft_common.cuh`` computes the trigger kernel's traces (kernel 2) and
+the placement chain's placement (kernel 1) by mixed-radix Stockham FFTs in
+shared memory, with Hermitian pre- and post-steps and one float64 host
+twiddle table. A CUDA kernel cannot run here, so this file mirrors that
+decomposition in torch -- the same stage radices (``fft_plan.radices``),
+the same index arithmetic per stage, the same edge-bin handling and the same
+host table (``fft_plan.twiddle_table``) -- and holds it to the dense
+matrices the plain versions multiply by (``fft_plan._irfft_matrices`` /
+``_placement_matrices``) and to the JAX package's copies of those, for
+even and odd lengths, the full band (K = n/2 + 1, nonzero Im at DC and
+Nyquist, which numpy's irfft drops) and a cut band, in float32 and float64.
+The mirror is test code: the port runs the CUDA kernels or the plain
+versions, never this.
+
+Tolerances: the FFT and the dense product round differently; float64 within
+1e-12 and float32 within 2e-6 of each row's peak (the dense product's own
+float32 error is ~1e-6).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from nuradiomc_tpu.sim import pipeline as jpipe
+from nuradiomc_tpu_torch.ops import fft_plan, placement, trigger_fused
+
+TOL = {torch.float32: 2e-6, torch.float64: 1e-12}
+
+
+def _table(n, dtype):
+    t = torch.as_tensor(fft_plan.twiddle_table(n), dtype=dtype)
+    return torch.complex(t[:, 0], t[:, 1])
+
+
+def _run(x, n, E, sign):
+    """fftc::run: the Stockham stages over rows of x [R, L] (complex)."""
+    L, stages = fft_plan.plan(n)
+    tws = n // L
+    E = E if sign > 0 else E.conj()
+    Ns = 1
+    for R in stages:
+        nb = L // R
+        j = torch.arange(nb)
+        k = j % Ns
+        d0 = (j // Ns) * Ns * R + k
+        step = (L // (Ns * R)) * tws
+        v = [x[:, j + r * nb] * E[r * k * step] for r in range(R)]
+        dst = torch.empty_like(x)
+        for q in range(R):
+            dst[:, d0 + q * Ns] = sum(v[r] * E[((r * q) % R) * (L // R) * tws]
+                                      for r in range(R))
+        x = dst
+        Ns *= R
+    return x
+
+
+def _irfft_pre(X, n, E, norm):
+    """fftc::irfft_pre: the inverse transform's input from the one-sided
+    spectrum X [R, K] (zero from K on), Im of DC / Nyquist dropped."""
+    R, K = X.shape
+    L = fft_plan.complex_length(n)
+    full = torch.zeros((R, n // 2 + 1), dtype=X.dtype)
+    full[:, :K] = X
+    full[:, 0] = full[:, 0].real
+    k = torch.arange(L)
+    if n % 2 == 0:
+        full[:, L] = full[:, L].real
+        x, y = full[:, k], full[:, L - k].conj()
+        Z = (x + y) + 1j * E[k] * (x - y)
+    else:
+        h = (n - 1) // 2
+        Z = torch.where(k <= h, full[:, torch.clamp(k, max=h)],
+                        full[:, torch.clamp(n - k, max=h)].conj())
+    return Z * norm
+
+
+def _rfft_pre(x, n):
+    """fftc::rfft_pre: the forward transform's input from real samples
+    x [R, n_in] padded with zeros to n."""
+    R, n_in = x.shape
+    pad = torch.zeros((R, n), dtype=x.dtype)
+    pad[:, :n_in] = x
+    if n % 2 == 0:
+        return torch.complex(pad[:, 0::2], pad[:, 1::2])
+    return torch.complex(pad, torch.zeros_like(pad))
+
+
+def _rfft_post(Z, n, E, K):
+    """fftc::rfft_post: bins k < K of the rfft from the forward transform."""
+    if n % 2:
+        return Z[:, :K]
+    L = n // 2
+    k = torch.arange(K)
+    a = Z[:, torch.where(k == L, 0, k)]
+    b = Z[:, torch.where(k == 0, 0, L - k)].conj()
+    return (a + b) * 0.5 + (-0.5j) * (a - b) * E[k].conj()
+
+
+def _trace(X, n, scale):
+    """Kernel 2's trace: irfft_pre, the inverse stages, read as reals."""
+    E = _table(n, X.real.dtype)
+    z = _run(_irfft_pre(X, n, E, scale / n), n, E, +1)
+    if n % 2 == 0:
+        return torch.view_as_real(z).reshape(X.shape[0], n)
+    return z.real
+
+
+def _place(V, n_int, n_base, K_place):
+    """Kernel 1's placement: irfft(V, n_int), then the rfft of the trace
+    padded to n_base, bins < K_place."""
+    dtype = V.real.dtype
+    E1, E2 = _table(n_int, dtype), _table(n_base, dtype)
+    x = _run(_irfft_pre(V, n_int, E1, 1.0 / n_int), n_int, E1, +1)
+    x = torch.view_as_real(x).reshape(V.shape[0], n_int) if n_int % 2 == 0 else x.real
+    return _rfft_post(_run(_rfft_pre(x, n_base), n_base, E2, -1), n_base, E2, K_place)
+
+
+def _spectrum(rng, R, K, dtype):
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    X = rng.normal(size=(R, K)) + 1j * rng.normal(size=(R, K))   # Im at DC/Nyquist nonzero
+    return torch.as_tensor(X, dtype=ctype)
+
+
+def _close(got, ref, tol):
+    peak = ref.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - ref).abs() <= tol * peak).all()), float(((got - ref).abs() / peak).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, K", [(512, 257), (1000, 501), (1024, 513), (2048, 1025),
+                                  (2048, 816), (999, 500), (1000, 300), (4096, 2049),
+                                  (2187, 1094)])
+def test_trigger_irfft_mirror_matches_dense(n, K, dtype):
+    """Kernel 2's decomposition against numpy's irfft as the dense matrices
+    of the plain version (the port's copy and the JAX package's)."""
+    rng = np.random.default_rng(n + K)
+    X = _spectrum(rng, 6, K, dtype)
+    scale = 2.0 / math.sqrt(2.0)
+    got = _trace(X, n, scale)
+    I_r, I_i = fft_plan.irfft_dense(n, K, dtype, torch.device("cpu"))
+    ref = (X.real @ I_r + X.imag @ I_i) * scale
+    _close(got, ref, TOL[dtype])
+    J_r, J_i = (torch.as_tensor(m[:K], dtype=dtype) for m in jpipe._irfft_matrices(n))
+    _close(got, (X.real @ J_r + X.imag @ J_i) * scale, TOL[dtype])
+    # and numpy's own irfft in float64
+    np_ref = np.fft.irfft(X.numpy().astype(np.complex128), n=n, axis=1) * scale
+    _close(got.double(), torch.as_tensor(np_ref), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_int, n_base, K_int, K_place", [
+    (512, 2048, 257, 1025), (512, 2048, 208, 816), (128, 512, 65, 257), (250, 1000, 126, 501),
+    (255, 1000, 128, 400), (512, 1024, 257, 513), (100, 999, 51, 500)])
+def test_placement_mirror_matches_dense(n_int, n_base, K_int, K_place, dtype):
+    """Kernel 1's decomposition against the placement matrices (the port's
+    copy and the JAX package's)."""
+    rng = np.random.default_rng(n_int + n_base)
+    V = _spectrum(rng, 5, K_int, dtype)
+    got = _place(V, n_int, n_base, K_place)
+    D_r, D_i = fft_plan.placement_dense(n_int, n_base, K_int, K_place, dtype,
+                                        torch.device("cpu"))
+    ref = V.real.to(D_r.dtype) @ D_r + V.imag.to(D_i.dtype) @ D_i
+    _close(got, ref, TOL[dtype])
+    J_r, J_i = (torch.as_tensor(m[:K_int, :K_place], dtype=ref.dtype)
+                for m in jpipe._placement_matrices(n_int, n_base))
+    _close(got, V.real.to(J_r.dtype) @ J_r + V.imag.to(J_i.dtype) @ J_i, TOL[dtype])
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 7, 8, 12, 49, 250, 256, 500, 1000, 1024, 2 * 3 * 5 * 7 * 11])
+def test_radices_multiply_to_the_length(L):
+    r = fft_plan.radices(L)
+    assert math.prod(r) == L
+    assert list(r) == sorted(r, key=lambda x: (x != 16, x != 4, x))   # 16s, 4s, ascending
+    assert (16 in r) == (L >= 1024 and L % 16 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_placement_chain_mirror_matches_plain(dtype):
+    """The whole kernel-1 row pipeline in the mirror -- chain into V, skip of
+    masked rows, both FFTs, the per-row 32 + ceil(K_place/32) phase factors,
+    the (shower, ray) sum in row order -- against the plain version."""
+    rng = np.random.default_rng(3)
+    G, s2, n_int, n_base, K_int, K_place, n_sparse = 6, 20, 128, 512, 65, 200, 8
+    R = G * s2
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    mask = torch.as_tensor(rng.uniform(size=R) < 0.5)
+    mask[:s2] = False                                  # a fully masked output row
+    spec_re = torch.as_tensor(rng.normal(size=(R, K_int)), dtype=dtype)
+    spec_im = torch.as_tensor(rng.normal(size=(R, K_int)), dtype=dtype)
+    spec_re[~mask] = float("nan")
+    spec_im[~mask] = float("nan")
+    args = [spec_re, spec_im,
+            torch.as_tensor(rng.uniform(0.5, 1, (R, n_sparse)), dtype=dtype),
+            torch.as_tensor(rng.normal(size=R), dtype=dtype),
+            torch.as_tensor(rng.normal(size=R), dtype=dtype), mask,
+            torch.as_tensor(rng.integers(0, 3, R), dtype=torch.int32),
+            torch.as_tensor(rng.uniform(0, 190, R), dtype=dtype),
+            torch.as_tensor(rng.uniform(size=(n_sparse, K_int)), dtype=dtype),
+            _spectrum(rng, 3, K_int, dtype).to(ctype)]
+    df = 2.0 / n_base
+    kw = dict(s2=s2, df=df, n_int=n_int, n_base=n_base, K_place=K_place)
+    ref = torch.complex(*placement.chain_placement_reduce_plain(*args, **kw))
+
+    sr, si, att_sparse, cr, ci, m, tpl_idx, offsets, W, tpl = args
+    att = att_sparse @ W
+    cs = torch.complex(cr, ci)[:, None] * torch.complex(sr * att, si * att)
+    V = tpl[tpl_idx.long()] * cs
+    Xb = torch.zeros((R, K_place), dtype=ctype)
+    Xb[m] = _place(V[m], n_int, n_base, K_place)
+    theta = torch.tensor(-2 * math.pi * df, dtype=dtype) * offsets
+    k = torch.arange(K_place)
+    wa = torch.polar(torch.ones((), dtype=dtype), theta[:, None] * (k // 32 * 32).to(dtype))
+    wb = torch.polar(torch.ones((), dtype=dtype), theta[:, None] * (k % 32).to(dtype))
+    got = torch.zeros((G, K_place), dtype=ctype)
+    for j in range(s2):
+        rows = torch.arange(G) * s2 + j
+        got = got + torch.where(m[rows, None], Xb[rows] * (wa[rows] * wb[rows]), 0)
+    assert torch.isfinite(got).all() and bool((got[0] == 0).all())
+    _close(got[1:], ref[1:], 20 * TOL[dtype])
+
+
+def test_trigger_mirror_decisions_match_plain():
+    """The mirror's traces through the plain trigger logic give the plain
+    version's decisions and amplitudes (float64, full band)."""
+    rng = np.random.default_rng(11)
+    G, C, n = 40, 2, 1000
+    K = n // 2 + 1
+    X = _spectrum(rng, G * C, K, torch.float64)
+    scale = 2.0 / math.sqrt(2.0)
+    trace = _trace(X, n, scale)
+    sigma = float(trace.std())
+    th = torch.as_tensor(sigma * rng.uniform(2.0, 3.0, (G * C, 1)))
+    trig = (trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),)
+    fired, first, amp = trigger_fused.fused_irfft_trigger_plain(
+        X.real.contiguous(), X.imag.contiguous(), th, -th, n_base=n, scale=scale,
+        triggers=trig, C=C)
+    assert 0 < int(fired.sum()) < G
+    torch.testing.assert_close(trace.abs().amax(dim=1).reshape(G, C), amp, rtol=1e-12, atol=0)

@@ -193,7 +193,8 @@ def test_chain_plain_matches_pallas_v2():
     G, C, S = 16, 2, 2
     s2 = S * 2
     R = G * C * s2
-    F_INT, F_BASE, N_SPARSE, N_TPL = 33, 129, 8, C * 3
+    N_INT, N_BASE = 64, 256
+    F_INT, F_BASE, N_SPARSE, N_TPL = N_INT // 2 + 1, N_BASE // 2 + 1, 8, C * 3
     rng = np.random.default_rng(7)
 
     def f32(*sh):
@@ -204,16 +205,17 @@ def test_chain_plain_matches_pallas_v2():
         comb_re=f32(R), comb_im=f32(R), mask=rng.uniform(size=R) > 0.2,
         tpl_idx=rng.integers(0, N_TPL, R).astype(np.int32),
         offsets=rng.uniform(0, 300, R).astype(np.float32), W=f32(N_SPARSE, F_INT),
-        templates=(f32(N_TPL, F_INT) + 1j * f32(N_TPL, F_INT)).astype(np.complex64),
-        D_r=(f32(F_INT, F_BASE) + 1j * f32(F_INT, F_BASE)).astype(np.complex64),
-        D_i=(f32(F_INT, F_BASE) + 1j * f32(F_INT, F_BASE)).astype(np.complex64))
-    df = 2.0 / 256
+        templates=(f32(N_TPL, F_INT) + 1j * f32(N_TPL, F_INT)).astype(np.complex64))
+    D_r, D_i = (m.astype(np.complex64) for m in jpipe._placement_matrices(N_INT, N_BASE))
+    df = 2.0 / N_BASE
     jargs = {k: jnp.asarray(v.astype(np.float32) if k == "mask" else v)
              for k, v in args.items()}
-    ref = placement_pallas.chain_placement_reduce(*jargs.values(), s2=s2, df=df,
+    ref = placement_pallas.chain_placement_reduce(*jargs.values(), jnp.asarray(D_r),
+                                                  jnp.asarray(D_i), s2=s2, df=df,
                                                   n_templates=N_TPL, row_tile=4 * s2)
     got = placement.chain_placement_reduce_plain(
-        *[torch.as_tensor(v) for v in args.values()], s2=s2, df=df)
+        *[torch.as_tensor(v) for v in args.values()], s2=s2, df=df, n_int=N_INT,
+        n_base=N_BASE, K_place=F_BASE)
     scale = float(np.abs(np.asarray(ref[0])).max())
     for r, g in zip(ref, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(r)[:, :F_BASE], atol=2e-4 * scale,

@@ -52,7 +52,7 @@ def sims():
                       FilterStage((0, 500 * units.MHz), "butter", {"order": 10})],
         trigger=TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
         dtype=jnp.float64)
-    return jsim, convert.gen2_simulation(INPUT_GEN2, dtype=torch.float64)
+    return jsim, convert.gen2_simulation(INPUT_GEN2, device="cpu", dtype=torch.float64)
 
 
 def test_gen2_inputs_match_jax(sims):
@@ -84,7 +84,7 @@ def _run_both(sims, **change):
     step = jax.jit(lambda bb, cc: jpipe.simulate_batch(bb, cc, s, keep_efields=True))
     ps = convert.settings_from_jax(s)
     for sid, jch in jsim.channel_params_per_station.items():
-        _, pc, pb = convert.from_jax(s, jch, jb, dtype=torch.float64)
+        _, pc, pb = convert.from_jax(s, jch, jb, device="cpu", dtype=torch.float64)
         yield sid, step(jb, jch), tpipe.simulate_batch(pb, pc, ps, keep_efields=True), (pb, pc, ps)
 
 
@@ -124,7 +124,7 @@ def test_keep_efields_float64_matches_jax_and_factored_chain(sims):
 
 
 def test_gen2_float32_prefix_matches_pin():
-    settings, chps, batch = convert.make_gen2_inputs(64, dtype=torch.float32)
+    settings, chps, batch = convert.make_gen2_inputs(64, device="cpu", dtype=torch.float32)
     assert batch.energies.shape == (64, 10) and batch.vertices.dtype == torch.float32
     vec = sum(tpipe.simulate_batch(batch, ch, settings).triggered.long() for ch in chps)
     ref = np.load(PIN)["gen2_trig"].astype(np.int64)[:64]
@@ -134,11 +134,12 @@ def test_gen2_float32_prefix_matches_pin():
 
 def test_simulation_reads_birefringence_config():
     sim = convert.gen2_simulation(INPUT_GEN2, {"propagation": {"angle_to_iceflow": 30.0,
-                                                               "birefringence_model": "southpole_B"}})
+                                                               "birefringence_model": "southpole_B"}},
+                                  device="cpu")
     assert sim.settings.birefringence_model == "southpole_B"
     assert sim.settings.birefringence_iceflow == pytest.approx(np.deg2rad(30.0))
-    assert convert.gen2_simulation(INPUT_GEN2).settings.birefringence_iceflow == \
+    assert convert.gen2_simulation(INPUT_GEN2, device="cpu").settings.birefringence_iceflow == \
         pytest.approx(np.deg2rad(-131.0))
     with pytest.raises(NotImplementedError, match="analytical"):
         convert.gen2_simulation(INPUT_GEN2, {"propagation": {
-            "birefringence_propagation": "numerical"}})
+            "birefringence_propagation": "numerical"}}, device="cpu")

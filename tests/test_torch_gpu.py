@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from nuradiomc_tpu_torch.convert import make_headline_inputs
-from nuradiomc_tpu_torch.ops import noise, pa_trigger, phased_array, placement, trigger_fused
+from nuradiomc_tpu_torch.ops import (fft_plan, noise, pa_trigger, phased_array, placement,
+                                     trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline
 
 pytestmark = pytest.mark.gpu
@@ -39,6 +40,8 @@ def dev():
 
 def _placement_args(dtype, dev, G_out=300, s2=4, n_int=512, n_base=2048, K_int=208,
                     K_place=816):
+    """Kernel-1 inputs: 60% of the rows unmasked, NaN spectra in the masked
+    ones (select, never multiply)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     R = G_out * s2
     ff = np.fft.rfftfreq(n_int, 0.5)
@@ -47,7 +50,6 @@ def _placement_args(dtype, dev, G_out=300, s2=4, n_int=512, n_base=2048, K_int=2
                         dtype=dtype, device=dev)
     ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
     templates = torch.randn(3, K_int, generator=gen, device=dev, dtype=ctype)
-    D_r, D_i = pipeline._placement_matrices(n_int, n_base)
     mask = torch.rand(R, generator=gen, device=dev) < 0.6
     spec_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
     spec_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
@@ -58,10 +60,9 @@ def _placement_args(dtype, dev, G_out=300, s2=4, n_int=512, n_base=2048, K_int=2
             torch.randn(R, generator=gen, device=dev, dtype=dtype),
             torch.randn(R, generator=gen, device=dev, dtype=dtype), mask,
             torch.randint(0, 3, (R,), generator=gen, device=dev, dtype=torch.int32),
-            torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0, W, templates,
-            torch.as_tensor(D_r[:K_int, :K_place], dtype=ctype, device=dev),
-            torch.as_tensor(D_i[:K_int, :K_place], dtype=ctype, device=dev)], \
-        dict(s2=s2, df=2.0 / n_base)
+            torch.rand(R, generator=gen, device=dev, dtype=dtype) * (n_base - n_int) * 0.5,
+            W, templates], \
+        dict(s2=s2, df=2.0 / n_base, n_int=n_int, n_base=n_base, K_place=K_place)
 
 
 def _close_rows(k, p, tol):
@@ -72,12 +73,11 @@ def _close_rows(k, p, tol):
 
 
 @pytest.mark.parametrize("dtype, tol, _", DTYPES)
-@pytest.mark.parametrize("s2", [2, 4, 6, 20, 40])
+@pytest.mark.parametrize("s2", [1, 2, 4, 6, 20, 40])
 def test_placement_kernel_matches_plain(dev, dtype, tol, _, s2):
-    """s2 = 6 leaves rows of each block unused (32 // 6 output rows); s2 = 20
-    and 40 exceed the 32 (float32) / 16 (float64) rows of one chunk, so each
-    output row is summed over several chunks (tau secondaries: 10 showers x
-    2 rays)."""
+    """The headline widths (K_int 208, K_place 816) at several s2: an output
+    row sums s2 input rows in order (tau secondaries: 10 showers x 2 rays
+    give 20; 40 doubles it)."""
     args, kw = _placement_args(dtype, dev, s2=s2)
     before = placement.launches
     k = placement.chain_placement_reduce(*args, **kw)
@@ -98,7 +98,7 @@ def test_placement_reduce_kernel_matches_plain(dev, dtype, tol, _, s2, phase):
     R = G_out * s2
     ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
     D_r, D_i = (torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=dev)
-                for m in pipeline._placement_matrices(512, 2048))
+                for m in fft_plan._placement_matrices(512, 2048))
     v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
     v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
     offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0
@@ -110,29 +110,71 @@ def test_placement_reduce_kernel_matches_plain(dev, dtype, tol, _, s2, phase):
     _close_rows(k, placement.placement_reduce_plain(v_re, v_im, offs, D_r, D_i, **kw), tol)
 
 
-@pytest.mark.parametrize("dtype, tol, C, n_base", [
-    (torch.float32, 1e-5, 1, 2048), (torch.float32, 1e-5, 4, 2048),
-    (torch.float32, 1e-5, 20, 2048), (torch.float32, 1e-5, 3, 1000),
-    (torch.float64, 1e-12, 1, 2048), (torch.float64, 1e-12, 4, 512),
-    (torch.float64, 1e-12, 12, 2048)])
-def test_trigger_kernel_matches_plain(dev, dtype, tol, C, n_base):
-    """C = 20 (float32) and 12 (float64) exceed the rows one pass holds, so
-    the traces are computed in several row chunks; n_base = 1000 leaves the
-    last threads' samples partly outside the trace."""
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_int, n_base, K_int, K_place", [
+    (512, 2048, 257, 1025), (128, 512, 65, 257), (250, 1000, 126, 501), (255, 1000, 128, 400)])
+@pytest.mark.parametrize("G_out, s2", [(1, 4), (7, 20), (200, 40), (200, 1)])
+def test_placement_kernel_full_band_matches_plain(dev, dtype, tol, n_int, n_base, K_int,
+                                                  K_place, G_out, s2):
+    """Kernel 1 at the full internal band (K_int = n_int/2 + 1, so the DC and
+    Nyquist bins carry an Im that the irfft drops), even and odd lengths
+    (n_base 1000 = 2^3 5^3; n_int 255 = 3 5 17 takes the generic prime
+    stage), few and many output rows."""
+    args, kw = _placement_args(dtype, dev, G_out=G_out, s2=s2, n_int=n_int, n_base=n_base,
+                               K_int=K_int, K_place=K_place)
+    k = placement.chain_placement_reduce(*args, **kw)
+    assert k[0].shape == (G_out, K_place)
+    _close_rows(k, placement.chain_placement_reduce_plain(*args, **kw), tol * 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_placement_kernel_headline_rows(dev, dtype):
+    """Kernel 1 at the headline's 65536 output rows x s2 4."""
+    args, kw = _placement_args(dtype, dev, G_out=65536, s2=4)
+    k = placement.chain_placement_reduce(*args, **kw)
+    _close_rows(k, placement.chain_placement_reduce_plain(*args, **kw),
+                DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])
+
+
+def _trigger_case(dtype, dev, G, C, n_base, K):
     gen = torch.Generator(device=dev).manual_seed(6)
-    G, K = 200, min(816, n_base // 2 + 1)
     I_r, I_i = (torch.as_tensor(m[:K], dtype=dtype, device=dev)
-                for m in pipeline._irfft_matrices(n_base))
+                for m in fft_plan._irfft_matrices(n_base))
     spec_re = torch.randn(G * C, K, generator=gen, device=dev, dtype=dtype)
     spec_im = torch.randn(G * C, K, generator=gen, device=dev, dtype=dtype)
-    sigma = float(((spec_re @ I_r + spec_im @ I_i) * 1.414).std())
+    sigma = float(((spec_re[:4096] @ I_r + spec_im[:4096] @ I_i) * 1.414).std())
     th = sigma * (2.0 + torch.rand(G * C, 2, generator=gen, device=dev, dtype=dtype))
     trig = (trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),
             trigger_fused.TriggerSpecStatic("simple_threshold", 1, 400, min(C, 2)))
-    args = (spec_re, spec_im, th, -th, I_r, I_i)
-    k = trigger_fused.fused_irfft_trigger(*args, scale=1.414, triggers=trig, C=C)
-    p = trigger_fused.fused_irfft_trigger_plain(*args, scale=1.414, triggers=trig, C=C)
-    assert int(p[0].sum()) > 0
+    return (spec_re, spec_im, th, -th), dict(n_base=n_base, scale=1.414, triggers=trig, C=C)
+
+
+@pytest.mark.parametrize("dtype, tol, C, n_base, K, G", [
+    (torch.float32, 1e-5, 1, 2048, 816, 200), (torch.float32, 1e-5, 4, 2048, 816, 200),
+    (torch.float32, 1e-5, 20, 2048, 816, 200), (torch.float32, 1e-5, 3, 1000, 501, 200),
+    (torch.float64, 1e-12, 1, 2048, 816, 200), (torch.float64, 1e-12, 4, 512, 257, 200),
+    (torch.float64, 1e-12, 12, 2048, 816, 200),
+    (torch.float32, 1e-5, 2, 2048, 1025, 7), (torch.float64, 1e-12, 2, 2048, 1025, 1),
+    (torch.float32, 1e-5, 12, 1000, 501, 7), (torch.float64, 1e-12, 20, 512, 257, 200),
+    (torch.float32, 1e-5, 1, 512, 257, 65536), (torch.float64, 1e-12, 2, 1000, 501, 65536),
+    (torch.float32, 1e-5, 2, 999, 500, 200),
+    (torch.float32, 1e-5, 2, 4096, 2049, 200), (torch.float64, 1e-12, 2, 4096, 2049, 200),
+    (torch.float32, 1e-5, 1, 4096, 1632, 7), (torch.float32, 1e-5, 2, 2187, 1094, 200),
+    (torch.float64, 1e-12, 3, 2187, 900, 200), (torch.float32, 1e-5, 2, 3000, 1501, 200),
+    (torch.float64, 1e-12, 1, 3000, 1200, 7)])
+def test_trigger_kernel_matches_plain(dev, dtype, tol, C, n_base, K, G):
+    """The inverse FFT of kernel 2 at even and odd lengths (1000 = 2^3 5^3,
+    999 = 3^3 37 through the generic prime stage), the full band (K = n/2 +
+    1: Im at DC and Nyquist dropped) and a cut one, C 1 to 20, G 1 to
+    65536. Lengths above 2048 (4096, 3000 and the odd 2187 = 3^7) run the
+    instantiation with 32 trigger samples per thread."""
+    args, kw = _trigger_case(dtype, dev, G, C, n_base, K)
+    before = trigger_fused.launches
+    k = trigger_fused.fused_irfft_trigger(*args, **kw)
+    assert trigger_fused.launches == before + 1
+    p = trigger_fused.fused_irfft_trigger_plain(*args, **kw)
+    if G > 1:
+        assert int(p[0].sum()) > 0
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert bool(((k[2] - p[2]).abs() <= tol * p[2].abs()).all())
 
@@ -141,10 +183,9 @@ def test_trigger_kernel_refuses_oversized_groups(dev):
     n_base, C = 2048, 32                 # 32 x 2048 x 8 bytes > 227 KB
     spec = torch.zeros(C, 16, dtype=torch.float64, device=dev)
     th = torch.zeros(C, 1, dtype=torch.float64, device=dev)
-    I = torch.zeros(16, n_base, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="shared"):
         trigger_fused.fused_irfft_trigger(
-            spec, spec, th, th, I, I, scale=1.0, C=C,
+            spec, spec, th, th, n_base=n_base, scale=1.0, C=C,
             triggers=(trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),))
 
 
@@ -159,11 +200,12 @@ def test_wrappers_refuse_non_contiguous_and_mixed_dtypes(dev):
     with pytest.raises(ValueError):
         placement.chain_placement_reduce(*bad, **kw)
     v = args[0][:, :16].contiguous()
-    D = args[10][:16]
+    D = torch.zeros(16, 8, dtype=torch.complex64, device=dev)
+    kw4 = dict(s2=kw["s2"], df=kw["df"])
     with pytest.raises(ValueError, match="contiguous"):
-        placement.placement_reduce(v.t().contiguous().t(), v, args[7], D, D, **kw)
+        placement.placement_reduce(v.t().contiguous().t(), v, args[7], D, D, **kw4)
     with pytest.raises(ValueError):
-        placement.placement_reduce(v, v.double(), args[7], D, D, **kw)
+        placement.placement_reduce(v, v.double(), args[7], D, D, **kw4)
 
 
 def test_simulate_batch_kernel_path_matches_plain_path(dev):
@@ -187,7 +229,7 @@ def _pa_args(dtype, dev, G, C, K=512, n_base=2048, up=2, n_bits=8):
                                             dtype=dtype)[:, :K]
     Dd = pipeline._decimating_irfft_matrices(n_base, n_base * 5 // 2, 10)
     mats = [torch.as_tensor(m[:K], dtype=dtype, device=dev).contiguous()
-            for m in (*pipeline._irfft_matrices(n_base), *Dd)]
+            for m in (*fft_plan._irfft_matrices(n_base), *Dd)]
     U = torch.as_tensor(pipeline._fft_upsample_matrix(Dd[0].shape[1], up), dtype=dtype,
                         device=dev)
     spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()

@@ -1,0 +1,216 @@
+"""The port stands alone: it imports nothing of jax or of the JAX package,
+its copies of the JAX package's jax-free modules equal their originals, and
+its entry points run on the card unless the CPU is asked for.
+
+* Isolation: a subprocess refuses the top-level names ``jax``, ``jaxlib`` and
+  ``nuradiomc_tpu`` with a meta-path hook, imports every module of
+  ``nuradiomc_tpu_torch`` (``pkgutil.walk_packages``) and ``chip_smoke`` as a
+  module (without running it), and reads no file under ``nuradiomc_tpu/``.
+* Copies: units, constants, config merging, the filter responses of the
+  three workloads' chains, the Earth-attenuation weights, the detector
+  tables and the birefringence model arrays are held to the originals on
+  the same inputs, exactly.
+* Default device: every entry point's ``device`` defaults to "cuda"; with no
+  card, a call that omits it raises instead of running on the CPU.
+"""
+
+import inspect
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from nuradiomc_tpu.detector import detector as jdetector
+from nuradiomc_tpu.ops import filters as jfilters
+from nuradiomc_tpu.sim import earth_attenuation as jearth
+from nuradiomc_tpu.utils import config as jconfig
+from nuradiomc_tpu.utils import constants as jconstants
+from nuradiomc_tpu.utils import units as junits
+from nuradiomc_tpu_torch import convert
+from nuradiomc_tpu_torch.detector import detector as tdetector
+from nuradiomc_tpu_torch.ops import birefringence as tbire
+from nuradiomc_tpu_torch.ops import filters as tfilters
+from nuradiomc_tpu_torch.sim import earth_attenuation as tearth
+from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
+from nuradiomc_tpu_torch.sim.simulation import Simulation
+from nuradiomc_tpu_torch.utils import config as tconfig
+from nuradiomc_tpu_torch.utils import constants as tconstants
+from nuradiomc_tpu_torch.utils import units as tunits
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ISOLATED = textwrap.dedent("""
+    import builtins, importlib, importlib.abc, importlib.util, os, pkgutil, sys
+    root = sys.argv[1]
+    sys.path.insert(0, root)
+    banned = ("jax", "jaxlib", "nuradiomc_tpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in banned:
+                raise ImportError("refused: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    jax_pkg = os.path.join(root, "nuradiomc_tpu") + os.sep
+    opened = []
+    real_open = builtins.open
+
+    def watching_open(file, *a, **k):
+        if isinstance(file, (str, os.PathLike)) and os.path.abspath(file).startswith(jax_pkg):
+            opened.append(str(file))
+        return real_open(file, *a, **k)
+
+    builtins.open = watching_open
+    import numpy as np
+    real_load = np.load
+
+    def watching_load(file, *a, **k):
+        if isinstance(file, (str, os.PathLike)) and os.path.abspath(file).startswith(jax_pkg):
+            opened.append(str(file))
+        return real_load(file, *a, **k)
+
+    np.load = watching_load
+    import nuradiomc_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(nuradiomc_tpu_torch.__path__,
+                                                    "nuradiomc_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(root, "chip_smoke.py"))
+    importlib.util.module_from_spec(spec).__loader__.exec_module(
+        importlib.util.module_from_spec(spec))
+    from nuradiomc_tpu_torch.ops import birefringence
+    from nuradiomc_tpu_torch import convert
+    birefringence.load_model("southpole_A")
+    convert.make_headline_inputs(4, 2, 2, 128, 512, device="cpu")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    assert not leaked, leaked
+    assert not opened, opened
+    print("modules", len(names))
+""")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _ISOLATED, ROOT], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.split("modules")[-1])
+    assert n >= 30                      # every module of the package was imported
+
+
+def _public_numbers(mod):
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and isinstance(v, (int, float))}
+
+
+def test_units_and_constants_equal_the_originals():
+    for port, ref in ((tunits, junits), (tconstants, jconstants)):
+        a, b = _public_numbers(port), _public_numbers(ref)
+        assert a == b and len(a) > 0
+
+
+CHAINS = {
+    "dipole/gen2 butterworth": [((80e-3, 1000.0), "butter", {"order": 2}),
+                                ((0, 0.5), "butter", {"order": 10})],
+    "phased-array cheby1": [((96e-3, 100.0), "cheby1", {"order": 4, "rp": 0.1}),
+                            ((0, 0.22), "cheby1", {"order": 7, "rp": 0.1})],
+}
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("n", [512, 1024, 2048])
+def test_filter_chain_response_equals_the_original(chain, n):
+    freqs = np.fft.rfftfreq(n, 0.5)
+    stages = [((lo * junits.GHz, hi * junits.GHz), kind, kw)
+              for (lo, hi), kind, kw in CHAINS[chain]]
+    np.testing.assert_array_equal(tfilters.chain_response(freqs, stages),
+                                  jfilters.chain_response(freqs, stages))
+
+
+@pytest.mark.parametrize("mode", ["core_mantle_crust_simple", "simple", "PREM", "None"])
+def test_earth_attenuation_weight_equals_the_original(mode):
+    rng = np.random.default_rng(4)
+    n = 64
+    theta = np.arccos(rng.uniform(-1, 1, n))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    energy = 10 ** rng.uniform(16, 20, n) * junits.eV
+    flavors = rng.choice([12, -12, 14, -14, 16, -16], n)
+    vertex = np.c_[rng.uniform(-2e3, 2e3, (n, 2)), rng.uniform(-2.7e3, 0, n)]
+    kw = dict(mode=mode, cross_section_type="ctw", vertex_position=vertex, phi_nu=phi)
+    np.testing.assert_array_equal(tearth.get_weight(theta, energy, flavors, **kw),
+                                  jearth.get_weight(theta, energy, flavors, **kw))
+
+
+def test_config_merging_equals_the_original():
+    user = {"sampling_rate": 3.0, "propagation": {"birefringence": True, "n_freq": 16},
+            "signal": {"model": "Alvarez2009"}, "noise": True}
+    assert tconfig.get_config(None) == jconfig.get_config(None)
+    assert tconfig.get_config(user) == jconfig.get_config(user)
+    for default in (convert.DIPOLE_CONFIG, convert.PA_CONFIG, convert.GEN2_CONFIG):
+        assert tconfig.merge_config(user, default) == jconfig.merge_config(user, default)
+
+
+@pytest.mark.parametrize("name", ["DIPOLE_DETECTOR", "PA_DETECTOR", "GEN2_DETECTOR"])
+def test_detector_tables_equal_the_original(name):
+    det_dict = getattr(convert, name)
+    port, ref = tdetector.Detector(det_dict), jdetector.Detector(det_dict)
+    assert list(port.get_station_ids()) == list(ref.get_station_ids())
+    for sid in ref.get_station_ids():
+        a, b = port.get_station(sid), ref.get_station(sid)
+        np.testing.assert_array_equal(a.absolute_position, b.absolute_position)
+        assert a.site == b.site
+        for field in vars(b.channels):
+            va, vb = getattr(a.channels, field), getattr(b.channels, field)
+            if vb is None:
+                assert va is None
+            else:
+                np.testing.assert_array_equal(np.asarray(va), np.asarray(vb))
+        if b.site:
+            assert port.get_site_coordinates(sid) == ref.get_site_coordinates(sid)
+
+
+def test_birefringence_models_equal_the_originals():
+    ref_dir = os.path.join(ROOT, "nuradiomc_tpu", "data", "birefringence_models")
+    names = sorted(f for f in os.listdir(ref_dir) if f.endswith(".npy"))
+    assert sorted(os.listdir(tbire._MODEL_DIR)) == names
+    for f in names:
+        with open(os.path.join(tbire._MODEL_DIR, f), "rb") as a, \
+                open(os.path.join(ref_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+    from nuradiomc_tpu.ops import birefringence as jbire
+    for name in ("southpole_A", "southpole_E", "greenland_C"):
+        for a, b in zip(tbire.load_model(name), jbire.load_model(name)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inputs,
+                convert.make_pa_inputs, convert.make_gen2_inputs]
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("call", ["Simulation", "dipole_simulation", "make_headline_inputs",
+                                  "make_pa_inputs", "make_gen2_inputs"])
+def test_omitted_device_without_a_card_raises(call):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    calls = {
+        "Simulation": lambda: Simulation(
+            str(INPUT_1E18_N3000), convert.DIPOLE_DETECTOR,
+            antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78": "analytic_VPol"}),
+        "dipole_simulation": lambda: convert.dipole_simulation(str(INPUT_1E18_N3000)),
+        "make_headline_inputs": lambda: convert.make_headline_inputs(4, 2, 1, 128, 512),
+        "make_pa_inputs": lambda: convert.make_pa_inputs(8),
+        "make_gen2_inputs": lambda: convert.make_gen2_inputs(8),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[call]()

@@ -53,7 +53,7 @@ def _placement_case(seed=7, G_out=16, s2=4, n_int=128, n_base=512, K_int=48, K_p
         W=W.astype(f32), templates=templates,
         D_r=D_r[:K_int, :K_place].astype(np.complex64),
         D_i=D_i[:K_int, :K_place].astype(np.complex64),
-    ), dict(s2=s2, df=2.0 / n_base)
+    ), dict(s2=s2, df=2.0 / n_base, n_int=n_int, n_base=n_base, K_place=K_place)
 
 
 def test_placement_plain_matches_pallas_v3():
@@ -68,7 +68,7 @@ def test_placement_plain_matches_pallas_v3():
     K_place = a["D_r"].shape[1]
     ref = np.asarray(ref_re)[:, :K_place] + 1j * np.asarray(ref_im)[:, :K_place]
     out_re, out_im = placement.chain_placement_reduce(
-        *[torch.as_tensor(v) for v in a.values()], **kw)
+        *[torch.as_tensor(v) for k, v in a.items() if k not in ("D_r", "D_i")], **kw)
     port = out_re.numpy() + 1j * out_im.numpy()
     assert np.isfinite(port).all()
     assert np.all(port[0] == 0)                 # the fully masked output row
@@ -79,12 +79,12 @@ def test_placement_plain_matches_pallas_v3():
 
 def test_wrappers_refuse_devices_without_a_kernel():
     a, kw = _placement_case()
-    meta = [torch.as_tensor(v).to("meta") for v in a.values()]
+    meta = [torch.as_tensor(v).to("meta") for k, v in a.items() if k not in ("D_r", "D_i")]
     with pytest.raises(ValueError, match="unsupported device"):
         placement.chain_placement_reduce(*meta, **kw)
     spec = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        trigger_fused.fused_irfft_trigger(spec, spec, spec, spec, spec, spec, scale=1.0,
+        trigger_fused.fused_irfft_trigger(spec, spec, spec, spec, n_base=16, scale=1.0,
                                           triggers=(), C=1)
 
 
@@ -109,7 +109,7 @@ def test_trigger_plain_matches_pallas():
         I_r, I_i, scale=2.0 / np.sqrt(2.0),
         triggers=tuple(trigger_pallas.TriggerSpecStatic(*t) for t in triggers), C=C)
     port = trigger_fused.fused_irfft_trigger(
-        *[torch.as_tensor(x) for x in (spec_re, spec_im, th_hi, th_lo, I_r, I_i)],
+        *[torch.as_tensor(x) for x in (spec_re, spec_im, th_hi, th_lo)], n_base=I_r.shape[1],
         scale=2.0 / np.sqrt(2.0),
         triggers=tuple(trigger_fused.TriggerSpecStatic(*t) for t in triggers), C=C)
     fired, first, amp = (np.asarray(x) for x in ref)

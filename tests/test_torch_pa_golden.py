@@ -25,7 +25,7 @@ NOISELESS_INPUT = os.path.join(HERE, "golden", "pa_noiseless_input.hdf5")
 @pytest.mark.parametrize("perf", [{}, {"band_limit_eps": 1e-3}], ids=["exact", "band_limited"])
 def test_noiseless_pa_golden(perf):
     sim = convert.pa_simulation(NOISELESS_INPUT, {"noise": False, "perf": perf},
-                                chunk_size=1024, dtype=torch.float64)
+                                chunk_size=1024, device="cpu", dtype=torch.float64)
     res = sim.run()
     golden = np.load(os.path.join(HERE, "golden", "e2e_pa_noiseless_reference.npz"))
     ref = set(int(x) for x in np.unique(golden["group_ids"][golden["triggered"]]))

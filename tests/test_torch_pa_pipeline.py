@@ -44,7 +44,7 @@ GOLDEN = os.path.join(HERE, "golden", "e2e_pa_noiseless_reference.npz")
 
 @pytest.fixture(scope="module")
 def jax_inputs():
-    port = convert.pa_simulation(INPUT, {"noise": False})
+    port = convert.pa_simulation(INPUT, {"noise": False}, device="cpu")
     sim = Simulation(
         INPUT, convert.PA_DETECTOR, config=port.config,
         filter_chain=[FilterStage(f.passband, f.filter_type, f.kwargs)
@@ -62,7 +62,7 @@ def jax_inputs():
 
 def _run_both(settings, ch, batch):
     ref = jax.jit(lambda b: jpipe.simulate_batch(b, ch, settings))(batch)
-    ps, pc, pb = convert.from_jax(settings, ch, batch, dtype=torch.float64)
+    ps, pc, pb = convert.from_jax(settings, ch, batch, device="cpu", dtype=torch.float64)
     return ref, tpipe.simulate_batch(pb, pc, ps)
 
 
@@ -111,7 +111,7 @@ def test_settings_from_jax_carries_pa_fields(jax_inputs):
 
 def test_noise_needs_a_generator_and_mixed_lists_need_plain(jax_inputs):
     settings, ch, batch = jax_inputs
-    ps, pc, pb = convert.from_jax(settings, ch, batch, dtype=torch.float64)
+    ps, pc, pb = convert.from_jax(settings, ch, batch, device="cpu", dtype=torch.float64)
     noisy = dataclasses.replace(ps, add_noise=True)
     with pytest.raises(ValueError, match="noise_generator"):
         tpipe.simulate_batch(pb, pc, noisy)

@@ -46,7 +46,8 @@ def _golden_set(name):
 
 
 def test_noisy_pa_golden():
-    sim = convert.pa_simulation(NOISY_INPUT, chunk_size=1024, dtype=torch.float64)
+    sim = convert.pa_simulation(NOISY_INPUT, chunk_size=1024, device="cpu",
+                                dtype=torch.float64)
     res = sim.run()
     golden, ref = _golden_set("e2e_pa_reference.npz")
     mine = _triggered(res)
@@ -62,7 +63,7 @@ def test_k_L_draw_matches_jax_simulation():
     import jax.numpy as jnp
 
     from nuradiomc_tpu.sim import simulation as jsim
-    port = convert.pa_simulation(io_input.INPUT_1E18_N3000, dtype=torch.float64)
+    port = convert.pa_simulation(io_input.INPUT_1E18_N3000, device="cpu", dtype=torch.float64)
     ref = jsim.Simulation(NOISY_INPUT, convert.PA_DETECTOR, config=port.config,
                           filter_chain=[jsim.FilterStage(f.passband, f.filter_type, f.kwargs)
                                         for f in port.filter_chain],
@@ -116,7 +117,8 @@ def test_simulation_runs_without_h5py_and_jax(tmp_path):
         from nuradiomc_tpu_torch.convert import dipole_simulation
         from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
         from nuradiomc_tpu.utils import units
-        sim = dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024, dtype=torch.float64)
+        sim = dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024, device="cpu",
+                                dtype=torch.float64)
         res = sim.run()
         sel = res["triggered"] & (res["weights"] >= 1e-5)
         assert "h5py" not in [m for m in sys.modules if sys.modules[m] is not None]

@@ -68,7 +68,7 @@ def case64(request):
     s = dataclasses.replace(s, n_bisect=96, **OPTIONS[request.param])
     ch, b = _f64(ch), _f64(b)
     ref = jax.jit(lambda bb: jpipe.simulate_batch(bb, ch, s))(b)
-    ps, pc, pb = from_jax(s, ch, b, dtype=torch.float64)
+    ps, pc, pb = from_jax(s, ch, b, device="cpu", dtype=torch.float64)
     return ref, tpipe.simulate_batch(pb, pc, ps)
 
 
@@ -78,7 +78,7 @@ def case32():
     s = dataclasses.replace(s, band_limit_eps=1e-2, placement_impl="pallas",
                             trigger_impl="pallas")
     ref = jax.jit(lambda bb: jpipe.simulate_batch(bb, ch, s))(b)
-    ps, pc, pb = from_jax(s, ch, b, dtype=torch.float32)
+    ps, pc, pb = from_jax(s, ch, b, device="cpu", dtype=torch.float32)
     return ref, tpipe.simulate_batch(pb, pc, ps)
 
 
@@ -118,7 +118,7 @@ def test_plain_impl_equals_kernel_impl_on_cpu(case32):
     _, port = case32
     s, ch, b = _make_settings_and_inputs()
     ps, pc, pb = from_jax(dataclasses.replace(s, band_limit_eps=1e-2), ch, b,
-                          dtype=torch.float32)
+                          device="cpu", dtype=torch.float32)
     plain = tpipe.simulate_batch(pb, pc, dataclasses.replace(
         ps, placement_impl="plain", trigger_impl="plain"))
     for name in FIELDS + ("triggered",):
@@ -128,7 +128,7 @@ def test_plain_impl_equals_kernel_impl_on_cpu(case32):
 
 def test_unported_options_raise():
     s, ch, b = _make_settings_and_inputs()
-    ps, pc, pb = from_jax(s, ch, b, dtype=torch.float32)
+    ps, pc, pb = from_jax(s, ch, b, device="cpu", dtype=torch.float32)
     for change in ({"apply_focusing": True, "focusing_mode": "numeric"},
                    {"n_reflections": 1}, {"askaryan_model": "ZHS1992"}):
         with pytest.raises(NotImplementedError):

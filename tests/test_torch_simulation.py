@@ -106,6 +106,6 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
         Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "ZHS1992"}},
                    antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78":
-                                         "analytic_VPol"})
+                                         "analytic_VPol"}, device="cpu")
     with pytest.raises(NotImplementedError):
-        Simulation(INPUT, DIPOLE_DETECTOR)   # tabulated antenna without a replacement
+        Simulation(INPUT, DIPOLE_DETECTOR, device="cpu")   # tabulated antenna without a replacement
