@@ -13,12 +13,16 @@ result line):
    shapes, float32 and float64, with CUDA-event timings beside the kernel's
    bound (the larger of its bytes over the memory rate and its operations
    over the card's peak rate for the dtype, computed from this run's
-   inputs) and, for kernel 2, the time of ``torch.fft.irfft`` on the same
-   spectra (a yardstick the port never calls): kernel 2 also at the gen2
-   path's 256 and 2048 groups x C 2 and, reported without a gate, at a
-   second input seed (razor margins); kernel 1 also at s2 20 and 40
-   (multi-shower groups), kernel 4 at the gen2 path's shape and at the
-   profiling tool's (with its no-phase variant);
+   inputs) and, for kernels 2, 3 and 4, the time of their transforms
+   through ``torch.fft`` on the same inputs (a yardstick the port never
+   calls), and the launch grid of each kernel at the paths' shapes: kernel 2
+   also at the gen2 path's 256 and 2048 groups x C 2 and, reported without a
+   gate, at a second input seed (razor margins); kernel 1 also at s2 20 and
+   40 (multi-shower groups), kernel 4 at the gen2 path's shape and at the
+   profiling tool's (with its no-phase variant); kernel 3 also reports,
+   without a gate, how many ADC samples take another count in the kernel
+   than in the plain version (an FFT and a dense product round a sample
+   near a count boundary to either side);
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -226,31 +230,46 @@ def _trigger_bound(args, kw):
 
 
 def _reduce_bound(args, kw):
-    """Kernel 4 takes its placement matrices as inputs, so its function is the
-    dense product: 8 operations per (row, f, k), plus the phase; inputs and
-    matrices read once, outputs written once."""
-    v_re, _, _, D_r, _ = args
+    """Kernel 4: every row read once (a zero row is known only by reading
+    it), the offsets of the nonzero ones; each nonzero row placed by a real
+    inverse FFT of n_int and a forward FFT of n_base pruned to its n_int
+    nonzero inputs, phase-ramped (without ``phase=False``) and summed (zero
+    rows add nothing: this run's data needs only the nonzero ones); each
+    output row written once."""
+    v_re, v_im, _ = args
     e = v_re.element_size()
     R, K_int = v_re.shape
-    K_place = D_r.shape[1]
-    nbytes = R * K_int * 2 * e + R * e + 4 * K_int * K_place * e + (R // kw["s2"]) * K_place * 2 * e
-    flops = R * (8 * K_int * K_place + 14 * K_place)
+    K_place = kw["K_place"]
+    live = int(((v_re != 0) | (v_im != 0)).any(dim=1).sum())
+    epilogue = 14 * K_place + 20 * (32 + K_place / 32) if kw.get("phase", True) else 2 * K_place
+    nbytes = R * K_int * 2 * e + live * e + (R // kw["s2"]) * K_place * 2 * e
+    flops = live * (_rfft_flops(kw["n_int"]) + _padded_rfft_flops(kw["n_int"], kw["n_base"])
+                    + epilogue)
     return _bound(nbytes, flops, v_re.dtype)
 
 
 def _pa_bound(args, kw):
-    """Kernel 3 takes its irfft, decimation and upsampling matrices as
-    inputs, so its function is the dense products (4 operations per (row,
-    f, sample), 2 per (row, sample, upsampled sample)) plus the beams' sums;
-    inputs read once, the small outputs written once."""
-    spec_re, _, I_r, _, Dd_r, _, U = args
+    """Kernel 3: each row's K bins read once, the small outputs written once;
+    per row a real inverse FFT of n_base and its maximum, the decimated trace
+    (the fold, about 2 K adds, and a real inverse FFT of n_dec; or an inverse
+    of n_hi where decim does not divide it), the ADC, a forward real FFT of
+    n_dec and an inverse one of n_up; per group B beams of n_up samples from C
+    channels (B n_up (C + 1): the sums and the squares) and B n_frames window
+    sums of ``window`` samples."""
+    spec_re = args[0]
     e = spec_re.element_size()
     R, K = spec_re.shape
-    n_base, n_dec, n_up = I_r.shape[1], Dd_r.shape[1], U.shape[1]
-    G, beams = R // kw["C"], len(kw["rolls"])
-    nbytes = (R * K * 2 * e + 2 * K * (n_base + n_dec) * e + n_dec * n_up * e
-              + G * 5 + R * e)
-    flops = R * (4 * K * (n_base + n_dec) + 2 * n_dec * n_up) + G * beams * n_up * (kw["C"] + 2)
+    C, B = kw["C"], len(kw["rolls"])
+    G = R // C
+    n_base, n_hi, decim, up = kw["n_base"], kw["n_hi"], kw["decim"], kw["up"]
+    n_dec = pa_trigger.n_dec_of(n_hi, decim)
+    n_up = n_dec * up
+    n_frames = (n_up - kw["window"]) // kw["step"]
+    nbytes = R * K * 2 * e + G * 5 + R * e
+    dec = 2 * K + _rfft_flops(n_dec) if n_hi % decim == 0 else _rfft_flops(n_hi)
+    ups = 0 if up == 1 else _rfft_flops(n_dec) + _rfft_flops(n_up)
+    flops = (R * (_rfft_flops(n_base) + n_base + dec + 6 * n_dec + ups)
+             + G * B * (n_up * (C + 1) + n_frames * kw["window"]))
     return _bound(nbytes, flops, spec_re.dtype)
 
 
@@ -321,21 +340,32 @@ def _check_trigger(label, args, kw, tol_amp):
 def _reduce_inputs(dtype, dev, gen, R, s2, K_int=257, K_place=1025):
     """Kernel-4 inputs: a voltage spectrum [R, K_int] with a third of the
     rows zero (masked solutions), offsets over the time base's 768 ns of
-    headroom, the 512 -> 2048 placement DFT (band limit off)."""
-    D_r, D_i = fft_plan.placement_dense(512, 2048, K_int, K_place, dtype, dev)
+    headroom, the 512 -> 2048 placement (band limit off)."""
     keep = (torch.rand(R, 1, generator=gen, device=dev) < 0.67).to(dtype)
     v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
     v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
     offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0
-    return (v_re, v_im, offs, D_r, D_i), dict(s2=s2, df=2.0 / 2048)
+    return (v_re, v_im, offs), dict(s2=s2, df=2.0 / 2048, n_int=512, n_base=2048,
+                                    K_place=K_place)
+
+
+def _reduce_library_ms(args, kw):
+    """``torch.fft`` yardstick of kernel 4: rfft(irfft(V, n_int), n_base)
+    bins < K_place, without the phase and the sum (V made outside the
+    timing)."""
+    V = torch.complex(args[0], args[1])
+    ms = _median_ms(lambda: torch.fft.rfft(torch.fft.irfft(V, n=kw["n_int"]),
+                                           n=kw["n_base"])[:, :kw["K_place"]])
+    del V
+    return ms
 
 
 def _print_grids():
-    """The grids the two FFT kernels launch at the paths' shapes: persistent
-    blocks, as many as fit on the card, at most one per group (kernel 2) or
-    output row (kernel 1). A group's channels meet in one block's shared
-    memory, so 256 groups launch at most 256 blocks: fewer than two on each
-    of the card's SMs."""
+    """The grids the FFT kernels launch at the paths' shapes: persistent
+    blocks, as many as fit on the card, at most one per group (kernels 2
+    and 3) or output row (kernels 1 and 4). A group's channels meet in one
+    block's shared memory, so 256 groups launch at most 256 blocks: fewer
+    than two on each of the card's SMs."""
     lib2 = _build.load("irfft_trigger")
     lib1 = _build.load("placement_chain")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -350,6 +380,18 @@ def _print_grids():
     grids = [lib1.placement_chain_grid(65536, 208, 24, 816, 512, 2048, f64) for f64 in (0, 1)]
     print(f"phase 2 placement_chain grid at the headline's 65536 output rows: {grids[0]} "
           f"blocks float32, {grids[1]} float64, on {sms} SMs")
+    lib4 = _build.load("placement_reduce")
+    for label, G_out in {"gen2 path's 512": GEN2_GROUPS * 2, "tool shape's 65536": 65536}.items():
+        grids = [lib4.placement_reduce_grid(G_out, 257, 1025, 512, 2048, f64) for f64 in (0, 1)]
+        print(f"phase 2 placement_reduce grid at the {label} output rows: {grids[0]} blocks "
+              f"float32, {grids[1]} float64, on {sms} SMs")
+    lib3 = _build.load("pa_trigger")
+    grids = [lib3.pa_trigger_grid(PA_GROUPS, 4, 512, 2048, 5120, 10, 2, 11, f64)
+             for f64 in (0, 1)]
+    smem = [lib3.pa_trigger_smem_bytes(4, 512, 2048, 5120, 10, 2, 11, f64) for f64 in (0, 1)]
+    print(f"phase 2 pa_trigger grid at the phased-array path's {PA_GROUPS} groups x C 4: "
+          f"{grids[0]} blocks float32, {grids[1]} float64, on {sms} SMs; shared memory "
+          f"{smem[0]} / {smem[1]} bytes a block")
 
 
 def phase_kernels(dev):
@@ -410,16 +452,22 @@ def phase_kernels(dev):
         max_abs, ms, plain_ms = _check_placement(
             f"placement_reduce {tag} gen2 shape", placement.placement_reduce,
             placement.placement_reduce_plain, args, kw, tol_place, bound)
+        lib_ms = _reduce_library_ms(args, kw)
+        print(f"phase 2 placement_reduce {tag} gen2 shape: library rfft(irfft(V, n_int), "
+              f"n_base) {lib_ms:.3f} ms ({CARD})")
         if dtype == torch.float32:
-            summary["placement_reduce"] = _entry(max_abs, ms, plain_ms, bound)
+            summary["placement_reduce"] = _entry(max_abs, ms, plain_ms, bound, lib_ms)
         del args
         args, kw = _reduce_inputs(dtype, dev, gen, 262144, 4)
         _check_placement(f"placement_reduce {tag} tool shape", placement.placement_reduce,
                          placement.placement_reduce_plain, args, kw, tol_place,
                          _reduce_bound(args, kw))
+        no_phase = {**kw, "phase": False}
         _check_placement(f"placement_reduce {tag} tool shape, no phase (matmul_only)",
                          placement.placement_reduce, placement.placement_reduce_plain,
-                         args, {**kw, "phase": False}, tol_place, _reduce_bound(args, kw))
+                         args, no_phase, tol_place, _reduce_bound(args, no_phase))
+        print(f"phase 2 placement_reduce {tag} tool shape: library rfft(irfft(V, n_int), "
+              f"n_base) {_reduce_library_ms(args, kw):.3f} ms ({CARD})")
         del args
         torch.cuda.empty_cache()
     return summary
@@ -518,32 +566,70 @@ def phase_headline(dev):
 
 def _pa_kernel_inputs(dtype, dev, gen):
     """Kernel-3 inputs at the bench shapes: 16384 groups x 4 channels,
-    K_base 512, n_base 2048, n_dec 512 (0.5 GHz ADC), n_up 1024 (x2), the 11
-    beams of the 4-channel array, window 16, step 8; band-limited noise
-    spectra and an ADC range of 15 counts per noise Vrms, as the workload."""
-    C, K, n_base = 4, 512, 2048
+    K_base 512, n_base 2048, n_hi 5120 and decim 10 (n_dec 512, the 0.5 GHz
+    ADC), x2 upsampling (n_up 1024), the 11 beams of the 4-channel array,
+    window 16, step 8; band-limited noise spectra and an ADC range of 15
+    counts per noise Vrms, as the workload."""
+    C, K, n_base, n_hi, decim = 4, 512, 2048, 5120, 10
     spec = noise.bandlimited_noise_spectrum(
         gen, (PA_GROUPS * C,), n_base, 2.0, torch.tensor(1e-5, dtype=dtype, device=dev),
         dtype=dtype)[:, :K]
-    I_r, I_i = fft_plan.irfft_dense(n_base, K, dtype, dev)
-    Dd_r, Dd_i = pipeline._device_matrices("decimate", (n_base, 5120, 10), K, dtype, dev)
-    U = pipeline._device_matrices("upsample", (512, 2), None, dtype, dev)
     spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()
     scale_dec = 5.0 / np.sqrt(2.0)
+    Dd_r, Dd_i = fft_plan.decimate_dense(n_base, n_hi, decim, K, dtype, dev)
     vrms = float(((spec_re[:4096] @ Dd_r + spec_im[:4096] @ Dd_i) * scale_dec).std())
     adc_range = vrms * 255 / 15
     rolls = phased_array.beam_rolls([-197.0 - i for i in range(C)], [1051.0] * C,
                                     phased_array.default_angles, 1.75, 1.0)
-    return (spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U), dict(
-        scale_full=2.0 / np.sqrt(2.0), scale_dec=scale_dec, rolls=rolls, window=16,
-        step=8, v_min=-adc_range / 2, lsb=adc_range / 255, n_counts=256, C=C)
+    return (spec_re, spec_im), dict(
+        n_base=n_base, n_hi=n_hi, decim=decim, up=2, scale_full=2.0 / np.sqrt(2.0),
+        scale_dec=scale_dec, rolls=rolls, window=16, step=8, v_min=-adc_range / 2,
+        lsb=adc_range / 255, n_counts=256, C=C)
+
+
+def _adc_kw(kw):
+    """The keywords of ``pa_trigger.adc_plain`` among kernel 3's."""
+    return {k: kw[k] for k in ("n_base", "n_hi", "decim", "scale_dec", "v_min", "lsb",
+                               "n_counts")}
+
+
+def _pa_library_ms(args, kw):
+    """``torch.fft`` yardstick of kernel 3: its three transforms,
+    irfft(X, n_base), irfft(X, n_hi)[..., ::decim] and irfft(rfft(q),
+    n_up), without the ADC, the beams and the windows (X and the plain
+    version's quantized trace q made outside the timing)."""
+    X = torch.complex(args[0], args[1])
+    q = pa_trigger.adc_plain(*args, **_adc_kw(kw))[1]
+    n_up = q.shape[1] * kw["up"]
+
+    def transforms():
+        torch.fft.irfft(X, n=kw["n_base"])
+        torch.fft.irfft(X, n=kw["n_hi"])[..., ::kw["decim"]]
+        torch.fft.irfft(torch.fft.rfft(q), n=n_up)
+
+    ms = _median_ms(transforms)
+    del X, q
+    return ms
+
+
+def _pa_adc_differences(args, kw):
+    """ADC samples whose count differs between the kernel (its diagnostic
+    output) and the plain version, and the number of samples."""
+    ref = pa_trigger.adc_plain(*args, **_adc_kw(kw))[0].to(torch.int32)
+    counts = torch.empty_like(ref)
+    pa_trigger.fused_pa_trigger(*args, threshold=float("inf"), adc_counts=counts, **kw)
+    n = int((counts != ref).sum())
+    del ref, counts
+    return n, args[0].shape[0] * pa_trigger.n_dec_of(kw["n_hi"], kw["decim"])
 
 
 def phase_pa_kernel(dev):
     """Kernel 3 vs its plain version at the bench shapes, at a threshold
     where most groups fire and one where few do; returns the float32
-    summary. The plain power sum is a cumsum difference and the kernel's a
-    direct sum, so a decision may differ only within 1e-4 of the threshold."""
+    summary. The kernel's FFTs and the plain version's dense products round
+    an ADC sample near a count boundary to either side, and the plain power
+    sum is a cumsum difference where the kernel's is a direct sum, so a
+    decision may differ only within 1e-4 of the threshold."""
     summary = {}
     for dtype, tol_amp in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         gen = torch.Generator(device=dev)
@@ -573,15 +659,19 @@ def phase_pa_kernel(dev):
                                      f"{margins[-1]:.3e} >= 1e-4")
             if d_frame or not amp_rel <= tol_amp:
                 raise AssertionError(f"pa_trigger {tag} disagrees with the plain version")
+        n_diff, n_samples = _pa_adc_differences(args, kw)
+        print(f"phase 2 pa_trigger {tag}: {n_diff} of {n_samples} ADC samples take another "
+              f"count in the kernel than in the plain version (no gate)")
         ms = _median_ms(lambda: pa_trigger.fused_pa_trigger(*args, threshold=thr, **kw))
         plain_ms = _median_ms(lambda: pa_trigger.fused_pa_trigger_plain(
             *args, threshold=thr, **kw))
+        lib_ms = _pa_library_ms(args, kw)
         bound = _pa_bound(args, kw)
         print(f"phase 2 pa_trigger {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"(median of 10), bound {bound[0]:.4f} ms ({bound[1]}), "
-              f"{bound[0] / ms:.1%} of the bound ({CARD})")
+              f"(median of 10), library transforms {lib_ms:.3f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}), {bound[0] / ms:.1%} of the bound ({CARD})")
         if dtype == torch.float32:
-            summary["pa_trigger"] = _entry(amp_abs, ms, plain_ms, bound)
+            summary["pa_trigger"] = _entry(amp_abs, ms, plain_ms, bound, lib_ms)
         del args
         torch.cuda.empty_cache()
     return summary

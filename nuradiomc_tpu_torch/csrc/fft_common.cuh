@@ -1,5 +1,6 @@
-// Shared-memory FFT core of the trigger kernel (irfft_trigger.cu) and the
-// placement chain kernel (placement_chain.cu).
+// Shared-memory FFT core of the trigger kernels (irfft_trigger.cu,
+// pa_trigger.cu) and the placement kernels (placement_fft.cuh, used by
+// placement_chain.cu and placement_reduce.cu).
 //
 // A block transforms one row at a time: all of its threads run the stages of
 // a mixed-radix Stockham FFT over two ping-pong buffers in shared memory
@@ -48,10 +49,13 @@ struct Plan {
   int radix[MAX_STAGES];
 };
 
+// the complex length a real transform of length n runs at
+__host__ __device__ inline int complex_length(int n) { return (n % 2 == 0) ? n / 2 : n; }
+
 inline Plan make_plan(int n, const int* radix, int nst) {
   Plan p;
   p.n = n;
-  p.L = (n % 2 == 0) ? n / 2 : n;
+  p.L = complex_length(n);
   p.tws = n / p.L;
   p.nst = nst;
   for (int i = 0; i < MAX_STAGES; ++i) p.radix[i] = i < nst ? radix[i] : 1;
@@ -352,6 +356,95 @@ __device__ __forceinline__ typename Vec2<T>::type rfft_post(
   return cadd(fe, cmul(fo, cconj(__ldg(E + k))));
 }
 
+// ---- getters of the loaders ----------------------------------------------
+
+template <typename T>
+struct StagedRow {   // X[k] from a staging buffer: re [0, K), im [K, 2K)
+  const T* s;
+  int K;
+  __device__ typename Vec2<T>::type operator()(int k) const {
+    typename Vec2<T>::type v;
+    v.x = s[k];
+    v.y = s[K + k];
+    return v;
+  }
+};
+
+template <typename T>
+struct Trace {       // the real samples x(t) of an inverse real transform's result r
+  const typename Vec2<T>::type* r;
+  bool packed;       // n even: r holds x(2m) + i x(2m+1); n odd: x(t) = Re r[t]
+  __device__ T operator()(int t) const {
+    return packed ? reinterpret_cast<const T*>(r)[t] : r[t].x;
+  }
+};
+
+// The decimated inverse real transform as a folded spectrum: when decim n_dec
+// = n_hi,
+//   irfft(X, n_hi)[::decim] = (1/n_hi) IDFT_{n_dec}(Z),
+//   Z_r = sum_{k = r (mod n_dec)} Y_k,
+// Y the Hermitian extension of X (zero from Kh on) to n_hi bins, with numpy's
+// edge rules before folding (Im dropped at DC and at n_hi's Nyquist). Z is
+// Hermitian too, so IrfftIn<T, FoldIn> of length n_dec over Z_0..Z_{n_dec/2}
+// (norm 1/n_hi) gives the decimated trace. ``x(k)`` returns X[k], k < Kh.
+template <typename T, typename Get>
+struct FoldIn {
+  Get x;
+  int Kh, n_hi, n_dec;
+  __device__ typename Vec2<T>::type operator()(int r) const {
+    typename Vec2<T>::type z;
+    z.x = z.y = T(0);
+    for (int k = r; k < Kh; k += n_dec) {          // Y_k = X_k
+      typename Vec2<T>::type v = x(k);
+      if (k == 0 || 2 * k == n_hi) v.y = T(0);
+      z = cadd(z, v);
+    }
+    // Y_{n_hi - j} = conj X_j for 0 < j < Kh, j = -r (mod n_dec), j != n_hi / 2
+    for (int j = r == 0 ? n_dec : n_dec - r; j < Kh; j += n_dec) {
+      if (2 * j == n_hi) continue;
+      z = cadd(z, cconj(x(j)));
+    }
+    return z;
+  }
+};
+
+// bin k (k <= n/2) of the rfft whose forward transform is in Z (rfft_post),
+// Im dropped at DC and Nyquist, where the rfft of real samples is real
+template <typename T>
+struct RfftOut {
+  const typename Vec2<T>::type* Z;
+  const Plan* p;
+  const typename Vec2<T>::type* E;
+  __device__ typename Vec2<T>::type operator()(int k) const {
+    typename Vec2<T>::type v = rfft_post<T>(Z, k, *p, E);
+    if (k == 0 || 2 * k == p->n) v.y = T(0);
+    return v;
+  }
+};
+
+// ---- block-wide reductions (NWARP warps) -----------------------------------
+
+template <int NWARP>
+__device__ int block_min(int x, int* warp_buf) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  x = __reduce_min_sync(0xffffffffu, x);
+  if (lane == 0) warp_buf[wid] = x;
+  __syncthreads();
+  int m = warp_buf[0];
+#pragma unroll
+  for (int w = 1; w < NWARP; ++w) m = min(m, warp_buf[w]);
+  __syncthreads();
+  return m;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // ---- asynchronous copies of one row into shared memory --------------------
 
 __device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
@@ -393,6 +486,23 @@ inline int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms > 0 ? sms : 1;
+}
+
+// blocks of a persistent launch: as many as fit on the card (after the
+// kernel's dynamic shared memory is allowed), at most ``work`` (one per group
+// or output row)
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int work, int* n_blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long cap = (long)per_sm * sm_count();
+  *n_blocks = (int)(work < cap ? work : cap);
+  return cudaSuccess;
 }
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~size_t(15); }

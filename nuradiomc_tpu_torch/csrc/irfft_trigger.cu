@@ -91,25 +91,11 @@ __device__ int block_exclusive_scan(int x, int* warp_sums) {
   return res;
 }
 
-__device__ int block_min(int x, int* warp_buf) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  x = __reduce_min_sync(0xffffffffu, x);
-  if (lane == 0) warp_buf[wid] = x;
-  __syncthreads();
-  int m = warp_buf[0];
-#pragma unroll
-  for (int w = 1; w < NWARP; ++w) m = min(m, warp_buf[w]);
-  __syncthreads();
-  return m;
-}
-
 template <typename T>
 __device__ T block_max(T x, T* warp_buf) {
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_down_sync(0xffffffffu, x, o));
+  x = fftc::warp_max(x);
   if (lane == 0) warp_buf[wid] = x;
   __syncthreads();
   T m = warp_buf[0];
@@ -140,18 +126,6 @@ __host__ __device__ inline Layout layout_of(int C, int n_base, int K) {
   l.total = l.scratch + 32 * sizeof(T) + 32 * sizeof(int);
   return l;
 }
-
-template <typename T>
-struct StagedRow {   // X[k] from the staging buffer: re [0, K), im [K, 2K)
-  const T* s;
-  int K;
-  __device__ typename fftc::Vec2<T>::type operator()(int k) const {
-    typename fftc::Vec2<T>::type v;
-    v.x = s[k];
-    v.y = s[K + k];
-    return v;
-  }
-};
 
 // the prefix-count array is padded by one word every 32, so that the block's
 // threads, each owning EMAX contiguous samples, hit distinct banks
@@ -217,8 +191,8 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) irfft_trigger_kernel(
         first = fbuf;
         other = fbuf + plan.L;
       }
-      fftc::fill(first, plan.L, fftc::IrfftIn<T, StagedRow<T>>{StagedRow<T>{stage, K}, K,
-                                                               n_base, plan.L, E, norm});
+      fftc::fill(first, plan.L, fftc::IrfftIn<T, fftc::StagedRow<T>>{
+                                    fftc::StagedRow<T>{stage, K}, K, n_base, plan.L, E, norm});
       // the staging buffer is read: the next row's copy into it starts
       const int next_g = (c + 1 < C) ? g : g + gridDim.x;
       const int next_c = (c + 1 < C) ? c + 1 : 0;
@@ -328,7 +302,7 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) irfft_trigger_kernel(
         const int n = e0 + e;
         if (e < Es && n < n_base && cnt[e] >= tp.n_coinc[t]) first = n;
       }
-      first = block_min(first, iscratch);
+      first = fftc::block_min<NWARP>(first, iscratch);
       if (tid == 0) {
         const size_t o = (size_t)g * tp.n + t;
         fired_out[o] = first < n_base ? 1 : 0;
@@ -342,18 +316,7 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) irfft_trigger_kernel(
 // blocks of one launch: as many as fit on the card, at most one per group
 template <typename T, int EMAX>
 cudaError_t grid_of(int G, size_t smem, int* n_blocks) {
-  cudaError_t err = cudaFuncSetAttribute(irfft_trigger_kernel<T, EMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, irfft_trigger_kernel<T, EMAX>,
-                                                      NTH, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long cap = (long)per_sm * fftc::sm_count();
-  *n_blocks = (int)(G < cap ? G : cap);
-  return cudaSuccess;
+  return fftc::persistent_grid(irfft_trigger_kernel<T, EMAX>, NTH, smem, G, n_blocks);
 }
 
 template <typename T, int EMAX>

@@ -3,323 +3,401 @@
 // -> static-roll coherent beams -> sliding power sums -> threshold on the
 // frame grid -> fired and first frame.
 //
-// Replaces nuradiomc_tpu/ops/pa_pallas.py::fused_pa_trigger (pa_pallas.py:130,
-// kernel _kernel, _sliding_sum_fwd). Per event group g (rows (g, c), channel
-// fastest):
+// Replaces nuradiomc_tpu/ops/pa_pallas.py::fused_pa_trigger (kernel _kernel,
+// _sliding_sum_fwd; pallas_call at pa_pallas.py:181). Per event group g (rows
+// (g, c), channel fastest), X[c] the row's K spectrum bins:
 //
-//   amp[c]    = max_n |scale_full * (Re X[c] @ I_r + Im X[c] @ I_i)[n]|
-//   dec[c, k] = scale_dec * (Re X[c] @ Dd_r + Im X[c] @ Dd_i)[k]
-//   q[c, k]   = (clip(floor((dec - v_min) / lsb), 0, n_counts - 1) + off) * lsb
-//   up[c, m]  = (q[c] @ U)[m]
+//   amp[c]    = max_n |scale_full * irfft(X[c], n_base)[n]|
+//   dec[c, m] = scale_dec * irfft(X[c], n_hi)[m * decim],  m < n_dec = ceil(n_hi / decim)
+//   q[c, m]   = (clip(floor((dec - v_min) / lsb), 0, n_counts - 1) + off) * lsb
+//   up[c, :]  = up * irfft(rfft(q[c]), n = n_up),  n_up = n_dec * up
 //   beam_b[m] = sum_c up[c, (m - roll[b, c]) mod n_up]       (torch.roll)
 //   P_b[f]    = sum_{i < window} beam_b[f * step + i]^2 / window,
 //               f < (n_up - window) / step
 //   fired     = any_{b, f} P_b[f] > threshold,  frame = fired ? min f : 0
 //
-// The ADC divides by lsb, as ops/adc.py does; the products before it are
-// rounded (__fmul_rn) so no FMA contraction changes the count boundaries
-// against the plain version. Beams add channels in the plain version's
-// order; only the window sum (direct here, a cumsum difference there) and
-// the matmul summation order differ.
+// The transforms are numpy's irfft and rfft: the TPU kernel's dense matrices
+// (pipeline._irfft_matrices, _decimating_irfft_matrices,
+// _fft_upsample_matrix) are exactly these maps. The ADC divides by lsb, as
+// ops/adc.py does; the products before it are rounded (__fmul_rn) so no FMA
+// contraction moves a count boundary. Beams add channels in the plain
+// version's order; the window sum is direct here, a cumsum difference there.
 //
-// What bounds it on the H100: the three products are 4, 4 and 2 FLOP per
-// (row, k, n); at the bench shape (65536 rows, K 512, n_base 2048, n_dec 512,
-// n_up 1024) that is ~4.1e11 FLOP of plain FMA, compute-bound against the
-// CUDA cores (67 TFLOP/s FP32, 34 FP64); the beams and power sums are
-// O(B * n_up * window) per group. The design keeps every trace of the chain
-// on chip: the full-rate trace lives only in registers as a running max, the
-// quantized and upsampled traces of a block's groups in shared memory. A
-// block owns whole groups (the beams sum channels), computes up to RBMAX
-// rows at once so each matrix element read from L2 feeds 2 * RBMAX FMAs,
-// holds RBMAX x SPT accumulators per thread, and stages the spectra through
-// shared memory in tiles of FT frequencies. U (2 MB in f32) is read from L2.
+// What bounds it on the H100: at the phased-array path's shape (65536 rows,
+// K 512, n_base 2048, n_hi 5120, decim 10, n_up 1024, 11 beams) it reads 268
+// MB of spectra in float32 (537 MB in float64), 0.08 ms (0.16 ms) at 3.35
+// TB/s, and needs ~9e9 FLOP for its four real FFTs per row, the beams and the
+// windows, 0.14 ms at 67 TFLOP/s. (The TPU kernel's dense products, 4.1e11
+// FLOP, fed the MXU; on the CUDA cores they made the kernel compute-bound at
+// 26-80 ms.)
+//
+// The design: a block (128 threads, persistent, groups G/grid apart) owns
+// whole groups, because the beams sum channels. Per channel row, in shared
+// memory (fft_common.cuh): the row's K bins are staged with cp.async,
+// double-buffered so the next row's copy runs during this row's transforms;
+// an inverse real FFT of n_base gives the full-rate trace, read once for its
+// maximum and never kept; the decimated trace is an inverse real FFT of n_dec
+// of the folded spectrum (FoldIn) when decim divides n_hi, else the full
+// inverse of n_hi read at the stride; the ADC is applied as the forward real
+// FFT of n_dec reads the trace (up > 1), and the inverse real FFT of n_up over
+// its bins lands in the channel's slot of the group's upsampled traces, the
+// only trace kept (C n_up values). Then each beam's powers are formed once per
+// sample, two beams' alternating in the FFT buffers, and summed over each
+// frame's window directly; the first frame is a block minimum.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fft_common.cuh"
 
 namespace {
 
-constexpr int NTH = 256;     // threads per block
+constexpr int NTH = 128;     // threads per block
 constexpr int NWARP = NTH / 32;
-constexpr int SPT = 4;       // output columns per thread per chunk
-constexpr int FT = 32;       // frequencies per staged spectrum tile
+// blocks per SM the registers must allow: 5 in float32 (shared memory at the
+// phased-array shape allows 5), 2 in float64
+template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 5 : 2; }
 
-template <typename T> struct Vec2;
-template <> struct Vec2<float> { using type = float2; };
-template <> struct Vec2<double> { using type = double2; };
+using fftc::Vec2;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// acc[r][s] = sum_f Re X[row0 + r, f] * Mr[f, n] + Im X[row0 + r, f] * Mi[f, n]
-// for n = n0 + s * NTH + tid < N and rows r < nr (others stay 0).
-template <typename T, int RB>
-__device__ void spectrum_matmul(const T* __restrict__ spec_re,
-                                const T* __restrict__ spec_im, size_t row0,
-                                int nr, int K, const T* __restrict__ Mr,
-                                const T* __restrict__ Mi, int N, int n0,
-                                typename Vec2<T>::type* S, T (&acc)[RB][SPT]) {
-  using T2 = typename Vec2<T>::type;
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int s = 0; s < SPT; ++s) acc[r][s] = T(0);
-  for (int f0 = 0; f0 < K; f0 += FT) {
-    __syncthreads();                             // previous tile consumed
-    for (int i = tid; i < RB * FT; i += NTH) {
-      const int r = i / FT;
-      const int ff = i - r * FT;
-      T2 v;
-      v.x = T(0);
-      v.y = T(0);
-      if (r < nr && f0 + ff < K) {
-        const size_t o = (row0 + r) * (size_t)K + f0 + ff;
-        v.x = spec_re[o];
-        v.y = spec_im[o];
-      }
-      S[ff * RB + r] = v;
-    }
-    __syncthreads();
-    const int fmax = min(FT, K - f0);
-    for (int ff = 0; ff < fmax; ++ff) {
-      const size_t base = (size_t)(f0 + ff) * N;
-      T mr[SPT], mi[SPT];
-#pragma unroll
-      for (int s = 0; s < SPT; ++s) {
-        const int n = n0 + s * NTH + tid;
-        mr[s] = n < N ? Mr[base + n] : T(0);
-        mi[s] = n < N ? Mi[base + n] : T(0);
-      }
-      const T2* Sf = S + ff * RB;
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const T2 v = Sf[r];
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) acc[r][s] += v.x * mr[s] + v.y * mi[s];
-      }
-    }
-  }
-}
-
 struct PaParams {
-  int G, C, K, n_base, n_dec, n_up, B, window, step, gpb, n_counts;
+  int G, C, K;
+  int Kh;              // bins the n_hi transform uses: min(K, n_hi / 2 + 1)
+  int n_hi, decim, n_dec, up, n_up;
+  int fold;            // decim divides n_hi: the folded spectrum at length n_dec
+  int Lw;              // complex length of the FFT buffers
+  int B, window, step, n_counts;
 };
 
 template <typename T>
 struct PaScalars {
-  T scale_full, scale_dec, threshold, v_min, lsb, offset;
+  T norm_full, norm_hi, norm_up, scale_dec, threshold, v_min, lsb, offset;
 };
 
-// smem layout: spec tile [FT][RBMAX] T2 | dec [rows][n_dec] T |
-//              up [rows][n_up] T | max scratch [NWARP][RBMAX] T |
-//              rolls [B][C] int | first frame [gpb] int
-template <typename T, int RBMAX>
-__global__ void __launch_bounds__(NTH) pa_trigger_kernel(
+struct PaPlans {
+  fftc::Plan base, hi, dec, upp;   // hi is used only without the fold
+};
+
+inline PaParams params_of(int G, int C, int K, int n_base, int n_hi, int decim, int up, int B,
+                          int window, int step, int n_counts) {
+  PaParams p;
+  p.G = G;
+  p.C = C;
+  p.K = K;
+  p.Kh = K < n_hi / 2 + 1 ? K : n_hi / 2 + 1;
+  p.n_hi = n_hi;
+  p.decim = decim;
+  p.n_dec = decim > 0 ? (n_hi + decim - 1) / decim : 0;
+  p.up = up;
+  p.n_up = p.n_dec * up;
+  p.fold = decim > 0 && n_hi % decim == 0;
+  const int lengths[4] = {n_base, p.n_dec, p.n_up, p.fold ? 1 : n_hi};
+  p.Lw = 1;
+  for (int i = 0; i < 4; ++i)
+    if (fftc::complex_length(lengths[i]) > p.Lw) p.Lw = fftc::complex_length(lengths[i]);
+  p.B = B;
+  p.window = window;
+  p.step = step;
+  p.n_counts = n_counts;
+  return p;
+}
+
+// shared-memory layout, each part 16-byte aligned:
+//   staged rows [2][2 K] T | A, B [Lw] T2 | up [C][n_up] T |
+//   amp partials [C][NWARP] T | rolls [B][C] int | scratch [NWARP] int
+struct Layout {
+  size_t stage, A, B, up, amp, rolls, iscr, total;
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout_of(const PaParams& p) {
+  using T2 = typename Vec2<T>::type;
+  Layout l;
+  l.stage = 0;
+  l.A = 2 * fftc::align16(2 * (size_t)p.K * sizeof(T));
+  l.B = l.A + fftc::align16((size_t)p.Lw * sizeof(T2));
+  l.up = l.B + fftc::align16((size_t)p.Lw * sizeof(T2));
+  l.amp = l.up + fftc::align16((size_t)p.C * p.n_up * sizeof(T));
+  l.rolls = l.amp + fftc::align16((size_t)p.C * NWARP * sizeof(T));
+  l.iscr = l.rolls + fftc::align16((size_t)p.B * p.C * sizeof(int));
+  l.total = l.iscr + NWARP * sizeof(int);
+  return l;
+}
+
+// the ADC of decimated sample m (the trace's sample m * stride)
+template <typename T>
+struct Adc {
+  fftc::Trace<T> x;
+  int stride;
+  T scale_dec, v_min, lsb, top, offset;
+  int32_t* counts;     // the row's counts before the offset (a diagnostic), or null
+  __device__ T operator()(int m) const {
+    const T tr = mul_rn(x(m * stride), scale_dec);
+    T c = floor((tr - v_min) / lsb);
+    c = min(max(c, T(0)), top);
+    if (counts) counts[m] = (int32_t)c;
+    return mul_rn(c + offset, lsb);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
     const T* __restrict__ spec_re, const T* __restrict__ spec_im,
-    const T* __restrict__ I_r, const T* __restrict__ I_i,
-    const T* __restrict__ Dd_r, const T* __restrict__ Dd_i,
-    const T* __restrict__ U, const int* __restrict__ rolls,
-    uint8_t* __restrict__ fired_out, int32_t* __restrict__ frame_out,
-    T* __restrict__ amp_out, PaParams p, PaScalars<T> sc) {
+    const int* __restrict__ rolls, const typename Vec2<T>::type* __restrict__ Eb,
+    const typename Vec2<T>::type* __restrict__ Eh, const typename Vec2<T>::type* __restrict__ Ed,
+    const typename Vec2<T>::type* __restrict__ Eu, uint8_t* __restrict__ fired_out,
+    int32_t* __restrict__ frame_out, T* __restrict__ amp_out, int32_t* __restrict__ counts_out,
+    const __grid_constant__ PaParams p, const __grid_constant__ PaScalars<T> sc,
+    const __grid_constant__ PaPlans pl) {
   using T2 = typename Vec2<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wid = tid >> 5;
-  const int C = p.C;
-  const int g0 = blockIdx.x * p.gpb;
-  const int n_g = min(p.gpb, p.G - g0);
-  const int rows = n_g * C;
-  const size_t row0 = (size_t)g0 * C;
+  const int C = p.C, K = p.K;
+  const Layout lay = layout_of<T>(p);
+  T* stage = reinterpret_cast<T*>(smem_raw + lay.stage);
+  const size_t sst = lay.A / 2 / sizeof(T);      // elements per staging buffer
+  T2* A = reinterpret_cast<T2*>(smem_raw + lay.A);
+  T2* B = reinterpret_cast<T2*>(smem_raw + lay.B);
+  T* up = reinterpret_cast<T*>(smem_raw + lay.up);
+  T* amp_s = reinterpret_cast<T*>(smem_raw + lay.amp);
+  int* rolls_s = reinterpret_cast<int*>(smem_raw + lay.rolls);
+  int* iscr = reinterpret_cast<int*>(smem_raw + lay.iscr);
 
-  T2* S = reinterpret_cast<T2*>(smem_raw);
-  T* dec = reinterpret_cast<T*>(S + FT * RBMAX);
-  T* up = dec + (size_t)p.gpb * C * p.n_dec;
-  T* red = up + (size_t)p.gpb * C * p.n_up;
-  int* rolls_s = reinterpret_cast<int*>(red + NWARP * RBMAX);
-  int* first_s = rolls_s + p.B * C;
+  const int nf = (p.n_up - p.window) / p.step;   // frames on the grid
+  const bool packed_dec = p.fold ? p.n_dec % 2 == 0 : p.n_hi % 2 == 0;
+  const T top = T(p.n_counts - 1);
 
-  const int nf = (p.n_up - p.window) / p.step;    // frames on the grid
+  int g = blockIdx.x;
+  if (g >= p.G) return;
   for (int i = tid; i < p.B * C; i += NTH) rolls_s[i] = rolls[i];
-  if (tid < p.gpb) first_s[tid] = nf;
+  // the block's rows in order are (g, c) for g = blockIdx.x, + gridDim.x, ...;
+  // row number ``it`` of the block is staged in buffer it & 1
+  auto fetch = [&](size_t row, int buf) {
+    T* s = stage + buf * sst;
+    fftc::row_async(s, spec_re + row * K, K);
+    fftc::row_async(s + K, spec_im + row * K, K);
+    fftc::cp_async_commit();
+  };
+  fetch((size_t)g * C, 0);
+  int it = 0;
+  for (; g < p.G; g += gridDim.x) {
+    const size_t row0 = (size_t)g * C;
+    for (int c = 0; c < C; ++c, ++it) {
+      const T* s = stage + (it & 1) * sst;
+      fftc::cp_async_wait_all();
+      __syncthreads();                           // the row is staged; the other buffer free
+      const int ng = c + 1 < C ? g : g + gridDim.x;
+      if (ng < p.G) fetch(c + 1 < C ? row0 + c + 1 : (size_t)ng * C, (it + 1) & 1);
+      const fftc::StagedRow<T> X{s, K};
 
-  T acc[RBMAX][SPT];
-  for (int rc = 0; rc < rows; rc += RBMAX) {
-    const int nr = min(RBMAX, rows - rc);
+      // ---- full-rate trace: its maximum, not kept ------------------------------
+      fftc::fill(A, pl.base.L, fftc::IrfftIn<T, fftc::StagedRow<T>>{X, K, pl.base.n, pl.base.L,
+                                                                    Eb, sc.norm_full});
+      T2* rb = fftc::run<T, +1>(A, B, pl.base, Eb);
+      T2* o = rb == A ? B : A;
+      {
+        const fftc::Trace<T> x{rb, pl.base.n % 2 == 0};
+        T m = T(0);
+        for (int t = tid; t < pl.base.n; t += NTH) m = max(m, abs(x(t)));
+        m = fftc::warp_max(m);
+        if (lane == 0) amp_s[c * NWARP + wid] = m;
+      }
 
-    // ---- 1. full-rate trace: running max |trace| per row, never stored ----
-    T mx[RBMAX];
-#pragma unroll
-    for (int r = 0; r < RBMAX; ++r) mx[r] = T(0);
-    for (int n0 = 0; n0 < p.n_base; n0 += NTH * SPT) {
-      spectrum_matmul<T, RBMAX>(spec_re, spec_im, row0 + rc, nr, p.K, I_r, I_i,
-                                p.n_base, n0, S, acc);
-#pragma unroll
-      for (int r = 0; r < RBMAX; ++r)
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) mx[r] = max(mx[r], abs(mul_rn(acc[r][s], sc.scale_full)));
-    }
-#pragma unroll
-    for (int r = 0; r < RBMAX; ++r) {
-      T m = mx[r];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, o));
-      if (lane == 0) red[wid * RBMAX + r] = m;
-    }
-    __syncthreads();
-    if (tid < nr) {
-      T m = red[tid];
-      for (int w = 1; w < NWARP; ++w) m = max(m, red[w * RBMAX + tid]);
-      amp_out[row0 + rc + tid] = m;
-    }
+      // ---- decimated trace (o is free while rb is read above) -----------------
+      T2* rd;
+      if (p.fold) {
+        using Fold = fftc::FoldIn<T, fftc::StagedRow<T>>;
+        fftc::fill(o, pl.dec.L, fftc::IrfftIn<T, Fold>{Fold{X, p.Kh, p.n_hi, p.n_dec},
+                                                       p.n_dec / 2 + 1, p.n_dec, pl.dec.L, Ed,
+                                                       sc.norm_hi});
+        rd = fftc::run<T, +1>(o, rb, pl.dec, Ed);
+      } else {
+        fftc::fill(o, pl.hi.L, fftc::IrfftIn<T, fftc::StagedRow<T>>{X, p.Kh, p.n_hi, pl.hi.L,
+                                                                    Eh, sc.norm_hi});
+        rd = fftc::run<T, +1>(o, rb, pl.hi, Eh);
+      }
 
-    // ---- 2. decimated trace through the ADC, into shared memory ----------
-    for (int n0 = 0; n0 < p.n_dec; n0 += NTH * SPT) {
-      spectrum_matmul<T, RBMAX>(spec_re, spec_im, row0 + rc, nr, p.K, Dd_r, Dd_i,
-                                p.n_dec, n0, S, acc);
-#pragma unroll
-      for (int r = 0; r < RBMAX; ++r) {
-        if (r < nr) {
-#pragma unroll
-          for (int s = 0; s < SPT; ++s) {
-            const int n = n0 + s * NTH + tid;
-            if (n < p.n_dec) {
-              const T tr = mul_rn(acc[r][s], sc.scale_dec);
-              T c = floor((tr - sc.v_min) / sc.lsb);
-              c = min(max(c, T(0)), T(p.n_counts - 1));
-              dec[(size_t)(rc + r) * p.n_dec + n] = mul_rn(c + sc.offset, sc.lsb);
-            }
-          }
-        }
+      // ---- ADC, then the upsampled trace into the channel's slot ----------------
+      T* slot = up + (size_t)c * p.n_up;
+      const Adc<T> adc{fftc::Trace<T>{rd, packed_dec}, p.fold ? 1 : p.decim, sc.scale_dec,
+                       sc.v_min, sc.lsb, top, sc.offset,
+                       counts_out ? counts_out + (row0 + c) * p.n_dec : nullptr};
+      if (p.up == 1) {                           // irfft(rfft(q), n_dec) is q
+        for (int m = tid; m < p.n_dec; m += NTH) slot[m] = adc(m);
+        continue;
+      }
+      T2* q = rd == A ? B : A;
+      fftc::fill(q, pl.dec.L, fftc::RfftIn<T, Adc<T>>{adc, p.n_dec, p.n_dec});
+      T2* rq = fftc::run<T, -1>(q, rd, pl.dec, Ed);
+      T2* wbuf = rq == A ? B : A;
+      const fftc::IrfftIn<T, fftc::RfftOut<T>> in{fftc::RfftOut<T>{rq, &pl.dec, Ed},
+                                                  p.n_dec / 2 + 1, p.n_up, pl.upp.L, Eu,
+                                                  sc.norm_up};
+      if (p.n_up % 2 == 0) {                     // the last stage lands in the slot
+        T2* sl = reinterpret_cast<T2*>(slot);
+        T2* first = pl.upp.nst % 2 == 0 ? sl : wbuf;
+        fftc::fill(first, pl.upp.L, in);
+        fftc::run<T, +1>(first, first == sl ? wbuf : sl, pl.upp, Eu);
+      } else {                                   // the trace is Re of the result
+        fftc::fill(wbuf, pl.upp.L, in);
+        const T2* ru = fftc::run<T, +1>(wbuf, rq, pl.upp, Eu);
+        for (int t = tid; t < p.n_up; t += NTH) slot[t] = ru[t].x;
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();                             // the group's traces and amp partials
 
-  // ---- 3. upsample: up = q @ U, U read from L2 ------------------------------
-  for (int rc = 0; rc < rows; rc += RBMAX) {
-    const int nr = min(RBMAX, rows - rc);
-    for (int m0 = 0; m0 < p.n_up; m0 += NTH * SPT) {
+    for (int cc = tid; cc < C; cc += NTH) {
+      T m = amp_s[cc * NWARP];
 #pragma unroll
-      for (int r = 0; r < RBMAX; ++r)
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) acc[r][s] = T(0);
-      for (int k = 0; k < p.n_dec; ++k) {
-        T u[SPT];
-#pragma unroll
-        for (int s = 0; s < SPT; ++s) {
-          const int m = m0 + s * NTH + tid;
-          u[s] = m < p.n_up ? U[(size_t)k * p.n_up + m] : T(0);
-        }
-#pragma unroll
-        for (int r = 0; r < RBMAX; ++r) {
-          const T qv = r < nr ? dec[(size_t)(rc + r) * p.n_dec + k] : T(0);
-#pragma unroll
-          for (int s = 0; s < SPT; ++s) acc[r][s] += qv * u[s];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RBMAX; ++r) {
-        if (r < nr) {
-#pragma unroll
-          for (int s = 0; s < SPT; ++s) {
-            const int m = m0 + s * NTH + tid;
-            if (m < p.n_up) up[(size_t)(rc + r) * p.n_up + m] = acc[r][s];
-          }
-        }
-      }
+      for (int w = 1; w < NWARP; ++w) m = max(m, amp_s[cc * NWARP + w]);
+      amp_out[row0 + cc] = m;
     }
-  }
-  __syncthreads();
 
-  // ---- 4. beams, window power sums, threshold, first frame ------------------
-  const int pairs = p.B * nf;
-  for (int gl = 0; gl < n_g; ++gl) {
-    const T* upg = up + (size_t)gl * C * p.n_up;
-    for (int q = tid; q < pairs; q += NTH) {
-      const int b = q / nf;
-      const int f = q - b * nf;
-      const int start = f * p.step;
-      T sum = T(0);
-      for (int i = 0; i < p.window; ++i) {
-        const int m = start + i;
+    // ---- beams, window power sums, threshold, first frame ----------------------
+    // beam b's powers in pw[b & 1]: the FFT buffers, free until the next group
+    T* pw[2] = {reinterpret_cast<T*>(A), reinterpret_cast<T*>(B)};
+    auto beam_power = [&](int b, T* out) {
+      const int* rb_c = rolls_s + b * C;
+      for (int m = tid; m < p.n_up; m += NTH) {
         T v = T(0);
-        for (int c = 0; c < C; ++c) {
-          int idx = m - rolls_s[b * C + c];
+        for (int cc = 0; cc < C; ++cc) {
+          int idx = m - rb_c[cc];
           if (idx < 0) idx += p.n_up;
-          v += upg[(size_t)c * p.n_up + idx];
+          v += up[(size_t)cc * p.n_up + idx];
         }
-        sum += mul_rn(v, v);
+        out[m] = mul_rn(v, v);
       }
-      if (sum / T(p.window) > sc.threshold) atomicMin(&first_s[gl], f);
+    };
+    int first = nf;                              // the thread's first frame above
+    beam_power(0, pw[0]);
+    __syncthreads();
+    for (int b = 0; b < p.B; ++b) {
+      if (b + 1 < p.B) beam_power(b + 1, pw[(b + 1) & 1]);
+      const T* P = pw[b & 1];
+      for (int f = tid; f < nf && f < first; f += NTH) {
+        T sum = T(0);
+        const T* w0 = P + f * p.step;
+        for (int i = 0; i < p.window; ++i) sum += w0[i];
+        if (sum / T(p.window) > sc.threshold) {
+          first = f;
+          break;
+        }
+      }
+      __syncthreads();                           // beam b read; its buffer free
+    }
+    first = fftc::block_min<NWARP>(first, iscr);
+    if (tid == 0) {
+      fired_out[g] = first < nf ? 1 : 0;
+      frame_out[g] = first < nf ? first : 0;
     }
   }
-  __syncthreads();
-  if (tid < n_g) {
-    const int f = first_s[tid];
-    fired_out[g0 + tid] = f < nf ? 1 : 0;
-    frame_out[g0 + tid] = f < nf ? f : 0;
-  }
+  fftc::cp_async_wait_all();
 }
 
-template <typename T, int RBMAX>
-int launch(const T* spec_re, const T* spec_im, const T* I_r, const T* I_i,
-           const T* Dd_r, const T* Dd_i, const T* U, const int* rolls,
-           uint8_t* fired, int32_t* frame, T* amp, PaParams p, PaScalars<T> sc,
-           void* stream) {
+template <typename T>
+cudaError_t grid_of(int G, size_t smem, int* n_blocks) {
+  return fftc::persistent_grid(pa_trigger_kernel<T>, NTH, smem, G, n_blocks);
+}
+
+bool params_ok(const PaParams& p, int n_base) {
+  return p.G >= 1 && p.C >= 1 && p.K >= 1 && p.K <= n_base / 2 + 1 && n_base >= 2 &&
+         p.n_hi >= 2 && p.decim >= 1 && p.n_dec >= 2 && p.up >= 1 && p.B >= 1 &&
+         p.window >= 1 && p.step >= 1 && p.n_up >= p.window && p.n_counts >= 1;
+}
+
+template <typename T>
+int launch(const T* spec_re, const T* spec_im, const int* rolls, const void* Eb, const void* Eh,
+           const void* Ed, const void* Eu, uint8_t* fired, int32_t* frame, T* amp,
+           int32_t* counts, const PaParams& p, int n_base, const PaPlans& pl,
+           const PaScalars<T>& sc, void* stream) {
   using T2 = typename Vec2<T>::type;
-  if (p.window < 1 || p.step < 1 || p.n_up < p.window || p.gpb < 1)
+  if (!params_ok(p, n_base) || pl.base.n != n_base || pl.dec.n != p.n_dec ||
+      pl.upp.n != p.n_up || (!p.fold && pl.hi.n != p.n_hi) || !fftc::plan_ok(pl.base) ||
+      !fftc::plan_ok(pl.dec) || !fftc::plan_ok(pl.upp) || (!p.fold && !fftc::plan_ok(pl.hi)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)FT * RBMAX * sizeof(T2) +
-                      (size_t)p.gpb * p.C * (p.n_dec + p.n_up) * sizeof(T) +
-                      (size_t)NWARP * RBMAX * sizeof(T) +
-                      (size_t)p.B * p.C * sizeof(int) + (size_t)p.gpb * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(pa_trigger_kernel<T, RBMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const size_t smem = layout_of<T>(p).total;
+  int n_blocks = 0;
+  const cudaError_t err = grid_of<T>(p.G, smem, &n_blocks);
   if (err != cudaSuccess) return (int)err;
-  const int n_blocks = (p.G + p.gpb - 1) / p.gpb;
-  pa_trigger_kernel<T, RBMAX><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
-      spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U, rolls, fired, frame, amp, p, sc);
+  pa_trigger_kernel<T><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
+      spec_re, spec_im, rolls, static_cast<const T2*>(Eb), static_cast<const T2*>(Eh),
+      static_cast<const T2*>(Ed), static_cast<const T2*>(Eu), fired, frame, amp, counts, p, sc,
+      pl);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_c(const T* spec_re, const T* spec_im, const int* rolls, const void* Eb,
+             const void* Eh, const void* Ed, const void* Eu, uint8_t* fired, int32_t* frame,
+             T* amp, int32_t* counts, int G, int C, int K, int n_base, int n_hi, int decim,
+             int up, int B, int window, int step, int n_counts, const int* radix_base,
+             int nst_base, const int* radix_hi, int nst_hi, const int* radix_dec, int nst_dec,
+             const int* radix_up, int nst_up, T norm_full, T norm_hi, T norm_up, T scale_dec,
+             T threshold, T v_min, T lsb, T offset, void* stream) {
+  const PaParams p = params_of(G, C, K, n_base, n_hi, decim, up, B, window, step, n_counts);
+  if (!params_ok(p, n_base)) return (int)cudaErrorInvalidValue;
+  const PaPlans pl = {fftc::make_plan(n_base, radix_base, nst_base),
+                      fftc::make_plan(n_hi, radix_hi, nst_hi),
+                      fftc::make_plan(p.n_dec, radix_dec, nst_dec),
+                      fftc::make_plan(p.n_up, radix_up, nst_up)};
+  const PaScalars<T> sc = {norm_full, norm_hi, norm_up, scale_dec, threshold, v_min, lsb, offset};
+  return launch<T>(spec_re, spec_im, rolls, Eb, Eh, Ed, Eu, fired, frame, amp, counts, p, n_base,
+                   pl, sc, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// launch geometry the wrapper needs to size shared memory
-int pa_trigger_rows_per_pass_f32() { return 16; }
-int pa_trigger_rows_per_pass_f64() { return 8; }
-int pa_trigger_spec_tile() { return FT; }
-
-int pa_trigger_f32(const float* spec_re, const float* spec_im, const float* I_r,
-                   const float* I_i, const float* Dd_r, const float* Dd_i,
-                   const float* U, const int* rolls, uint8_t* fired,
-                   int32_t* frame, float* amp, int G, int C, int K, int n_base,
-                   int n_dec, int n_up, int B, int window, int step, int gpb,
-                   int n_counts, float scale_full, float scale_dec,
-                   float threshold, float v_min, float lsb, float offset,
-                   void* stream) {
-  const PaParams p = {G, C, K, n_base, n_dec, n_up, B, window, step, gpb, n_counts};
-  const PaScalars<float> sc = {scale_full, scale_dec, threshold, v_min, lsb, offset};
-  return launch<float, 16>(spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U, rolls,
-                           fired, frame, amp, p, sc, stream);
+// shared memory one block needs: the wrapper refuses sizes beyond a block's
+long pa_trigger_smem_bytes(int C, int K, int n_base, int n_hi, int decim, int up, int B,
+                           int f64) {
+  const PaParams p = params_of(1, C, K, n_base, n_hi, decim, up, B, 1, 1, 1);
+  return (long)(f64 ? layout_of<double>(p).total : layout_of<float>(p).total);
 }
 
-int pa_trigger_f64(const double* spec_re, const double* spec_im,
-                   const double* I_r, const double* I_i, const double* Dd_r,
-                   const double* Dd_i, const double* U, const int* rolls,
-                   uint8_t* fired, int32_t* frame, double* amp, int G, int C,
-                   int K, int n_base, int n_dec, int n_up, int B, int window,
-                   int step, int gpb, int n_counts, double scale_full,
+// the grid a launch of these sizes uses (blocks), or -1
+int pa_trigger_grid(int G, int C, int K, int n_base, int n_hi, int decim, int up, int B,
+                    int f64) {
+  const PaParams p = params_of(G, C, K, n_base, n_hi, decim, up, B, 1, 1, 1);
+  int n = 0;
+  const cudaError_t err = f64 ? grid_of<double>(G, layout_of<double>(p).total, &n)
+                              : grid_of<float>(G, layout_of<float>(p).total, &n);
+  return err == cudaSuccess ? n : -1;
+}
+
+// counts: null, or [G * C, n_dec] int32 for the ADC counts before the offset
+int pa_trigger_f32(const float* spec_re, const float* spec_im, const int* rolls, const void* Eb,
+                   const void* Eh, const void* Ed, const void* Eu, uint8_t* fired,
+                   int32_t* frame, float* amp, int32_t* counts, int G, int C, int K,
+                   int n_base, int n_hi, int decim, int up, int B, int window, int step,
+                   int n_counts, const int* radix_base, int nst_base, const int* radix_hi,
+                   int nst_hi, const int* radix_dec, int nst_dec, const int* radix_up,
+                   int nst_up, float norm_full, float norm_hi, float norm_up, float scale_dec,
+                   float threshold, float v_min, float lsb, float offset, void* stream) {
+  return launch_c<float>(spec_re, spec_im, rolls, Eb, Eh, Ed, Eu, fired, frame, amp, counts, G,
+                         C, K, n_base, n_hi, decim, up, B, window, step, n_counts, radix_base,
+                         nst_base, radix_hi, nst_hi, radix_dec, nst_dec, radix_up, nst_up,
+                         norm_full, norm_hi, norm_up, scale_dec, threshold, v_min, lsb, offset,
+                         stream);
+}
+
+int pa_trigger_f64(const double* spec_re, const double* spec_im, const int* rolls,
+                   const void* Eb, const void* Eh, const void* Ed, const void* Eu,
+                   uint8_t* fired, int32_t* frame, double* amp, int32_t* counts, int G, int C,
+                   int K, int n_base, int n_hi, int decim, int up, int B, int window, int step,
+                   int n_counts, const int* radix_base, int nst_base, const int* radix_hi,
+                   int nst_hi, const int* radix_dec, int nst_dec, const int* radix_up,
+                   int nst_up, double norm_full, double norm_hi, double norm_up,
                    double scale_dec, double threshold, double v_min, double lsb,
                    double offset, void* stream) {
-  const PaParams p = {G, C, K, n_base, n_dec, n_up, B, window, step, gpb, n_counts};
-  const PaScalars<double> sc = {scale_full, scale_dec, threshold, v_min, lsb, offset};
-  return launch<double, 8>(spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U, rolls,
-                           fired, frame, amp, p, sc, stream);
+  return launch_c<double>(spec_re, spec_im, rolls, Eb, Eh, Ed, Eu, fired, frame, amp, counts,
+                          G, C, K, n_base, n_hi, decim, up, B, window, step, n_counts,
+                          radix_base, nst_base, radix_hi, nst_hi, radix_dec, nst_dec, radix_up,
+                          nst_up, norm_full, norm_hi, norm_up, scale_dec, threshold, v_min, lsb,
+                          offset, stream);
 }
 
 }  // extern "C"

@@ -14,14 +14,8 @@
 //   out[g, k]  = sum_{j < s2} Xb[g*s2 + j, k] * exp(-2 pi i k df offset[g*s2 + j])
 //
 // The mask is a select, not a multiply: a masked row may carry NaN spectra; it
-// adds nothing, so the kernel skips its work. The irfft and rfft are numpy's
-// (Im of the DC bin, and of the Nyquist bin for even n_int, dropped; 1/n_int
-// on the inverse only): the TPU kernel's dense placement matrices
-// (pipeline._placement_matrices) are exactly this map. The phase follows
-// trace.time_shift_phase_uniform's factorization k = 32a + b,
-// w^k = e^{i theta 32a} e^{i theta b} with theta = c * offset and c = -2 pi df
-// rounded to T, so the kernel evaluates the same arguments as the plain
-// version; the 32 + ceil(K_place/32) factors of a row are made once per row.
+// adds nothing, so the kernel skips its work. The placement (numpy's irfft and
+// rfft, the factored phase ramp) is placement_fft.cuh's, shared with kernel 4.
 //
 // What bounds it on the H100: bytes and operations about equally. The
 // function reads each unmasked input row's spectra, attenuation nodes and
@@ -37,23 +31,17 @@
 // The design: a block (128 threads) owns whole output rows (persistent
 // blocks, G_out/grid apart) with all of their K_place bins, so the chain
 // stage runs once per input row. Each unmasked input row is built into
-// shared memory (V), placed by two FFTs in shared memory (fft_common.cuh) --
-// an inverse real FFT of length n_int (half-length complex Stockham with the
-// Hermitian pre-step), whose packed output is already the forward
-// transform's packed input, then a forward real FFT of length n_base of the
-// zero-padded trace -- and its K_place bins are multiplied by the phase and
-// summed into the output row's accumulator in shared memory, one thread per
-// bin, in row order: no atomics, deterministic, any s2. The next unmasked
-// row's spectra and attenuation nodes are copied in with cp.async while the
-// current row is transformed. The time grows with the unmasked rows only.
+// shared memory (V) and placed by the FFT placement of placement_fft.cuh
+// (irfft of n_int, rfft of the zero-padded trace of n_base, phase ramp, sum
+// into the output row's accumulator in row order). The next unmasked row's
+// spectra and attenuation nodes are copied in with cp.async while the current
+// row is transformed. The time grows with the unmasked rows only.
 
-#include "fft_common.cuh"
+#include "placement_fft.cuh"
 
 namespace {
 
 constexpr int NTH = 128;     // threads per block
-constexpr int PB = 32;       // phase factorization block (trace.time_shift_phase_uniform)
-
 using fftc::Vec2;
 
 template <typename T>
@@ -64,31 +52,23 @@ struct ChainArgs {
   const T *offsets, *W, *tpl_re, *tpl_im;
 };
 
-__device__ inline void sincos_t(float x, float* s, float* c) { sincosf(x, s, c); }
-__device__ inline void sincos_t(double x, double* s, double* c) { sincos(x, s, c); }
-
 // shared-memory layout, each part 16-byte aligned:
-//   staged row [2 K_int + n_sparse] T | V [K_int] T2 | A, B [Lmax] T2 |
-//   acc [K_place] T2 | wb [32] T2 | wa [NA] T2
+//   staged row [2 K_int + n_sparse] T | V [K_int] T2 | the placement's work
+//   memory (placement_fft.cuh)
 struct Layout {
-  size_t stg, V, A, B, acc, wb, wa, total;
+  size_t stg, V;
+  placefft::Layout work;
 };
 
 template <typename T>
-__host__ __device__ inline Layout layout_of(int K_int, int n_sparse, int K_place, int L1,
-                                            int L2) {
+__host__ __device__ inline Layout layout_of(int K_int, int n_sparse, int K_place, int n_int,
+                                            int n_base) {
   using T2 = typename Vec2<T>::type;
-  const size_t Lmax = L1 > L2 ? L1 : L2;
-  const size_t na = (K_place + PB - 1) / PB;
   Layout l;
   l.stg = 0;
   l.V = fftc::align16((2 * (size_t)K_int + n_sparse) * sizeof(T));
-  l.A = l.V + fftc::align16((size_t)K_int * sizeof(T2));
-  l.B = l.A + fftc::align16(Lmax * sizeof(T2));
-  l.acc = l.B + fftc::align16(Lmax * sizeof(T2));
-  l.wb = l.acc + fftc::align16((size_t)K_place * sizeof(T2));
-  l.wa = l.wb + fftc::align16(PB * sizeof(T2));
-  l.total = l.wa + na * sizeof(T2);
+  l.work = placefft::layout_of<T>(l.V + fftc::align16((size_t)K_int * sizeof(T2)), n_int,
+                                  n_base, K_place);
   return l;
 }
 
@@ -96,15 +76,6 @@ template <typename T>
 struct Spectrum {   // V[f] from shared memory
   const typename Vec2<T>::type* V;
   __device__ typename Vec2<T>::type operator()(int f) const { return V[f]; }
-};
-
-template <typename T>
-struct Trace {      // the inverse transform's real samples x(t)
-  const typename Vec2<T>::type* r;
-  bool packed;      // n_int even: r holds x(2m) + i x(2m+1); odd: x(t) = Re r[t]
-  __device__ T operator()(int t) const {
-    return packed ? reinterpret_cast<const T*>(r)[t] : r[t].x;
-  }
 };
 
 template <typename T>
@@ -116,17 +87,12 @@ __global__ void __launch_bounds__(NTH) placement_chain_kernel(
     const __grid_constant__ fftc::Plan p2) {
   using T2 = typename Vec2<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Layout lay = layout_of<T>(K_int, n_sparse, K_place, p1.L, p2.L);
+  const Layout lay = layout_of<T>(K_int, n_sparse, K_place, p1.n, p2.n);
   T* stg = reinterpret_cast<T*>(smem_raw + lay.stg);
   T2* V = reinterpret_cast<T2*>(smem_raw + lay.V);
-  T2* A = reinterpret_cast<T2*>(smem_raw + lay.A);
-  T2* B = reinterpret_cast<T2*>(smem_raw + lay.B);
-  T2* acc = reinterpret_cast<T2*>(smem_raw + lay.acc);
-  T2* wb = reinterpret_cast<T2*>(smem_raw + lay.wb);
-  T2* wa = reinterpret_cast<T2*>(smem_raw + lay.wa);
+  const placefft::Work<T> w(smem_raw, lay.work);
   const int tid = threadIdx.x;
   const int G_out = R / s2;
-  const int na = (K_place + PB - 1) / PB;
 
   // The block's input rows in order are g * s2 + j for g = blockIdx.x,
   // + gridDim.x, ... and j < s2. The next unmasked one's spectra and
@@ -154,15 +120,12 @@ __global__ void __launch_bounds__(NTH) placement_chain_kernel(
   if (first >= 0) fetch(first);
 
   for (int g = blockIdx.x; g < G_out; g += gridDim.x) {
-    for (int k = tid; k < K_place; k += NTH) {   // each thread owns bins k
-      acc[k].x = T(0);
-      acc[k].y = T(0);
-    }
+    placefft::clear(w, K_place);
     for (int j = 0; j < s2; ++j) {
       const int row = g * s2 + j;
       if (!a.mask[row]) continue;                // the same for the whole block
 
-      // ---- the factored chain into V, and the row's phase factors ----------
+      // ---- the factored chain into V ----------------------------------------
       fftc::cp_async_wait_all();
       __syncthreads();                           // the row is staged
       const T* as = stg + 2 * K_int;
@@ -183,71 +146,27 @@ __global__ void __launch_bounds__(NTH) placement_chain_kernel(
         V[f] = v;
       }
       const T theta = theta_c * off;
-      for (int i = tid; i < PB + na; i += NTH) {
-        const T arg = i < PB ? theta * T(i) : theta * T((i - PB) * PB);
-        T s, c;
-        sincos_t(arg, &s, &c);
-        T2 w;
-        w.x = c;
-        w.y = s;
-        if (i < PB) wb[i] = w;
-        else wa[i - PB] = w;
-      }
       __syncthreads();                           // stg consumed
       const int nxt = live_from(g, j + 1);
       if (nxt >= 0) fetch(nxt);
 
-      // ---- irfft(V, n_int), then rfft of the trace padded to n_base ---------
-      fftc::fill(A, p1.L,
-                 fftc::IrfftIn<T, Spectrum<T>>{Spectrum<T>{V}, K_int, p1.n, p1.L, E1, norm1});
-      T2* r1 = fftc::run<T, +1>(A, B, p1, E1);
-      T2* z2 = (r1 == A) ? B : A;
-      fftc::fill(z2, p2.L, fftc::RfftIn<T, Trace<T>>{Trace<T>{r1, p1.n % 2 == 0}, p1.n, p2.n});
-      const T2* r2 = fftc::run<T, -1>(z2, r1, p2, E2);
-
-      // ---- phase ramp and (shower, ray) sum --------------------------------
-      for (int k = tid; k < K_place; k += NTH) {
-        const T2 xb = fftc::rfft_post<T>(r2, k, p2, E2);
-        const T2 pa = wa[k / PB];
-        const T2 pb = wb[k % PB];
-        const T pr = pa.x * pb.x - pa.y * pb.y;
-        const T pi = pa.x * pb.y + pa.y * pb.x;
-        T2 s = acc[k];
-        s.x += xb.x * pr - xb.y * pi;
-        s.y += xb.x * pi + xb.y * pr;
-        acc[k] = s;
-      }
-      __syncthreads();                           // V, A, B and the factors reused
+      // ---- placement, phase ramp and (shower, ray) sum ------------------------
+      placefft::place_row<T, true>(Spectrum<T>{V}, K_int, theta, norm1, p1, p2, E1, E2, w,
+                                   K_place);
     }
-    for (int k = tid; k < K_place; k += NTH) {
-      const size_t o = (size_t)g * K_place + k;
-      out_re[o] = acc[k].x;
-      out_im[o] = acc[k].y;
-    }
+    placefft::store(w, out_re, out_im, g, K_place);
   }
 }
 
 template <typename T>
 size_t smem_of(int K_int, int n_sparse, int K_place, int n_int, int n_base) {
-  const int L1 = n_int % 2 == 0 ? n_int / 2 : n_int;
-  const int L2 = n_base % 2 == 0 ? n_base / 2 : n_base;
-  return layout_of<T>(K_int, n_sparse, K_place, L1, L2).total;
+  return layout_of<T>(K_int, n_sparse, K_place, n_int, n_base).work.total;
 }
 
 // blocks of one launch: as many as fit on the card, at most one per output row
 template <typename T>
 cudaError_t grid_of(int G_out, size_t smem, int* n_blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      placement_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, placement_chain_kernel<T>,
-                                                      NTH, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long cap = (long)per_sm * fftc::sm_count();
-  *n_blocks = (int)(G_out < cap ? G_out : cap);
-  return cudaSuccess;
+  return fftc::persistent_grid(placement_chain_kernel<T>, NTH, smem, G_out, n_blocks);
 }
 
 template <typename T>

@@ -7,10 +7,12 @@ and cached on the device per (length, dtype, device):
   stage radices of a real length's complex transform (:func:`radices`,
   :func:`plan`) and its twiddle table E[k] = exp(+2 pi i k / n), k < n
   (:func:`twiddles`), from which the kernels take every factor;
-* the dense real-linear matrices of the same maps, numpy's own irfft and
-  rfft o pad o irfft written out as matrices (copies of the JAX package's
-  ``_irfft_matrices`` and ``_placement_matrices``), which the kernels' plain
-  versions multiply by: they are the reference the FFTs are held to.
+* the dense real-linear matrices of the same maps -- numpy's own irfft,
+  rfft o pad o irfft, the decimating irfft and the FFT upsampling written
+  out as matrices (copies of the JAX package's ``_irfft_matrices``,
+  ``_placement_matrices``, ``_decimating_irfft_matrices`` and
+  ``_fft_upsample_matrix``) -- which the kernels' plain versions multiply
+  by: they are the reference the FFTs are held to.
 """
 
 from __future__ import annotations
@@ -53,6 +55,30 @@ def _placement_matrices(n_int: int, n_base: int):
     return D_r, D_i
 
 
+# copied from nuradiomc_tpu/sim/pipeline.py:349 (_decimating_irfft_matrices)
+@functools.lru_cache(maxsize=8)
+def _decimating_irfft_matrices(n_base: int, n_hi: int, decim: int):
+    """irfft(spec, n=n_hi)[::decim] as two [F_base, n_hi//decim] matrices
+    (spectrum zero-padding is implicit in irfft's n= argument)."""
+    import numpy as _np
+    F = n_base // 2 + 1
+    eye = _np.eye(F)
+    D_r = _np.fft.irfft(eye, n=n_hi, axis=1)[:, ::decim]
+    D_i = _np.fft.irfft(1j * eye, n=n_hi, axis=1)[:, ::decim]
+    return D_r, D_i
+
+
+# copied from nuradiomc_tpu/sim/pipeline.py:361 (_fft_upsample_matrix)
+@functools.lru_cache(maxsize=8)
+def _fft_upsample_matrix(n_in: int, factor: int):
+    """rfft -> zero-pad -> irfft FFT upsampling as one [n_in, n_in*factor]
+    matrix; the V/GHz density convention makes the net scale = factor."""
+    import numpy as _np
+    eye = _np.eye(n_in)
+    return _np.fft.irfft(_np.fft.rfft(eye, axis=1),
+                         n=n_in * factor, axis=1) * factor
+
+
 @functools.lru_cache(maxsize=32)
 def irfft_dense(n_base: int, K: int, dtype, device):
     """(I_r, I_i) [K, n_base] on the device: the trigger kernel's plain
@@ -68,6 +94,23 @@ def placement_dense(n_int: int, n_base: int, K_int: int, K_place: int, dtype, de
     ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
     return tuple(torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=device).contiguous()
                  for m in _placement_matrices(n_int, n_base))
+
+
+@functools.lru_cache(maxsize=32)
+def decimate_dense(n_base: int, n_hi: int, decim: int, K: int, dtype, device):
+    """(Dd_r, Dd_i) [K, n_dec] on the device, n_dec = ceil(n_hi / decim):
+    irfft(X, n_hi)[::decim] of the first K bins; the phased-array trigger's
+    plain version multiplies by them."""
+    return tuple(torch.as_tensor(m[:K], dtype=dtype, device=device).contiguous()
+                 for m in _decimating_irfft_matrices(n_base, n_hi, decim))
+
+
+@functools.lru_cache(maxsize=32)
+def upsample_dense(n_in: int, factor: int, dtype, device):
+    """U [n_in, n_in * factor] on the device: factor * irfft(rfft(x),
+    n_in * factor) as x @ U."""
+    return torch.as_tensor(_fft_upsample_matrix(n_in, factor), dtype=dtype,
+                           device=device).contiguous()
 
 
 @functools.lru_cache(maxsize=64)

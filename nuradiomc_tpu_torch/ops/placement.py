@@ -6,15 +6,14 @@ Kernel 1 replaces ``nuradiomc_tpu/ops/placement_pallas.py::
 chain_placement_reduce_v3`` (placement_pallas.py:365, kernel
 ``_chain_kernel_v3`` :282, pallas_call :452) and, with the same contract,
 the v2 ``chain_placement_reduce`` (:142, pallas_call :209); its CUDA source
-is ``csrc/placement_chain.cu``, which places each row by two FFTs in shared
-memory (``csrc/fft_common.cuh``). Kernel 4 replaces ``placement_reduce``
+is ``csrc/placement_chain.cu``. Kernel 4 replaces ``placement_reduce``
 (:465, kernel ``_kernel`` :33, pallas_call :512) and the profiling tool's
 epilogue variants (tools/profile_placement_variants.py); its CUDA source is
-``csrc/placement_reduce.cu`` with the dense DFT epilogue of
-``csrc/placement_common.cuh``. Each source note says what bounds the kernel
-on the H100 and how the design answers that. Each wrapper launches its
-kernel for CUDA tensors and runs its plain version for CPU tensors; there is
-no other fallback. Both take any ``s2``.
+``csrc/placement_reduce.cu``. Both place each row by two FFTs in shared
+memory (``csrc/placement_fft.cuh`` on ``csrc/fft_common.cuh``). Each source
+note says what bounds the kernel on the H100 and how the design answers
+that. Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; there is no other fallback. Both take any ``s2``.
 
 Kernel 1 contract (rows channel-major, (shower, ray) fastest, ``s2`` rows
 per output row; R = G*C*s2):
@@ -35,15 +34,16 @@ per output row; R = G*C*s2):
 Kernel 4 contract (same row order):
 
     volt_re, volt_im  [R, K_int]      the voltage spectrum, rows already masked
+                                      (a zero row adds nothing: the kernel skips it)
     offsets           [R]
-    D_r, D_i          [K_int, K_place]   complex placement DFT matrices
+    n_int, n_base, K_place            the placement, as kernel 1's
     returns (out_re, out_im) [R // s2, K_place], the K_place columns (not the
     TPU kernel's 128-padded width)
 
 The plain versions are the XLA path of the JAX pipeline (pipeline.py:
-1280-1289, einsum with the dense placement matrices, kernel 1's from the
-cached ``fft_plan._placement_matrices(n_int, n_base)``, plus the factored
-phase ramp of ``trace.time_shift_phase_uniform``). On the card they run in
+1280-1289, einsum with the dense placement matrices
+``fft_plan.placement_dense(n_int, n_base, ...)``, plus the factored phase
+ramp of ``trace.time_shift_phase_uniform``). On the card they run in
 full FP32: ``torch.backends.cuda.matmul.allow_tf32`` must stay False
 (PyTorch's default), which ``chip_smoke.py`` sets.
 """
@@ -70,8 +70,6 @@ def chain_placement_reduce_plain(spec_re, spec_im, att_sparse, comb_re,
                                  templates, *, s2: int, df: float, n_int: int,
                                  n_base: int, K_place: int):
     """Plain PyTorch version of the placement chain (same contract)."""
-    D_r, D_i = fft_plan.placement_dense(n_int, n_base, spec_re.shape[1], K_place,
-                                        spec_re.dtype, spec_re.device)
     att = att_sparse @ W                                        # [R, K_int]
     sa_re = spec_re * att
     sa_im = spec_im * att
@@ -84,14 +82,17 @@ def chain_placement_reduce_plain(spec_re, spec_im, att_sparse, comb_re,
     m = mask[:, None]
     v_re = torch.where(m, tr * cs_re - ti * cs_im, 0.0)
     v_im = torch.where(m, tr * cs_im + ti * cs_re, 0.0)
-    return placement_reduce_plain(v_re, v_im, offsets, D_r, D_i, s2=s2, df=df)
+    return placement_reduce_plain(v_re, v_im, offsets, s2=s2, df=df, n_int=n_int,
+                                  n_base=n_base, K_place=K_place)
 
 
-def placement_reduce_plain(volt_re, volt_im, offsets, D_r, D_i, *, s2: int,
-                           df: float, phase: bool = True):
+def placement_reduce_plain(volt_re, volt_im, offsets, *, s2: int, df: float, n_int: int,
+                           n_base: int, K_place: int, phase: bool = True):
     """Plain PyTorch version of kernel 4 (see the module docstring for the
     contract); ``phase=False`` drops the phase ramp (the profiling
     variant)."""
+    D_r, D_i = fft_plan.placement_dense(n_int, n_base, volt_re.shape[1], K_place,
+                                        volt_re.dtype, volt_re.device)
     xb = torch.complex(volt_re @ D_r.real + volt_im @ D_i.real,
                        volt_re @ D_r.imag + volt_im @ D_i.imag)   # [R, K_place]
     if phase:
@@ -123,10 +124,13 @@ def _reduce_fn(dtype):
     lib = _build.load("placement_reduce")
     tag, scalar = _typed(dtype)
     fn = getattr(lib, f"placement_reduce_{tag}")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [scalar, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] * 2
+                   + [ctypes.c_int, scalar, scalar, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    rows_per_block = getattr(lib, f"placement_reduce_rows_per_block_{tag}")()
-    return fn, rows_per_block, scalar
+    lib.placement_reduce_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.placement_reduce_smem_bytes.restype = ctypes.c_long
+    return fn, lib, scalar
 
 
 def _check(what, ref, raw, split):
@@ -148,8 +152,23 @@ def _check_smem(what, smem):
                          f"{_SMEM_LIMIT}")
 
 
-def _split(*mats):
-    return [p for m in mats for p in (m.real.contiguous(), m.imag.contiguous())]
+def _check_lengths(what, K_int, n_int, n_base, K_place):
+    if not (2 <= n_int <= n_base and 1 <= K_int <= n_int // 2 + 1
+            and 1 <= K_place <= n_base // 2 + 1):
+        raise ValueError(f"{what}: K_int={K_int}, n_int={n_int}, n_base={n_base}, "
+                         f"K_place={K_place} need K_int <= n_int/2 + 1, n_int <= n_base "
+                         "and K_place <= n_base/2 + 1")
+
+
+def _ints(vals):
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+def _fft_args(n_int, n_base, dtype, dev):
+    """The two transforms' twiddle tables and (radices, count) plan arguments."""
+    st_int, st_base = fft_plan.plan(n_int)[1], fft_plan.plan(n_base)[1]
+    tables = (fft_plan.twiddles(n_int, dtype, dev), fft_plan.twiddles(n_base, dtype, dev))
+    return tables, (_ints(st_int), len(st_int), _ints(st_base), len(st_base))
 
 
 def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
@@ -172,11 +191,7 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
     R, K_int = spec_re.shape
     n_sparse = att_sparse.shape[1]
     n_tpl = templates.shape[0]
-    if not (2 <= n_int <= n_base and 1 <= K_int <= n_int // 2 + 1
-            and 1 <= K_place <= n_base // 2 + 1):
-        raise ValueError(f"placement chain: K_int={K_int}, n_int={n_int}, n_base={n_base}, "
-                         f"K_place={K_place} need K_int <= n_int/2 + 1, n_int <= n_base "
-                         "and K_place <= n_base/2 + 1")
+    _check_lengths("placement chain", K_int, n_int, n_base, K_place)
     if s2 < 1 or R % s2:
         raise ValueError(f"placement chain: R={R} is not a multiple of s2={s2}")
     raw = {   # passed to the kernel as they are: checked for contiguity
@@ -191,20 +206,14 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
     fn, lib, scalar = _chain_fn(dtype)
     _check_smem("placement chain", lib.placement_chain_smem_bytes(
         K_int, n_sparse, K_place, n_int, n_base, int(dtype == torch.float64)))
-    tpl_re, tpl_im = _split(templates)
+    tpl_re, tpl_im = templates.real.contiguous(), templates.imag.contiguous()
     dev = spec_re.device
-    st_int, st_base = fft_plan.plan(n_int)[1], fft_plan.plan(n_base)[1]
-    tables = (fft_plan.twiddles(n_int, dtype, dev), fft_plan.twiddles(n_base, dtype, dev))
+    tables, plans = _fft_args(n_int, n_base, dtype, dev)
     out_re = torch.empty((R // s2, K_place), dtype=dtype, device=dev)
     out_im = torch.empty_like(out_re)
-
-    def ints(vals):
-        return (ctypes.c_int * max(len(vals), 1))(*vals)
-
     ptrs = [t.data_ptr() for t, _, _ in raw.values()] + [
         t.data_ptr() for t in (tpl_re, tpl_im, *tables, out_re, out_im)]
-    err = fn(*ptrs, R, s2, K_int, n_sparse, K_place, n_int, n_base,
-             ints(st_int), len(st_int), ints(st_base), len(st_base),
+    err = fn(*ptrs, R, s2, K_int, n_sparse, K_place, n_int, n_base, *plans,
              scalar(-2.0 * math.pi * df), scalar(1.0 / n_int),
              _build.current_stream_ptr(dev))
     _build.check(err, "placement chain kernel")
@@ -212,38 +221,38 @@ def chain_placement_reduce(spec_re, spec_im, att_sparse, comb_re, comb_im,
     return out_re, out_im
 
 
-def placement_reduce(volt_re, volt_im, offsets, D_r, D_i, *, s2: int, df: float,
-                     phase: bool = True):
+def placement_reduce(volt_re, volt_im, offsets, *, s2: int, df: float, n_int: int,
+                     n_base: int, K_place: int, phase: bool = True):
     """Placement of a materialized voltage spectrum: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors (see the module docstring for
     the contract); ``phase=False`` launches the no-phase profiling variant."""
     global reduce_launches
+    kw = dict(s2=s2, df=df, n_int=n_int, n_base=n_base, K_place=K_place, phase=phase)
     if volt_re.device.type == "cpu":
-        return placement_reduce_plain(volt_re, volt_im, offsets, D_r, D_i,
-                                      s2=s2, df=df, phase=phase)
+        return placement_reduce_plain(volt_re, volt_im, offsets, **kw)
     if volt_re.device.type != "cuda":
         raise ValueError(f"placement reduce: unsupported device {volt_re.device}")
     dtype = volt_re.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"placement reduce: dtype {dtype} is not float32/float64")
-    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
     R, K_int = volt_re.shape
-    K_place = D_r.shape[1]
+    _check_lengths("placement reduce", K_int, n_int, n_base, K_place)
     _check("placement reduce", volt_re,
            {"volt_re": (volt_re, (R, K_int), dtype), "volt_im": (volt_im, (R, K_int), dtype),
-            "offsets": (offsets, (R,), dtype)},
-           {"D_r": (D_r, (K_int, K_place), ctype), "D_i": (D_i, (K_int, K_place), ctype)})
+            "offsets": (offsets, (R,), dtype)}, {})
     if s2 < 1 or R % s2:
         raise ValueError(f"placement reduce: R={R} is not a multiple of s2={s2}")
-    fn, rb, scalar = _reduce_fn(dtype)
-    _check_smem("placement reduce", rb * K_int * 2 * volt_re.element_size())
-    parts = _split(D_r, D_i)
-    out_re = torch.empty((R // s2, K_place), dtype=dtype, device=volt_re.device)
+    fn, lib, scalar = _reduce_fn(dtype)
+    _check_smem("placement reduce", lib.placement_reduce_smem_bytes(
+        K_int, K_place, n_int, n_base, int(dtype == torch.float64)))
+    dev = volt_re.device
+    tables, plans = _fft_args(n_int, n_base, dtype, dev)
+    out_re = torch.empty((R // s2, K_place), dtype=dtype, device=dev)
     out_im = torch.empty_like(out_re)
-    err = fn(volt_re.data_ptr(), volt_im.data_ptr(), offsets.data_ptr(),
-             *[t.data_ptr() for t in parts], out_re.data_ptr(), out_im.data_ptr(),
-             R, s2, K_int, K_place, int(phase), scalar(-2.0 * math.pi * df),
-             _build.current_stream_ptr(volt_re.device))
+    err = fn(*[t.data_ptr() for t in (volt_re, volt_im, offsets, *tables, out_re, out_im)],
+             R, s2, K_int, K_place, n_int, n_base, *plans, int(phase),
+             scalar(-2.0 * math.pi * df), scalar(1.0 / n_int),
+             _build.current_stream_ptr(dev))
     _build.check(err, "placement reduce kernel")
     reduce_launches += 1
     return out_re, out_im

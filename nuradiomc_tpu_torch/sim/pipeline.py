@@ -197,31 +197,8 @@ class PipelineOutput(NamedTuple):
 
 
 # ---- numpy host helpers, verbatim copies of the JAX package's ------------
-# (_irfft_matrices and _placement_matrices are in ops/fft_plan.py)
-
-# copied from nuradiomc_tpu/sim/pipeline.py:348 (_decimating_irfft_matrices)
-@functools.lru_cache(maxsize=8)
-def _decimating_irfft_matrices(n_base: int, n_hi: int, decim: int):
-    """irfft(spec, n=n_hi)[::decim] as two [F_base, n_hi//decim] matrices
-    (spectrum zero-padding is implicit in irfft's n= argument)."""
-    import numpy as _np
-    F = n_base // 2 + 1
-    eye = _np.eye(F)
-    D_r = _np.fft.irfft(eye, n=n_hi, axis=1)[:, ::decim]
-    D_i = _np.fft.irfft(1j * eye, n=n_hi, axis=1)[:, ::decim]
-    return D_r, D_i
-
-
-# copied from nuradiomc_tpu/sim/pipeline.py:360 (_fft_upsample_matrix)
-@functools.lru_cache(maxsize=8)
-def _fft_upsample_matrix(n_in: int, factor: int):
-    """rfft -> zero-pad -> irfft FFT upsampling as one [n_in, n_in*factor]
-    matrix; the V/GHz density convention makes the net scale = factor."""
-    import numpy as _np
-    eye = _np.eye(n_in)
-    return _np.fft.irfft(_np.fft.rfft(eye, axis=1),
-                         n=n_in * factor, axis=1) * factor
-
+# (the irfft, placement, decimation and upsampling matrices are in
+# ops/fft_plan.py)
 
 # copied from nuradiomc_tpu/sim/pipeline.py:370 (_band_support)
 def _band_support(responses, eps, full):
@@ -290,25 +267,6 @@ def _attenuation_freq_grid(ff, n_freq, max_detector_freq=None):
     return np.linspace(pos.min(), pos.max(), n)
 
 
-# ---- device constants ------------------------------------------------------
-
-_HOST_MATRICES = {"decimate": _decimating_irfft_matrices,
-                  "upsample": _fft_upsample_matrix}
-
-
-@functools.lru_cache(maxsize=32)
-def _device_matrices(kind: str, shape: tuple, k, dtype, device):
-    """A host matrix builder's output moved to the device once per (shape,
-    dtype, device), rows cut to ``k`` (None keeps all): 'decimate' ->
-    (Dd_r, Dd_i); 'upsample' -> U. (The irfft and placement matrices are
-    ``fft_plan.irfft_dense`` / ``placement_dense``.)"""
-    out = _HOST_MATRICES[kind](*shape)
-    if kind == "upsample":
-        return torch.as_tensor(out[:k], dtype=dtype, device=device).contiguous()
-    return tuple(torch.as_tensor(m[:k], dtype=dtype, device=device).contiguous()
-                 for m in out)
-
-
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
@@ -353,8 +311,7 @@ def _trigger_list(s: PipelineSettings):
     return trig_list
 
 
-def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, I_r, I_i,
-                          s: PipelineSettings, C: int):
+def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, s: PipelineSettings, C: int):
     """One phased-array trigger on the filtered spectra [G*C, K]
     (pipeline.py:575-632 in matmul form, :1336-1380 for the kernel route):
     (fired [G], first frame [G], amp [G, C], seconds per frame)."""
@@ -364,27 +321,26 @@ def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, I_r, I_i,
     scale_full = s.sampling_rate / math.sqrt(2.0)
     up = int(t.pa_upsampling)
     if t.pa_digitize:
-        # irfft at 5 GHz, stride-decimated to the ADC rate, as one matmul from
-        # the filtered spectrum; then ADC, upsampling, beams and power sums
+        # irfft at 5 GHz, stride-decimated to the ADC rate; then ADC,
+        # upsampling, beams and power sums
         fs_hi = 5.0
         n_hi = int(round(s.n_base * fs_hi / s.sampling_rate))
-        Dd_r, Dd_i = _device_matrices(
-            "decimate", (s.n_base, n_hi, int(round(fs_hi / t.pa_adc_fs))), K, dtype, dev)
-        U = _device_matrices("upsample", (Dd_r.shape[1], up), None, dtype, dev)
         fn = (pa_trigger.fused_pa_trigger if s.trigger_impl == "kernel"
               else pa_trigger.fused_pa_trigger_plain)
         fired, frame, amp = fn(
-            spec_re, spec_im, I_r, I_i, Dd_r, Dd_i, U, scale_full=scale_full,
+            spec_re, spec_im, n_base=s.n_base, n_hi=n_hi,
+            decim=int(round(fs_hi / t.pa_adc_fs)), up=up, scale_full=scale_full,
             scale_dec=fs_hi / math.sqrt(2.0), rolls=t.pa_rolls,
             threshold=t.pa_threshold, window=t.pa_window, step=t.pa_step,
             v_min=-t.pa_adc_range / 2, lsb=t.pa_adc_range / (2 ** t.pa_adc_nbits - 1),
             n_counts=2 ** t.pa_adc_nbits, C=C)[:3]
         return fired, frame, amp, t.pa_step / (t.pa_adc_fs * up)
     # no ADC: the trigger traces at the internal rate, optionally upsampled
+    I_r, I_i = fft_plan.irfft_dense(s.n_base, K, dtype, dev)
     tr = (spec_re @ I_r + spec_im @ I_i) * scale_full
     amp = torch.amax(torch.abs(tr), dim=-1).reshape(G, C)
     if up > 1:
-        tr = tr @ _device_matrices("upsample", (s.n_base, up), None, dtype, dev)
+        tr = tr @ fft_plan.upsample_dense(s.n_base, up, dtype, dev)
     fired, frame, _, _ = phased_array.phased_power_trigger(
         tr.reshape(G, C, -1), t.pa_rolls, t.pa_threshold, t.pa_window, t.pa_step)
     return fired, frame, amp, t.pa_step / (s.sampling_rate * up)
@@ -639,11 +595,10 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     else:
         # the in-window voltage spectrum, placed as it is (pipeline.py:1262-1268)
         V = ch_major(torch.where(in_w[..., None], volt_spec, 0.0)[..., :K_int])
-        D_r, D_i = fft_plan.placement_dense(s.n_internal, s.n_base, K_int, K_place,
-                                            real_dtype, dev)
         place = placement.placement_reduce if kernel else placement.placement_reduce_plain
         out_re, out_im = place(V.real.contiguous(), V.imag.contiguous(), ch_major(offset),
-                               D_r, D_i, s2=s2, df=df_base)
+                               s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base,
+                               K_place=K_place)
     chan_spec = torch.complex(out_re, out_im)
     if K_place < F_base:
         chan_spec = torch.nn.functional.pad(chan_spec, (0, F_base - K_place))
@@ -664,8 +619,6 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     spec_re, spec_im = spec_k.real.contiguous(), spec_k.imag.contiguous()
     hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
     pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
-    if pa:
-        I_r, I_i = fft_plan.irfft_dense(s.n_base, K_base, real_dtype, dev)
     if hl and pa and s.trigger_impl == "kernel":
         _not_ported("phased-array and high/low triggers in one list under "
                     "trigger_impl='kernel'", "13, multi-trigger and separate trigger chains")
@@ -704,7 +657,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
             time_cols[i] = t0_w + first[:, j].to(real_dtype) * dt
     for i in pa:
         fired, frame, amp_i, frame_s = _phased_array_trigger(
-            trig_list[i], spec_re, spec_im, I_r, I_i, s, C)
+            trig_list[i], spec_re, spec_im, s, C)
         fired_cols[i] = fired
         time_cols[i] = t0_w + frame.to(real_dtype) * frame_s
         amp = amp_i if amp is None else torch.maximum(amp, amp_i)

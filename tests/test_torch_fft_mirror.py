@@ -1,22 +1,26 @@
 """The kernels' FFT decomposition, mirrored in plain torch, on the CPU.
 
-``csrc/fft_common.cuh`` computes the trigger kernel's traces (kernel 2) and
-the placement chain's placement (kernel 1) by mixed-radix Stockham FFTs in
-shared memory, with Hermitian pre- and post-steps and one float64 host
-twiddle table. A CUDA kernel cannot run here, so this file mirrors that
-decomposition in torch -- the same stage radices (``fft_plan.radices``),
-the same index arithmetic per stage, the same edge-bin handling and the same
-host table (``fft_plan.twiddle_table``) -- and holds it to the dense
-matrices the plain versions multiply by (``fft_plan._irfft_matrices`` /
-``_placement_matrices``) and to the JAX package's copies of those, for
-even and odd lengths, the full band (K = n/2 + 1, nonzero Im at DC and
-Nyquist, which numpy's irfft drops) and a cut band, in float32 and float64.
-The mirror is test code: the port runs the CUDA kernels or the plain
-versions, never this.
+``csrc/fft_common.cuh`` computes every kernel's transforms by mixed-radix
+Stockham FFTs in shared memory, with Hermitian pre- and post-steps and one
+float64 host twiddle table: the trigger kernel's traces (kernel 2), the
+placement of kernels 1 and 4 (``csrc/placement_fft.cuh``) and the
+phased-array kernel's full-rate trace, folded decimated trace and FFT
+upsampling (kernel 3). A CUDA kernel cannot run here, so this file mirrors
+that decomposition in torch -- the same stage radices
+(``fft_plan.radices``), the same index arithmetic per stage, the same
+edge-bin handling and the same host table (``fft_plan.twiddle_table``) --
+and holds it to the dense matrices the plain versions multiply by
+(``fft_plan._irfft_matrices`` / ``_placement_matrices`` /
+``_decimating_irfft_matrices`` / ``_fft_upsample_matrix``) and to the JAX
+package's copies of those, for even and odd lengths, the full band (K = n/2
++ 1, nonzero Im at DC and Nyquist, which numpy's irfft drops) and a cut
+band, in float32 and float64. The mirror is test code: the port runs the
+CUDA kernels or the plain versions, never this.
 
 Tolerances: the FFT and the dense product round differently; float64 within
 1e-12 and float32 within 2e-6 of each row's peak (the dense product's own
-float32 error is ~1e-6).
+float32 error is ~1e-6), 1e-5 for the decimation and the upsampling in
+float32 (longer transforms, a float64 reference).
 """
 
 import math
@@ -26,7 +30,7 @@ import pytest
 import torch
 
 from nuradiomc_tpu.sim import pipeline as jpipe
-from nuradiomc_tpu_torch.ops import fft_plan, placement, trigger_fused
+from nuradiomc_tpu_torch.ops import fft_plan, pa_trigger, phased_array, placement, trigger_fused
 
 TOL = {torch.float32: 2e-6, torch.float64: 1e-12}
 
@@ -240,3 +244,183 @@ def test_trigger_mirror_decisions_match_plain():
         triggers=trig, C=C)
     assert 0 < int(fired.sum()) < G
     torch.testing.assert_close(trace.abs().amax(dim=1).reshape(G, C), amp, rtol=1e-12, atol=0)
+
+
+# ---- kernel 3 (the phased-array trigger) and kernel 4 (placement) ----------
+
+def _reals(z, n):
+    """The real samples of an inverse real transform's result (fftc::Trace)."""
+    return torch.view_as_real(z).reshape(z.shape[0], n) if n % 2 == 0 else z.real
+
+
+def _fold(X, n_hi, n_dec):
+    """fftc::FoldIn: Z_r, r <= n_dec/2, the sum of the bins k = r (mod n_dec)
+    of the Hermitian extension of X (Im dropped at DC and n_hi's Nyquist)."""
+    R, K = X.shape
+    Kh = min(K, n_hi // 2 + 1)
+    Z = torch.zeros((R, n_dec // 2 + 1), dtype=X.dtype)
+    for r in range(n_dec // 2 + 1):
+        for k in range(r, Kh, n_dec):
+            Z[:, r] += X[:, k].real if k == 0 or 2 * k == n_hi else X[:, k]
+        for j in range(n_dec if r == 0 else n_dec - r, Kh, n_dec):
+            if 2 * j != n_hi:
+                Z[:, r] += X[:, j].conj()
+    return Z
+
+
+def _decimate(X, n_hi, decim):
+    """Kernel 3's decimated trace irfft(X, n_hi)[::decim]: the folded
+    spectrum's inverse of n_dec when decim divides n_hi, else the inverse of
+    n_hi read at the stride."""
+    n_dec = pa_trigger.n_dec_of(n_hi, decim)
+    dtype = X.real.dtype
+    if n_hi % decim == 0:
+        E = _table(n_dec, dtype)
+        return _reals(_run(_irfft_pre(_fold(X, n_hi, n_dec), n_dec, E, 1.0 / n_hi),
+                           n_dec, E, +1), n_dec)
+    Kh = min(X.shape[1], n_hi // 2 + 1)
+    return _trace(X[:, :Kh], n_hi, 1.0)[:, ::decim]
+
+
+def _upsample(q, up):
+    """Kernel 3's upsampling: the rfft of n_dec (Im dropped at DC and
+    Nyquist), its bins through the inverse real FFT of n_up = n_dec * up,
+    times up; up == 1 is q itself."""
+    n_dec = q.shape[1]
+    if up == 1:
+        return q
+    n_up = n_dec * up
+    Ed, Eu = _table(n_dec, q.dtype), _table(n_up, q.dtype)
+    Xq = _rfft_post(_run(_rfft_pre(q, n_dec), n_dec, Ed, -1), n_dec, Ed, n_dec // 2 + 1)
+    Xq[:, 0] = Xq[:, 0].real
+    if n_dec % 2 == 0:
+        Xq[:, n_dec // 2] = Xq[:, n_dec // 2].real
+    return _reals(_run(_irfft_pre(Xq, n_up, Eu, 1.0 / n_dec), n_up, Eu, +1), n_up)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_base, n_hi, decim, K", [
+    (2048, 5120, 10, 512), (2048, 5120, 10, 1025), (1024, 2560, 10, 513),
+    (900, 2250, 10, 451), (1024, 2560, 7, 300), (1000, 2501, 10, 501), (1024, 1024, 4, 513)])
+def test_decimation_mirror_matches_dense(n_base, n_hi, decim, K, dtype):
+    """The fold (decim divides n_hi; n_dec 512, 256 and the odd 225; n_hi ==
+    n_base, where the n_base Nyquist bin is n_hi's) and the general route
+    (decim 7 into 2560, decim 10 into the odd 2501) against
+    ``fft_plan.decimate_dense`` and the JAX package's matrices."""
+    rng = np.random.default_rng(n_hi + decim + K)
+    X = _spectrum(rng, 6, K, dtype)
+    got = _decimate(X, n_hi, decim)
+    assert got.shape == (6, pa_trigger.n_dec_of(n_hi, decim))
+    Dd_r, Dd_i = fft_plan.decimate_dense(n_base, n_hi, decim, K, torch.float64,
+                                         torch.device("cpu"))
+    Xd = X.to(torch.complex128)
+    ref = Xd.real @ Dd_r + Xd.imag @ Dd_i
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    _close(got.double(), ref, tol)
+    J_r, J_i = (torch.as_tensor(m[:K]) for m in jpipe._decimating_irfft_matrices(n_base, n_hi,
+                                                                                   decim))
+    _close(got.double(), Xd.real @ J_r + Xd.imag @ J_i, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_dec", [512, 250, 225, 101])
+@pytest.mark.parametrize("up", [1, 2, 3])
+def test_upsampling_mirror_matches_dense(n_dec, up, dtype):
+    """rfft -> inverse real FFT of n_up against ``fft_plan.upsample_dense``
+    (and the JAX package's matrix), even and odd n_dec and n_up."""
+    rng = np.random.default_rng(n_dec * up)
+    q = torch.as_tensor(rng.normal(size=(5, n_dec)), dtype=dtype)
+    got = _upsample(q, up)
+    assert got.shape == (5, n_dec * up)
+    U = fft_plan.upsample_dense(n_dec, up, torch.float64, torch.device("cpu"))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    _close(got.double(), q.double() @ U, tol)
+    _close(got.double(), q.double() @ torch.as_tensor(jpipe._fft_upsample_matrix(n_dec, up)),
+           tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_int, n_base, K_int, K_place", [
+    (512, 2048, 257, 1025), (255, 1000, 128, 400)])
+@pytest.mark.parametrize("phase", [True, False])
+def test_placement_reduce_mirror_matches_plain(n_int, n_base, K_int, K_place, dtype, phase):
+    """Kernel 4's row pipeline in the mirror -- the block-wide OR that skips
+    zero rows, the FFT placement, the per-row phase factors, the (shower,
+    ray) sum in row order -- against ``placement_reduce_plain`` (the dense
+    placement matrices) at the gen2 lengths and an odd n_int."""
+    rng = np.random.default_rng(n_int + int(phase))
+    G, s2 = 5, 20
+    R = G * s2
+    V = _spectrum(rng, R, K_int, dtype)
+    keep = torch.as_tensor(rng.uniform(size=R) < 0.6)
+    keep[:s2] = False                                  # an output row without pulses
+    V = torch.where(keep[:, None], V, 0)
+    offsets = torch.as_tensor(rng.uniform(0, (n_base - n_int) * 0.5, R), dtype=dtype)
+    df = 2.0 / n_base
+    kw = dict(s2=s2, df=df, n_int=n_int, n_base=n_base, K_place=K_place, phase=phase)
+    ref = torch.complex(*placement.placement_reduce(V.real.contiguous(),
+                                                    V.imag.contiguous(), offsets, **kw))
+    live = (V != 0).any(dim=1)                         # __syncthreads_or over the bins
+    Xb = torch.zeros((R, K_place), dtype=V.dtype)
+    Xb[live] = _place(V[live], n_int, n_base, K_place)
+    if phase:
+        theta = torch.tensor(-2 * math.pi * df, dtype=dtype) * offsets
+        k = torch.arange(K_place)
+        one = torch.ones((), dtype=dtype)
+        Xb = Xb * (torch.polar(one, theta[:, None] * (k // 32 * 32).to(dtype))
+                   * torch.polar(one, theta[:, None] * (k % 32).to(dtype)))
+    got = torch.zeros((G, K_place), dtype=V.dtype)
+    for j in range(s2):
+        got = got + Xb[torch.arange(G) * s2 + j]
+    assert bool((got[0] == 0).all()) and bool((ref[0] == 0).all())
+    _close(got[1:], ref[1:], 20 * TOL[dtype])
+
+
+def test_pa_trigger_mirror_matches_plain():
+    """Kernel 3's whole chain in the mirror, float64 -- the full-rate trace's
+    maximum, the folded decimation, the ADC (a division by lsb), the FFT
+    upsampling, the beams from the rolled slots, the direct window sums and
+    the first frame -- against ``fused_pa_trigger_plain``: decisions and
+    frames equal on groups whose best beam power lies more than 1e-9 from
+    the threshold, amplitudes rtol 1e-12."""
+    rng = np.random.default_rng(21)
+    G, C, n_base, n_hi, decim, up, K = 40, 4, 1024, 2560, 10, 2, 400
+    window, step, n_bits = 16, 8, 8
+    X = _spectrum(rng, G * C, K, torch.float64) * 1e-3
+    rolls = phased_array.beam_rolls([-197.0 - i for i in range(C)], [0.0] * C,
+                                    phased_array.default_angles, 1.75, 0.5 * up)
+    scale_full, scale_dec = 2.0 / math.sqrt(2.0), 5.0 / math.sqrt(2.0)
+    dec = _decimate(X, n_hi, decim) * scale_dec
+    adc_range = float(dec.std()) * (2 ** n_bits - 1) / 15
+    lsb = adc_range / (2 ** n_bits - 1)
+    kw = dict(n_base=n_base, n_hi=n_hi, decim=decim, up=up, scale_full=scale_full,
+              scale_dec=scale_dec, rolls=rolls, window=window, step=step,
+              v_min=-adc_range / 2, lsb=lsb, n_counts=2 ** n_bits, C=C)
+    args = (X.real.contiguous(), X.imag.contiguous())
+    max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=1.0, **kw)[3]
+    thr = float(torch.quantile(max_power, 0.5)) * 1.001
+    pf, pframe, pamp, pmax = pa_trigger.fused_pa_trigger_plain(*args, threshold=thr, **kw)
+
+    amp = _trace(X, n_base, scale_full).abs().amax(dim=1).reshape(G, C)
+    counts = torch.clamp(torch.floor((dec + adc_range / 2) / lsb), 0, 2 ** n_bits - 1)
+    q = (counts + math.floor(-adc_range / 2 / lsb)) * lsb
+    upt = _upsample(q, up).reshape(G, C, -1)
+    n_up = upt.shape[-1]
+    nf = (n_up - window) // step
+    m = torch.arange(n_up)
+    fired = torch.zeros(G, dtype=torch.bool)
+    first = torch.full((G,), nf)
+    for b in range(len(rolls)):
+        beam = sum(upt[:, c, (m - int(rolls[b, c]) % n_up) % n_up] for c in range(C))
+        pw = beam * beam
+        sums = torch.stack([pw[:, f * step:f * step + window].sum(dim=1) for f in range(nf)], 1)
+        above = sums / window > thr
+        fired |= above.any(dim=1)
+        first = torch.minimum(first, torch.where(above.any(dim=1),
+                                                 torch.argmax(above.to(torch.int8), dim=1), nf))
+    solid = (pmax - thr).abs() / thr > 1e-9
+    assert int(solid.sum()) >= G - 1 and 0 < int(pf[solid].sum()) < int(solid.sum())
+    assert torch.equal(fired[solid], pf[solid])
+    both = solid & pf
+    assert torch.equal(first[both].to(torch.int32), pframe[both])
+    torch.testing.assert_close(amp, pamp, rtol=1e-12, atol=0)

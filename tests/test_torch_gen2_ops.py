@@ -175,11 +175,9 @@ def test_placement_reduce_plain_matches_pallas(s2):
         df=2.0 / n_base, row_tile=4 * s2)
     F_base = D_r.shape[1]
     ref = np.asarray(ref_re)[:, :F_base] + 1j * np.asarray(ref_im)[:, :F_base]
-    ctype = torch.complex64
     out_re, out_im = placement.placement_reduce(
         torch.as_tensor(v_re), torch.as_tensor(v_im), torch.as_tensor(offs),
-        torch.as_tensor(D_r, dtype=ctype), torch.as_tensor(D_i, dtype=ctype),
-        s2=s2, df=2.0 / n_base)
+        s2=s2, df=2.0 / n_base, n_int=n_int, n_base=n_base, K_place=F_base)
     port = out_re.numpy() + 1j * out_im.numpy()
     assert port.shape == (G_out, F_base)
     assert np.all(port[0] == 0)
@@ -225,5 +223,5 @@ def test_chain_plain_matches_pallas_v2():
 def test_placement_reduce_refuses_devices_without_a_kernel():
     meta = torch.zeros((8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        placement.placement_reduce(meta, meta, meta[:, 0], meta.to(torch.complex64),
-                                   meta.to(torch.complex64), s2=4, df=1e-3)
+        placement.placement_reduce(meta, meta, meta[:, 0], s2=4, df=1e-3, n_int=32,
+                                   n_base=128, K_place=65)

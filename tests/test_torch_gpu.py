@@ -8,10 +8,13 @@ conftest:
 
 Tolerances as in chip_smoke.py: placement (kernels 1 and 4) within 1e-4
 (float32) / 1e-10 (float64) of each output row's peak; trigger decisions and first bins
-exact, amplitudes rtol 1e-5 / 1e-12. The phased-array kernel sums its power
-windows directly where the plain version takes a cumsum difference, so its
-decisions are held on groups whose best beam power lies more than 1e-4 from
-the threshold, its first frames where both fire, amplitudes as above.
+exact, amplitudes rtol 1e-5 / 1e-12. The phased-array kernel's FFTs round
+its ADC inputs differently from the plain version's dense products (a sample
+within rounding of a count boundary may take the other count) and it sums
+its power windows directly where the plain version takes a cumsum
+difference, so its decisions are held on groups whose best beam power lies
+more than 1e-4 from the threshold, its first frames where both fire,
+amplitudes as above.
 """
 
 import dataclasses
@@ -85,29 +88,44 @@ def test_placement_kernel_matches_plain(dev, dtype, tol, _, s2):
     _close_rows(k, placement.chain_placement_reduce_plain(*args, **kw), tol)
 
 
+def _reduce_args(dtype, dev, G_out, s2, n_int=512, n_base=2048, K_int=257, K_place=1025):
+    """Kernel-4 inputs: a voltage spectrum with 60% of the rows nonzero (the
+    others zero, as masked solutions are), offsets over the headroom."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    R = G_out * s2
+    keep = (torch.rand(R, 1, generator=gen, device=dev) < 0.6).to(dtype)
+    v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
+    v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype) * keep
+    offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * (n_base - n_int) * 0.5
+    return (v_re, v_im, offs), dict(s2=s2, df=2.0 / n_base, n_int=n_int, n_base=n_base,
+                                    K_place=K_place)
+
+
 @pytest.mark.parametrize("dtype, tol, _", DTYPES)
-@pytest.mark.parametrize("s2", [2, 20, 40])
+@pytest.mark.parametrize("s2", [1, 2, 20, 40])
 @pytest.mark.parametrize("phase", [True, False])
 def test_placement_reduce_kernel_matches_plain(dev, dtype, tol, _, s2, phase):
     """Kernel 4 on a materialized voltage spectrum at the gen2 widths (K_int
-    257, K_place 1025, whose last column tile holds one column); 301 output
-    rows are not a multiple of any block's rows. ``phase=False`` is the
+    257, K_place 1025) and 301 output rows, s2 1 to 40; ``phase=False`` is the
     profiling variant without the phase ramp."""
-    gen = torch.Generator(device=dev).manual_seed(9)
-    G_out, K_int, K_place = 301, 257, 1025
-    R = G_out * s2
-    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
-    D_r, D_i = (torch.as_tensor(m[:K_int, :K_place], dtype=ctype, device=dev)
-                for m in fft_plan._placement_matrices(512, 2048))
-    v_re = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
-    v_im = torch.randn(R, K_int, generator=gen, device=dev, dtype=dtype)
-    offs = torch.rand(R, generator=gen, device=dev, dtype=dtype) * 768.0
-    kw = dict(s2=s2, df=2.0 / 2048, phase=phase)
+    args, kw = _reduce_args(dtype, dev, 301, s2)
+    kw["phase"] = phase
     before = placement.reduce_launches
-    k = placement.placement_reduce(v_re, v_im, offs, D_r, D_i, **kw)
+    k = placement.placement_reduce(*args, **kw)
     assert placement.reduce_launches == before + 1
-    assert k[0].shape == (G_out, K_place)
-    _close_rows(k, placement.placement_reduce_plain(v_re, v_im, offs, D_r, D_i, **kw), tol)
+    assert k[0].shape == (301, 1025)
+    _close_rows(k, placement.placement_reduce_plain(*args, **kw), tol)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n_int, n_base, K_int, K_place", [
+    (255, 1000, 128, 400), (250, 1000, 126, 501), (128, 512, 65, 257)])
+def test_placement_reduce_kernel_odd_lengths(dev, dtype, tol, n_int, n_base, K_int, K_place):
+    """Kernel 4 at an odd n_int (255 = 3 5 17, the generic prime stage), an
+    even n_base of 2^3 5^3 and the full internal band, s2 20."""
+    args, kw = _reduce_args(dtype, dev, 50, 20, n_int, n_base, K_int, K_place)
+    _close_rows(placement.placement_reduce(*args, **kw),
+                placement.placement_reduce_plain(*args, **kw), tol)
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
@@ -200,12 +218,13 @@ def test_wrappers_refuse_non_contiguous_and_mixed_dtypes(dev):
     with pytest.raises(ValueError):
         placement.chain_placement_reduce(*bad, **kw)
     v = args[0][:, :16].contiguous()
-    D = torch.zeros(16, 8, dtype=torch.complex64, device=dev)
-    kw4 = dict(s2=kw["s2"], df=kw["df"])
+    kw4 = dict(s2=kw["s2"], df=kw["df"], n_int=32, n_base=128, K_place=65)
     with pytest.raises(ValueError, match="contiguous"):
-        placement.placement_reduce(v.t().contiguous().t(), v, args[7], D, D, **kw4)
+        placement.placement_reduce(v.t().contiguous().t(), v, args[7], **kw4)
     with pytest.raises(ValueError):
-        placement.placement_reduce(v, v.double(), args[7], D, D, **kw4)
+        placement.placement_reduce(v, v.double(), args[7], **kw4)
+    with pytest.raises(ValueError, match="n_int"):
+        placement.placement_reduce(v, v, args[7], **{**kw4, "n_int": 16})
 
 
 def test_simulate_batch_kernel_path_matches_plain_path(dev):
@@ -219,43 +238,50 @@ def test_simulate_batch_kernel_path_matches_plain_path(dev):
     torch.testing.assert_close(out.max_amplitude, plain.max_amplitude, rtol=1e-4, atol=0)
 
 
-def _pa_args(dtype, dev, G, C, K=512, n_base=2048, up=2, n_bits=8):
+def _pa_args(dtype, dev, G, C, K=512, n_base=2048, up=2, n_bits=8, n_hi=None, decim=10):
     """Kernel-3 inputs at the bench's per-group shapes: band-limited noise
-    spectra (first K bins), the decimating irfft to 0.5 GHz, x``up``
-    upsampling, 11 beams, an ADC range of 15 noise counts per Vrms."""
+    spectra (first K bins), the decimating irfft of n_hi = 2.5 n_base to
+    0.5 GHz, x``up`` upsampling, 11 beams, an ADC range of 15 noise counts per
+    Vrms."""
     gen = torch.Generator(device=dev).manual_seed(8)
     spec = noise.bandlimited_noise_spectrum(gen, (G * C,), n_base, 2.0,
                                             torch.tensor(1e-5, dtype=dtype, device=dev),
                                             dtype=dtype)[:, :K]
-    Dd = pipeline._decimating_irfft_matrices(n_base, n_base * 5 // 2, 10)
-    mats = [torch.as_tensor(m[:K], dtype=dtype, device=dev).contiguous()
-            for m in (*fft_plan._irfft_matrices(n_base), *Dd)]
-    U = torch.as_tensor(pipeline._fft_upsample_matrix(Dd[0].shape[1], up), dtype=dtype,
-                        device=dev)
+    n_hi = n_base * 5 // 2 if n_hi is None else n_hi
     spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()
     scale_dec = 5.0 / np.sqrt(2.0)
-    vrms = float(((spec_re @ mats[2] + spec_im @ mats[3]) * scale_dec).std())
+    Dd_r, Dd_i = fft_plan.decimate_dense(n_base, n_hi, decim, K, dtype, dev)
+    vrms = float(((spec_re @ Dd_r + spec_im @ Dd_i) * scale_dec).std())
     adc_range = vrms * (2 ** n_bits - 1) / 15
     rolls = phased_array.beam_rolls([-197.0 - i for i in range(C)], [0.0] * C,
                                     phased_array.default_angles, 1.75, 0.5 * up)
-    kw = dict(scale_full=2.0 / np.sqrt(2.0), scale_dec=scale_dec, rolls=rolls,
-              window=16, step=8, v_min=-adc_range / 2, lsb=adc_range / (2 ** n_bits - 1),
-              n_counts=2 ** n_bits, C=C)
-    return (spec_re, spec_im, *mats, U), kw
+    kw = dict(n_base=n_base, n_hi=n_hi, decim=decim, up=up, scale_full=2.0 / np.sqrt(2.0),
+              scale_dec=scale_dec, rolls=rolls, window=16, step=8, v_min=-adc_range / 2,
+              lsb=adc_range / (2 ** n_bits - 1), n_counts=2 ** n_bits, C=C)
+    return (spec_re, spec_im), kw
 
 
-@pytest.mark.parametrize("dtype, tol, C, K, n_base", [
-    (torch.float32, 1e-5, 4, 512, 2048), (torch.float32, 1e-5, 20, 512, 2048),
-    (torch.float32, 1e-5, 4, 1025, 2048), (torch.float32, 1e-5, 4, 300, 1000),
-    (torch.float64, 1e-12, 4, 512, 2048), (torch.float64, 1e-12, 12, 512, 2048),
-    (torch.float64, 1e-12, 4, 1025, 2048)])
-def test_pa_kernel_matches_plain(dev, dtype, tol, C, K, n_base):
-    """C = 20 (float32) and 12 (float64) exceed the rows one pass holds, so
-    the traces are computed in several row chunks; K = 1025 is the full band
-    (no band limit), whose last spectrum tile holds one frequency; n_base =
-    1000 (n_dec 250, n_up 500) leaves the last threads' columns outside."""
-    G = 603                       # not a multiple of the groups per block
-    args, kw = _pa_args(dtype, dev, G=G, C=C, K=K, n_base=n_base)
+@pytest.mark.parametrize("dtype, tol, C, K, n_base, extra", [
+    (torch.float32, 1e-5, 4, 512, 2048, {}), (torch.float32, 1e-5, 20, 512, 2048, {}),
+    (torch.float32, 1e-5, 4, 1025, 2048, {}), (torch.float32, 1e-5, 4, 300, 1000, {}),
+    (torch.float64, 1e-12, 4, 512, 2048, {}), (torch.float64, 1e-12, 12, 512, 2048, {}),
+    (torch.float64, 1e-12, 4, 1025, 2048, {}),
+    (torch.float32, 1e-5, 4, 451, 900, {}),                     # n_dec 225: odd
+    (torch.float32, 1e-5, 4, 512, 2048, {"decim": 7}),          # 7 does not divide 5120
+    (torch.float64, 1e-12, 4, 512, 2048, {"n_hi": 5121}),       # odd n_hi, general route
+    (torch.float32, 1e-5, 4, 512, 2048, {"up": 1}),
+    (torch.float32, 1e-5, 4, 512, 2048, {"up": 3}),
+    (torch.float32, 1e-5, 3, 451, 900, {"up": 3}),               # odd n_up 675
+    (torch.float64, 1e-12, 8, 512, 2048, {}),
+    (torch.float64, 1e-12, 8, 451, 900, {"decim": 7, "up": 3})])
+def test_pa_kernel_matches_plain(dev, dtype, tol, C, K, n_base, extra):
+    """C = 20 (float32) and 12 (float64) groups; K = 1025 is the full band (no
+    band limit); n_base = 1000 (n_dec 250, n_up 500); n_base 900 gives an odd
+    n_dec (225); decim 7 into n_hi 5120 and the odd n_hi 5121 take the
+    general route (the full inverse of n_hi read at the stride); up 1 skips
+    the upsampling, up 3 with an odd n_dec gives an odd n_up."""
+    G = 603                       # not a multiple of the blocks
+    args, kw = _pa_args(dtype, dev, G=G, C=C, K=K, n_base=n_base, **extra)
     _, _, _, max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=1.0, **kw)
     for q in (0.3, 0.8):          # most groups fire / few do
         thr = float(torch.quantile(max_power, q)) * 1.001
@@ -273,12 +299,25 @@ def test_pa_kernel_matches_plain(dev, dtype, tol, C, K, n_base):
         assert bool(((kamp - pamp).abs() <= tol * pamp.abs()).all())
 
 
+def test_pa_kernel_adc_counts_match_plain(dev):
+    """The kernel's ADC counts (the diagnostic output) against the plain
+    version's, float64: equal except where a sample lies within rounding of a
+    count boundary."""
+    args, kw = _pa_args(torch.float64, dev, G=256, C=4)
+    n_dec = pa_trigger.n_dec_of(kw["n_hi"], kw["decim"])
+    counts = torch.zeros((256 * 4, n_dec), dtype=torch.int32, device=dev)
+    pa_trigger.fused_pa_trigger(*args, threshold=1.0, adc_counts=counts, **kw)
+    ref, _ = pa_trigger.adc_plain(*args, **{k: kw[k] for k in (
+        "n_base", "n_hi", "decim", "scale_dec", "v_min", "lsb", "n_counts")})
+    assert 0 < int(counts.max()) < kw["n_counts"] - 1
+    assert int((counts != ref.to(torch.int32)).sum()) <= 2
+
+
 def test_pa_kernel_refuses_oversized_groups(dev):
     args, kw = _pa_args(torch.float64, dev, G=2, C=4)
-    U = torch.zeros(4096, 8192, dtype=torch.float64, device=dev)   # 4 x 12288 x 8 B
-    Dd = torch.zeros(512, 4096, dtype=torch.float64, device=dev)
+    kw = {**kw, "n_hi": 40960, "decim": 2, "C": 4}                 # 4 x 40960 x 8 B of traces
     with pytest.raises(ValueError, match="shared"):
-        pa_trigger.fused_pa_trigger(*args[:4], Dd, Dd, U, threshold=1.0, **kw)
+        pa_trigger.fused_pa_trigger(*args, threshold=1.0, **kw)
 
 
 def test_simulate_batch_pa_kernel_path_matches_plain_path(dev):

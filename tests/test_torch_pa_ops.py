@@ -21,7 +21,8 @@ Tolerances, with their reasons:
 * noise: the transform fed the numbers ``jax.random`` drew equals JAX to
   rounding (rtol 1e-12 float64, 2e-6 float32 of the spectrum's peak); the
   sampler's trace RMS within 2% of the amplitude over 4096 realizations.
-* ADC counts and voltages bit-exact; beam rolls and matrices exact.
+* ADC counts and voltages bit-exact; beam rolls and matrices exact (the
+  port's copies in ``ops/fft_plan.py`` against the JAX package's).
 * beams and power sums: float64 rtol 1e-12; float32 within 1e-5 of the
   largest power (the cumsum runs in another order).
 * kernel 3's plain version vs the Pallas kernel: decisions equal on groups
@@ -47,11 +48,11 @@ from nuradiomc_tpu.utils import units
 from nuradiomc_tpu_torch.models import ice as tice
 from nuradiomc_tpu_torch.ops import adc as tadc
 from nuradiomc_tpu_torch.ops import askaryan as taskaryan
+from nuradiomc_tpu_torch.ops import fft_plan
 from nuradiomc_tpu_torch.ops import noise as tnoise
 from nuradiomc_tpu_torch.ops import pa_trigger
 from nuradiomc_tpu_torch.ops import phased_array as tpa
 from nuradiomc_tpu_torch.ops import raytrace as trt
-from nuradiomc_tpu_torch.sim import pipeline as tpipe
 
 torch.set_num_threads(1)
 
@@ -229,18 +230,21 @@ def test_beams_and_power_trigger(dtype, rtol):
 
 def test_resampling_matrices_equal():
     for args in ((1024, 2560, 10), (2048, 5120, 10)):
-        for port, ref in zip(tpipe._decimating_irfft_matrices(*args),
+        for port, ref in zip(fft_plan._decimating_irfft_matrices(*args),
                              jpipe._decimating_irfft_matrices(*args)):
             np.testing.assert_array_equal(port, ref)
     for args in ((512, 2), (256, 3)):
-        np.testing.assert_array_equal(tpipe._fft_upsample_matrix(*args),
+        np.testing.assert_array_equal(fft_plan._fft_upsample_matrix(*args),
                                       jpipe._fft_upsample_matrix(*args))
-    Dd_r, Dd_i = tpipe._device_matrices("decimate", (2048, 5120, 10), 512, torch.float32,
-                                        torch.device("cpu"))
+    Dd_r, Dd_i = fft_plan.decimate_dense(2048, 5120, 10, 512, torch.float32,
+                                         torch.device("cpu"))
     assert Dd_r.shape == (512, 512) and Dd_r.is_contiguous()
     np.testing.assert_array_equal(Dd_i.numpy(),
                                   jpipe._decimating_irfft_matrices(2048, 5120, 10)[1][:512]
                                   .astype(np.float32))
+    U = fft_plan.upsample_dense(512, 2, torch.float64, torch.device("cpu"))
+    assert U.shape == (512, 1024) and U.is_contiguous()
+    np.testing.assert_array_equal(U.numpy(), jpipe._fft_upsample_matrix(512, 2))
 
 
 def test_fused_pa_plain_matches_pallas():
@@ -261,8 +265,10 @@ def test_fused_pa_plain_matches_pallas():
     kw = dict(scale_full=fs / np.sqrt(2.0), scale_dec=fs_hi / np.sqrt(2.0), rolls=rolls,
               window=window, step=step, v_min=-adc_range / 2,
               lsb=adc_range / (2 ** nbits - 1), n_counts=2 ** nbits, C=C)
-    targs = [t(a, np.float32) for a in (spec.real, spec.imag, I_r, I_i, Dd_r, Dd_i, U)]
-    *_, max_power = pa_trigger.fused_pa_trigger_plain(*targs, threshold=1.0, **kw)
+    targs = [t(a, np.float32) for a in (spec.real, spec.imag)]
+    lengths = dict(n_base=n_base, n_hi=int(round(n_base * fs_hi / fs)),
+                   decim=int(round(fs_hi / adc_fs)), up=up)
+    *_, max_power = pa_trigger.fused_pa_trigger_plain(*targs, threshold=1.0, **lengths, **kw)
     max_power = max_power.numpy()
     for q in (0.35, 0.75):
         thr = float(np.quantile(max_power, q)) * 1.001
@@ -270,7 +276,7 @@ def test_fused_pa_plain_matches_pallas():
             jnp.asarray(spec.real), jnp.asarray(spec.imag), I_r, I_i, Dd_r, Dd_i, U,
             threshold=thr, row_tile=4 * C, **kw))
         pf, pframe, pamp = (a.numpy() for a in pa_trigger.fused_pa_trigger(
-            *targs, threshold=thr, **kw))            # CPU tensors: the plain version
+            *targs, threshold=thr, **lengths, **kw))   # CPU tensors: the plain version
         solid = np.abs(max_power - thr) / thr > 1e-4
         assert solid.sum() >= G - 2
         np.testing.assert_array_equal(pf[solid], fired[solid])
