@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
+    python3 chip_smoke.py --trigger-only   # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -10,7 +11,10 @@ result line):
 1. build the four kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
    nvcc per source, started together;
 2. each kernel against its plain PyTorch version on the card at its path's
-   shapes, float32 and float64, with CUDA-event timings beside the kernel's
+   shapes, float32 and float64 (kernel 2 also at the sizes a real station
+   brings: 8 columns x 24 channels, n_base 8192, 17 columns in two launches,
+   and the multi-trigger path's 9 columns at 16384 x C 4, decisions equal in
+   every group), with CUDA-event timings beside the kernel's
    bound (the larger of its bytes over the memory rate and its operations
    over the card's peak rate for the dtype, computed from this run's
    inputs) and, for kernels 2, 3 and 4, the time of their transforms
@@ -46,7 +50,18 @@ result line):
    2048 groups (the whole file) with peak device memory, and the whole file
    through ``Simulation`` in float64 with birefringence on (kernel 4) and
    off (the factored chain: kernel 1 at s2 20), held to the JAX package's
-   groups and Veff.
+   groups and Veff;
+7. the multi-trigger station (kernels 1, 2 and 3): the three-trigger station
+   of ``convert.multitrigger_simulation`` through ``Simulation`` in float64,
+   per-trigger sets equal to the JAX package's float64 sets and within one
+   borderline group per name of NuRadioMC's; one 16384-group step
+   (``convert.make_multitrigger_inputs``, float32, noise on) with an 8-rung
+   high/low ladder, a threshold trigger on channels (0, 1) and the phased
+   array: one launch of each kernel, the kernel path against the plain path
+   with the same noise (at most 8 (group, trigger) decisions differ, each
+   within 1e-3 of a threshold), its events/s and busy share, and the step
+   with numeric focusing; the 3000-event dipole input behind a separate
+   trigger chain in float64 with NuRadioMC's triggered set and trigger Vrms.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -56,6 +71,7 @@ nor the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -76,12 +92,15 @@ from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.ops import (_build, fft_plan, noise, pa_trigger,  # noqa: E402
                                      phased_array, placement, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
-from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000, INPUT_GEN2  # noqa: E402
+from nuradiomc_tpu_torch.sim.io_input import (DATA_DIR, INPUT_1E18_N3000,  # noqa: E402
+                                              INPUT_GEN2, INPUT_PA_NOISELESS)
 
 N_GROUPS = 65536
 FLIP_BOUND = 56          # bench.py:130, veff_trig
 PIN = os.path.join(HERE, "tests", "golden", "bench_pins.npz")
 E2E_GOLDEN = os.path.join(HERE, "tests", "golden", "e2e_reference.npz")
+MT_GOLDEN = os.path.join(HERE, "tests", "golden", "e2e_multitrigger_reference.npz")
+TC_GOLDEN = os.path.join(HERE, "tests", "golden", "e2e_trigger_channels_reference.npz")
 PA_GROUPS = 16384        # bench.py:390
 PA_SOURCE_FLIPS = 6      # bench.py:132, pa_nl_trig, counted per source event
 PA_NOISY = (107, 249)    # bench.py:80 and :197-199, 178 +- 40%
@@ -91,6 +110,9 @@ GEN2_FLIPS = 8           # bench.py:135, gen2_trig
 # the whole tau file through the JAX package's float64 Simulation: (groups
 # triggered, Veff in km^3) with and without birefringence
 GEN2_FILE = {True: (279, 3.17311), False: (280, 3.39605)}
+# the JAX package's float64 per-trigger sets of the three-trigger station
+# (written by python tests/test_torch_multitrigger.py)
+MT_JAX_SETS = DATA_DIR / "multitrigger_jax_sets.npz"
 KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce")
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
@@ -144,21 +166,34 @@ def _placement_inputs(dtype, dev, gen, G_out=N_GROUPS, s2=4):
     return args, dict(s2=s2, df=2.0 / n_base, n_int=n_int, n_base=n_base, K_place=K_place)
 
 
-def _trigger_inputs(dtype, dev, gen, G=N_GROUPS, C=1, K=816):
+def _trigger_inputs(dtype, dev, gen, G=N_GROUPS, C=1, K=816, n_base=2048, T=1):
     """Kernel-2 inputs, by default at the headline shapes: 65536 groups x 1
     channel, K_base 816, n_base 2048 (gen2: C 2, K 1025), the high/low
     trigger of both paths (10-bin high/low window, 400-bin majority window);
     band-limited noise spectra, thresholds 2-3 sigma so groups both fire and
-    do not."""
-    n_base, R = 2048, G * C
+    do not. With T > 1 the columns are a ladder (each 0.1 sigma above the
+    last) of high/low triggers, every third a threshold trigger on the first
+    half of the channels (the others' thresholds +inf, as the pipeline passes
+    a channel subset)."""
+    R = G * C
     I_r, I_i = fft_plan.irfft_dense(n_base, K, dtype, dev)
     scale = 2.0 / np.sqrt(2.0)
     spec_re = torch.randn(R, K, generator=gen, device=dev, dtype=dtype)
     spec_im = torch.randn(R, K, generator=gen, device=dev, dtype=dtype)
     sigma = float(((spec_re[:256] @ I_r + spec_im[:256] @ I_i) * scale).std())
-    th = sigma * (2.0 + 1.0 * torch.rand(R, 1, generator=gen, device=dev, dtype=dtype))
-    trig = (trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),)
-    return (spec_re, spec_im, th, -th), dict(n_base=n_base, scale=scale, triggers=trig, C=C)
+    del I_r, I_i
+    th = sigma * (2.0 + 1.0 * torch.rand(R, T, generator=gen, device=dev, dtype=dtype)
+                  + 0.1 * torch.arange(T, device=dev, dtype=dtype))
+    trig = []
+    for t in range(T):
+        if t % 3 == 2:
+            trig.append(trigger_fused.TriggerSpecStatic("simple_threshold", 1, 200, min(C, 2)))
+            if C > 2:
+                th[(torch.arange(R, device=dev) % C) >= (C + 1) // 2, t] = float("inf")
+        else:
+            trig.append(trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1 + (t % 2) * (C > 1)))
+    return (spec_re, spec_im, th, -th), dict(n_base=n_base, scale=scale, triggers=tuple(trig),
+                                             C=C)
 
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
@@ -314,10 +349,12 @@ def _check_trigger(label, args, kw, tol_amp):
     amplitudes within ``tol_amp`` relative; timed beside its plain version,
     its bound and ``torch.fft.irfft`` of the same spectra (the irfft stage
     alone, a yardstick the port never calls); returns the summary entry."""
+    before = trigger_fused.launches
     k, p = (f(*args, **kw) for f in (trigger_fused.fused_irfft_trigger,
                                       trigger_fused.fused_irfft_trigger_plain))
     torch.cuda.synchronize()
-    G = p[0].shape[0]
+    n_launches = trigger_fused.launches - before
+    G, T = p[0].shape
     d_fired, d_first = int((k[0] != p[0]).sum()), int((k[1] != p[1]).sum())
     amp_rel = float(((k[2] - p[2]).abs() / p[2].abs()).max())
     amp_abs = float((k[2] - p[2]).abs().max())
@@ -327,13 +364,16 @@ def _check_trigger(label, args, kw, tol_amp):
     lib_ms = _median_ms(lambda: torch.fft.irfft(spec_c, n=kw["n_base"]))
     del spec_c
     bound = _trigger_bound(args, kw)
-    print(f"phase 2 {label}: fired differ in {d_fired} of {G} groups ({int(p[0].sum())} "
-          f"fired), first bins differ in {d_first}, amp max rel err {amp_rel:.3e} (limit "
+    print(f"phase 2 {label}: fired differ in {d_fired} of {G} groups x {T} triggers "
+          f"({int(p[0].sum())} fired, {n_launches} launches), first bins differ in {d_first}, "
+          f"amp max rel err {amp_rel:.3e} (limit "
           f"{tol_amp:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library irfft "
           f"{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
           f"the bound ({CARD})")
     if d_fired or d_first or not amp_rel <= tol_amp:
         raise AssertionError(f"{label} disagrees with the plain version")
+    if T and not 0 < int(p[0].sum()) < G * T:
+        raise AssertionError(f"{label}: the inputs do not exercise both decisions")
     return _entry(amp_abs, ms, plain_ms, bound, lib_ms)
 
 
@@ -369,14 +409,20 @@ def _print_grids():
     lib2 = _build.load("irfft_trigger")
     lib1 = _build.load("placement_chain")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, (G, C, n_base, K) in {"headline 65536 x C 1": (65536, 1, 2048, 816),
-                                     "gen2 256 x C 2": (256, 2, 2048, 1025),
-                                     "gen2 2048 x C 2": (2048, 2, 2048, 1025)}.items():
-        grids = [lib2.irfft_trigger_grid(G, C, n_base, K, f64) for f64 in (0, 1)]
+    lib2.irfft_trigger_smem_bytes.restype = ctypes.c_long
+    for label, (G, C, n_base, K, T) in {
+            "headline 65536 x C 1": (65536, 1, 2048, 816, 1),
+            "gen2 256 x C 2": (256, 2, 2048, 1025, 1),
+            "gen2 2048 x C 2": (2048, 2, 2048, 1025, 1),
+            "multi-trigger 16384 x C 4, 9 columns": (PA_GROUPS, 4, 2048, 512, 9),
+            "24-channel station, 8 columns": (1024, 24, 2048, 1025, 8),
+            "n_base 8192 x C 4, 2 columns": (1024, 4, 8192, 4097, 2)}.items():
+        grids = [lib2.irfft_trigger_grid(G, C, n_base, K, T, f64) for f64 in (0, 1)]
+        smem = [lib2.irfft_trigger_smem_bytes(C, n_base, K, T, f64) for f64 in (0, 1)]
         fills = ["yes" if g >= 2 * sms else "no" for g in grids]
         print(f"phase 2 irfft_trigger grid at {label}: {grids[0]} blocks float32, "
               f"{grids[1]} float64, on {sms} SMs; at least two blocks on every SM: "
-              f"{fills[0]} / {fills[1]}")
+              f"{fills[0]} / {fills[1]}; shared memory {smem[0]} / {smem[1]} bytes a block")
     grids = [lib1.placement_chain_grid(65536, 208, 24, 816, 512, 2048, f64) for f64 in (0, 1)]
     print(f"phase 2 placement_chain grid at the headline's 65536 output rows: {grids[0]} "
           f"blocks float32, {grids[1]} float64, on {sms} SMs")
@@ -392,6 +438,47 @@ def _print_grids():
     print(f"phase 2 pa_trigger grid at the phased-array path's {PA_GROUPS} groups x C 4: "
           f"{grids[0]} blocks float32, {grids[1]} float64, on {sms} SMs; shared memory "
           f"{smem[0]} / {smem[1]} bytes a block")
+
+
+def _check_trigger_shapes(dtype, dev, gen, tag, tol_amp):
+    """Kernel 2 against its plain version at the paths' shapes (the headline's
+    and gen2's, timed with bound and library irfft) and at the sizes a real
+    station brings: 8 and 17 trigger columns (17: more than one launch
+    takes), 24 channels, n_base 8192, and the multi-trigger path's 9 columns
+    at 16384 x C 4; returns the headline shape's summary entry."""
+    args, kw = _trigger_inputs(dtype, dev, gen)
+    entry = _check_trigger(f"irfft_trigger {tag}", args, kw, tol_amp)
+    del args
+    for G in (GEN2_GROUPS, 2048):
+        args, kw = _trigger_inputs(dtype, dev, gen, G=G, C=2, K=1025)
+        _check_trigger(f"irfft_trigger {tag} gen2 {G} x C 2", args, kw, tol_amp)
+        del args
+    # another input seed: where a trace sample lies within rounding of a
+    # threshold, the FFT and the dense product may round it to either
+    # side, so a decision or first bin may differ; reported, not a gate
+    gen3 = torch.Generator(device=dev)
+    gen3.manual_seed(3)
+    args, kw = _trigger_inputs(dtype, dev, gen3)
+    k, p = (f(*args, **kw) for f in (trigger_fused.fused_irfft_trigger,
+                                      trigger_fused.fused_irfft_trigger_plain))
+    print(f"phase 2 irfft_trigger {tag} at input seed 3 (razor margins, no gate): fired "
+          f"differ in {int((k[0] != p[0]).sum())} of {N_GROUPS} groups, first bins in "
+          f"{int((k[1] != p[1]).sum())}")
+    del args, k, p
+    torch.cuda.empty_cache()
+    gen_new = torch.Generator(device=dev)
+    gen_new.manual_seed(20261017)
+    for label, shape in {
+            "T 8, 1024 x C 24": dict(G=1024, C=24, K=1025, T=8),
+            "n_base 8192, 1024 x C 4, T 2": dict(G=1024, C=4, K=4097, n_base=8192, T=2),
+            "T 17 (two launches), 2048 x C 4": dict(G=2048, C=4, K=816, T=17),
+            f"multi-trigger path, {PA_GROUPS} x C 4, T 9": dict(G=PA_GROUPS, C=4, K=512, T=9),
+    }.items():
+        args, kw = _trigger_inputs(dtype, dev, gen_new, **shape)
+        _check_trigger(f"irfft_trigger {tag} {label}", args, kw, tol_amp)
+        del args
+        torch.cuda.empty_cache()
+    return entry
 
 
 def phase_kernels(dev):
@@ -413,28 +500,9 @@ def phase_kernels(dev):
         if dtype == torch.float32:
             summary["placement_chain"] = _entry(max_abs, ms, plain_ms, bound)
         del args
-        args, kw = _trigger_inputs(dtype, dev, gen)
-        entry = _check_trigger(f"irfft_trigger {tag}", args, kw, tol_amp)
+        entry = _check_trigger_shapes(dtype, dev, gen, tag, tol_amp)
         if dtype == torch.float32:
             summary["irfft_trigger"] = entry
-        del args
-        for G in (GEN2_GROUPS, 2048):
-            args, kw = _trigger_inputs(dtype, dev, gen, G=G, C=2, K=1025)
-            _check_trigger(f"irfft_trigger {tag} gen2 {G} x C 2", args, kw, tol_amp)
-            del args
-        # another input seed: where a trace sample lies within rounding of a
-        # threshold, the FFT and the dense product may round it to either
-        # side, so a decision or first bin may differ; reported, not a gate
-        gen3 = torch.Generator(device=dev)
-        gen3.manual_seed(3)
-        args, kw = _trigger_inputs(dtype, dev, gen3)
-        k, p = (f(*args, **kw) for f in (trigger_fused.fused_irfft_trigger,
-                                          trigger_fused.fused_irfft_trigger_plain))
-        print(f"phase 2 irfft_trigger {tag} at input seed 3 (razor margins, no gate): fired "
-              f"differ in {int((k[0] != p[0]).sum())} of {N_GROUPS} groups, first bins in "
-              f"{int((k[1] != p[1]).sum())}")
-        del args, k, p
-        torch.cuda.empty_cache()
 
         for s2 in (20, 40):
             # multi-shower groups (tau secondaries): an output row sums s2 rows
@@ -896,6 +964,151 @@ def phase_gen2(dev):
     return launches
 
 
+def _nearest_threshold_margin(seen, trig_list, g, col, C):
+    """How close group ``g``'s trigger traces come to trigger ``col``'s
+    thresholds: min over its channels and samples of |v / threshold - 1|
+    (both thresholds for a high/low trigger), from the spectra the plain
+    fused trigger was given."""
+    (spec_re, spec_im, th_hi, th_lo), kw = seen
+    hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
+    j = hl.index(col)
+    rows = slice(g * C, (g + 1) * C)
+    I_r, I_i = fft_plan.irfft_dense(kw["n_base"], spec_re.shape[1], spec_re.dtype,
+                                    spec_re.device)
+    v = (spec_re[rows] @ I_r + spec_im[rows] @ I_i) * kw["scale"]
+    hi, lo = th_hi[rows, j, None], th_lo[rows, j, None]
+    near = (v / hi - 1.0).abs()
+    if trig_list[col].trigger_type == "high_low":
+        near = torch.minimum(near, (v / lo - 1.0).abs())
+    else:
+        near = torch.minimum(near, (v / -hi - 1.0).abs())
+    return float(near[~torch.isinf(hi[:, 0])].min())
+
+
+def phase_multitrigger(dev):
+    """The multi-trigger station path (kernels 1, 2 and 3); returns the launch
+    counts of the main-path run (one noisy ``simulate_batch`` step)."""
+    import dataclasses
+
+    # (a) three named triggers through Simulation, float64, on the .npz input
+    golden = np.load(MT_GOLDEN)
+    pin = np.load(MT_JAX_SETS)
+    names = [n.decode() for n in golden["trigger_names"]]
+    t0 = time.perf_counter()
+    sim = convert.multitrigger_simulation(str(INPUT_PA_NOISELESS), chunk_size=1024,
+                                          device=dev, dtype=torch.float64)
+    res = sim.run()
+    wall = time.perf_counter() - t0
+    if res["trigger_names"] != names:
+        raise AssertionError(f"trigger names {res['trigger_names']}, the golden {names}")
+    ok = res["weights"] >= 1e-5
+    for i, name in enumerate(names):
+        mine = set(int(g) for g in res["group_ids"][res["multiple_triggers"][:, i] & ok])
+        ref = set(int(g) for g in np.unique(golden["group_ids"][golden["multiple_triggers"][:, i]]))
+        jax_set = set(int(g) for g in pin[name])
+        print(f"phase 7 three-trigger station float64, {name}: {len(mine)} groups; against "
+              f"NuRadioMC extra {sorted(mine - ref)} missing {sorted(ref - mine)} (at most one "
+              f"borderline group); against the JAX package's float64 set {len(mine ^ jax_set)} "
+              f"differ")
+        if len(mine ^ ref) > 1 or mine != jax_set:
+            raise AssertionError(f"the multi-trigger golden does not hold for {name}")
+    print(f"phase 7 three-trigger station: {wall:.2f} s with set-up ({CARD})")
+
+    # (b) one step with an 8-rung ladder, a subset threshold and the phased array
+    settings, ch, batch = convert.make_multitrigger_inputs(PA_GROUPS, device=dev,
+                                                           dtype=torch.float32)
+    trig_list = settings.triggers
+    T, C = len(trig_list), ch.positions.shape[0]
+
+    def generator():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return gen
+
+    placement.launches = trigger_fused.launches = pa_trigger.launches = 0
+    torch.cuda.synchronize()
+    out = pipeline.simulate_batch(batch, ch, settings, noise_generator=generator())
+    per = out.triggered_per.cpu().numpy()
+    launches = {"placement_chain": placement.launches, "irfft_trigger": trigger_fused.launches,
+                "pa_trigger": pa_trigger.launches}
+    print(f"phase 7 launches in the main-path run ({T} triggers: "
+          f"{[t.name for t in trig_list]}): {launches}")
+    if launches != {"placement_chain": 1, "irfft_trigger": 1, "pa_trigger": 1}:
+        raise AssertionError(f"the multi-trigger step launches {launches}, not one of each")
+    if (per.shape != (PA_GROUPS, T) or tuple(out.max_amplitude.shape) != (PA_GROUPS, C)
+            or not bool(torch.isfinite(out.max_amplitude).all())
+            or not bool(torch.isfinite(out.trigger_times_per).all())):
+        raise AssertionError("multi-trigger output has the wrong shape or is not finite")
+    counts = per.sum(axis=0)
+    print(f"phase 7 noisy step: groups triggered per trigger {counts.tolist()} of {PA_GROUPS}")
+    ladder = counts[:8]
+    if not (np.all(np.diff(ladder) <= 0) and 0 < ladder[-1] < ladder[0]):
+        raise AssertionError(f"the threshold ladder's counts do not fall: {ladder.tolist()}")
+
+    plain = dataclasses.replace(settings, placement_impl="plain", trigger_impl="plain")
+    seen_pa, seen_hl = [], []
+    pa_plain, hl_plain = pa_trigger.fused_pa_trigger_plain, trigger_fused.fused_irfft_trigger_plain
+
+    def recording_pa(*args, **kw):     # keeps the plain path's max beam power
+        result = pa_plain(*args, **kw)
+        seen_pa.append((result[3], kw["threshold"]))
+        return result
+
+    def recording_hl(*args, **kw):     # keeps the plain path's trigger spectra
+        seen_hl.append((args, kw))
+        return hl_plain(*args, **kw)
+
+    pa_trigger.fused_pa_trigger_plain = recording_pa
+    trigger_fused.fused_irfft_trigger_plain = recording_hl
+    per_plain = pipeline.simulate_batch(
+        batch, ch, plain, noise_generator=generator()).triggered_per.cpu().numpy()
+    pa_trigger.fused_pa_trigger_plain = pa_plain
+    trigger_fused.fused_irfft_trigger_plain = hl_plain
+    max_power, thr = seen_pa[0]
+    pa_margin = ((max_power - thr).abs() / thr).cpu().numpy()
+    differ = []
+    for g, col in np.argwhere(per_plain != per).tolist():
+        if trig_list[col].trigger_type == "phased_array":
+            differ.append((g, col, float(pa_margin[g])))
+        else:
+            differ.append((g, col, _nearest_threshold_margin(seen_hl[0], trig_list, g, col, C)))
+    print(f"phase 7 kernel path vs plain path, same noise: {len(differ)} (group, trigger) "
+          f"decisions differ (bound {PA_CROSS_GROUPS}), nearest-threshold margins "
+          f"{[(g, c, '%.2e' % m) for g, c, m in differ]}")
+    if len(differ) > PA_CROSS_GROUPS or any(m >= 1e-3 for _, _, m in differ):
+        raise AssertionError("kernel and plain multi-trigger paths differ beyond razor margins")
+    del seen_pa, seen_hl, max_power
+
+    def step(s):
+        pipeline.simulate_batch(batch, ch, s, noise_generator=generator()).triggered.sum().item()
+
+    numeric = dataclasses.replace(settings, focusing_mode="numeric")
+    for name, s in (("kernel", settings), ("plain", plain), ("kernel, numeric focusing", numeric)):
+        wall = _median_step(lambda: step(s))
+        print(f"phase 7 {name} path, noisy step: {wall * 1e3:.1f} ms (median of 5), "
+              f"{PA_GROUPS / wall:.1f} events/s ({CARD})")
+        if name == "kernel":
+            _print_busy("phase 7 kernel path", lambda: step(s), wall * 1e3)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (c) a separate trigger chain through Simulation, float64
+    golden = np.load(TC_GOLDEN)
+    sim = convert.dipole_simulation(
+        str(INPUT_1E18_N3000), chunk_size=1024, device=dev, dtype=torch.float64,
+        trigger_filter_chain=convert.narrow_trigger_chain())
+    res = sim.run()
+    mine = _triggered_groups(res)
+    ref = set(int(g) for g in np.unique(golden["group_ids"]))
+    vrms_err = abs(sim.Vrms_trigger / float(golden["vrms_trigger"]) - 1.0)
+    print(f"phase 7 separate trigger chain float64: {len(mine)} groups triggered (NuRadioMC "
+          f"{len(ref)}), {len(mine ^ ref)} differ; trigger Vrms rel err {vrms_err:.2e} "
+          f"(limit 1e-9)")
+    if mine != ref or not vrms_err <= 1e-9:
+        raise AssertionError("the trigger-chain golden does not hold on the card")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -921,6 +1134,15 @@ def main() -> int:
         print(f"phase 1 built {name} in {info['seconds']:.1f} s: " + " | ".join(ptxas))
     print(f"phase 1 build total {time.perf_counter() - t0:.1f} s")
 
+    if "--trigger-only" in sys.argv[1:]:
+        _print_grids()
+        for dtype, tol_amp in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(20261016)
+            _check_trigger_shapes(dtype, dev, gen, str(dtype).replace("torch.", ""), tol_amp)
+        print("chip_smoke: kernel 2 passed (--trigger-only: no other kernel, no main path, "
+              "no result line)")
+        return 0
     summary = {**phase_kernels(dev), **phase_pa_kernel(dev)}
     if "--kernels-only" in sys.argv[1:]:
         print("chip_smoke: phases 0-2 passed (--kernels-only: no main path, no result line)")
@@ -929,8 +1151,9 @@ def main() -> int:
     phase_simulation(dev)
     pa_launches = phase_pa(dev)
     gen2_launches = phase_gen2(dev)
-    # launches: the counts of the three main-path runs (phases 3, 5 and 6)
-    for counts in (pa_launches, gen2_launches):
+    mt_launches = phase_multitrigger(dev)
+    # launches: the counts of the four main-path runs (phases 3, 5, 6 and 7)
+    for counts in (pa_launches, gen2_launches, mt_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

@@ -81,7 +81,8 @@ def channels_from_jax(ch, *, device, dtype) -> ChannelParams:
     src = _fields(ch)
     if src.get("antenna_table") is not None:
         raise NotImplementedError("tabulated antennas are not ported yet "
-                                  "(ROADMAP queue 1 item 15, the non-factored chain)")
+                                  "(ROADMAP queue 1 item 6, emitter / ARZ / HCRB / "
+                                  "tabulated antennas)")
     out = {}
     for name in ChannelParams._fields:
         if name == "antenna_table":
@@ -219,9 +220,9 @@ def dipole_simulation(inputfilename, config=None, **kwargs):
             FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
             FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
         ],
-        trigger=TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
         antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78": "analytic_VPol"},
-        **kwargs)
+        **{"trigger": TriggerSpec(threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
+           **kwargs})
 
 
 # ---- the phased-array workload (bench._pa_setup, tests/test_e2e_phased_array.py)
@@ -258,9 +259,36 @@ def pa_simulation(inputfilename, config=None, **kwargs):
             FilterStage((96 * units.MHz, 100 * units.GHz), "cheby1", {"order": 4, "rp": 0.1}),
             FilterStage((0, 220 * units.MHz), "cheby1", {"order": 7, "rp": 0.1}),
         ],
-        trigger=TriggerSpec(trigger_type="phased_array"),
         antenna_replacements={"RNOG_vpol_v1_n1.73": "analytic_VPol"},
-        **kwargs)
+        **{"trigger": TriggerSpec(trigger_type="phased_array"), **kwargs})
+
+
+def multitrigger_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of the multi-trigger station
+    (tests/test_e2e_multitrigger.py): PA_DETECTOR, PA_CONFIG without noise
+    (``config`` merged on top), the cheby1 chain and three named triggers in
+    one pass: a 2-sigma high/low on all channels, a 3-sigma simple threshold
+    on channels (0, 1) and the phased array; ``kwargs`` go to ``Simulation``
+    (``triggers=`` replaces the list)."""
+    from nuradiomc_tpu_torch.sim.simulation import TriggerSpec
+    kwargs.setdefault("triggers", [
+        TriggerSpec(name="hilo_2sig", trigger_type="high_low",
+                    threshold_high_sigma=2.0, threshold_low_sigma=-2.0),
+        TriggerSpec(name="simple_3sig", trigger_type="simple_threshold",
+                    channels=(0, 1), threshold_high_sigma=3.0),
+        TriggerSpec(name="PA_4channel", trigger_type="phased_array"),
+    ])
+    return pa_simulation(inputfilename,
+                         config_util.merge_config(config, {"noise": False}), **kwargs)
+
+
+def narrow_trigger_chain():
+    """The separate trigger chain of tests/test_trigger_channels.py, narrower
+    than the dipole workload's readout chain: pass it to
+    :func:`dipole_simulation` as ``trigger_filter_chain=``."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage
+    return [FilterStage((120 * units.MHz, 1000 * units.GHz), "butter", {"order": 4}),
+            FilterStage((0, 300 * units.MHz), "butter", {"order": 8})]
 
 
 def make_pa_inputs(n_groups=16384, *, device=device_util.DEFAULT, dtype=torch.float32):
@@ -273,6 +301,31 @@ def make_pa_inputs(n_groups=16384, *, device=device_util.DEFAULT, dtype=torch.fl
     sim = pa_simulation(
         INPUT_1E18_N3000,
         {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28}},
+        device=device, dtype=dtype)
+    batch = _tiled(sim._build_batches()[-1], n_groups, sim.device)
+    return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch
+
+
+def make_multitrigger_inputs(n_groups=16384, *, device=device_util.DEFAULT,
+                             dtype=torch.float32):
+    """(settings, ch, batch) of the multi-trigger slice: the batch, channels
+    and solver settings of :func:`make_pa_inputs` with a list of ten named
+    triggers in one pass: an 8-rung high/low threshold ladder (2 to 5.5
+    sigma), a 3-sigma simple threshold on channels (0, 1) and the digitized
+    phased array."""
+    import dataclasses as dc
+
+    from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
+    from nuradiomc_tpu_torch.sim.simulation import TriggerSpec
+    ladder = [TriggerSpec(name=f"hilo_{sig:g}sig", threshold_high_sigma=sig,
+                          threshold_low_sigma=-sig) for sig in np.arange(2.0, 6.0, 0.5)]
+    sim = pa_simulation(
+        INPUT_1E18_N3000,
+        {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28}},
+        triggers=ladder + [
+            TriggerSpec(name="simple_3sig", trigger_type="simple_threshold", channels=(0, 1),
+                        threshold_high_sigma=3.0),
+            TriggerSpec(name="PA_4channel", trigger_type="phased_array")],
         device=device, dtype=dtype)
     batch = _tiled(sim._build_batches()[-1], n_groups, sim.device)
     return dc.replace(sim.settings, band_limit_eps=1e-3), sim.channel_params, batch

@@ -72,7 +72,7 @@ def get_ice_model(name: str) -> IceModelSimple:
     if name in ("mooresbay_simple", "mooresbay_simple_2"):
         raise NotImplementedError(
             f"ice model '{name}' needs bottom reflections (ROADMAP queue 1 "
-            "item 14, Moore's Bay reflections)")
+            "item 5, Moore's Bay reflections)")
     if name not in _MODELS:
         raise NotImplementedError(
             f"ice model '{name}' is not implemented; available: {sorted(_MODELS)}")

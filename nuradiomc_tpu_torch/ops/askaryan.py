@@ -1,16 +1,17 @@
-"""Askaryan emission, Alvarez2000 and Alvarez2009 (torch).
+"""Askaryan emission, ZHS1992, Alvarez2000 and Alvarez2009 (torch).
 
-Counterpart of ``nuradiomc_tpu/ops/askaryan.py`` for the ported models
-(reference NuRadioMC/SignalGen/parametrizations.py:110-275). The inputs are
+Counterpart of ``nuradiomc_tpu/ops/askaryan.py`` for the parametrised models
+(reference NuRadioMC/SignalGen/parametrizations.py:92-275). The inputs are
 tensors of one batch shape; the frequency axis is appended last. The roll of
-the reference's time trace to the window centre is a linear phase, so the
-spectrum matches ``fft.time2freq(get_time_trace(...))``:
+the reference's time trace is a linear phase, so the spectrum matches
+``fft.time2freq(get_time_trace(...))``:
 
-    spec(f) = sqrt(2) * S(f) * i * exp(-2 pi i f k dt),  k = N // 2
+    spec(f) = sqrt(2) * S(f) * i * exp(-2 pi i f k dt)
 
-Alvarez2009's stochastic EM parameter ``k_L`` is an input, drawn per shower
-on the host by :func:`draw_alvarez2009_k_L` (numpy, a copy of the JAX
-package's). ZHS1992 and ARZ are not ported yet and raise.
+with k = N // 2 (the window centre) for the Alvarez models and k = 2 ns / dt
+for ZHS1992. Alvarez2009's stochastic EM parameter ``k_L`` is an input, drawn
+per shower on the host by :func:`draw_alvarez2009_k_L` (numpy, a copy of the
+JAX package's). The ARZ models are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +27,18 @@ from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 def _freqs(N: int, dt: float, like: torch.Tensor):
     return torch.fft.rfftfreq(N, dt, dtype=like.dtype, device=like.device)
+
+
+def spectrum_zhs1992(energy, theta, N: int, dt: float, is_em, n_index, R):
+    """ZHS1992 raw spectrum S(f) [..., F] (askaryan.py:49); EM and HAD alike."""
+    del is_em
+    ff = _freqs(N, dt, theta)
+    vv0 = ff / (0.5 * units.GHz)
+    domega = (theta - torch.arccos(1.0 / n_index))[..., None]
+    mag = (1.1e-7 * energy[..., None] / units.TeV * vv0 / (1 + 0.4 * vv0 ** 2)
+           * torch.exp(-0.5 * (domega * vv0 / (2.4 * units.deg)) ** 2)
+           * units.V / units.m / (R[..., None] / units.m) / units.MHz)
+    return 0.5 * mag  # ZHS fourier normalization factor
 
 
 def spectrum_alvarez2000(energy, theta, N: int, dt: float, is_em, n_index, R):
@@ -141,7 +154,11 @@ def spectrum_alvarez2009(energy, theta, N: int, dt: float, is_em, n_index, R, k_
 def get_frequency_spectrum(energy, theta, N: int, dt: float, is_em, n_index,
                            R, model: str, k_L=None):
     """NuRadioMC-normalized eTheta spectrum [..., F] (askaryan.py:179)."""
-    if model == "Alvarez2000":
+    k = N // 2  # Alvarez2000 / Alvarez2009 centre the pulse
+    if model == "ZHS1992":
+        S = spectrum_zhs1992(energy, theta, N, dt, is_em, n_index, R)
+        k = int(2 * units.ns / dt)
+    elif model == "Alvarez2000":
         S = spectrum_alvarez2000(energy, theta, N, dt, is_em, n_index, R)
     elif model == "Alvarez2009":
         if k_L is None:
@@ -150,9 +167,8 @@ def get_frequency_spectrum(energy, theta, N: int, dt: float, is_em, n_index,
     else:
         raise NotImplementedError(
             f"Askaryan model {model} is not ported yet (ROADMAP queue 1 "
-            "item 10, ZHS1992; ARZ: item 15)")
+            "item 6, emitter / ARZ / HCRB / tabulated antennas)")
     ff = _freqs(N, dt, theta)
-    k = N // 2
     ctype = torch.complex128 if S.dtype == torch.float64 else torch.complex64
     # 90 deg phase + roll to the window centre + sqrt(2) rFFT normalization
     roll = torch.exp(torch.complex(torch.zeros_like(ff), -2 * math.pi * ff * k * dt))

@@ -44,7 +44,7 @@ def inv_length_factored(z, frequencies, model: str):
     if model != "SP1":
         raise NotImplementedError(
             f"attenuation model {model} is not ported yet (ROADMAP queue 1 "
-            "item 17, the rest)")
+            "item 8, the rest)")
     t = _sp1_temperature(z)
     w0 = math.log(0.0001)
     w2 = math.log(3.16)

@@ -6,7 +6,7 @@ from antenna depths and cable delays (host numpy, copied), coherent beam
 sums by static rolls, sliding power sums at ``step`` intervals, and the
 power-integration trigger of the RNO-G / Gen2 deep arrays. The envelope
 trigger (``phased_envelope_trigger``) is not ported yet (ROADMAP queue 1
-item 17, with the reco trigger modules).
+item 8, with the reco trigger modules).
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ Gauss-Legendre quadrature. Every function is elementwise over the leading
 batch axes: the JAX package's ``vmap`` over flattened pairs is a batch
 dimension here, and each fixed-count ``fori_loop`` is a fixed-count Python
 loop. ``focusing_dtheta_dz`` gives the implicit-mode focusing derivative.
-Bottom reflections (``find_solutions_all``), the numeric focusing re-solve
-and the ice-to-air solver are not ported yet (ROADMAP queue 1 items 9, 14,
-17).
+The numeric focusing re-solve is ``find_solutions`` at a displaced receiver
+(``sim/pipeline.py``). Bottom reflections (``find_solutions_all``) and the
+ice-to-air solver are not ported yet (ROADMAP queue 1 items 5 and 8).
 """
 
 from __future__ import annotations
@@ -444,7 +444,7 @@ def attenuation_factor(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple,
     if model != "SP1":
         raise NotImplementedError(
             f"attenuation model {model} is not ported yet (ROADMAP queue 1 "
-            "item 17, the rest)")
+            "item 8, the rest)")
     c0, x1y, x1z, x2y, x2z = torch.broadcast_tensors(c0, x1y, x1z, x2y, x2z)
     _, z_turn = _turning_point(c0, ice)
     sol = _solution_type(c0, x1y, x1z, x2y, x2z, ice)

@@ -6,7 +6,11 @@ Replaces ``nuradiomc_tpu/ops/trigger_pallas.py::fused_irfft_trigger``
 by an inverse real FFT in shared memory; its source note says what bounds it
 on the H100 and how the design answers that. :func:`fused_irfft_trigger`
 launches it for CUDA tensors and runs :func:`fused_irfft_trigger_plain` for
-CPU tensors; there is no other fallback.
+CPU tensors; there is no other fallback. The kernel's shared memory holds one
+trace whatever C is, so the limits that remain are ``n_base`` (one trace, its
+FFT buffer and the staged bins must fit a block: 8192 in float64 does) and
+65535 channels; a trigger list longer than one launch takes is cut into
+slices, one launch of the same kernel each.
 
 Contract:
 
@@ -14,10 +18,12 @@ Contract:
                                channel fastest, R = G * C, K <= n_base/2 + 1
                                (the bins from K on are zero)
     th_hi, th_lo      [R, T]   absolute thresholds per row and trigger
-                               (th_lo unused by simple_threshold)
+                               (th_lo unused by simple_threshold); th_hi =
+                               +inf takes the row's channel out of that
+                               trigger (a per-trigger channel subset)
     n_base            trace length: trace = scale * numpy's irfft(X, n_base)
     scale             trace scale, sampling_rate / sqrt(2)
-    triggers          T static trigger specs
+    triggers          T static trigger specs, T >= 0
     returns (fired [G, T] bool, first_bin [G, T] int32, amp [G, C])
 
 The plain version is the JAX pipeline's irfft matmul (pipeline.py:1312-1327)
@@ -83,6 +89,9 @@ def fused_irfft_trigger_plain(spec_re, spec_im, th_hi, th_lo, *, n_base: int,
         fired.append(f)
         first.append(torch.where(
             f, torch.argmax(ttt.to(torch.int8), dim=-1), 0).to(torch.int32))
+    if not triggers:                 # no column: the max amplitude alone
+        return (torch.zeros((G, 0), dtype=torch.bool, device=v.device),
+                torch.zeros((G, 0), dtype=torch.int32, device=v.device), amp)
     return torch.stack(fired, dim=-1), torch.stack(first, dim=-1), amp
 
 
@@ -93,19 +102,40 @@ def _kernel_fn(dtype):
     else:
         fn, scalar = lib.irfft_trigger_f64, ctypes.c_double
     ip = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ip] * 4 + [ctypes.c_int] * 5 + [ip, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ip] * 4 + [ctypes.c_int] * 7 + [ip, ctypes.c_int]
                    + [scalar, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.irfft_trigger_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.irfft_trigger_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.irfft_trigger_smem_bytes.restype = ctypes.c_long
     return fn, scalar, lib
+
+
+def triggers_per_launch(lib, C: int, n_base: int, K: int, f64: bool, T: int) -> int:
+    """How many of ``T`` trigger columns one launch takes: the kernel's own
+    maximum, or fewer where their per-sample counts do not fit the block's
+    shared memory beside the trace, the FFT buffer and the staging rows."""
+    def smem(n_trig):
+        return lib.irfft_trigger_smem_bytes(C, n_base, K, n_trig, int(f64))
+
+    per = min(T, lib.irfft_trigger_max_triggers())
+    while per > 1 and smem(per) > _SMEM_LIMIT:
+        per -= 1
+    if smem(per) > _SMEM_LIMIT:
+        raise ValueError(
+            f"fused trigger: one trace of n_base={n_base} samples of {8 if f64 else 4} bytes, "
+            f"its FFT buffer, {K} staged bins and one trigger's counts need {smem(per)} bytes "
+            f"of shared memory, a block has {_SMEM_LIMIT}")
+    return per
 
 
 def fused_irfft_trigger(spec_re, spec_im, th_hi, th_lo, *, n_base: int,
                         scale: float,
                         triggers: Tuple[TriggerSpecStatic, ...], C: int):
     """Fused irfft + trigger: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see the module docstring for the contract)."""
+    version for CPU tensors (see the module docstring for the contract).
+    Any number of triggers (none: the max amplitude alone), of channels and
+    of groups; a list longer than one launch takes is cut into slices, one
+    launch of the same kernel each."""
     global launches
     if spec_re.device.type == "cpu":
         return fused_irfft_trigger_plain(spec_re, spec_im, th_hi, th_lo, n_base=n_base,
@@ -117,8 +147,10 @@ def fused_irfft_trigger(spec_re, spec_im, th_hi, th_lo, *, n_base: int,
         raise TypeError(f"fused trigger: dtype {dtype} is not float32/float64")
     R, K = spec_re.shape
     T = len(triggers)
-    if C < 1 or R % C:
-        raise ValueError(f"fused trigger: R={R} is not a multiple of C={C}")
+    if C < 1 or R % C or C > 0xffff:
+        raise ValueError(f"fused trigger: R={R} is not a multiple of C={C} in 1..65535")
+    if not 2 <= n_base <= 0xffff:
+        raise ValueError(f"fused trigger: n_base={n_base} outside 2..65535")
     if not 1 <= K <= n_base // 2 + 1:
         raise ValueError(f"fused trigger: K={K} bins, n_base={n_base} takes 1..{n_base // 2 + 1}")
     expect = {"spec_im": (spec_im, (R, K)), "th_hi": (th_hi, (R, T)),
@@ -137,19 +169,7 @@ def fused_irfft_trigger(spec_re, spec_im, th_hi, th_lo, *, n_base: int,
         if spec.kind not in _KINDS:
             raise NotImplementedError(f"fused trigger: trigger kind {spec.kind}")
     fn, scalar, lib = _kernel_fn(dtype)
-    max_trig, max_samples = lib.irfft_trigger_max_triggers(), lib.irfft_trigger_max_samples()
-    if not 1 <= T <= max_trig:
-        raise ValueError(f"fused trigger: {T} triggers, the kernel takes 1..{max_trig}")
-    if not 2 <= n_base <= max_samples:
-        raise ValueError(f"fused trigger: n_base={n_base} outside 2..{max_samples}")
-    elem = spec_re.element_size()
-    smem = lib.irfft_trigger_smem_bytes(C, n_base, K, int(elem == 8))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"fused trigger: C * n_base * sizeof = {C} * {n_base} * {elem} bytes of "
-            f"traces and the FFT's buffers ({smem} bytes) do not fit the {_SMEM_LIMIT} "
-            "bytes of shared memory of one block (ROADMAP kernel work item 1: lift the "
-            "trigger kernel's shared-memory limit)")
+    per = triggers_per_launch(lib, C, n_base, K, dtype == torch.float64, T)
     G = R // C
     _, stages = fft_plan.plan(n_base)
     table = fft_plan.twiddles(n_base, dtype, spec_re.device)
@@ -161,12 +181,15 @@ def fused_irfft_trigger(spec_re, spec_im, th_hi, th_lo, *, n_base: int,
         return (ctypes.c_int * max(len(vals), 1))(*vals)
 
     ptrs = [t.data_ptr() for t in (spec_re, spec_im, th_hi, th_lo, table, fired, first, amp)]
-    err = fn(*ptrs, ints([_KINDS[s.kind] for s in triggers]),
-             ints([s.n_bins_hl for s in triggers]),
-             ints([min(s.n_bins_maj, n_base) for s in triggers]),
-             ints([s.n_coinc for s in triggers]),
-             T, G, C, K, n_base, ints(stages), len(stages), scalar(scale / n_base),
-             _build.current_stream_ptr(spec_re.device))
-    _build.check(err, "fused trigger kernel")
-    launches += 1
+    # one launch per slice of ``per`` columns; with no column, one for amp
+    for t0 in range(0, max(T, 1), max(per, 1)):
+        part = triggers[t0:t0 + per]
+        err = fn(*ptrs, ints([_KINDS[s.kind] for s in part]),
+                 ints([s.n_bins_hl for s in part]),
+                 ints([min(s.n_bins_maj, n_base) for s in part]),
+                 ints([s.n_coinc for s in part]),
+                 len(part), t0, T, G, C, K, n_base, ints(stages), len(stages),
+                 scalar(scale / n_base), _build.current_stream_ptr(spec_re.device))
+        _build.check(err, "fused trigger kernel")
+        launches += 1
     return fired.bool(), first, amp.reshape(G, C)

@@ -30,7 +30,9 @@ INPUT_1E18_N3000 = DATA_DIR / "1e18_n3000.npz"
 # the export of .bench_cache/gen2_taus_2048_seed21.hdf5 (2048 tau-neutrino CC
 # events at 1e19 eV with stochastic secondaries: 3866 showers, <= 10 per group)
 INPUT_GEN2 = DATA_DIR / "gen2_taus_2048_seed21.npz"
-
+# the export of tests/golden/pa_noiseless_input.hdf5 (the 1e18 eV input with
+# its Alvarez2009 k_L realizations pinned: the multi-trigger golden's input)
+INPUT_PA_NOISELESS = DATA_DIR / "pa_noiseless_input.npz"
 
 _ARRAYS = [f.name for f in dataclasses.fields(EventInput)
            if f.name not in ("attrs", "emitter")]

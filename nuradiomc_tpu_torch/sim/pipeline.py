@@ -1,14 +1,15 @@
-"""The batched end-to-end MC pipeline (torch), single-window path.
+"""The batched end-to-end MC pipeline (torch).
 
 Counterpart of ``nuradiomc_tpu/sim/pipeline.py::simulate_batch`` on the paths
-of the dipole effective-volume run, the phased-array run and the Gen2
-composed run (pipeline.py:541-632, :679-1160, :1174-1435, :1462-1553 with
-n_windows = 1). One call runs the whole chain over a padded batch [group G x
-shower S x channel C x ray 2] with validity masks in place of early exits:
+of the dipole effective-volume run, the phased-array run, the Gen2 composed
+run and the multi-trigger station (pipeline.py:541-632, :679-1160,
+:1174-1553 without bottom reflections). One call runs the whole chain over a
+padded batch [group G x shower S x channel C x ray 2] with validity masks in
+place of early exits:
 
 1. ray tracing                      (ops.raytrace)
 2. viewing angle and delta_C cut
-3. Alvarez2000 / Alvarez2009 spectra (ops.askaryan)
+3. ZHS1992 / Alvarez2000 / Alvarez2009 spectra (ops.askaryan)
 4. polarization, Fresnel and focusing factors, analytic VEL mix: folded into
    one complex scalar per (shower, channel, ray) on the factored chain; on
    the non-factored chain (birefringence or ``keep_efields``) the efield
@@ -19,10 +20,18 @@ shower S x channel C x ray 2] with validity masks in place of early exits:
 7. placement on the common time base + (shower, ray) reduction
    (ops.placement: kernel 1 on the factored chain, kernel 4 on the
    materialized voltage spectrum of the non-factored one)
-8. noise (ops.noise), filter multiply, and the triggers: irfft, high/low
-   trigger and majority logic (ops.trigger_fused, kernel 2), or the
-   phased-array chain of trigger ADC, upsampling, beams and power sums
-   (ops.pa_trigger, kernel 3)
+8. noise (ops.noise), filter multiply (the readout chain and, where the
+   station has one, a separate trigger chain on the same raw spectrum), and
+   the list of named triggers: irfft, high/low or threshold trigger and
+   majority logic for all such columns at once (ops.trigger_fused, kernel 2;
+   a channel outside a trigger's subset gets a +inf threshold), and per
+   phased-array trigger the chain of trigger ADC, upsampling, beams and power
+   sums on its channels' rows (ops.pa_trigger, kernel 3)
+
+Steps 7 and 8 run once per sub-event readout window (``n_windows``): pulses
+later than the window's length after its first arrival go to the next
+window, decisions OR across windows and the trigger time is the earliest
+fired window's.
 
 ``placement_impl`` / ``trigger_impl`` = "kernel" (default) go through the
 kernel wrappers, which launch the CUDA kernels on CUDA tensors and run their
@@ -271,25 +280,28 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
+_ITEM_REFLECTIONS = "5, Moore's Bay reflections"
+_ITEM_NON_FACTORED = "6, emitter / ARZ / HCRB / tabulated antennas"
+_ITEM_REST = "8, the rest"
+
+
 def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                  keep_traces, emitter, arz_library):
-    if s.apply_focusing and s.focusing_mode != "implicit":
-        _not_ported(f"focusing_mode={s.focusing_mode!r} (the displaced-receiver "
-                    "re-solve)", "9, numeric focusing")
+    if s.apply_focusing and s.focusing_mode not in ("implicit", "numeric"):
+        raise ValueError(f"focusing_mode must be 'implicit' or 'numeric', got {s.focusing_mode!r}")
     if emitter is not None:
-        _not_ported("emitter mode", "15, the non-factored chain")
-    if arz_library is not None or s.askaryan_model not in ("Alvarez2000", "Alvarez2009"):
-        _not_ported(f"Askaryan model {s.askaryan_model}", "10, ZHS1992; ARZ: 15")
-    if s.n_reflections > 0 or s.n_windows != 1:
-        _not_ported("bottom reflections / sub-event windows", "14, Moore's Bay reflections")
+        _not_ported("emitter mode", _ITEM_NON_FACTORED)
+    if arz_library is not None or s.askaryan_model not in ("ZHS1992", "Alvarez2000",
+                                                            "Alvarez2009"):
+        _not_ported(f"Askaryan model {s.askaryan_model}", _ITEM_NON_FACTORED)
+    if s.n_reflections > 0:
+        _not_ported("bottom reflections", _ITEM_REFLECTIONS)
     if ch.antenna_table is not None:
-        _not_ported("tabulated antennas", "15, the non-factored chain")
-    if ch.trigger_filter_response is not None:
-        _not_ported("a separate trigger chain", "13, multi-trigger and separate trigger chains")
+        _not_ported("tabulated antennas", _ITEM_NON_FACTORED)
     if keep_traces:
-        _not_ported("keep_traces (the .nur writer's traces)", "17, the rest")
+        _not_ported("keep_traces (the .nur writer's traces)", _ITEM_REST)
     if s.attenuation_model != "SP1":
-        _not_ported(f"attenuation model {s.attenuation_model}", "17, the rest")
+        _not_ported(f"attenuation model {s.attenuation_model}", _ITEM_REST)
     if s.placement_impl not in ("kernel", "plain") or s.trigger_impl not in ("kernel", "plain"):
         raise ValueError("placement_impl / trigger_impl must be 'kernel' or 'plain'")
 
@@ -302,12 +314,19 @@ def _trigger_list(s: PipelineSettings):
             trigger_type=s.trigger_type,
             highlow_coincidence=s.highlow_coincidence,
             number_of_coincidences=s.number_of_coincidences,
-            channel_coincidence=s.channel_coincidence),)
-    for t in trig_list:
+            channel_coincidence=s.channel_coincidence,
+            pa_rolls=s.pa_rolls, pa_window=s.pa_window, pa_step=s.pa_step,
+            pa_upsampling=s.pa_upsampling, pa_threshold=s.pa_threshold,
+            pa_digitize=s.pa_digitize, pa_adc_fs=s.pa_adc_fs,
+            pa_adc_nbits=s.pa_adc_nbits, pa_adc_range=s.pa_adc_range),)
+    name_to_col = {t.name: i for i, t in enumerate(trig_list)}
+    for i, t in enumerate(trig_list):
         if t.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
             raise NotImplementedError(f"trigger type {t.trigger_type}")
-        if len(t.channels):
-            _not_ported("per-trigger channel subsets", "13, multi-trigger and separate trigger chains")
+        if t.requires and name_to_col.get(t.requires, i) >= i:
+            raise ValueError(
+                f"trigger {t.name!r} requires {t.requires!r}, which "
+                "must be declared earlier in the trigger list")
     return trig_list
 
 
@@ -344,6 +363,87 @@ def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, s: PipelineSetti
     fired, frame, _, _ = phased_array.phased_power_trigger(
         tr.reshape(G, C, -1), t.pa_rolls, t.pa_threshold, t.pa_window, t.pa_step)
     return fired, frame, amp, t.pa_step / (s.sampling_rate * up)
+
+
+def _run_triggers(trig_list, trig, readout, s: PipelineSettings, ch: ChannelParams,
+                  G: int, C: int):
+    """Every trigger of the list on one window's spectra (pipeline.py:541-634,
+    :1336-1460). ``trig`` = (re, im) [G*C, K_trig] of the trigger chain;
+    ``readout`` = (re, im) [G*C, K_base] of the readout chain where it is a
+    separate one, else None. All high/low and threshold triggers are the
+    columns of one fused-trigger call; a channel outside a trigger's subset
+    has threshold +inf there, so it never counts. Each phased-array trigger
+    is one call on its channels' rows. Returns (fired [G] per trigger, time
+    after the window start [G] per trigger, amp [G, C] of the readout
+    chain over all channels)."""
+    spec_re, spec_im = trig
+    real_dtype, dev = spec_re.dtype, spec_re.device
+    dt = s.dt
+    Rc = G * C
+    plain = s.trigger_impl != "kernel"
+    fused = (trigger_fused.fused_irfft_trigger_plain if plain
+             else trigger_fused.fused_irfft_trigger)
+    scale = s.sampling_rate / math.sqrt(2.0)
+    hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
+    pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
+    fired_cols, time_cols = {}, {}
+    amp = None
+    if hl:
+        th_hi_cols, th_lo_cols, kspecs = [], [], []
+        for t in (trig_list[i] for i in hl):
+            if t.threshold_high is not None:
+                hi = torch.full((C,), t.threshold_high, dtype=real_dtype, device=dev)
+            else:
+                hi = ch.threshold_high.to(real_dtype)
+            if len(t.channels):
+                outside = torch.ones(C, dtype=torch.bool, device=dev)
+                outside[list(t.channels)] = False
+                hi = torch.where(outside, torch.inf, hi)
+            if t.trigger_type == "high_low":
+                if t.threshold_low is not None:
+                    lo = torch.full((C,), t.threshold_low, dtype=real_dtype, device=dev)
+                else:
+                    lo = ch.threshold_low.to(real_dtype)
+                nb_hl = max(int(round(t.highlow_coincidence / dt)), 1)
+            else:
+                lo = torch.zeros((C,), dtype=real_dtype, device=dev)
+                nb_hl = 1
+            th_hi_cols.append(hi.repeat(G))
+            th_lo_cols.append(lo.repeat(G))
+            kspecs.append(trigger_fused.TriggerSpecStatic(
+                kind=t.trigger_type, n_bins_hl=nb_hl,
+                n_bins_maj=min(max(int(round(t.channel_coincidence / dt)), 1), s.n_base),
+                n_coinc=t.number_of_coincidences))
+        fired, first, amp_trig = fused(
+            spec_re, spec_im, torch.stack(th_hi_cols, dim=-1),
+            torch.stack(th_lo_cols, dim=-1), n_base=s.n_base, scale=scale,
+            triggers=tuple(kspecs), C=C)
+        if readout is None:
+            amp = amp_trig
+        for j, i in enumerate(hl):
+            fired_cols[i] = fired[:, j]
+            time_cols[i] = first[:, j].to(real_dtype) * dt
+    for i in pa:
+        t = trig_list[i]
+        re, im, C_t = spec_re, spec_im, C
+        if len(t.channels):
+            sel = torch.as_tensor(list(t.channels), device=dev)
+            C_t = len(t.channels)
+            re, im = (x.reshape(G, C, -1)[:, sel].reshape(G * C_t, -1).contiguous()
+                      for x in (spec_re, spec_im))
+        fired, frame, amp_i, frame_s = _phased_array_trigger(t, re, im, s, C_t)
+        fired_cols[i] = fired
+        time_cols[i] = frame.to(real_dtype) * frame_s
+        if readout is None and not hl and not len(t.channels):
+            amp = amp_i if amp is None else torch.maximum(amp, amp_i)
+    if amp is None:
+        # no call above saw every channel of the readout chain: one more
+        # fused call with no trigger column, for its max |trace|
+        empty = spec_re.new_empty((Rc, 0))
+        amp = fused(*(readout or trig), empty, empty, n_base=s.n_base, scale=scale,
+                    triggers=(), C=C)[2]
+    order = range(len(trig_list))
+    return [fired_cols[i] for i in order], [time_cols[i] for i in order], amp
 
 
 def _birefringence(e_theta, e_phi, valid, geom: raytrace.Geometry2D, c0, ff_int,
@@ -489,16 +589,32 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         e_theta = e_theta * a_p[..., None]
         e_phi = e_phi * a_s[..., None]
     if s.apply_focusing:
-        # implicit mode (pipeline.py:947-989): the exact dz -> 0 derivative
-        # of the launch angle toward a displaced receiver at the solved root
+        # the launch angle's convergence toward a displaced receiver
+        # (pipeline.py:947-989)
         lau_ang = torch.arccos(torch.clamp(launch[..., 2], -1.0, 1.0))
         rec_ang = torch.arccos(torch.clamp(-receive[..., 2], -1.0, 1.0))
-        d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
+        if s.focusing_mode == "implicit":
+            # the exact dz -> 0 derivative at the solved root
+            d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
+            foc_valid = sols.mask
+        else:
+            # "numeric": the finite difference of a second solve with the
+            # receiver (the 2D x1 where the pair was swapped) moved by dz
+            dz = s.focusing_dz
+            x1z_d = torch.where(geom.swapped, geom.x1z + dz, geom.x1z)
+            x2z_d = torch.where(geom.swapped, geom.x2z, geom.x2z + dz)
+            sols1 = raytrace.find_solutions(geom.x1y, x1z_d, geom.x2y, x2z_d,
+                                            s.ice, n_bisect=s.n_bisect)
+            launch1, _ = raytrace.launch_receive_vectors(
+                geom._replace(x1z=x1z_d, x2z=x2z_d), sols1)
+            lau_ang1 = torch.arccos(torch.clamp(launch1[..., 2], -1.0, 1.0))
+            d_launch_dz = torch.abs(lau_ang1 - lau_ang) / abs(dz)
+            foc_valid = sols1.mask & sols.mask
         r_h = torch.abs(geom.x2y - geom.x1y)[..., None]
         dist = torch.clamp(sols.path_length, min=1.0)
         foc = torch.sqrt(dist / torch.clamp(torch.sin(rec_ang), min=1e-6) * d_launch_dz)
         foc = foc * torch.sqrt(dist * torch.sin(lau_ang) / torch.clamp(r_h, min=1e-6))
-        foc = torch.clamp(torch.where(sols.mask, foc, 1.0), max=s.focusing_limit)
+        foc = torch.clamp(torch.where(foc_valid, foc, 1.0), max=s.focusing_limit)
         # refractive-index correction between emitter and receiver
         n1 = s.ice.index_of_refraction(batch.vertices[..., 2])[:, :, None, None]
         n2 = s.ice.index_of_refraction(ch.positions[:, 2])[None, None, :, None]
@@ -555,20 +671,19 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     any_valid = torch.any(valid.reshape(G, -1), dim=-1)
     cap = (s.n_base - s.n_internal) * dt
     F_base = s.n_base // 2 + 1
-    K_int = F_int
-    K_base = F_base
+    # band limits (pipeline.py:1127-1158): with a separate trigger chain the
+    # efield grid stays full, and the placement covers both chains' supports
+    separate_chain = ch.trigger_filter_response is not None
+    K_int, K_base, K_trig, K_place = F_int, F_base, F_base, F_base
     if s.band_limit_eps > 0:
-        K_int = _band_support((ch.filter_response_int.cpu().numpy(),),
-                              s.band_limit_eps, F_int)
+        if not separate_chain:
+            K_int = _band_support((ch.filter_response_int.cpu().numpy(),),
+                                  s.band_limit_eps, F_int)
         K_base = _band_support((ch.filter_response.cpu().numpy(),),
                                s.band_limit_eps, F_base)
-    K_place = K_base
-
-    # single readout window: anchored at the earliest valid arrival
-    t0_w = torch.amin(torch.where(valid, t_start, 1e30).reshape(G, -1), dim=-1)
-    t0_w = torch.where(any_valid, t0_w, 0.0)
-    offset = t_start - t0_w[:, None, None, None]
-    in_w = valid & (offset <= cap)
+        K_trig = (_band_support((ch.trigger_filter_response.cpu().numpy(),),
+                                s.band_limit_eps, F_base) if separate_chain else K_base)
+        K_place = max(K_base, K_trig)
 
     s2 = S * n_rays
     R = G * C * s2
@@ -580,102 +695,99 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     df_base = float(s.sampling_rate / s.n_base)
     kernel = s.placement_impl == "kernel"
     if factored:
+        # the window-independent operands of the chain kernel
         tpl_idx = (c_idx * 3 + sector).to(torch.int32)
         dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
         tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
-        place = (placement.chain_placement_reduce if kernel
-                 else placement.chain_placement_reduce_plain)
-        out_re, out_im = place(
-            ch_major(spec.real)[:, :K_int].contiguous(),
-            ch_major(spec.imag)[:, :K_int].contiguous(),
-            ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag),
-            ch_major(in_w), ch_major(tpl_idx), ch_major(offset),
-            att_W[:, :K_int].contiguous(), tpl_table[:, :K_int].contiguous(),
-            s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base, K_place=K_place)
-    else:
-        # the in-window voltage spectrum, placed as it is (pipeline.py:1262-1268)
-        V = ch_major(torch.where(in_w[..., None], volt_spec, 0.0)[..., :K_int])
-        place = placement.placement_reduce if kernel else placement.placement_reduce_plain
-        out_re, out_im = place(V.real.contiguous(), V.imag.contiguous(), ch_major(offset),
-                               s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base,
-                               K_place=K_place)
-    chan_spec = torch.complex(out_re, out_im)
-    if K_place < F_base:
-        chan_spec = torch.nn.functional.pad(chan_spec, (0, F_base - K_place))
-    chan_spec = chan_spec.reshape(G, C, F_base)
+        chain_rows = (ch_major(spec.real)[:, :K_int].contiguous(),
+                      ch_major(spec.imag)[:, :K_int].contiguous(),
+                      ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag))
+        chain_tables = (ch_major(tpl_idx), att_W[:, :K_int].contiguous(),
+                        tpl_table[:, :K_int].contiguous())
 
-    # ---- 8. noise, filter multiply, triggers -------------------------------
-    if s.add_noise:
-        # one realization per (group, channel), added before the filter
-        # (pipeline.py:1294-1310)
-        chan_spec = chan_spec + noise_ops.bandlimited_noise_spectrum(
-            noise_generator, (G, C), s.n_base, s.sampling_rate,
-            ch.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
-            type=s.noise_type, dtype=real_dtype, sampler=s.noise_sampler)
-    chan_spec = chan_spec * ch.filter_response[None, :, :]
+    def assemble_and_trigger(in_w, offset, t0_w):
+        """One sub-event readout window (pipeline.py:1174-1460): place the
+        in-window pulses, add noise, apply the chains, run every trigger.
+        Returns (fired per trigger, time per trigger, amp [G, C])."""
+        if factored:
+            place = (placement.chain_placement_reduce if kernel
+                     else placement.chain_placement_reduce_plain)
+            out_re, out_im = place(
+                *chain_rows, ch_major(in_w), chain_tables[0], ch_major(offset),
+                *chain_tables[1:],
+                s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base, K_place=K_place)
+        else:
+            # the in-window voltage spectrum, placed as it is (pipeline.py:1262-1268)
+            V = ch_major(torch.where(in_w[..., None], volt_spec, 0.0)[..., :K_int])
+            place = placement.placement_reduce if kernel else placement.placement_reduce_plain
+            out_re, out_im = place(V.real.contiguous(), V.imag.contiguous(), ch_major(offset),
+                                   s2=s2, df=df_base, n_int=s.n_internal, n_base=s.n_base,
+                                   K_place=K_place)
+        raw_spec = torch.complex(out_re, out_im)
+        if K_place < F_base:
+            raw_spec = torch.nn.functional.pad(raw_spec, (0, F_base - K_place))
+        raw_spec = raw_spec.reshape(G, C, F_base)
 
-    Rc = G * C
-    spec_k = chan_spec.reshape(Rc, F_base)[:, :K_base]
-    spec_re, spec_im = spec_k.real.contiguous(), spec_k.imag.contiguous()
-    hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
-    pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
-    if hl and pa and s.trigger_impl == "kernel":
-        _not_ported("phased-array and high/low triggers in one list under "
-                    "trigger_impl='kernel'", "13, multi-trigger and separate trigger chains")
-    fired_cols, time_cols = {}, {}
-    amp = None
-    if hl:
-        th_hi_cols, th_lo_cols, kspecs = [], [], []
-        for t in (trig_list[i] for i in hl):
-            if t.threshold_high is not None:
-                hi = torch.full((Rc,), t.threshold_high, dtype=real_dtype, device=dev)
-            else:
-                hi = ch.threshold_high.to(real_dtype).repeat(G)
-            if t.trigger_type == "high_low":
-                if t.threshold_low is not None:
-                    lo = torch.full((Rc,), t.threshold_low, dtype=real_dtype, device=dev)
-                else:
-                    lo = ch.threshold_low.to(real_dtype).repeat(G)
-                nb_hl = max(int(round(t.highlow_coincidence / dt)), 1)
-            else:
-                lo = torch.zeros((Rc,), dtype=real_dtype, device=dev)
-                nb_hl = 1
-            th_hi_cols.append(hi)
-            th_lo_cols.append(lo)
-            kspecs.append(trigger_fused.TriggerSpecStatic(
-                kind=t.trigger_type, n_bins_hl=nb_hl,
-                n_bins_maj=min(max(int(round(t.channel_coincidence / dt)), 1), s.n_base),
-                n_coinc=t.number_of_coincidences))
-        trig = (trigger_fused.fused_irfft_trigger if s.trigger_impl == "kernel"
-                else trigger_fused.fused_irfft_trigger_plain)
-        fired, first, amp = trig(
-            spec_re, spec_im, torch.stack(th_hi_cols, dim=-1),
-            torch.stack(th_lo_cols, dim=-1), n_base=s.n_base,
-            scale=s.sampling_rate / math.sqrt(2.0), triggers=tuple(kspecs), C=C)
-        for j, i in enumerate(hl):
-            fired_cols[i] = fired[:, j]
-            time_cols[i] = t0_w + first[:, j].to(real_dtype) * dt
-    for i in pa:
-        fired, frame, amp_i, frame_s = _phased_array_trigger(
-            trig_list[i], spec_re, spec_im, s, C)
-        fired_cols[i] = fired
-        time_cols[i] = t0_w + frame.to(real_dtype) * frame_s
-        amp = amp_i if amp is None else torch.maximum(amp, amp_i)
+        # ---- 8. noise, filter multiply, triggers ---------------------------
+        if s.add_noise:
+            # one realization per (group, channel), added before the filter
+            # (pipeline.py:1294-1310); each window draws anew
+            raw_spec = raw_spec + noise_ops.bandlimited_noise_spectrum(
+                noise_generator, (G, C), s.n_base, s.sampling_rate,
+                ch.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
+                type=s.noise_type, dtype=real_dtype, sampler=s.noise_sampler)
 
-    # single window: a window without pulses never triggers; requires-gating
-    # ANDs a trigger with an earlier-declared one (pipeline.py:1491-1532)
+        def rows_of(response, K):
+            k = (raw_spec * response[None, :, :]).reshape(G * C, F_base)[:, :K]
+            return k.real.contiguous(), k.imag.contiguous()
+
+        readout = rows_of(ch.filter_response, K_base)
+        # a separate trigger chain reads the same raw spectrum through its
+        # own response (pipeline.py:1437-1447); max_amplitude stays the
+        # readout chain's
+        trig = rows_of(ch.trigger_filter_response, K_trig) if separate_chain else readout
+        fired, frames, amp = _run_triggers(trig_list, trig, readout if separate_chain else None,
+                                           s, ch, G, C)
+        return fired, [t0_w + f for f in frames], amp
+
+    # ---- 7b. sub-event windows (pipeline.py:1462-1489) ----------------------
+    remaining = valid
+    per_window = []
     name_to_col = {t.name: i for i, t in enumerate(trig_list)}
+    for w in range(max(1, s.n_windows)):
+        any_rem = torch.any(remaining.reshape(G, -1), dim=-1)
+        # anchored at the earliest arrival that is still to be read out
+        t0_w = torch.amin(torch.where(remaining, t_start, 1e30).reshape(G, -1), dim=-1)
+        t0_w = torch.where(any_rem, t0_w, 0.0)
+        offset = t_start - t0_w[:, None, None, None]
+        in_w = remaining & (offset <= cap)
+        fired, times, amp_w = assemble_and_trigger(in_w, offset, t0_w)
+        # a window without pulses never triggers; requires-gating ANDs a
+        # trigger with an earlier-declared one inside each window
+        # (pipeline.py:1491-1512)
+        gated = []
+        for i, t in enumerate(trig_list):
+            c = fired[i] & any_valid & candidate & any_rem
+            if t.requires:
+                c = c & gated[name_to_col[t.requires]]
+            gated.append(c)
+        per_window.append((gated, times))
+        if w == 0:
+            base_t0, max_amp_tr = t0_w, amp_w
+        else:
+            max_amp_tr = torch.maximum(max_amp_tr, amp_w)
+        remaining = remaining & ~in_w
+
+    # decisions OR across windows, the time is the earliest fired window's
     cols, times = [], []
-    for i, t in enumerate(trig_list):
-        c = fired_cols[i] & any_valid & candidate
-        if t.requires:
-            if t.requires not in name_to_col or name_to_col[t.requires] >= i:
-                raise ValueError(
-                    f"trigger {t.name!r} requires {t.requires!r}, which "
-                    "must be declared earlier in the trigger list")
-            c = c & cols[name_to_col[t.requires]]
-        cols.append(c)
-        times.append(time_cols[i])
+    for i in range(len(trig_list)):
+        fired = per_window[0][0][i]
+        tmin = torch.where(fired, per_window[0][1][i], torch.inf)
+        for gated_w, times_w in per_window[1:]:
+            fired = fired | gated_w[i]
+            tmin = torch.minimum(tmin, torch.where(gated_w[i], times_w[i], torch.inf))
+        cols.append(fired)
+        times.append(torch.where(fired, tmin, per_window[0][1][i]))
     triggered_per = torch.stack(cols, dim=-1)
     trigger_times_per = torch.stack(times, dim=-1)
     triggered = torch.any(triggered_per, dim=-1)
@@ -690,9 +802,9 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         trigger_times_per=trigger_times_per,
         max_efield=torch.amax(ef_max.reshape(G, -1), dim=-1),
         trigger_time=trigger_time,
-        max_amplitude=amp,
+        max_amplitude=max_amp_tr,
         traces=None,
-        base_t0=t0_w,
+        base_t0=base_t0,
         sol_mask=valid,
         c0=sols.c0, c1=sols.c1, sol_type=sols.sol_type,
         travel_time=sols.travel_time, path_length=sols.path_length,

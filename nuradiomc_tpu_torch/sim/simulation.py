@@ -1,10 +1,13 @@
 """Host-side simulation orchestrator (torch): the dipole Veff, the
-phased-array and the Gen2 (multi-station, birefringence) runs.
+phased-array, the Gen2 (multi-station, birefringence) and the multi-trigger
+station runs.
 
 Counterpart of ``nuradiomc_tpu/sim/simulation.py::Simulation``: it merges
-the config, calibrates Vrms from the filter chain's bandwidth, builds the
-per-channel tensors, the trigger settings (high/low, threshold and the
-phased array with its trigger ADC) and the padded [group x shower] batch
+the config, calibrates Vrms from the filter chain's bandwidth (and the
+trigger Vrms from a separate trigger chain's, where one is given), builds
+the per-channel tensors, the list of named triggers (high/low, threshold and
+the phased array with its trigger ADC, each on all channels or on a subset
+given by channel ids) and the padded [group x shower] batch
 with the Alvarez2009 ``k_L`` draws, runs :func:`pipeline.simulate_batch`
 chunk by chunk on ``device`` (noise from one ``torch.Generator`` on that
 device, seeded from ``config["seed"]``), computes the weights and Veff, and
@@ -16,10 +19,9 @@ The input is an HDF5 event list (read with h5py) or its ``.npz`` export
 (``sim/io_input.py``), which needs no h5py: that is how ``Simulation`` runs
 where h5py is missing. Writing an output file needs h5py.
 
-Not ported yet (they raise): emitter inputs, ZHS1992 and ARZ, a separate
-trigger filter chain, per-trigger channel subsets, tabulated antennas,
-numeric focusing, bottom reflections, numeric birefringence propagation,
-``.nur`` output and device meshes.
+Not ported yet (they raise): emitter inputs, ARZ and HCRB2017, tabulated
+antennas, bottom reflections, attenuation models other than SP1, numeric
+birefringence propagation, ``.nur`` output and device meshes.
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ class Simulation:
                  filter_chain: Sequence[FilterStage] = (),
                  trigger: TriggerSpec = TriggerSpec(),
                  triggers: Optional[Sequence[TriggerSpec]] = None,
+                 trigger_filter_chain: Optional[Sequence[FilterStage]] = None,
                  outputfilename: Optional[str] = None,
                  antenna_replacements: Optional[dict] = None,
                  chunk_size: int = 256, n_base: int = 2048,
@@ -147,6 +150,10 @@ class Simulation:
         if len({t.name for t in self.triggers}) != len(self.triggers):
             raise ValueError("trigger names must be unique")
         self.trigger = self.triggers[0]
+        # a distinct signal chain for the trigger channels; None: the
+        # triggers read the readout chain
+        self.trigger_filter_chain = (list(trigger_filter_chain)
+                                     if trigger_filter_chain is not None else None)
         self.outputfilename = outputfilename
         self.antenna_replacements = antenna_replacements or {}
         self.chunk_size = chunk_size
@@ -154,13 +161,10 @@ class Simulation:
         self.station_id = self.det.get_station_ids()[0]
         ch = self.det.get_station(self.station_id).channels
         cfg = self.config
-        if cfg["signal"]["model"] not in ("Alvarez2000", "Alvarez2009"):
+        if cfg["signal"]["model"] not in ("ZHS1992", "Alvarez2000", "Alvarez2009"):
             raise NotImplementedError(
-                f"signal model {cfg['signal']['model']} is not ported yet "
-                "(ROADMAP queue 1 item 10, ZHS1992; ARZ: item 15)")
-        if cfg["propagation"].get("focusing_mode", "implicit") not in (None, "implicit"):
-            raise NotImplementedError("numeric focusing is not ported yet (ROADMAP "
-                                      "queue 1 item 9, numeric focusing)")
+                f"signal model {cfg['signal']['model']} is not ported yet (ROADMAP "
+                "queue 1 item 6, emitter / ARZ / HCRB / tabulated antennas)")
         self.internal_rate = float(cfg["sampling_rate"])
         dt = 1.0 / self.internal_rate
         # detector samples at the internal rate (simulation.py:151-153), and
@@ -187,7 +191,7 @@ class Simulation:
         self.max_amplification_per_channel = {}
         ids0 = [int(c) for c in ch.channel_ids]
         for cid in ids0:
-            filt = self._chain_response_for(ff_cal, cid)
+            filt = self._chain_response_for(ff_cal, cid, self.filter_chain)
             bw = np.trapezoid(np.abs(filt) ** 2, ff_cal)
             self.bandwidth_per_channel[cid] = bw
             self.Vrms_per_channel[cid] = thermal_vrms(bw)
@@ -197,8 +201,16 @@ class Simulation:
         self.max_amplification = self.max_amplification_per_channel[ids0[0]]
         self.Vrms = self.Vrms_per_channel[ids0[0]]
         self.Vrms_efield = self.Vrms / self.max_amplification / units.m
-        # with no separate trigger chain the trigger Vrms is the readout Vrms
-        self.Vrms_trigger = self.Vrms
+        # the trigger thresholds in sigma refer to the thermal Vrms of the
+        # trigger chain's bandwidth where a separate one is given
+        # (simulation.py:222-232)
+        if self.trigger_filter_chain is not None:
+            filt_t = self._chain_response_for(ff_cal, ids0[0], self.trigger_filter_chain)
+            self.bandwidth_trigger = np.trapezoid(np.abs(filt_t) ** 2, ff_cal)
+            self.Vrms_trigger = thermal_vrms(self.bandwidth_trigger)
+        else:
+            self.bandwidth_trigger = self.bandwidth
+            self.Vrms_trigger = self.Vrms
 
         self.channel_params_per_station = {
             sid: self._build_channel_params(sid) for sid in self.det.get_station_ids()}
@@ -207,7 +219,7 @@ class Simulation:
         prop = cfg["propagation"]
         if int(prop.get("n_reflections", 0) or 0):
             raise NotImplementedError("bottom reflections are not ported yet "
-                                      "(ROADMAP queue 1 item 14, Moore's Bay reflections)")
+                                      "(ROADMAP queue 1 item 5, Moore's Bay reflections)")
         self.settings = PipelineSettings(
             triggers=tuple(self._build_trigger_settings(t) for t in self.triggers),
             ice=self.ice,
@@ -216,6 +228,9 @@ class Simulation:
             n_internal=self.n_internal,
             n_base=self.n_base,
             sampling_rate=self.internal_rate,
+            # sub-event readout windows (simulation.py:279-281); without
+            # bottom reflections the default is one
+            n_windows=int(prop.get("n_windows", 0) or 1),
             delta_C_cut=float(cfg["speedup"]["delta_C_cut"]),
             distance_cut=bool(cfg["speedup"]["distance_cut"]),
             distance_cut_coefficients=tuple(cfg["speedup"]["distance_cut_coefficients"]),
@@ -236,6 +251,8 @@ class Simulation:
             attenuate_ice=bool(prop["attenuate_ice"]),
             apply_focusing=bool(prop["focusing"]),
             focusing_limit=float(prop["focusing_limit"]),
+            **({"focusing_mode": str(prop["focusing_mode"])}
+               if prop.get("focusing_mode") else {}),
             birefringence=bool(prop.get("birefringence", False)),
             birefringence_model=str(prop.get("birefringence_model", "southpole_A")),
             # the path is rotated into the ice-flow frame by angle_to_iceflow
@@ -253,30 +270,33 @@ class Simulation:
         mode = self.input.attrs.get("simulation_mode", "neutrino")
         mode = mode.decode() if isinstance(mode, bytes) else str(mode)
         if mode == "emitter":
-            raise NotImplementedError("emitter inputs are not ported yet "
-                                      "(ROADMAP queue 1 item 15, the non-factored chain)")
+            raise NotImplementedError(
+                "emitter inputs are not ported yet (ROADMAP queue 1 item 6, "
+                "emitter / ARZ / HCRB / tabulated antennas)")
 
-    def _chain_response_for(self, freqs, channel_id):
-        stages = [(f.passband, f.filter_type, f.kwargs) for f in self.filter_chain
+    def _chain_response_for(self, freqs, channel_id, chain):
+        """Combined response of the stages of ``chain`` that apply to
+        ``channel_id``."""
+        stages = [(f.passband, f.filter_type, f.kwargs) for f in chain
                   if not f.channels or int(channel_id) in f.channels]
         return filters.chain_response(freqs, stages, fs=self.internal_rate)
 
     def _build_trigger_settings(self, spec: TriggerSpec) -> TriggerSettings:
-        """Absolute thresholds in volts and the phased-array beam and ADC
-        configuration (simulation.py:472-526)."""
+        """Absolute thresholds in volts, channel ids as indices and the
+        phased-array beam and ADC configuration (simulation.py:472-526)."""
         if spec.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
             raise NotImplementedError(f"trigger type {spec.trigger_type}")
-        if spec.channels:
-            raise NotImplementedError("per-trigger channel subsets are not ported "
-                                      "yet (ROADMAP queue 1 item 13, multi-trigger "
-                                      "and separate trigger chains)")
+        ch = self.det.get_station(self.station_id).channels
+        ids = [int(c) for c in ch.channel_ids]
+        idx = tuple(ids.index(int(c)) for c in spec.channels)
+        # the beams are built on the trigger's own channels
+        sub = np.asarray(idx, dtype=int) if idx else np.arange(len(ids))
         pa = {}
         if spec.trigger_type == "phased_array":
-            ch = self.det.get_station(self.station_id).channels
             det_fs = float(ch.sampling_frequency[0])
             # with digitization the trigger runs at the ADC rate x upsampling
             fs_up = (det_fs if spec.pa_digitize else self.internal_rate) * spec.pa_upsampling
-            rolls = phased_array.beam_rolls(ch.positions[:, 2], ch.cable_delay,
+            rolls = phased_array.beam_rolls(ch.positions[sub, 2], ch.cable_delay[sub],
                                             np.asarray(spec.pa_phasing_angles),
                                             spec.pa_ref_index, fs_up)
             n_bits = int(ch.adc_nbits[0]) if ch.adc_nbits[0] > 0 else 8
@@ -291,7 +311,7 @@ class Simulation:
                 pa_adc_range=(self.Vrms_trigger * (2 ** n_bits - 1)
                               / (spec.pa_adc_noise_count or 15)))
         return TriggerSettings(
-            name=spec.name, trigger_type=spec.trigger_type, channels=(),
+            name=spec.name, trigger_type=spec.trigger_type, channels=idx,
             threshold_high=float(spec.threshold_high_sigma * self.Vrms_trigger),
             threshold_low=float(spec.threshold_low_sigma * self.Vrms_trigger),
             highlow_coincidence=spec.highlow_coincidence,
@@ -315,7 +335,8 @@ class Simulation:
             if model not in antenna.ANALYTIC_MODELS:
                 raise NotImplementedError(
                     f"antenna model '{model}' is tabulated; tabulated antennas are "
-                    "not ported yet (ROADMAP queue 1 item 15, the non-factored chain) — "
+                    "not ported yet (ROADMAP queue 1 item 6, emitter / ARZ / HCRB / "
+                    "tabulated antennas) — "
                     "pass antenna_replacements to an analytic model")
             kind[i] = antenna.ANALYTIC_MODELS[model][0]
             tpl = antenna.build_analytic_template(model, freqs_int)
@@ -326,12 +347,20 @@ class Simulation:
                 ch.orientation_theta[i], ch.orientation_phi[i],
                 ch.rotation_theta[i], ch.rotation_phi[i])
         ids = [int(c) for c in ch.channel_ids]
-        filter_response = np.stack([self._chain_response_for(freqs_base, c) for c in ids])
-        filter_response_int = np.stack([self._chain_response_for(freqs_int, c) for c in ids])
+        filter_response = np.stack([
+            self._chain_response_for(freqs_base, c, self.filter_chain) for c in ids])
+        filter_response_int = np.stack([
+            self._chain_response_for(freqs_int, c, self.filter_chain) for c in ids])
+        trigger_filter_response = None
+        if self.trigger_filter_chain is not None:
+            trigger_filter_response = np.stack([
+                self._chain_response_for(freqs_base, c, self.trigger_filter_chain)
+                for c in ids])
         ff_cal = np.linspace(0, 0.5 * self.internal_rate, 10000)
         for cid in ids:
             if cid not in self.bandwidth_per_channel:
-                bw = np.trapezoid(np.abs(self._chain_response_for(ff_cal, cid)) ** 2, ff_cal)
+                bw = np.trapezoid(np.abs(self._chain_response_for(
+                    ff_cal, cid, self.filter_chain)) ** 2, ff_cal)
                 self.bandwidth_per_channel[cid] = bw
                 self.Vrms_per_channel[cid] = self.Vrms * np.sqrt(bw / self.bandwidth)
         vrms_ch = np.array([self.Vrms_per_channel[c] for c in ids])
@@ -358,6 +387,8 @@ class Simulation:
             noise_amplitude=real(vrms_ch / np.sqrt(bw_ch / (0.5 * self.internal_rate))),
             min_efield_amplitude=real(np.full(
                 C, float(self.config["speedup"]["min_efield_amplitude"]) * self.Vrms_efield)),
+            trigger_filter_response=(None if trigger_filter_response is None
+                                     else cplx(trigger_filter_response)),
         )
 
     def _build_batches(self):

@@ -246,6 +246,96 @@ def test_trigger_mirror_decisions_match_plain():
     torch.testing.assert_close(trace.abs().amax(dim=1).reshape(G, C), amp, rtol=1e-12, atol=0)
 
 
+def _tiling(n_base, nth=128, emax=16):
+    """irfft_trigger.cu's tiling_of: (samples per thread and tile, tile, tiles)."""
+    es = min(-(-n_base // nth), emax)
+    return es, es * nth, -(-n_base // (es * nth))
+
+
+def _trigger_counts_mirror(trace, th_hi, th_lo, triggers):
+    """Kernel 2's trigger logic on traces [G, C, n]: the channel loop
+    outermost, one trace at a time; per trigger the packed prefix count of
+    the high and low crossings (low 16 bits, high 16 bits) carried from tile
+    to tile, the window's any as a difference of prefixes, the majority
+    window the same way, and the row's bit added into the per-(trigger,
+    sample) count; a +inf threshold skips the channel. After the last channel
+    the first sample whose count reaches n_coinc. Returns (fired, first,
+    counts [G, T, n])."""
+    G, C, n = trace.shape
+    _, tile, n_tiles = _tiling(n)
+    counts = torch.zeros((G, len(triggers), n), dtype=torch.int64)
+    idx = torch.arange(n)
+
+    def prefix(x):
+        """Inclusive prefix of x [G, n], tile by tile with a carry."""
+        P = torch.zeros_like(x)
+        carry = torch.zeros((G, 1), dtype=x.dtype)
+        for k in range(n_tiles):
+            part = x[:, k * tile:(k + 1) * tile]
+            P[:, k * tile:(k + 1) * tile] = carry + torch.cumsum(part, dim=1)
+            carry = carry + part.sum(dim=1, keepdim=True)
+        return P
+
+    def window(P, w):
+        """P[n] - P[n - w], the prefix before the trace being 0."""
+        back = torch.where(idx >= w, P[:, (idx - w).clamp(min=0)], torch.zeros_like(P))
+        return P - back
+
+    for c in range(C):
+        v = trace[:, c]
+        for t, spec in enumerate(triggers):
+            hi, lo = th_hi[:, c, t, None], th_lo[:, c, t, None]
+            live = ~torch.isinf(hi[:, 0])               # the kernel's `continue`
+            if spec.kind == "high_low":
+                d = window(prefix((v >= hi).long() + ((v <= lo).long() << 16)), spec.n_bins_hl)
+                tts = ((d & 0xffff) > 0) & ((d >> 16) > 0)
+            else:
+                tts = v.abs() >= hi
+            wide = window(prefix(tts.long()), min(spec.n_bins_maj, n)) > 0
+            counts[:, t] += (wide & live[:, None]).long()
+    need = torch.as_tensor([s.n_coinc for s in triggers])[None, :, None]
+    ok = counts >= need
+    fired = ok.any(dim=-1)
+    first = torch.where(fired, ok.long().argmax(dim=-1), 0).to(torch.int32)
+    return fired, first, counts
+
+
+@pytest.mark.parametrize("n, C, T, G", [(2048, 3, 8, 16), (1000, 2, 3, 24), (4500, 4, 5, 12),
+                                        (2100, 24, 17, 4)])
+def test_trigger_count_accumulation_mirror_matches_plain(n, C, T, G):
+    """The restructured kernel 2: channel-outer accumulation of per-(trigger,
+    sample) counts, the tile loop with its carried prefixes (4500 and 2100
+    samples: three and two tiles, the last one partial), alternating kinds,
+    channel subsets as +inf thresholds and more columns than one launch
+    takes: decisions and first bins equal to the plain version's."""
+    rng = np.random.default_rng(13)
+    K = n // 2 + 1
+    X = _spectrum(rng, G * C, K, torch.float64)
+    scale = 2.0 / math.sqrt(2.0)
+    trace = _trace(X, n, scale)
+    sigma = float(trace.std())
+    th = torch.as_tensor(sigma * (rng.uniform(2.2, 3.2, (G * C, T)) + 0.05 * np.arange(T)))
+    trig = []
+    for t in range(T):
+        if t % 2 == 0:
+            trig.append(trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1 + (t // 2) % 2))
+        else:
+            trig.append(trigger_fused.TriggerSpecStatic("simple_threshold", 1,
+                                                        max(400 - 30 * t, 7), min(C, 2)))
+        if t % 3 == 2 and C > 2:
+            th[(torch.arange(G * C) % C) >= (C + 1) // 2, t] = float("inf")
+    fired, first, amp = trigger_fused.fused_irfft_trigger_plain(
+        X.real.contiguous(), X.imag.contiguous(), th, -th, n_base=n, scale=scale,
+        triggers=tuple(trig), C=C)
+    m_fired, m_first, counts = _trigger_counts_mirror(
+        trace.reshape(G, C, n), th.reshape(G, C, T), -th.reshape(G, C, T), trig)
+    assert 0 < int(fired.sum()) < fired.numel()
+    assert torch.equal(m_fired, fired) and torch.equal(m_first, first)
+    assert int(counts.max()) <= C                       # one byte while C <= 255
+    for t in range(2, T, 3):
+        if C > 2:                                       # only the subset's channels count
+            assert int(counts[:, t].max()) <= (C + 1) // 2
+
 # ---- kernel 3 (the phased-array trigger) and kernel 4 (placement) ----------
 
 def _reals(z, n):

@@ -130,7 +130,38 @@ def test_alvarez2000_spectrum():
     assert np.all(np.abs(port.numpy() - ref) <= 1e-9 * peak)
     with pytest.raises(NotImplementedError):
         taskaryan.get_frequency_spectrum(t(energy), t(theta), 512, 0.5, t(is_em),
-                                         t(n_index), t(R), "ZHS1992")
+                                         t(n_index), t(R), "ARZ2019")
+
+
+def test_zhs1992_spectrum():
+    """ZHS1992 with its 2 ns roll: the port's spectrum against the JAX
+    function (1e-12 of each row's peak) and, transformed to the time domain,
+    against the reference's traces in tests/golden/askaryan.npz (1e-9 of each
+    trace's peak, the bound of tests/test_askaryan.py)."""
+    import os
+
+    from nuradiomc_tpu_torch.utils import fft as tfft
+    golden = np.load(os.path.join(os.path.dirname(__file__), "golden", "askaryan.npz"),
+                     allow_pickle=True)
+    N, dt = int(golden["N"]), float(golden["dt"])
+    R, n_index = float(golden["R"]), float(golden["n_index"])
+    EE, SS, TT = np.meshgrid(golden["energies"], [0, 1], golden["thetas"], indexing="ij")
+    energy, is_em, theta = EE.ravel(), SS.ravel() == 1, TT.ravel()
+    full = np.full_like(energy, 1.0)
+    port = taskaryan.get_frequency_spectrum(t(energy), t(theta), N, dt, t(is_em),
+                                            t(n_index * full), t(R * full), "ZHS1992")
+    ref = np.asarray(jax.vmap(lambda e, th, em: jaskaryan.get_frequency_spectrum(
+        e, th, N, dt, em, n_index, R, "ZHS1992"))(
+        jnp.asarray(energy), jnp.asarray(theta), jnp.asarray(is_em)))
+    peak = np.abs(ref).max(axis=-1, keepdims=True)
+    assert peak.min() > 0 and np.all(np.abs(port.numpy() - ref) <= 1e-12 * peak)
+    im = list(golden["models"]).index("ZHS1992")
+    traces = golden["traces"][im].reshape(-1, N)
+    got = tfft.freq2time(port, 1.0 / dt, n=N).numpy()
+    scale = np.abs(traces).max(axis=-1, keepdims=True)
+    np.testing.assert_allclose(got / scale, traces / scale, atol=1e-9)
+    # the roll is 2 ns, not the Alvarez models' half window
+    assert np.all(np.abs(got).argmax(axis=-1) < N // 8)
 
 
 def test_analytic_vel_mix():

@@ -154,17 +154,31 @@ def test_placement_kernel_headline_rows(dev, dtype):
                 DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])
 
 
-def _trigger_case(dtype, dev, G, C, n_base, K):
+def _trigger_case(dtype, dev, G, C, n_base, K, T=2):
+    """Kernel-2 inputs with T trigger columns that alternate high/low and
+    threshold kinds, thresholds 2-3 sigma (rising with the column, as a
+    ladder); from the third column on, every third column is a channel
+    subset: the channels outside it have threshold +inf."""
     gen = torch.Generator(device=dev).manual_seed(6)
     I_r, I_i = (torch.as_tensor(m[:K], dtype=dtype, device=dev)
                 for m in fft_plan._irfft_matrices(n_base))
     spec_re = torch.randn(G * C, K, generator=gen, device=dev, dtype=dtype)
     spec_im = torch.randn(G * C, K, generator=gen, device=dev, dtype=dtype)
     sigma = float(((spec_re[:4096] @ I_r + spec_im[:4096] @ I_i) * 1.414).std())
-    th = sigma * (2.0 + torch.rand(G * C, 2, generator=gen, device=dev, dtype=dtype))
-    trig = (trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),
-            trigger_fused.TriggerSpecStatic("simple_threshold", 1, 400, min(C, 2)))
-    return (spec_re, spec_im, th, -th), dict(n_base=n_base, scale=1.414, triggers=trig, C=C)
+    th = sigma * (2.0 + torch.rand(G * C, T, generator=gen, device=dev, dtype=dtype)
+                  + 0.05 * torch.arange(T, device=dev, dtype=dtype))
+    trig = []
+    for t in range(T):
+        if t % 2 == 0:
+            trig.append(trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1 + (t // 2) % 2))
+        else:
+            trig.append(trigger_fused.TriggerSpecStatic("simple_threshold", 1, max(400 - 30 * t, 7),
+                                                        min(C, 2)))
+        if t >= 2 and t % 3 == 2 and C > 2:
+            outside = (torch.arange(G * C, device=dev) % C) >= (C + 1) // 2
+            th[outside, t] = float("inf")
+    return (spec_re, spec_im, th, -th), dict(n_base=n_base, scale=1.414,
+                                             triggers=tuple(trig), C=C)
 
 
 @pytest.mark.parametrize("dtype, tol, C, n_base, K, G", [
@@ -184,8 +198,8 @@ def test_trigger_kernel_matches_plain(dev, dtype, tol, C, n_base, K, G):
     """The inverse FFT of kernel 2 at even and odd lengths (1000 = 2^3 5^3,
     999 = 3^3 37 through the generic prime stage), the full band (K = n/2 +
     1: Im at DC and Nyquist dropped) and a cut one, C 1 to 20, G 1 to
-    65536. Lengths above 2048 (4096, 3000 and the odd 2187 = 3^7) run the
-    instantiation with 32 trigger samples per thread."""
+    65536. Lengths above 2048 (4096, 3000 and the odd 2187 = 3^7) walk the
+    trace in more than one tile of 128 x 16 samples."""
     args, kw = _trigger_case(dtype, dev, G, C, n_base, K)
     before = trigger_fused.launches
     k = trigger_fused.fused_irfft_trigger(*args, **kw)
@@ -197,13 +211,48 @@ def test_trigger_kernel_matches_plain(dev, dtype, tol, C, n_base, K, G):
     assert bool(((k[2] - p[2]).abs() <= tol * p[2].abs()).all())
 
 
+@pytest.mark.parametrize("dtype, tol, C, n_base, K, G, T", [
+    (torch.float64, 1e-12, 24, 2048, 1025, 64, 8),     # the production station
+    (torch.float32, 1e-5, 24, 2048, 816, 64, 8),
+    (torch.float32, 1e-5, 4, 8192, 4097, 64, 8), (torch.float64, 1e-12, 4, 8192, 4097, 64, 8),
+    (torch.float32, 1e-5, 4, 2048, 816, 200, 17), (torch.float64, 1e-12, 3, 2048, 816, 200, 17),
+    (torch.float32, 1e-5, 3, 6561, 3000, 64, 5), (torch.float64, 1e-12, 2, 2187, 1094, 64, 8),
+    (torch.float32, 1e-5, 300, 512, 257, 8, 3),        # two-byte counts
+    (torch.float32, 1e-5, 4, 2048, 816, 200, 0)])      # no column: the amplitudes alone
+def test_trigger_kernel_lifted_limits(dev, dtype, tol, C, n_base, K, G, T):
+    """More triggers than one launch takes (T 17: sliced over launches of the
+    same kernel; at n_base 8192 in float64 the counts of 8 triggers do not
+    fit beside the trace either), a 24-channel station in float64, n_base
+    8192, odd lengths beyond one tile, more than 255 channels, channel
+    subsets (+inf thresholds): decisions and first bins equal to the plain
+    version's in every group."""
+    args, kw = _trigger_case(dtype, dev, G, C, n_base, K, T)
+    before = trigger_fused.launches
+    k = trigger_fused.fused_irfft_trigger(*args, **kw)
+    n_launches = trigger_fused.launches - before
+    assert n_launches >= max(1, -(-T // 16))
+    p = trigger_fused.fused_irfft_trigger_plain(*args, **kw)
+    assert k[0].shape == (G, T) and k[1].shape == (G, T)
+    if T:
+        assert int(p[0].sum()) > 0
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert bool(((k[2] - p[2]).abs() <= tol * p[2].abs()).all())
+
+
 def test_trigger_kernel_refuses_oversized_groups(dev):
-    n_base, C = 2048, 32                 # 32 x 2048 x 8 bytes > 227 KB
-    spec = torch.zeros(C, 16, dtype=torch.float64, device=dev)
-    th = torch.zeros(C, 1, dtype=torch.float64, device=dev)
+    """A group of any size fits (the shared memory holds one trace); what is
+    refused is a trace that does not fit a block beside its FFT buffer."""
+    C = 32                               # 32 x 2048 x 8 bytes of traces > 227 KB
+    args, kw = _trigger_case(torch.float64, dev, 16, C, 2048, 64, 1)
+    k = trigger_fused.fused_irfft_trigger(*args, **kw)
+    p = trigger_fused.fused_irfft_trigger_plain(*args, **kw)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    n_base = 32768                       # 256 KB of trace in float64
+    spec = torch.zeros(2, 16, dtype=torch.float64, device=dev)
+    th = torch.zeros(2, 1, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="shared"):
         trigger_fused.fused_irfft_trigger(
-            spec, spec, th, th, n_base=n_base, scale=1.0, C=C,
+            spec, spec, th, th, n_base=n_base, scale=1.0, C=2,
             triggers=(trigger_fused.TriggerSpecStatic("high_low", 10, 400, 1),))
 
 
@@ -329,6 +378,27 @@ def test_simulate_batch_pa_kernel_path_matches_plain_path(dev):
     assert int((out.triggered != plain.triggered).sum()) <= 1
     assert bool(plain.triggered.any())
     torch.testing.assert_close(out.max_amplitude, plain.max_amplitude, rtol=1e-4, atol=0)
+
+
+def test_simulate_batch_mixed_trigger_list_matches_plain_path(dev):
+    """A ladder of high/low triggers, a threshold on a channel subset and the
+    phased array in one list: kernel 2 once for the ten columns but one,
+    kernel 3 once, every column equal to the plain path's."""
+    from nuradiomc_tpu_torch.convert import make_multitrigger_inputs
+    s, ch, b = make_multitrigger_inputs(512, device=dev, dtype=torch.float32)
+    s = dataclasses.replace(s, add_noise=False)
+    trigger_fused.launches = pa_trigger.launches = 0
+    out = pipeline.simulate_batch(b, ch, s)
+    assert (trigger_fused.launches, pa_trigger.launches) == (1, 1)
+    plain = pipeline.simulate_batch(b, ch, dataclasses.replace(s, trigger_impl="plain"))
+    assert out.triggered_per.shape == (512, 10)
+    assert int((out.triggered_per != plain.triggered_per).sum()) <= 1
+    assert bool(plain.triggered_per.any(dim=0).all())
+    torch.testing.assert_close(out.max_amplitude, plain.max_amplitude, rtol=1e-4, atol=0)
+    windows = dataclasses.replace(s, n_windows=2)
+    out2 = pipeline.simulate_batch(b, ch, windows)
+    plain2 = pipeline.simulate_batch(b, ch, dataclasses.replace(windows, trigger_impl="plain"))
+    assert int((out2.triggered_per != plain2.triggered_per).sum()) <= 1
 
 
 def test_pa_simulation_float64_on_card(dev):

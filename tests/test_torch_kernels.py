@@ -122,3 +122,54 @@ def test_trigger_plain_matches_pallas():
 def test_trigger_spec_fields_match_pallas():
     assert ([f.name for f in dataclasses.fields(trigger_fused.TriggerSpecStatic)]
             == [f.name for f in dataclasses.fields(trigger_pallas.TriggerSpecStatic)])
+
+
+def test_trigger_plain_with_inf_columns_matches_jax_eval_trigger_on_subsets():
+    """A per-trigger channel subset as the port passes it (threshold +inf on
+    the channels outside the subset) against the JAX package's
+    ``_eval_trigger``, which slices the subset's traces: 8 columns that
+    alternate kinds and subsets, float64, decisions and first bins exact."""
+    import types
+
+    rng = np.random.default_rng(9)
+    G, C, n_base, K, dt = 24, 4, 512, 200, 0.5
+    scale = 2.0 / np.sqrt(2.0)
+    I_r, I_i = jpipe._irfft_matrices(n_base)
+    spec_re, spec_im = rng.normal(size=(2, G * C, K))
+    traces = ((spec_re @ I_r[:K] + spec_im @ I_i[:K]) * scale).reshape(G, C, n_base)
+    sigma = traces.std()
+    subsets = [(), (0, 1), (2,), (1, 3), (), (0, 2, 3), (3,), (0, 1)]
+    settings, specs, th_hi, th_lo = [], [], [], []
+    for i, sub in enumerate(subsets):
+        kind = "high_low" if i % 2 == 0 else "simple_threshold"
+        hi = float(sigma * (2.0 + 0.15 * i))
+        n_coinc = min(1 + i % 2, len(sub) or C)
+        settings.append(jpipe.TriggerSettings(
+            name=f"t{i}", trigger_type=kind, channels=sub, threshold_high=hi,
+            threshold_low=-hi, highlow_coincidence=5.0, channel_coincidence=60.0 + 10 * i,
+            number_of_coincidences=n_coinc))
+        specs.append(trigger_fused.TriggerSpecStatic(
+            kind, 10 if kind == "high_low" else 1, int(round((60.0 + 10 * i) / dt)), n_coinc))
+        col = np.full(C, hi)
+        if sub:
+            col[np.setdiff1d(np.arange(C), sub)] = np.inf
+        th_hi.append(np.tile(col, G))
+        th_lo.append(np.full(G * C, -hi))
+    fired, first, amp = trigger_fused.fused_irfft_trigger_plain(
+        torch.as_tensor(spec_re), torch.as_tensor(spec_im),
+        torch.as_tensor(np.stack(th_hi, axis=-1)), torch.as_tensor(np.stack(th_lo, axis=-1)),
+        n_base=n_base, scale=scale, triggers=tuple(specs), C=C)
+    np.testing.assert_allclose(amp.numpy(), np.abs(traces).max(axis=-1), rtol=1e-12)
+    s = types.SimpleNamespace(dt=dt)
+    n_fired = 0
+    for i, t in enumerate(settings):
+        ref_fired, ref_time = jpipe._eval_trigger(t, jnp.asarray(traces), None, 0.0, s, None,
+                                                  jnp.float64)
+        ref_fired = np.asarray(ref_fired)
+        np.testing.assert_array_equal(fired[:, i].numpy(), ref_fired, err_msg=t.name)
+        np.testing.assert_allclose(first[:, i].numpy()[ref_fired] * dt,
+                                   np.asarray(ref_time)[ref_fired], rtol=0, atol=1e-12)
+        n_fired += int(ref_fired.sum())
+    assert 0 < n_fired < G * len(settings)
+    # the subset matters: all channels would fire more often than channel 2 alone
+    assert int(fired[:, 2].sum()) < int(fired[:, 0].sum())

@@ -122,9 +122,10 @@ def test_noise_needs_a_generator_and_mixed_lists_need_plain(jax_inputs):
     assert not torch.equal(outs[0].max_amplitude, outs[2].max_amplitude)
     hl = tpipe.TriggerSettings(name="hl", threshold_high=2e-5, threshold_low=-2e-5)
     mixed = dataclasses.replace(ps, triggers=ps.triggers + (hl,))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpipe.simulate_batch(pb, pc, mixed)
-    both = tpipe.simulate_batch(pb, pc, dataclasses.replace(mixed, trigger_impl="plain"))
+    # a list that mixes phased-array and high/low triggers runs on both routes
+    both = tpipe.simulate_batch(pb, pc, mixed)
+    plain = tpipe.simulate_batch(pb, pc, dataclasses.replace(mixed, trigger_impl="plain"))
+    assert torch.equal(both.triggered_per, plain.triggered_per)
     pa_only = tpipe.simulate_batch(pb, pc, ps)
     hl_only = tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, triggers=(hl,)))
     assert torch.equal(both.triggered_per[:, 0], pa_only.triggered)

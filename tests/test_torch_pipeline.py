@@ -129,12 +129,12 @@ def test_plain_impl_equals_kernel_impl_on_cpu(case32):
 def test_unported_options_raise():
     s, ch, b = _make_settings_and_inputs()
     ps, pc, pb = from_jax(s, ch, b, device="cpu", dtype=torch.float32)
-    for change in ({"apply_focusing": True, "focusing_mode": "numeric"},
-                   {"n_reflections": 1}, {"askaryan_model": "ZHS1992"}):
+    for change in ({"attenuation_model": "GL1"},
+                   {"n_reflections": 1}, {"askaryan_model": "ARZ2019"}):
         with pytest.raises(NotImplementedError):
             tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, **change))
     for kw in ({"emitter": object()}, {"keep_traces": True}):
         with pytest.raises(NotImplementedError):
             tpipe.simulate_batch(pb, pc, ps, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tpipe.simulate_batch(pb, pc._replace(antenna_table=object()), ps)

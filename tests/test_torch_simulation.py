@@ -104,7 +104,7 @@ def test_float32_bench_config_reproduces_golden(golden):
 
 def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError):
-        Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "ZHS1992"}},
+        Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "ARZ2019"}},
                    antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78":
                                          "analytic_VPol"}, device="cpu")
     with pytest.raises(NotImplementedError):
