@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
-    python3 chip_smoke.py --trigger-only   # phases 0-1 and kernel 2's part of phase 2
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 9,
+    python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
+    python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -61,7 +62,23 @@ result line):
    with the same noise (at most 8 (group, trigger) decisions differ, each
    within 1e-3 of a threshold), its events/s and busy share, and the step
    with numeric focusing; the 3000-event dipole input behind a separate
-   trigger chain in float64 with NuRadioMC's triggered set and trigger Vrms.
+   trigger chain in float64 with NuRadioMC's triggered set and trigger Vrms;
+8. the reflective-bottom (Moore's Bay) slice: 16384 groups x 2 showers x 4
+   LPDAs x 6 ray slots (``convert.make_mooresbay_inputs``: one bottom
+   reflection, MB1 attenuation, three readout windows, float32, band limit
+   1e-2) through ``simulate_batch``: kernels 1 (s2 12) and 2 once per
+   window, the kernel path against the plain path (at most 8 groups differ,
+   each within 1e-3 of a threshold), how many groups fire and how many only
+   through a bounce slot, its events/s and busy share, kernels 1 and 2
+   event-timed on the first window's own operands with bound and library
+   time, and the first 2048 groups in float64 against the JAX package's
+   float64 set (``nuradiomc_tpu_torch/data/mooresbay_jax_sets.npz``);
+9. the rest of the signal chain through ``Simulation`` in float64, each held
+   to the JAX package's set (the ``*_jax_sets.npz`` files the tests write):
+   the 24-pulser emitter inputs (efield and voltage variant, kernel 4), the
+   dipole station with a synthetic antenna table (kernel 4), ARZ2020 on the
+   mini shower library (kernel 1) and GL1 attenuation (kernel 1), each with
+   its triggered count and one timed step.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -92,7 +109,9 @@ from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.ops import (_build, fft_plan, noise, pa_trigger,  # noqa: E402
                                      phased_array, placement, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
+from nuradiomc_tpu_torch.sim import io_input  # noqa: E402
 from nuradiomc_tpu_torch.sim.io_input import (DATA_DIR, INPUT_1E18_N3000,  # noqa: E402
+                                              INPUT_EMITTER_EFIELD, INPUT_EMITTER_VOLTAGE,
                                               INPUT_GEN2, INPUT_PA_NOISELESS)
 
 N_GROUPS = 65536
@@ -113,6 +132,14 @@ GEN2_FILE = {True: (279, 3.17311), False: (280, 3.39605)}
 # the JAX package's float64 per-trigger sets of the three-trigger station
 # (written by python tests/test_torch_multitrigger.py)
 MT_JAX_SETS = DATA_DIR / "multitrigger_jax_sets.npz"
+MB_GROUPS = 16384        # the Moore's Bay slice
+# the JAX package's float64 sets of phases 8 and 9 (each written by the test
+# file of its path when run as a script)
+MB_JAX_SETS = DATA_DIR / "mooresbay_jax_sets.npz"
+EMITTER_JAX_SETS = DATA_DIR / "emitter_jax_sets.npz"
+TABLE_JAX_SETS = DATA_DIR / "antenna_table_jax_sets.npz"
+ARZ_JAX_SETS = DATA_DIR / "arz_jax_sets.npz"
+GL1_JAX_SETS = DATA_DIR / "gl1_jax_sets.npz"
 KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce")
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
@@ -314,7 +341,7 @@ def _entry(max_abs, ms, plain_ms, bound, library_ms=None):
                 bound_by=bound[1], share_of_bound=bound[0] / ms, library_ms=library_ms)
 
 
-def _check_placement(label, kernel, plain, args, kw, tol, bound=None):
+def _check_placement(label, kernel, plain, args, kw, tol, bound=None, phase="phase 2"):
     """A placement kernel (1 or 4) against its plain version: the worst
     |kernel - plain| over each output row's peak must stay within ``tol``;
     returns (max abs error, kernel ms, plain ms), timed only with a bound
@@ -337,16 +364,17 @@ def _check_placement(label, kernel, plain, args, kw, tol, bound=None):
         plain_ms = _median_ms(lambda: plain(*args, **kw))
         times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
                  f"({bound[1]}), {bound[0] / ms:.1%} of the bound ({CARD})")
-    print(f"phase 2 {label}: max |kernel - plain| / row peak = {worst:.3e} "
+    print(f"{phase} {label}: max |kernel - plain| / row peak = {worst:.3e} "
           f"(limit {tol:g}), max abs {max_abs:.3e}{times}")
     if not worst <= tol:
         raise AssertionError(f"{label} disagrees with its plain version: {worst:.3e}")
     return max_abs, ms, plain_ms
 
 
-def _check_trigger(label, args, kw, tol_amp):
+def _check_trigger(label, args, kw, tol_amp, phase="phase 2"):
     """Kernel 2 against its plain version: fired and first bins identical,
-    amplitudes within ``tol_amp`` relative; timed beside its plain version,
+    amplitudes within ``tol_amp`` relative and exactly 0 where the plain
+    version's is 0; timed beside its plain version,
     its bound and ``torch.fft.irfft`` of the same spectra (the irfft stage
     alone, a yardstick the port never calls); returns the summary entry."""
     before = trigger_fused.launches
@@ -356,7 +384,12 @@ def _check_trigger(label, args, kw, tol_amp):
     n_launches = trigger_fused.launches - before
     G, T = p[0].shape
     d_fired, d_first = int((k[0] != p[0]).sum()), int((k[1] != p[1]).sum())
-    amp_rel = float(((k[2] - p[2]).abs() / p[2].abs()).max())
+    # a channel without a pulse has a zero spectrum, whose inverse FFT is
+    # exactly 0: there the kernel's amplitude must be 0 too, not merely small
+    zero = p[2] == 0
+    d_zero = int((zero & (k[2] != 0)).sum())
+    den = torch.where(zero, torch.ones_like(p[2]), p[2].abs())
+    amp_rel = float(((k[2] - p[2]).abs() / den)[~zero].max()) if not bool(zero.all()) else 0.0
     amp_abs = float((k[2] - p[2]).abs().max())
     ms = _median_ms(lambda: trigger_fused.fused_irfft_trigger(*args, **kw))
     plain_ms = _median_ms(lambda: trigger_fused.fused_irfft_trigger_plain(*args, **kw))
@@ -364,13 +397,13 @@ def _check_trigger(label, args, kw, tol_amp):
     lib_ms = _median_ms(lambda: torch.fft.irfft(spec_c, n=kw["n_base"]))
     del spec_c
     bound = _trigger_bound(args, kw)
-    print(f"phase 2 {label}: fired differ in {d_fired} of {G} groups x {T} triggers "
+    print(f"{phase} {label}: fired differ in {d_fired} of {G} groups x {T} triggers "
           f"({int(p[0].sum())} fired, {n_launches} launches), first bins differ in {d_first}, "
-          f"amp max rel err {amp_rel:.3e} (limit "
-          f"{tol_amp:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library irfft "
+          f"amp max rel err {amp_rel:.3e} (limit {tol_amp:g}; {int(zero.sum())} rows without "
+          f"a pulse, {d_zero} of them not exactly 0 in the kernel); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library irfft "
           f"{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
           f"the bound ({CARD})")
-    if d_fired or d_first or not amp_rel <= tol_amp:
+    if d_fired or d_first or d_zero or not amp_rel <= tol_amp:
         raise AssertionError(f"{label} disagrees with the plain version")
     if T and not 0 < int(p[0].sum()) < G * T:
         raise AssertionError(f"{label}: the inputs do not exercise both decisions")
@@ -1109,6 +1142,326 @@ def phase_multitrigger(dev):
     return launches
 
 
+def phase_mooresbay(dev):
+    """The reflective-bottom slice (kernels 1 and 2 at s2 12, three readout
+    windows); returns the launch counts of the main-path run."""
+    import dataclasses
+
+    settings, ch, batch = convert.make_mooresbay_inputs(MB_GROUPS, 0, device=dev,
+                                                        dtype=torch.float32)
+    G, S = batch.energies.shape
+    C = ch.positions.shape[0]
+    n_rays = 2 + 4 * settings.n_reflections
+    print(f"phase 8 Moore's Bay slice: {G} groups x S {S} x C {C} x {n_rays} ray slots = "
+          f"{G * S * C * n_rays} rows, s2 {S * n_rays}, {settings.n_windows} windows, "
+          f"attenuation {settings.attenuation_model}, reflector at {settings.ice.refl_z} m")
+    placement.launches = trigger_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline.simulate_batch(batch, ch, settings)
+    trig = out.triggered.cpu().numpy()
+    first_s = time.perf_counter() - t0
+    launches = {"placement_chain": placement.launches, "irfft_trigger": trigger_fused.launches}
+    print(f"phase 8 launches in the main-path run: {launches}; first call {first_s:.3f} s "
+          f"({CARD})")
+    if launches != {"placement_chain": settings.n_windows, "irfft_trigger": settings.n_windows}:
+        raise AssertionError(f"the Moore's Bay step launches {launches}, not one of each "
+                             f"kernel per window")
+    if (trig.shape != (G,) or tuple(out.max_amplitude.shape) != (G, C)
+            or tuple(out.c0.shape) != (G, S, C, n_rays)
+            or not bool(torch.isfinite(out.max_amplitude).all())
+            or not bool(torch.isfinite(out.trigger_time).all())
+            or not bool(torch.isfinite(out.travel_time[out.sol_mask]).all())):
+        raise AssertionError("Moore's Bay output has the wrong shape or is not finite")
+    per_slot = out.sol_mask.sum(dim=(0, 1, 2)).tolist()
+    base = pipeline.simulate_batch(
+        batch, ch, dataclasses.replace(settings, n_reflections=0, n_windows=1))
+    only_bounce = int((out.triggered & ~base.triggered).sum())
+    print(f"phase 8 Moore's Bay: {int(trig.sum())} of {G} groups triggered, {only_bounce} of "
+          f"them only through a bounce slot ({int(base.triggered.sum())} without "
+          f"reflections); valid paths per ray slot {per_slot}")
+    if not 0 < only_bounce < int(trig.sum()) < G:
+        raise AssertionError("the slice does not exercise direct and bounced triggers")
+    del base
+
+    # kernel path against plain path; keeps the first window's kernel operands
+    plain = dataclasses.replace(settings, placement_impl="plain", trigger_impl="plain")
+    seen_hl, k1_calls, k2_calls = [], [], []
+    hl_plain = trigger_fused.fused_irfft_trigger_plain
+    k1, k2 = placement.chain_placement_reduce, trigger_fused.fused_irfft_trigger
+
+    def recording_hl(*args, **kw):
+        seen_hl.append((args, kw))
+        return hl_plain(*args, **kw)
+
+    def recording_k1(*args, **kw):
+        if not k1_calls:
+            k1_calls.append((args, kw))
+        return k1(*args, **kw)
+
+    def recording_k2(*args, **kw):
+        if not k2_calls:
+            k2_calls.append((args, kw))
+        return k2(*args, **kw)
+
+    trigger_fused.fused_irfft_trigger_plain = recording_hl
+    trig_plain = pipeline.simulate_batch(batch, ch, plain).triggered.cpu().numpy()
+    trigger_fused.fused_irfft_trigger_plain = hl_plain
+    # the margin of a group: its nearest over every window's plain trigger call
+    differ = [(g, min(_nearest_threshold_margin(call, settings.triggers, g, 0, C)
+                      for call in seen_hl))
+              for g in np.flatnonzero(trig_plain != trig).tolist()]
+    print(f"phase 8 kernel path vs plain path on the card: {len(differ)} groups differ "
+          f"(bound {PA_CROSS_GROUPS}), nearest-threshold margins "
+          f"{[(g, '%.2e' % m) for g, m in differ]}")
+    if len(differ) > PA_CROSS_GROUPS or any(m >= 1e-3 for _, m in differ):
+        raise AssertionError("kernel and plain Moore's Bay paths differ beyond razor margins")
+    del seen_hl
+
+    def step(s):
+        pipeline.simulate_batch(batch, ch, s).triggered.sum().item()
+
+    torch.cuda.reset_peak_memory_stats()
+    wall = _median_step(lambda: step(settings))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 8 kernel path: step {wall * 1e3:.1f} ms (median of 5), "
+          f"{G / wall:.1f} events/s, peak device memory {peak:.2f} GiB ({CARD})")
+    placement.launches = trigger_fused.launches = 0
+    _print_busy("phase 8 kernel path", lambda: step(settings), wall * 1e3)
+    print(f"phase 8 launches per step: kernel 1 {placement.launches // 2}, kernel 2 "
+          f"{trigger_fused.launches // 2}")
+    wall_p = _median_step(lambda: step(plain), n=3)
+    print(f"phase 8 plain path: step {wall_p * 1e3:.1f} ms (median of 3), "
+          f"{G / wall_p:.1f} events/s ({CARD})")
+
+    # kernels 1 and 2 on the first window's operands of this step
+    placement.chain_placement_reduce = recording_k1
+    trigger_fused.fused_irfft_trigger = recording_k2
+    step(settings)
+    placement.chain_placement_reduce, trigger_fused.fused_irfft_trigger = k1, k2
+    del batch, out
+    torch.cuda.empty_cache()
+    args, kw = k1_calls.pop()
+    live = int(args[5].sum())
+    bound = _placement_chain_bound(args, kw)
+    print(f"phase 8 placement_chain operands: {args[0].shape[0]} rows ({live} unmasked), "
+          f"K_int {args[0].shape[1]}, {args[2].shape[1]} sparse frequencies, K_place "
+          f"{kw['K_place']}, s2 {kw['s2']}; no library call does this function")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = _build.load("placement_chain").placement_chain_grid(
+        args[0].shape[0] // kw["s2"], args[0].shape[1], args[2].shape[1], kw["K_place"],
+        kw["n_int"], kw["n_base"], 0)
+    print(f"phase 8 placement_chain grid: {grid} blocks on {sms} SMs")
+    _check_placement("placement_chain float32 Moore's Bay window 0",
+                     placement.chain_placement_reduce, placement.chain_placement_reduce_plain,
+                     args, kw, 1e-4, bound, phase="phase 8")
+    del args
+    torch.cuda.empty_cache()
+    args, kw = k2_calls.pop()
+    print(f"phase 8 irfft_trigger operands: {args[0].shape[0]} rows (C {kw['C']}), K "
+          f"{args[0].shape[1]}, n_base {kw['n_base']}, {len(kw['triggers'])} column")
+    grid = _build.load("irfft_trigger").irfft_trigger_grid(
+        args[0].shape[0] // kw["C"], kw["C"], kw["n_base"], args[0].shape[1],
+        len(kw["triggers"]), 0)
+    print(f"phase 8 irfft_trigger grid: {grid} blocks on {sms} SMs")
+    _check_trigger("irfft_trigger float32 Moore's Bay window 0", args, kw, 1e-5,
+                   phase="phase 8")
+    del args
+    torch.cuda.empty_cache()
+
+    # the first 2048 groups in float64 against the JAX package's float64 set
+    pin = np.load(MB_JAX_SETS)["triggered"]
+    s64, ch64, b64 = convert.make_mooresbay_inputs(len(pin), 0, device=dev, dtype=torch.float64)
+    trig64 = pipeline.simulate_batch(b64, ch64, s64).triggered.cpu().numpy()
+    flips = np.flatnonzero(trig64 != pin)
+    print(f"phase 8 float64, first {len(pin)} groups: {int(trig64.sum())} triggered, the JAX "
+          f"package's float64 set {int(pin.sum())}, {len(flips)} differ {flips.tolist()}")
+    if len(flips):
+        raise AssertionError("the float64 Moore's Bay set differs from the JAX package's")
+    return launches
+
+
+def _one_step_ms(sim):
+    """Wall ms of one warm ``simulate_batch`` step on the first chunk of
+    ``sim``'s batch, and the chunk's group count."""
+    batch = sim._build_batches()[-1]
+    n = min(sim.chunk_size, batch.energies.shape[0])
+    chunk = pipeline.ShowerBatch(*[None if a is None else torch.as_tensor(
+        np.ascontiguousarray(a[:n]), device=sim.device) for a in batch])
+
+    def step():
+        pipeline.simulate_batch(chunk, sim.channel_params, sim.settings, emitter=sim._emitter,
+                                arz_library=sim.arz_library).triggered.sum().item()
+
+    return _median_step(step, n=1) * 1e3, n
+
+
+def phase_signal_chain(dev):
+    """Emitter mode, a tabulated antenna, ARZ2020 and GL1 through
+    ``Simulation`` in float64 on the card, each against the JAX package's
+    set; returns the kernel launches of the four runs."""
+    import tempfile
+
+    total = {"placement_chain": 0, "placement_reduce": 0, "irfft_trigger": 0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1, k2, k4 = (placement.chain_placement_reduce, trigger_fused.fused_irfft_trigger,
+                  placement.placement_reduce)
+    calls = {}      # kernel name -> (args, kw) of one launch of the current run
+
+    def recording(name, kernel):
+        def wrapper(*args, **kw):
+            calls.setdefault(name, (args, kw))
+            return kernel(*args, **kw)
+        return wrapper
+
+    def recording_k2(*args, **kw):
+        """Keeps the run's first call in which a trigger fires (else its
+        first call): the check below needs both decisions."""
+        res = k2(*args, **kw)
+        if "irfft_trigger" not in calls or not calls["irfft_trigger"][2]:
+            calls["irfft_trigger"] = (args, kw, bool(res[0].any()))
+        return res
+
+    def check_kernels(label):
+        """Every kernel the run launched against its plain version, on the
+        operands of one of the run's own launches."""
+        for name, kernel, plain, bound_of in (
+                ("placement_chain", placement.chain_placement_reduce,
+                 placement.chain_placement_reduce_plain, _placement_chain_bound),
+                ("placement_reduce", placement.placement_reduce,
+                 placement.placement_reduce_plain, _reduce_bound)):
+            if name not in calls:
+                continue
+            args, kw = calls.pop(name)
+            f64 = int(args[0].dtype == torch.float64)
+            R, K_int = args[0].shape
+            if name == "placement_chain":
+                live = int(args[5].sum())
+                grid = _build.load(name).placement_chain_grid(
+                    R // kw["s2"], K_int, args[2].shape[1], kw["K_place"], kw["n_int"],
+                    kw["n_base"], f64)
+            else:
+                live = int(((args[0] != 0) | (args[1] != 0)).any(dim=1).sum())
+                grid = _build.load(name).placement_reduce_grid(
+                    R // kw["s2"], K_int, kw["K_place"], kw["n_int"], kw["n_base"], f64)
+            print(f"phase 9 {name} operands, {label}: {R} rows ({live} live), s2 {kw['s2']}, "
+                  f"K_int {K_int}, K_place {kw['K_place']}, n_int {kw['n_int']}, n_base "
+                  f"{kw['n_base']}, {args[0].dtype}; grid {grid} blocks on {sms} SMs")
+            _check_placement(f"{name} {label}", kernel, plain, args, kw,
+                             1e-10 if f64 else 1e-4, bound_of(args, kw), phase="phase 9")
+            if name == "placement_reduce":
+                print(f"phase 9 placement_reduce {label}: library rfft(irfft(V, n_int), n_base) "
+                      f"{_reduce_library_ms(args, kw):.3f} ms ({CARD})")
+        args, kw, _ = calls.pop("irfft_trigger")
+        f64 = int(args[0].dtype == torch.float64)
+        R, K = args[0].shape
+        grid = _build.load("irfft_trigger").irfft_trigger_grid(
+            R // kw["C"], kw["C"], kw["n_base"], K, args[2].shape[1], f64)
+        print(f"phase 9 irfft_trigger operands, {label}: {R} rows (C {kw['C']}), K {K}, n_base "
+              f"{kw['n_base']}, {args[2].shape[1]} columns, {args[0].dtype}; grid {grid} blocks "
+              f"on {sms} SMs")
+        _check_trigger(f"irfft_trigger {label}", args, kw, 1e-12 if f64 else 1e-5,
+                       phase="phase 9")
+
+    def run(label, sim, kernel):
+        """One ``Simulation`` run with its launches counted; then each kernel
+        it launched held to its plain version at the run's own operands."""
+        calls.clear()
+        placement.launches = placement.reduce_launches = trigger_fused.launches = 0
+        placement.chain_placement_reduce = recording("placement_chain", k1)
+        placement.placement_reduce = recording("placement_reduce", k4)
+        trigger_fused.fused_irfft_trigger = recording_k2
+        t0 = time.perf_counter()
+        try:
+            res = sim.run()
+        finally:
+            placement.chain_placement_reduce, placement.placement_reduce = k1, k4
+            trigger_fused.fused_irfft_trigger = k2
+        wall = time.perf_counter() - t0
+        counts = {"placement_chain": placement.launches,
+                  "placement_reduce": placement.reduce_launches,
+                  "irfft_trigger": trigger_fused.launches}
+        ms, n = _one_step_ms(sim)
+        print(f"phase 9 {label} float64: {res['n_triggered']} of {len(res['triggered'])} groups "
+              f"triggered, launches {counts}, run {wall:.2f} s with set-up; one step of {n} "
+              f"groups {ms:.1f} ms ({CARD})")
+        if counts[kernel] < 1 or counts["irfft_trigger"] < 1:
+            raise AssertionError(f"{label}: {kernel} was not launched: {counts}")
+        if sorted(calls) != sorted(name for name, c in counts.items() if c):
+            raise AssertionError(f"{label}: launches {counts} but operands of {sorted(calls)}")
+        for name, c in counts.items():
+            total[name] += c
+        check_kernels(label.split(" (")[0].split(",")[0])
+        torch.cuda.empty_cache()
+        return res
+
+    pin = np.load(EMITTER_JAX_SETS)
+    for variant, path in (("efield", INPUT_EMITTER_EFIELD), ("voltage", INPUT_EMITTER_VOLTAGE)):
+        sim = convert.emitter_simulation(str(path), chunk_size=24, device=dev,
+                                         dtype=torch.float64)
+        res = run(f"emitter {variant} ({sim._emitter.model}, 4 LPDAs + 4 dipoles)", sim,
+                  "placement_reduce")
+        per = res["multiple_triggers"]
+        print(f"phase 9 emitter {variant}: per-trigger counts {per.sum(axis=0).tolist()} "
+              f"({res['trigger_names']}), the JAX package's {pin[variant].sum(axis=0).tolist()}")
+        if not np.array_equal(per, pin[variant]):
+            raise AssertionError(f"the emitter {variant} sets differ from the JAX package's")
+
+    pin = np.load(TABLE_JAX_SETS)
+    with tempfile.TemporaryDirectory() as models:
+        res = run("synthetic antenna table (24 x 25 x 37 grid)",
+                  convert.table_simulation(str(INPUT_1E18_N3000), models, chunk_size=1024,
+                                           device=dev, dtype=torch.float64), "placement_reduce")
+    veff_err = abs(res["veff"] / float(pin["veff"]) - 1.0)
+    print(f"phase 9 antenna table: {int((res['triggered'] != pin['triggered']).sum())} groups "
+          f"differ from the JAX package's set, Veff rel err {veff_err:.2e}")
+    if not np.array_equal(res["triggered"], pin["triggered"]) or not veff_err <= 1e-9:
+        raise AssertionError("the tabulated-antenna set differs from the JAX package's")
+
+    pin = np.load(ARZ_JAX_SETS)
+    inp = io_input.select(io_input.read_input(INPUT_1E18_N3000), pin["group_ids"])
+    res = run(f"ARZ2020 on the mini shower library ({len(pin['group_ids'])} event groups)",
+              convert.arz_simulation(inp, chunk_size=256, device=dev, dtype=torch.float64),
+              "placement_chain")
+    print(f"phase 9 ARZ2020: {int((res['triggered'] != pin['triggered']).sum())} groups differ "
+          f"from the JAX package's set of {int(pin['triggered'].sum())}")
+    if not np.array_equal(res["triggered"], pin["triggered"]):
+        raise AssertionError("the ARZ2020 set differs from the JAX package's")
+
+    pin = np.load(GL1_JAX_SETS)
+    res = run("GL1 attenuation, the dipole golden's input",
+              convert.dipole_simulation(str(INPUT_1E18_N3000),
+                                        {"propagation": {"attenuation_model": "GL1"}},
+                                        chunk_size=1024, device=dev, dtype=torch.float64),
+              "placement_chain")
+    veff_err = abs(res["veff"] / float(pin["veff"]) - 1.0)
+    print(f"phase 9 GL1: {int((res['triggered'] != pin['triggered']).sum())} groups differ from "
+          f"the JAX package's set of {int(pin['triggered'].sum())}, Veff rel err {veff_err:.2e}")
+    if not np.array_equal(res["triggered"], pin["triggered"]) or not veff_err <= 1e-9:
+        raise AssertionError("the GL1 set differs from the JAX package's")
+    return total
+
+
+# the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
+# of phase 2 alone)
+PHASES = {"2": (phase_kernels, phase_pa_kernel), "3": (phase_headline,),
+          "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
+          "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,)}
+
+
+def _phases_asked(argv):
+    """The set named by ``--phases a,b,..`` (None without the option); any
+    other argument is refused."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,9|trigger]")
+    only = set(argv[1].split(","))
+    if not only <= set(PHASES) | {"trigger"}:
+        raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
+    return only
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1134,26 +1487,33 @@ def main() -> int:
         print(f"phase 1 built {name} in {info['seconds']:.1f} s: " + " | ".join(ptxas))
     print(f"phase 1 build total {time.perf_counter() - t0:.1f} s")
 
-    if "--trigger-only" in sys.argv[1:]:
-        _print_grids()
-        for dtype, tol_amp in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(20261016)
-            _check_trigger_shapes(dtype, dev, gen, str(dtype).replace("torch.", ""), tol_amp)
-        print("chip_smoke: kernel 2 passed (--trigger-only: no other kernel, no main path, "
-              "no result line)")
+    only = _phases_asked(sys.argv[1:])
+    if only is not None:
+        # a subset for work on one path: phases 0-1 and the ones named, in the
+        # script's order; no summary and no result line
+        if "trigger" in only:
+            _print_grids()
+            for dtype, tol_amp in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(20261016)
+                _check_trigger_shapes(dtype, dev, gen, str(dtype).replace("torch.", ""), tol_amp)
+        for name, phases in PHASES.items():
+            if name in only:
+                for phase in phases:
+                    phase(dev)
+        print(f"chip_smoke: phases 0-1 and {', '.join(sorted(only))} passed (--phases: no "
+              f"result line)")
         return 0
     summary = {**phase_kernels(dev), **phase_pa_kernel(dev)}
-    if "--kernels-only" in sys.argv[1:]:
-        print("chip_smoke: phases 0-2 passed (--kernels-only: no main path, no result line)")
-        return 0
     launches = phase_headline(dev)
     phase_simulation(dev)
     pa_launches = phase_pa(dev)
     gen2_launches = phase_gen2(dev)
     mt_launches = phase_multitrigger(dev)
-    # launches: the counts of the four main-path runs (phases 3, 5, 6 and 7)
-    for counts in (pa_launches, gen2_launches, mt_launches):
+    mb_launches = phase_mooresbay(dev)
+    chain_launches = phase_signal_chain(dev)
+    # launches: the counts of the main-path runs (phases 3, 5, 6, 7, 8 and 9)
+    for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

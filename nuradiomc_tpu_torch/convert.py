@@ -12,7 +12,10 @@ without jax. :func:`make_pa_inputs` builds the phased-array workload of
 ``bench._pa_setup`` and :func:`make_gen2_inputs` the Gen2 composed workload
 of ``bench._gen2_setup`` through the port's ``Simulation`` on the ``.npz``
 export of their inputs, so the card builds them without jax and without
-h5py.
+h5py. :func:`make_mooresbay_inputs` builds the reflective-bottom (Moore's
+Bay) workload from numpy alone: its event list is drawn from a seed in
+memory. :func:`emitter_from_jax` and :func:`library_from_jax` carry the JAX
+package's ``EmitterParams`` and ARZ ``ShowerLibrary`` over.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from nuradiomc_tpu_torch.utils import config as config_util
 from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.models import ice as ice_models
 from nuradiomc_tpu_torch.ops import antenna
-from nuradiomc_tpu_torch.sim.pipeline import (ChannelParams, PipelineSettings,
+from nuradiomc_tpu_torch.ops.arz import ShowerLibrary
+from nuradiomc_tpu_torch.sim.pipeline import (AntennaTableParams, ChannelParams,
+                                              EmitterParams, PipelineSettings,
                                               ShowerBatch, TriggerSettings)
 from nuradiomc_tpu_torch.utils import device as device_util
 
@@ -79,14 +84,13 @@ def _tensor(value, dtype, device):
 
 def channels_from_jax(ch, *, device, dtype) -> ChannelParams:
     src = _fields(ch)
-    if src.get("antenna_table") is not None:
-        raise NotImplementedError("tabulated antennas are not ported yet "
-                                  "(ROADMAP queue 1 item 6, emitter / ARZ / HCRB / "
-                                  "tabulated antennas)")
     out = {}
     for name in ChannelParams._fields:
         if name == "antenna_table":
-            out[name] = None
+            tab = src.get(name)
+            out[name] = None if tab is None else AntennaTableParams(**{
+                k: _tensor(v, _ctype(dtype) if k.startswith("h_") else dtype, device)
+                for k, v in _fields(tab).items()})
         elif name == "kind":
             out[name] = _tensor(src[name], torch.int64, device)
         elif name in _COMPLEX_FIELDS:
@@ -102,6 +106,30 @@ def batch_from_jax(batch, *, device, dtype) -> ShowerBatch:
              "profile_idx": torch.int64}
     return ShowerBatch(**{name: _tensor(src.get(name), kinds.get(name, dtype), device)
                           for name in ShowerBatch._fields})
+
+
+def emitter_from_jax(emitter, *, device=device_util.DEFAULT, dtype=torch.float64):
+    """The port's EmitterParams from the JAX package's (numpy leaves in,
+    tensors out); None stays None."""
+    if emitter is None:
+        return None
+    device = device_util.resolve(device)
+    src = _fields(emitter)
+    ctype = _ctype(dtype)
+    kinds = {"templates": ctype, "unit_spec": ctype, "spice_specs": ctype,
+             "rot": dtype, "spice_angles": dtype}
+    return EmitterParams(**{k: _tensor(v, kinds[k], device) if k in kinds else v
+                            for k, v in src.items()})
+
+
+def library_from_jax(library, *, device=device_util.DEFAULT, dtype=torch.float64):
+    """The port's ARZ ShowerLibrary (tensors) from the JAX package's; None
+    stays None."""
+    if library is None:
+        return None
+    device = device_util.resolve(device)
+    return ShowerLibrary(**{k: _tensor(v, dtype, device)
+                            for k, v in _fields(library).items()})
 
 
 def from_jax(settings, ch, batch, *, device=device_util.DEFAULT, dtype=torch.float64):
@@ -211,10 +239,11 @@ DIPOLE_CONFIG = {"sampling_rate": 2.0, "propagation": {"ice_model": "southpole_2
 def dipole_simulation(inputfilename, config=None, **kwargs):
     """The port's ``Simulation`` of the dipole golden: one VPol at 100 m, the
     butterworth chain, a 2-sigma high/low trigger (``config`` merged on top
-    of DIPOLE_CONFIG; ``kwargs`` go to ``Simulation``)."""
+    of DIPOLE_CONFIG; ``detector=`` replaces DIPOLE_DETECTOR; the other
+    ``kwargs`` go to ``Simulation``)."""
     from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
     return Simulation(
-        inputfilename, DIPOLE_DETECTOR,
+        inputfilename, kwargs.pop("detector", DIPOLE_DETECTOR),
         config=config_util.merge_config(config, DIPOLE_CONFIG),
         filter_chain=[
             FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
@@ -399,3 +428,216 @@ def make_gen2_inputs(n_groups=256, *, device=device_util.DEFAULT, dtype=torch.fl
     sim = gen2_simulation(INPUT_GEN2, device=device, dtype=dtype)
     chps = [sim.channel_params_per_station[sid] for sid in sim.det.get_station_ids()]
     return sim.settings, chps, _tiled(sim._build_batches()[-1], n_groups, sim.device)
+
+
+# ---- the reflective-bottom workload (Moore's Bay, an ARIANNA-style station)
+
+def _mooresbay_channel(cid, x, y, rotation_phi):
+    # a downward-pointing LPDA 2 m below the snow surface
+    return {"adc_n_samples": 256, "adc_sampling_frequency": 1.0,
+            "ant_orientation_phi": 0.0, "ant_orientation_theta": 180.0,
+            "ant_position_x": x, "ant_position_y": y, "ant_position_z": -2.0,
+            "ant_rotation_phi": rotation_phi, "ant_rotation_theta": 90.0,
+            "ant_type": "analytic_LPDA", "amp_type": "",
+            "cab_time_delay": 0.0, "adc_nbits": None,
+            "channel_id": cid, "station_id": 61}
+
+
+# four LPDAs on the corners of a 6 m square, two orthogonal pairs
+MOORESBAY_DETECTOR = {
+    "channels": {"1": _mooresbay_channel(0, 3.0, 3.0, 0.0),
+                 "2": _mooresbay_channel(1, -3.0, 3.0, 90.0),
+                 "3": _mooresbay_channel(2, -3.0, -3.0, 0.0),
+                 "4": _mooresbay_channel(3, 3.0, -3.0, 90.0)},
+    "stations": {"1": {"station_id": 61, "pos_altitude": 0, "pos_easting": 0,
+                       "pos_northing": 0, "pos_site": "mooresbay"}},
+}
+MOORESBAY_CONFIG = {"sampling_rate": 2.0, "noise": False,
+                    "propagation": {"ice_model": "mooresbay_simple",
+                                    "attenuation_model": "MB1", "n_reflections": 1,
+                                    "n_freq": 16, "attenuation_steps": 8, "n_bisect": 28},
+                    "signal": {"model": "Alvarez2000"},
+                    "weights": {"weight_mode": "core_mantle_crust_simple",
+                                "cross_section_type": "ctw"}}
+MOORESBAY_RADIUS = 1.5 * units.km
+MOORESBAY_DEPTH = 576.0 * units.m
+
+
+def mooresbay_event_input(n_groups, seed=0, energy=1e18 * units.eV):
+    """An in-memory event list of ``n_groups`` electron-neutrino CC
+    interactions (a hadronic and an electromagnetic shower each, sharing
+    the vertex) uniform in a cylinder of MOORESBAY_RADIUS between the
+    reflector at -576 m and the surface, isotropic arrival directions, all
+    drawn from ``default_rng(seed)`` one group after the other: a shorter
+    list is a prefix of a longer one."""
+    from nuradiomc_tpu_torch.sim.io_hdf5 import EventInput
+    u = np.random.default_rng(seed).uniform(0, 1, (n_groups, 6))
+    r = MOORESBAY_RADIUS * np.sqrt(u[:, 0])
+    phi = 2 * np.pi * u[:, 1]
+    z = -MOORESBAY_DEPTH * u[:, 2]
+    zen = np.arccos(2 * u[:, 3] - 1)
+    az = 2 * np.pi * u[:, 4]
+    y = 0.1 + 0.8 * u[:, 5]
+
+    def twice(a):
+        return np.repeat(a, 2)
+
+    n = 2 * n_groups
+    return EventInput(
+        event_group_ids=twice(np.arange(n_groups)), shower_ids=np.arange(n),
+        xx=twice(r * np.cos(phi)), yy=twice(r * np.sin(phi)), zz=twice(z),
+        zeniths=twice(zen), azimuths=twice(az), energies=np.full(n, energy),
+        shower_energies=np.stack([y * energy, (1 - y) * energy], axis=-1).reshape(-1),
+        shower_type=np.tile(np.array(["had", "em"]), n_groups),
+        flavors=np.full(n, 12), interaction_type=np.full(n, "cc"),
+        inelasticity=twice(y), vertex_times=np.zeros(n),
+        attrs={"n_events": n_groups,
+               "volume": np.pi * MOORESBAY_RADIUS ** 2 * MOORESBAY_DEPTH})
+
+
+def mooresbay_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of the Moore's Bay workload: MOORESBAY_DETECTOR,
+    MOORESBAY_CONFIG (``config`` merged on top: one bottom reflection, so six
+    ray slots and three readout windows; MB1 attenuation), the butterworth
+    chain and a 2-of-4 high/low trigger at 4 sigma; ``kwargs`` go to
+    ``Simulation``. ``inputfilename`` may be an in-memory ``EventInput``."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    return Simulation(
+        inputfilename, MOORESBAY_DETECTOR,
+        config=config_util.merge_config(config, MOORESBAY_CONFIG),
+        filter_chain=[
+            FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
+            FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
+        ],
+        **{"trigger": TriggerSpec(name="LPDA_2of4_4sigma", threshold_high_sigma=4.0,
+                                  threshold_low_sigma=-4.0, number_of_coincidences=2),
+           **kwargs})
+
+
+def make_mooresbay_inputs(n_groups=16384, seed=0, *, device=device_util.DEFAULT,
+                          dtype=torch.float32):
+    """(settings, ch, batch) of the Moore's Bay slice, from numpy alone:
+    ``n_groups`` groups of :func:`mooresbay_event_input` (2 showers) seen by
+    the 4 LPDAs of :func:`mooresbay_simulation`, band limit 1e-2."""
+    import dataclasses as dc
+    sim = mooresbay_simulation(mooresbay_event_input(n_groups, seed), device=device,
+                               dtype=dtype)
+    batch = sim._build_batches()[-1]
+    batch = ShowerBatch(*[None if a is None else torch.as_tensor(
+        np.ascontiguousarray(a), device=sim.device) for a in batch])
+    return dc.replace(sim.settings, band_limit_eps=1e-2), sim.channel_params, batch
+
+
+# ---- the emitter runs (tests/test_emitter_e2e.py: 24 pulser positions)
+
+def _surface_channel(cid, ant_type, x, y, z, ori_theta, rot_theta, rot_phi):
+    return {"adc_n_samples": 512, "adc_sampling_frequency": 1.0,
+            "ant_orientation_phi": 0.0, "ant_orientation_theta": ori_theta,
+            "ant_position_x": x, "ant_position_y": y, "ant_position_z": z,
+            "ant_rotation_phi": rot_phi, "ant_rotation_theta": rot_theta,
+            "ant_type": ant_type, "amp_type": "", "cab_time_delay": 0.0,
+            "adc_nbits": None, "channel_id": cid, "station_id": 101}
+
+
+# a surface station of 4 downward LPDAs and 4 vertical dipoles, as the
+# SingleEvents test station is laid out
+SURFACE_DETECTOR = {
+    "channels": {
+        **{str(i + 1): _surface_channel(i, "analytic_LPDA", x, y, -2.0, 180.0, 90.0, rp)
+           for i, (x, y, rp) in enumerate([(3.0, 0.0, 0.0), (0.0, 3.0, 90.0),
+                                           (-3.0, 0.0, 0.0), (0.0, -3.0, 90.0)])},
+        **{str(i + 5): _surface_channel(i + 4, "analytic_VPol", x, y, -5.0, 0.0, 90.0, 90.0)
+           for i, (x, y) in enumerate([(5.0, 5.0), (-5.0, 5.0), (-5.0, -5.0), (5.0, -5.0)])},
+    },
+    "stations": {"1": {"station_id": 101, "pos_altitude": 0, "pos_easting": 0,
+                       "pos_northing": 0, "pos_site": "southpole"}},
+}
+EMITTER_CONFIG = {"sampling_rate": 5.0, "noise": False,
+                  "speedup": {"minimum_weight_cut": 1e-5, "min_efield_amplitude": 2},
+                  "propagation": {"ice_model": "ARAsim_southpole", "focusing": True},
+                  "signal": {"model": "Alvarez2000"},
+                  "trigger": {"noise_temperature": 300}}
+EMITTER_ANTENNAS = {"createLPDA_100MHz_InfFirn": "analytic_LPDA",
+                    "bicone_v8_InfFirn": "analytic_VPol"}
+
+
+def emitter_simulation(inputfilename, config=None, **kwargs):
+    """The port's ``Simulation`` of an emitter input on SURFACE_DETECTOR with
+    the emitter test's config, filters and two named triggers (a 3-sigma
+    threshold on all channels, a 2-of-4 high/low at 2 sigma on the dipoles);
+    ``kwargs`` go to ``Simulation``."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    kwargs.setdefault("triggers", [
+        TriggerSpec(name="simple_threshold", trigger_type="simple_threshold",
+                    threshold_high_sigma=3.0, number_of_coincidences=1),
+        TriggerSpec(name="dipoles_2of4_2sigma", trigger_type="high_low",
+                    threshold_high_sigma=2.0, threshold_low_sigma=-2.0,
+                    channels=(4, 5, 6, 7), number_of_coincidences=2)])
+    kwargs.setdefault("antenna_replacements", EMITTER_ANTENNAS)
+    return Simulation(
+        inputfilename, SURFACE_DETECTOR,
+        config=config_util.merge_config(config, EMITTER_CONFIG),
+        filter_chain=[
+            FilterStage((80 * units.MHz, 1000 * units.GHz), "butter", {"order": 2}),
+            FilterStage((0, 500 * units.MHz), "butter", {"order": 10}),
+        ], **kwargs)
+
+
+# ---- a tabulated antenna, the ARZ shower model (chip_smoke.py phase 9)
+
+SYNTHETIC_TABLE = "synthetic_table"
+# copied from tests/test_antenna_table.py:24-70 (_perp, _angles,
+# _make_synthetic_pickle)
+def write_synthetic_antenna_pickle(path, ori=(0.0, 0.0), rot=None):
+    """A reference-format 9-item antenna pickle on a uniform grid with
+    smooth complex VELs; flat layout iFreq*n_theta*n_phi + iPhi*n_theta +
+    iTheta (antennapattern.py:1423)."""
+    import pickle
+
+    freqs = np.linspace(0.05, 1.2, 24)
+    thetas = np.linspace(0.0, np.pi, 25)
+    phis = np.linspace(0.0, 2 * np.pi, 37)
+    F, T, P = len(freqs), len(thetas), len(phis)
+    iF, iP, iT = np.meshgrid(np.arange(F), np.arange(P), np.arange(T), indexing="ij")
+    ff, ph, th = freqs[iF].ravel(), phis[iP].ravel(), thetas[iT].ravel()
+    h_theta = (0.2 + ff) * np.sin(th) * np.exp(1j * (0.3 * ph + 0.7 * th + 2.0 * ff))
+    h_phi = (0.1 + 0.5 * ff) * np.cos(0.5 * th) * np.exp(1j * (0.2 * ph - 0.4 * th))
+
+    o_vec = np.array([np.sin(ori[0]) * np.cos(ori[1]),
+                      np.sin(ori[0]) * np.sin(ori[1]), np.cos(ori[0])])
+    if rot is None:
+        a = np.array([1.0, 0.0, 0.0])
+        if abs(np.dot(a, o_vec)) > 0.9:
+            a = np.array([0.0, 1.0, 0.0])
+        rot = np.cross(o_vec, a)
+        rot = rot / np.linalg.norm(rot)
+    rt, rp = float(np.arccos(rot[2] / np.linalg.norm(rot))), float(np.arctan2(rot[1], rot[0]))
+    with open(path, "wb") as f:
+        pickle.dump([ori[0], ori[1], rt, rp, ff, th, ph, h_phi, h_theta], f, protocol=4)
+    return path
+
+
+def table_simulation(inputfilename, models_path, config=None, **kwargs):
+    """The dipole golden's station with a tabulated antenna: writes the
+    synthetic pattern to ``models_path/synthetic_table/synthetic_table.pkl``
+    and runs :func:`dipole_simulation` with that antenna model, which enters
+    the non-factored chain."""
+    import copy
+    import os
+    os.makedirs(os.path.join(models_path, SYNTHETIC_TABLE), exist_ok=True)
+    write_synthetic_antenna_pickle(
+        os.path.join(models_path, SYNTHETIC_TABLE, SYNTHETIC_TABLE + ".pkl"))
+    det = copy.deepcopy(DIPOLE_DETECTOR)
+    det["channels"]["1"]["ant_type"] = SYNTHETIC_TABLE
+    return dipole_simulation(inputfilename, config, detector=det,
+                             antenna_models_path=str(models_path), **kwargs)
+
+
+def arz_simulation(inputfilename, config=None, **kwargs):
+    """:func:`dipole_simulation` with the ARZ2020 shower model on the
+    committed mini shower library."""
+    from nuradiomc_tpu_torch.sim.io_input import DATA_DIR
+    kwargs.setdefault("arz_library_path", str(DATA_DIR / "arz_minilib.pkl"))
+    return dipole_simulation(
+        inputfilename, config_util.merge_config(config, {"signal": {"model": "ARZ2020"}}),
+        **kwargs)

@@ -55,6 +55,15 @@
 // counts fit shared memory; the wrapper slices a longer list over launches of
 // this same kernel.
 //
+// What was hard there. The counts must outlive the next row's FFT, so they
+// have a region of their own (one counter a trigger and sample) and are laid
+// out sample-major per thread within a tile (cnt[k * tile + e * NTH + tid]):
+// adjacent threads touch adjacent counters, conflict-free without padding,
+// while P goes on sharing the FFT buffer. A window looks back across tiles,
+// so each tile's block-wide prefix adds the carried total of the tiles
+// before it, and the high/low bits replace the prefix in place from the last
+// tile down, where no later tile still needs the prefix they overwrite.
+//
 // Blocks are persistent and small (128 threads, 4-6 resident per SM): the
 // grid is as many blocks as fit on the card, at most one per group, and each
 // block walks groups G/grid apart. The next row's spectrum is copied into

@@ -5,6 +5,10 @@ scalars whose methods act on tensors of any shape,
 
     n(z) = n_ice - delta_n * exp((z - z_shift) / z_0)   for z <= z_air_boundary
     n(z) = 1                                            above the surface
+
+Reflective-bottom sites (Moore's Bay) carry (refl_z, refl_coef,
+refl_phase_shift); the parameters of the concrete sites are those of
+``nuradiomc_tpu/models/ice.py:62-85``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,14 @@ ARA_2022 = IceModelSimple(
     n_ice=1.78, delta_n=0.454, z_0=49.5049505 * units.m,
     z_bottom=-2820.0 * units.m)
 
+mooresbay_simple = IceModelSimple(  # MB1
+    n_ice=1.78, delta_n=0.46, z_0=34.5 * units.m,
+    refl_z=-576.0 * units.m, refl_coef=0.82, refl_phase_shift=180 * units.deg)
+
+mooresbay_simple_2 = IceModelSimple(  # MB2
+    n_ice=1.78, delta_n=0.481, z_0=37.0 * units.m,
+    refl_z=-576.0 * units.m, refl_coef=0.82, refl_phase_shift=180 * units.deg)
+
 greenland_simple = IceModelSimple(
     n_ice=1.78, delta_n=0.51, z_0=37.25 * units.m, z_bottom=-3000.0 * units.m)
 
@@ -61,18 +73,15 @@ _MODELS = {
     "southpole_2015": southpole_2015,
     "ARAsim_southpole": ARAsim_southpole,
     "ARA_2022": ARA_2022,
+    "mooresbay_simple": mooresbay_simple,
+    "mooresbay_simple_2": mooresbay_simple_2,
     "greenland_simple": greenland_simple,
     "uniform_ice": uniform_ice,
 }
 
 
 def get_ice_model(name: str) -> IceModelSimple:
-    """Look up a named site model. The reflective-bottom (Moore's Bay) sites
-    need the bottom-reflection solver, which is not ported yet."""
-    if name in ("mooresbay_simple", "mooresbay_simple_2"):
-        raise NotImplementedError(
-            f"ice model '{name}' needs bottom reflections (ROADMAP queue 1 "
-            "item 5, Moore's Bay reflections)")
+    """Look up a named site model."""
     if name not in _MODELS:
         raise NotImplementedError(
             f"ice model '{name}' is not implemented; available: {sorted(_MODELS)}")

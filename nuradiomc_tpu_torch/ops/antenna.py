@@ -1,10 +1,13 @@
-"""Analytic antenna vector effective length (torch + numpy host helpers).
+"""Antenna vector effective length (torch + numpy host helpers).
 
-Counterpart of ``nuradiomc_tpu/ops/antenna.py`` for the analytic models
-(reference NuRadioReco/detector/antennapattern.py:1580-1770). The response
-factorizes into a complex frequency template per (channel, LPDA sector),
-built once on the host in numpy, and a frequency-independent mixing scalar
-per (direction, channel) computed on the device by :func:`analytic_vel_mix`.
+Counterpart of ``nuradiomc_tpu/ops/antenna.py``. The analytic models
+(reference NuRadioReco/detector/antennapattern.py:1580-1770) factorize into
+a complex frequency template per (channel, LPDA sector), built once on the
+host in numpy, and a frequency-independent mixing scalar per (direction,
+channel) computed on the device by :func:`analytic_vel_mix`;
+:func:`analytic_vel` is their product. Tabulated patterns (pickled VEL
+grids, antennapattern.py:1426-1580) are :class:`AntennaTable` with trilinear
+complex interpolation per direction (:func:`table_vel`).
 
 The numpy helpers ``_parametric_phase``, ``_hann``,
 ``build_analytic_template`` and ``antenna_rotation_matrix`` are verbatim
@@ -13,6 +16,9 @@ imports jax, so the port cannot import them.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -157,3 +163,127 @@ def analytic_vel_mix(zenith, azimuth, rot, kind):
     mix_theta = M[..., 1, 1] * d_theta + M[..., 1, 2] * d_phi
     mix_phi = M[..., 2, 1] * d_theta + M[..., 2, 2] * d_phi
     return mix_theta, mix_phi, _lpda_sector(kind, theta_a)
+
+
+def analytic_vel(zenith, azimuth, rot, templates, kind):
+    """On-sky VEL (theta, phi components) [..., F] of an analytic antenna
+    (antenna.py:167), elementwise over the batch axes of ``zenith`` /
+    ``azimuth``: ``rot`` [3, 3] or [..., 3, 3], ``templates`` [K, F] complex,
+    ``kind`` an int or a tensor."""
+    kind = torch.as_tensor(kind, device=zenith.device).expand(zenith.shape)
+    rot = rot.expand(*zenith.shape, 3, 3)
+    mix_theta, mix_phi, sector = analytic_vel_mix(zenith, azimuth, rot, kind)
+    T = templates[sector]
+    return T * mix_theta[..., None], T * mix_phi[..., None]
+
+
+# ---- tabulated antenna patterns (antenna.py:207-322) ------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AntennaTable:
+    """Regular-grid complex VEL table H(freq, theta, phi).
+
+    ``orientation`` is the simulated antenna frame stored in the pickle
+    (orientation_theta/phi, rotation_theta/phi: the E basis of
+    antennapattern.py:1197-1205); pass it as ``model_orientation`` to
+    :func:`antenna_rotation_matrix` so the detector orientation is expressed
+    relative to the simulated one. ``load_antenna_table`` returns numpy
+    leaves; the functions below take tensors.
+    """
+
+    freqs: object      # (F0,) ascending
+    thetas: object     # (T,) ascending
+    phis: object       # (P,) ascending
+    h_theta: object    # (F0, T, P) complex
+    h_phi: object      # (F0, T, P) complex
+    orientation: tuple = (0.0, 0.0, np.pi / 2, np.pi / 2)
+
+
+def _grid_weights(x, grid):
+    """(idx, w) for linear interpolation on an ascending grid."""
+    idx = torch.clamp(torch.searchsorted(grid, x.contiguous(), right=True) - 1,
+                      0, grid.shape[0] - 2)
+    x0 = grid[idx]
+    x1 = grid[idx + 1]
+    w = torch.clamp((x - x0) / torch.where(x1 == x0, 1.0, x1 - x0), 0.0, 1.0)
+    return idx, w
+
+
+def table_vel_raw(table: AntennaTable, freqs, theta_a, phi_a):
+    """Trilinear complex interpolation of the raw VEL table at the
+    antenna-frame directions ``theta_a``, ``phi_a`` [...] and ``freqs`` (F,):
+    two [..., F] tensors (antenna.py:240). Out-of-band frequencies and
+    out-of-grid directions give 0."""
+    fi, fw = _grid_weights(freqs, table.freqs)                 # [F]
+    ti, tw = _grid_weights(theta_a, table.thetas)              # [...]
+    pi_, pw = _grid_weights(phi_a, table.phis)
+    ti, pi_, tw, pw = (x[..., None] for x in (ti, pi_, tw, pw))
+
+    def gather(h):
+        def corner(df, dt, dp):
+            return h[fi + df, ti + dt, pi_ + dp]
+        h00 = corner(0, 0, 0) * (1 - pw) + corner(0, 0, 1) * pw
+        h01 = corner(0, 1, 0) * (1 - pw) + corner(0, 1, 1) * pw
+        h10 = corner(1, 0, 0) * (1 - pw) + corner(1, 0, 1) * pw
+        h11 = corner(1, 1, 0) * (1 - pw) + corner(1, 1, 1) * pw
+        h0 = h00 * (1 - tw) + h01 * tw
+        h1 = h10 * (1 - tw) + h11 * tw
+        return h0 * (1 - fw) + h1 * fw
+
+    out_of_band = (freqs < table.freqs[0]) | (freqs > table.freqs[-1])
+    out_dir = ((theta_a < table.thetas[0]) | (theta_a > table.thetas[-1])
+               | (phi_a < table.phis[0]) | (phi_a > table.phis[-1]))
+    out = out_of_band | out_dir[..., None]
+    return (torch.where(out, 0.0, gather(table.h_theta)),
+            torch.where(out, 0.0, gather(table.h_phi)))
+
+
+def table_vel(zenith, azimuth, rot, table: AntennaTable, freqs):
+    """On-sky VEL [..., F] from a tabulated pattern, including the
+    orientation rotation ``rot`` [3, 3] (antenna.py:270)."""
+    v_global = geometry.spherical_to_cartesian(zenith, azimuth)
+    v_ant = torch.einsum("ij,...j->...i", rot, v_global)
+    theta_a, phi_a = geometry.cartesian_to_spherical(v_ant)
+    # wrap phi into the grid's 2-pi window (antennapattern.py:1430-1434)
+    phi_a = table.phis[0] + torch.remainder(phi_a - table.phis[0], 2 * math.pi)
+
+    vt_raw, vp_raw = table_vel_raw(table, freqs, theta_a, phi_a)
+
+    B_out = geometry.onsky_basis(zenith, azimuth)
+    B_ant = geometry.onsky_basis(theta_a, phi_a)
+    M = B_out @ rot.transpose(-1, -2) @ B_ant.transpose(-1, -2)
+    vel_theta = M[..., 1, 1, None] * vt_raw + M[..., 1, 2, None] * vp_raw
+    vel_phi = M[..., 2, 1, None] * vt_raw + M[..., 2, 2, None] * vp_raw
+    return vel_theta, vel_phi
+
+
+def load_antenna_table(path: str) -> AntennaTable:
+    """Load a reference-format pickled antenna pattern (antenna.py:289).
+
+    The pickle (antennapattern.py:1315-1336) holds 9 lists:
+    [orientation_theta, orientation_phi, rotation_theta, rotation_phi,
+    ff, thetas, phis, H_phi, H_theta] (H_PHI before H_THETA) with flat
+    index iFreq*n_theta*n_phi + iPhi*n_theta + iTheta, a (freq, PHI, THETA)
+    layout. The leaves are numpy arrays.
+    """
+    import pickle
+
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    if len(data) != 9:
+        raise ValueError(
+            f"unexpected antenna pickle format: {len(data)} entries "
+            "(the reference format has 9, antennapattern.py:1315-1336)")
+    (ori_theta, ori_phi, rot_theta, rot_phi,
+     ff, thetas, phis, h_phi, h_theta) = data
+    f_u = np.unique(ff)
+    t_u = np.unique(thetas)
+    p_u = np.unique(phis)
+    shape = (len(f_u), len(p_u), len(t_u))        # [freq][phi][theta]
+
+    def grid(h):
+        return np.transpose(np.reshape(np.asarray(h), shape), (0, 2, 1))
+
+    return AntennaTable(
+        freqs=f_u, thetas=t_u, phis=p_u, h_theta=grid(h_theta), h_phi=grid(h_phi),
+        orientation=(float(ori_theta), float(ori_phi), float(rot_theta), float(rot_phi)))

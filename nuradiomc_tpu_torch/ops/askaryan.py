@@ -11,7 +11,8 @@ the reference's time trace is a linear phase, so the spectrum matches
 with k = N // 2 (the window centre) for the Alvarez models and k = 2 ns / dt
 for ZHS1992. Alvarez2009's stochastic EM parameter ``k_L`` is an input, drawn
 per shower on the host by :func:`draw_alvarez2009_k_L` (numpy, a copy of the
-JAX package's). The ARZ models are not ported yet and raise.
+JAX package's). The semi-analytic ARZ models live in ``ops/arz.py`` and
+HCRB2017 in ``ops/hcrb2017.py``; their names raise here.
 """
 
 from __future__ import annotations
@@ -166,8 +167,8 @@ def get_frequency_spectrum(energy, theta, N: int, dt: float, is_em, n_index,
         S = spectrum_alvarez2009(energy, theta, N, dt, is_em, n_index, R, k_L)
     else:
         raise NotImplementedError(
-            f"Askaryan model {model} is not ported yet (ROADMAP queue 1 "
-            "item 6, emitter / ARZ / HCRB / tabulated antennas)")
+            f"Askaryan model {model} is not a parametrized spectrum of this module "
+            "(ARZ2019 / ARZ2020: ops/arz.py; HCRB2017: ops/hcrb2017.py)")
     ff = _freqs(N, dt, theta)
     ctype = torch.complex128 if S.dtype == torch.float64 else torch.complex64
     # 90 deg phase + roll to the window centre + sqrt(2) rFFT normalization

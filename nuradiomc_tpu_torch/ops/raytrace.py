@@ -9,8 +9,10 @@ batch axes: the JAX package's ``vmap`` over flattened pairs is a batch
 dimension here, and each fixed-count ``fori_loop`` is a fixed-count Python
 loop. ``focusing_dtheta_dz`` gives the implicit-mode focusing derivative.
 The numeric focusing re-solve is ``find_solutions`` at a displaced receiver
-(``sim/pipeline.py``). Bottom reflections (``find_solutions_all``) and the
-ice-to-air solver are not ported yet (ROADMAP queue 1 items 5 and 8).
+(``sim/pipeline.py``). ``find_solutions_all`` adds the bottom-reflection
+slots of a reflective-bottom ice (Moore's Bay), with their closed-form
+observables and the per-slot attenuation ``attenuation_factor_slots``. The
+ice-to-air solver is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -440,22 +442,242 @@ def attenuation_factor(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple,
                        quadrature: str = "midpoint"):
     """exp(-int ds / L_att(z, f)) along the path, per frequency
     (raytrace.py:819): the inputs broadcast elementwise, the result is
-    [..., F]. Only SP1 is ported."""
-    if model != "SP1":
-        raise NotImplementedError(
-            f"attenuation model {model} is not ported yet (ROADMAP queue 1 "
-            "item 8, the rest)")
+    [..., F]. SP1 goes through the moment-factored quadrature, every other
+    model through one t-substituted integral per branch."""
     c0, x1y, x1z, x2y, x2z = torch.broadcast_tensors(c0, x1y, x1z, x2y, x2z)
     _, z_turn = _turning_point(c0, ice)
     sol = _solution_type(c0, x1y, x1z, x2y, x2z, ice)
     z_top = torch.where(sol == SOL_REFLECTED, 0.0, z_turn)
     direct = sol == SOL_DIRECT
     qt, qw = _quad_nodes(n_steps, quadrature)
+    # direct rays: one branch [z1, z2]; else [z1, z_top] up and [z2, z_top]
+    # down (zero length for direct rays)
     z_end = torch.where(direct, x2z, z_top)
-    up_lo, up_hi = _sp1_branch_moments(c0, ice, qt, qw, x1z, z_end)
-    dn_lo, dn_hi = _sp1_branch_moments(c0, ice, qt, qw, x2z, z_end)
-    return _sp1_attenuation_from_moments(up_lo + dn_lo, up_hi + dn_hi,
-                                         frequencies, c0.dtype)
+    if model == "SP1":
+        up_lo, up_hi = _sp1_branch_moments(c0, ice, qt, qw, x1z, z_end)
+        dn_lo, dn_hi = _sp1_branch_moments(c0, ice, qt, qw, x2z, z_end)
+        return _sp1_attenuation_from_moments(up_lo + dn_lo, up_hi + dn_hi,
+                                             frequencies, c0.dtype)
+    exp_up = _leg_integral(c0, z_end, x1z, ice, frequencies, model, qt, qw)
+    exp_down = _leg_integral(c0, z_end, x2z, ice, frequencies, model, qt, qw)
+    return torch.exp(-(exp_up + exp_down))
+
+
+# ---- bottom-reflection paths (raytrace.py:362-613) --------------------------
+# every observable of a path with r bottom bounces is
+#   A f(z_turn) + B f(z_bottom) + C f(z1) + D f(z2)
+# with f the observable's antiderivative and integer coefficients that depend
+# only on (r, reflection case, final-leg branch)
+
+def _path_coeffs(r: int, case: int, mirror: bool):
+    """(A, B, C, D) coefficients of the segment decomposition."""
+    A = 2 * r - 2 * (case == 2) + 2 * int(mirror)
+    B = -2 * r
+    C = -1 if case == 1 else 1
+    D = -1 if mirror else 1
+    return A, B, C, D
+
+
+def _refl_depth(ice: IceModelSimple, like):
+    zb = ice.refl_z if ice.refl_z is not None else 0.0
+    return torch.as_tensor(zb, dtype=like.dtype, device=like.device)
+
+
+def _advance_general(logc0, x1z, x2z, ice: IceModelSimple, r: int, case: int,
+                     mirror: bool):
+    """Total horizontal advance of an r-bounce path."""
+    c0 = _c0_from_log(logc0, ice.n_ice)
+    _, z_turn = _turning_point(c0, ice)
+    A, B, C, D = _path_coeffs(r, case, mirror)
+    return (A * _w_up(z_turn, c0, ice) + B * _w_up(_refl_depth(ice, c0), c0, ice)
+            + C * _w_up(x1z, c0, ice) + D * _w_up(x2z, c0, ice))
+
+
+def _solve_reflection_roots(x1y, x1z, x2y, x2z, ice: IceModelSimple,
+                            r: int, case: int, n_bisect: int):
+    """Roots (direct final leg, mirror final leg) of an r-bounce path:
+    (logc0 [..., 2], valid [..., 2], is_mirror [..., 2]). Near the shadow
+    boundary both solutions can sit on the mirror branch; slot 0 then
+    carries a mirror root and is_mirror[..., 0] is True."""
+    dy_target = x2y - x1y
+    eps = 1e-12 if x1y.dtype == torch.float64 else 1e-5
+    lo0 = _logc0_min(x2z, ice) + eps
+    hi0 = torch.full_like(lo0, _LOGC0_HI)
+
+    def f_direct(lg):
+        return dy_target - _advance_general(lg, x1z, x2z, ice, r, case, False)
+
+    def f_mirror(lg):
+        return dy_target - _advance_general(lg, x1z, x2z, ice, r, case, True)
+
+    root0, valid0, mirror0, root1, valid1 = _solve_branch_pair(
+        f_direct, f_mirror, lo0, hi0, n_bisect)
+    return (torch.stack([root0, root1], dim=-1), torch.stack([valid0, valid1], dim=-1),
+            torch.stack([mirror0, torch.ones_like(mirror0)], dim=-1))
+
+
+def _bouma_s(c0, x1z, ice: IceModelSimple):
+    """The Bouma path-length antiderivative s(z) of the ray (c0, x1z)."""
+    beta, alpha = _bouma_beta_alpha(c0, x1z, ice)
+
+    def s_of(z):
+        nz = _n_z(z, ice)
+        gam = torch.clamp(nz ** 2 - beta ** 2, min=0.0)
+        l1 = torch.sqrt(alpha * gam) + ice.n_ice * nz - beta ** 2
+        l2 = torch.sqrt(gam) + nz
+        return (ice.n_ice / torch.sqrt(alpha) * (z - ice.z_0 * torch.log(l1))
+                + ice.z_0 * torch.log(l2))
+    return s_of
+
+
+def _bouma_ct(c0, x1z, ice: IceModelSimple):
+    """The Bouma travel-time antiderivative c t(z) of the ray (c0, x1z)."""
+    beta, alpha = _bouma_beta_alpha(c0, x1z, ice)
+
+    def ct_of(z):
+        nz = _n_z(z, ice)
+        gam = torch.clamp(nz ** 2 - beta ** 2, min=0.0)
+        l1 = torch.sqrt(alpha * gam) + ice.n_ice * nz - beta ** 2
+        l2 = torch.sqrt(gam) + nz
+        return (ice.z_0 * (torch.sqrt(gam)
+                           - ice.n_ice ** 2 / torch.sqrt(alpha) * torch.log(l1)
+                           + ice.n_ice * torch.log(l2))
+                + ice.n_ice ** 2 * z / torch.sqrt(alpha))
+    return ct_of
+
+
+def _general_sum(f, c0, x1z, x2z, ice: IceModelSimple, r, case, mirror):
+    _, z_turn = _turning_point(c0, ice)
+    A, B, C, D = _path_coeffs(r, case, mirror)
+    return A * f(z_turn) + B * f(_refl_depth(ice, c0)) + C * f(x1z) + D * f(x2z)
+
+
+def path_length_general(c0, x1z, x2z, ice: IceModelSimple, r, case, mirror):
+    """Closed-form path length of an r-bounce path (raytrace.py:419)."""
+    return _general_sum(_bouma_s(c0, x1z, ice), c0, x1z, x2z, ice, r, case, mirror)
+
+
+def travel_time_general(c0, x1z, x2z, ice: IceModelSimple, r, case, mirror):
+    """Closed-form travel time of an r-bounce path (raytrace.py:436)."""
+    return _general_sum(_bouma_ct(c0, x1z, ice), c0, x1z, x2z, ice, r, case,
+                        mirror) / speed_of_light
+
+
+def launch_angle_general(c0, x1z, ice: IceModelSimple, case):
+    """Launch zenith; case 2 paths start downward (pi - upward angle)."""
+    up = torch.atan(_dy_dz(x1z, c0, ice))
+    return math.pi - up if case == 2 else up
+
+
+def receive_angle_general(c0, x2z, ice: IceModelSimple, mirror: bool):
+    """Receive zenith from the final-leg branch (up-going unless mirrored)."""
+    ang = torch.atan(_dy_dz(x2z, c0, ice))
+    ang = math.pi - ang if mirror else ang
+    return math.pi - ang
+
+
+def surface_touches(r: int, case: int, mirror: bool, z_turn):
+    """Number of surface reflections of the path (Fresnel factor count)."""
+    n = (r if case == 1 else r - 1) + int(mirror)
+    return torch.where(z_turn >= 0, n, 0)
+
+
+def _leg_integral(c0, z_turn, z_start, ice: IceModelSimple, frequencies, model, qt, qw):
+    """I(z_start) = int_{z_start}^{z_turn} ds / L by the t-substitution
+    z = z_turn - t^2, [..., F] (``I_of`` of raytrace.py:483, :515)."""
+    qt = torch.as_tensor(qt, dtype=c0.dtype, device=c0.device)
+    qw = torch.as_tensor(qw, dtype=c0.dtype, device=c0.device)
+    T = torch.sqrt(torch.clamp(z_turn - z_start, min=0.0))[..., None]
+    t = qt * T
+    z = z_turn[..., None] - t ** 2
+    nz = _n_z(z, ice)
+    arg = torch.clamp(_arg_stable(z, c0[..., None], ice), min=1e-20)
+    ds_dt = 2.0 * t * c0[..., None] * nz / torch.sqrt(arg)
+    inv_L = attenuation_ops.inv_length_factored(z, frequencies, model)   # [..., Q, F]
+    return torch.sum((qw * ds_dt)[..., None] * inv_L, dim=-2) * T
+
+
+def attenuation_factor_general(c0, x1z, x2z, ice: IceModelSimple, frequencies,
+                               model: str, r, case, mirror, n_steps: int = 64,
+                               quadrature: str = "midpoint"):
+    """Attenuation of an r-bounce path (raytrace.py:472): exponent =
+    c1 I(z1) + cb I(zb) + c2 I(z2), I(z) = int_z^{z_turn} ds / L."""
+    c0, x1z, x2z = torch.broadcast_tensors(c0, x1z, x2z)
+    _, z_turn = _turning_point(c0, ice)
+    qt, qw = _quad_nodes(n_steps, quadrature)
+
+    def I_of(z_start):
+        return _leg_integral(c0, z_turn, z_start, ice, frequencies, model, qt, qw)
+
+    c1 = 1.0 if case == 1 else -1.0
+    cb = 2.0 * r
+    c2 = 1.0 if mirror else -1.0
+    zb = _refl_depth(ice, c0).expand(c0.shape)
+    return torch.exp(-(c1 * I_of(x1z) + cb * I_of(zb) + c2 * I_of(x2z)))
+
+
+def attenuation_factor_slots(c0, sol_type, reflection, refl_case, x1z, x2z,
+                             ice: IceModelSimple, frequencies, model: str,
+                             n_steps: int = 64, quadrature: str = "gauss"):
+    """``attenuation_factor_general`` with per-slot (r, case, mirror) tensors:
+    one code path over all 2 + 4 n_reflections slots of
+    ``find_solutions_all``, r = 0 included (raytrace.py:501). mirror is
+    sol_type != direct, case the stored refl_case. The bottom leg is
+    evaluated for every slot and weighted by cb = 2 r (0 where there is no
+    bounce: every leg integral is finite, so the sum holds no NaN)."""
+    c0, sol_type, reflection, refl_case, x1z, x2z = torch.broadcast_tensors(
+        c0, sol_type, reflection, refl_case, x1z, x2z)
+    _, z_turn = _turning_point(c0, ice)
+    qt, qw = _quad_nodes(n_steps, quadrature)
+
+    def I_of(z_start):
+        return _leg_integral(c0, z_turn, z_start, ice, frequencies, model, qt, qw)
+
+    one = torch.ones((), dtype=c0.dtype, device=c0.device)
+    c1 = torch.where(refl_case == 1, one, -one)[..., None]
+    cb = (2.0 * reflection.to(c0.dtype))[..., None]
+    c2 = torch.where(sol_type != SOL_DIRECT, one, -one)[..., None]
+    zb = _refl_depth(ice, c0).expand(c0.shape)
+    return torch.exp(-(c1 * I_of(x1z) + cb * I_of(zb) + c2 * I_of(x2z)))
+
+
+def find_solutions_all(x1y, x1z, x2y, x2z, ice: IceModelSimple,
+                       n_reflections: int = 0, n_bisect: int = 96) -> RaySolutions:
+    """All solutions including bottom reflections, batched over the leading
+    axes: 2 + 4 n_reflections slots (last axis) ordered
+    [r=0 x2, (r=1, case 1) x2, (r=1, case 2) x2, ...] (raytrace.py:570). The
+    bounce slots keep the solver's order (root of the direct-or-low-mirror
+    branch, then the high mirror root); ``sol_type`` is 0 where invalid."""
+    base = find_solutions(x1y, x1z, x2y, x2z, ice, n_bisect)
+    if n_reflections == 0:
+        return base
+    if ice.refl_z is None:
+        raise ValueError("n_reflections > 0 requires an ice model with a reflective bottom")
+    a, b, d = (x[..., None] for x in (x1y, x1z, x2z))
+    parts = [base]
+    for r in range(1, n_reflections + 1):
+        for case in (1, 2):
+            logc0, valid, mk = _solve_reflection_roots(
+                x1y, x1z, x2y, x2z, ice, r, case, n_bisect)
+            c0 = _c0_from_log(logc0, ice.n_ice)
+            _, z_turn = _turning_point(c0, ice)
+            one = torch.ones_like(c0, dtype=torch.int32)
+            sol_type = torch.where(
+                mk, torch.where(z_turn >= 0, one * SOL_REFLECTED, one * SOL_REFRACTED),
+                one * SOL_DIRECT)
+
+            def pick(fn):
+                return torch.where(mk, fn(True), fn(False))
+
+            parts.append(RaySolutions(
+                c0=c0, c1=_c1_of(a, b, c0, ice), mask=valid,
+                sol_type=torch.where(valid, sol_type, torch.zeros_like(sol_type)),
+                launch_angle=launch_angle_general(c0, b, ice, case),
+                receive_angle=pick(lambda m: receive_angle_general(c0, d, ice, m)),
+                path_length=pick(lambda m: path_length_general(c0, b, d, ice, r, case, m)),
+                travel_time=pick(lambda m: travel_time_general(c0, b, d, ice, r, case, m)),
+                reflection=one * r, refl_case=one * case))
+    return RaySolutions(*(torch.cat(xs, dim=-1) for xs in zip(*parts)))
 
 
 def to_2d(x1, x2) -> Geometry2D:

@@ -33,6 +33,11 @@ INPUT_GEN2 = DATA_DIR / "gen2_taus_2048_seed21.npz"
 # the export of tests/golden/pa_noiseless_input.hdf5 (the 1e18 eV input with
 # its Alvarez2009 k_L realizations pinned: the multi-trigger golden's input)
 INPUT_PA_NOISELESS = DATA_DIR / "pa_noiseless_input.npz"
+# the exports of tests/golden/emitter_events.hdf5 (24 pulser positions,
+# efield_delta_pulse) and emitter_voltage_events.hdf5 (the measured hvsp1
+# waveform through an emitting antenna)
+INPUT_EMITTER_EFIELD = DATA_DIR / "emitter_events.npz"
+INPUT_EMITTER_VOLTAGE = DATA_DIR / "emitter_voltage_events.npz"
 
 _ARRAYS = [f.name for f in dataclasses.fields(EventInput)
            if f.name not in ("attrs", "emitter")]
@@ -57,9 +62,32 @@ def read_input_npz(path) -> EventInput:
     return EventInput(**cols, attrs=attrs, emitter=emitter or None)
 
 
+def select(inp: EventInput, group_ids) -> EventInput:
+    """The showers of the event groups ``group_ids`` of ``inp``, with
+    ``n_events`` scaled to the kept share of groups."""
+    ids = np.unique(inp.event_group_ids)
+    keep = np.isin(inp.event_group_ids, group_ids)
+    n_kept = len(np.unique(np.asarray(inp.event_group_ids)[keep]))
+    cut = {name: None if getattr(inp, name) is None else np.asarray(getattr(inp, name))[keep]
+           for name in _ARRAYS}
+    attrs = dict(inp.attrs)
+    if "n_events" in attrs and n_kept < len(ids):
+        attrs["n_events"] = int(round(int(attrs["n_events"]) * n_kept / len(ids)))
+    emitter = (None if inp.emitter is None
+               else {k: np.asarray(v)[keep] for k, v in inp.emitter.items()})
+    return EventInput(**cut, attrs=attrs, emitter=emitter)
+
+
+def head(inp: EventInput, n_groups: int) -> EventInput:
+    """The first ``n_groups`` event groups of ``inp``, in the order of their ids."""
+    return select(inp, np.unique(inp.event_group_ids)[:n_groups])
+
+
 def read_input(path) -> EventInput:
     """An ``.npz`` export without h5py; any other file through the HDF5
-    reader (needs h5py)."""
+    reader (needs h5py). An ``EventInput`` made in memory passes through."""
+    if isinstance(path, EventInput):
+        return path
     if str(path).endswith(".npz"):
         return read_input_npz(path)
     return io_hdf5.read_input_hdf5(path)

@@ -2,20 +2,26 @@
 
 Counterpart of ``nuradiomc_tpu/sim/pipeline.py::simulate_batch`` on the paths
 of the dipole effective-volume run, the phased-array run, the Gen2 composed
-run and the multi-trigger station (pipeline.py:541-632, :679-1160,
-:1174-1553 without bottom reflections). One call runs the whole chain over a
-padded batch [group G x shower S x channel C x ray 2] with validity masks in
-place of early exits:
+run, the multi-trigger station, the reflective-bottom (Moore's Bay) run,
+emitter (pulser) runs, tabulated antennas and the ARZ shower model
+(pipeline.py:541-632, :679-1160, :1174-1553). One call runs the whole chain
+over a padded batch [group G x shower S x channel C x ray R] (R = 2 + 4
+n_reflections solution slots) with validity masks in place of early exits:
 
-1. ray tracing                      (ops.raytrace)
-2. viewing angle and delta_C cut
-3. ZHS1992 / Alvarez2000 / Alvarez2009 spectra (ops.askaryan)
-4. polarization, Fresnel and focusing factors, analytic VEL mix: folded into
-   one complex scalar per (shower, channel, ray) on the factored chain; on
-   the non-factored chain (birefringence or ``keep_efields``) the efield
+1. ray tracing                      (ops.raytrace; with bottom reflections
+   ``find_solutions_all``)
+2. viewing angle and delta_C cut (no cut for emitters)
+3. ZHS1992 / Alvarez2000 / Alvarez2009 spectra (ops.askaryan), the ARZ
+   semi-analytic trace's eTheta spectrum (ops.arz), or in emitter mode the
+   pulser's spectrum (ops.emitter), folded with the emitting antenna
+4. polarization, Fresnel (one factor per surface touch), bottom-bounce and
+   focusing factors, analytic VEL mix: folded into one complex scalar per
+   (shower, channel, ray) on the factored chain; on the non-factored chain
+   (birefringence, ``keep_efields``, emitters, tabulated antennas) the efield
    (eTheta, ePhi) spectra are materialized and, with birefringence,
    propagated through the ice's eigenbasis (ops.birefringence)
-5. SP1 attenuation on a sparse frequency grid
+5. attenuation on a sparse frequency grid (SP1 by moments; any model and
+   every bounce slot through ``attenuation_factor_slots``)
 6. per-solution Hilbert-envelope maxima and the candidate cut
 7. placement on the common time base + (shower, ray) reduction
    (ops.placement: kernel 1 on the factored chain, kernel 4 on the
@@ -51,12 +57,14 @@ import numpy as np
 import torch
 
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
-from nuradiomc_tpu_torch.ops import (antenna, askaryan, birefringence,
+from nuradiomc_tpu_torch.ops import (antenna, arz as arz_ops, askaryan, birefringence,
+                                     emitter as emitter_ops,
                                      noise as noise_ops, pa_trigger, phased_array,
                                      placement, raytrace, trace as trace_ops,
                                      trigger_fused)
 from nuradiomc_tpu_torch.ops import fft_plan
 from nuradiomc_tpu_torch.utils import fft, geometry
+from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +169,40 @@ class ChannelParams(NamedTuple):
     noise_amplitude: torch.Tensor     # [C]
     min_efield_amplitude: torch.Tensor  # [C]; all <= 0 disables the cut
     trigger_filter_response: Optional[torch.Tensor] = None
-    antenna_table: Optional[object] = None
+    # tabulated antenna patterns: the VEL comes from trilinear interpolation
+    # of the grids per direction; ``templates`` / ``kind`` are ignored
+    antenna_table: Optional["AntennaTableParams"] = None
+
+
+class AntennaTableParams(NamedTuple):
+    """Per-channel stacked tabulated antenna grids on a common grid
+    (pipeline.py:267); h_* are [C, F0, T, P] complex."""
+
+    freqs: torch.Tensor     # (F0,)
+    thetas: torch.Tensor    # (T,)
+    phis: torch.Tensor      # (P,)
+    h_theta: torch.Tensor   # (C, F0, T, P)
+    h_phi: torch.Tensor     # (C, F0, T, P)
+
+
+class EmitterParams(NamedTuple):
+    """Static parameters of an artificial emitter run, one emitter antenna
+    model per batch (pipeline.py:514). In emitter mode the ShowerBatch is
+    read anew: ``vertices`` are emitter positions, ``energies`` the pulser
+    amplitudes, ``k_L`` the emitter frequency (cw / tone_burst) and
+    ``vertex_times`` the emitter times."""
+
+    model: str                 # emitter signal model (ops.emitter)
+    templates: torch.Tensor    # [3, F_int] emitting-antenna VEL templates
+    rot: torch.Tensor          # [3, 3]
+    kind: int
+    half_width: float = 5.0
+    # measured-waveform models: the unit-amplitude voltage spectrum [F_int]
+    unit_spec: Optional[torch.Tensor] = None
+    # efield_idl1_spice: measured per-launch-angle (eTheta, ePhi) unit
+    # spectra, angles [A] ascending (rad) and specs [A, 2, F_int]
+    spice_angles: Optional[torch.Tensor] = None
+    spice_specs: Optional[torch.Tensor] = None
 
 
 class ShowerBatch(NamedTuple):
@@ -280,28 +321,25 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
-_ITEM_REFLECTIONS = "5, Moore's Bay reflections"
-_ITEM_NON_FACTORED = "6, emitter / ARZ / HCRB / tabulated antennas"
 _ITEM_REST = "8, the rest"
+_ASKARYAN_MODELS = ("ZHS1992", "Alvarez2000", "Alvarez2009", "ARZ2019", "ARZ2020")
 
 
 def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                  keep_traces, emitter, arz_library):
     if s.apply_focusing and s.focusing_mode not in ("implicit", "numeric"):
         raise ValueError(f"focusing_mode must be 'implicit' or 'numeric', got {s.focusing_mode!r}")
-    if emitter is not None:
-        _not_ported("emitter mode", _ITEM_NON_FACTORED)
-    if arz_library is not None or s.askaryan_model not in ("ZHS1992", "Alvarez2000",
-                                                            "Alvarez2009"):
-        _not_ported(f"Askaryan model {s.askaryan_model}", _ITEM_NON_FACTORED)
-    if s.n_reflections > 0:
-        _not_ported("bottom reflections", _ITEM_REFLECTIONS)
-    if ch.antenna_table is not None:
-        _not_ported("tabulated antennas", _ITEM_NON_FACTORED)
+    if emitter is None and s.askaryan_model not in _ASKARYAN_MODELS:
+        raise NotImplementedError(
+            f"Askaryan model {s.askaryan_model} is not implemented in the pipeline; "
+            f"available: {_ASKARYAN_MODELS}")
+    if (emitter is None and s.askaryan_model.startswith("ARZ")
+            and (arz_library is None or batch.profile_idx is None)):
+        raise ValueError("ARZ models require arz_library and batch.profile_idx")
+    if s.n_reflections > 0 and s.ice.refl_z is None:
+        raise ValueError("n_reflections > 0 requires an ice model with a reflective bottom")
     if keep_traces:
         _not_ported("keep_traces (the .nur writer's traces)", _ITEM_REST)
-    if s.attenuation_model != "SP1":
-        _not_ported(f"attenuation model {s.attenuation_model}", _ITEM_REST)
     if s.placement_impl not in ("kernel", "plain") or s.trigger_impl not in ("kernel", "plain"):
         raise ValueError("placement_impl / trigger_impl must be 'kernel' or 'plain'")
 
@@ -470,6 +508,50 @@ def _birefringence(e_theta, e_phi, valid, geom: raytrace.Geometry2D, c0, ff_int,
             e_phi.reshape(-1, F).index_copy(0, sel, bp).reshape(e_phi.shape))
 
 
+def _emitter_efields(emitter: EmitterParams, batch: ShowerBatch, launch, R_safe, n_vertex,
+                     ff_int, s: PipelineSettings, bshape):
+    """(eTheta, ePhi) spectra [G, S, C, R, F] at the receiver of an emitter
+    run, before the propagation effects (pipeline.py:825-892)."""
+    dt = s.dt
+    amp = batch.energies[:, :, None, None]
+    if emitter.model == "efield_idl1_spice":
+        # measured SPICE pulser efields keyed by launch zenith: the
+        # nearest-angle unit spectrum per path, scaled by the amplitude;
+        # only the 1/R spreading applies (an efield model: no antenna)
+        zen_sp, _ = geometry.cartesian_to_spherical(launch)
+        idx = torch.argmin(torch.abs(zen_sp[..., None] - emitter.spice_angles), dim=-1)
+        sp = emitter.spice_specs[idx]                              # [G,S,C,R,2,F]
+        return (amp[..., None] * sp[..., 0, :] / R_safe[..., None],
+                amp[..., None] * sp[..., 1, :] / R_safe[..., None])
+    if emitter.model.startswith("efield_"):
+        # efield models give (eR, eTheta, ePhi) directly: no emitting
+        # antenna, no -i f n / c factor
+        pol = (batch.emitter_polarization if batch.emitter_polarization is not None
+               else torch.full_like(batch.energies, 0.5))
+        spec3 = emitter_ops.get_frequency_spectrum(
+            amp.expand(bshape), s.n_internal, dt, emitter.model,
+            polarization=pol[:, :, None, None].expand(bshape),
+            half_width=emitter.half_width)                         # [G,S,C,R,3,F]
+        return spec3[..., 1, :] / R_safe[..., None], spec3[..., 2, :] / R_safe[..., None]
+    # voltage models: the pulser's voltage spectrum folded with the emitting
+    # antenna's VEL at the launch direction,
+    # E = VEL (-i) V(f) f n / c / R (simulation.py:401-424)
+    if emitter.unit_spec is not None:
+        # a measured waveform: amplitude times the unit spectrum
+        vspec = (amp[..., None] * emitter.unit_spec).expand(*bshape, -1)
+    else:
+        vspec = emitter_ops.get_frequency_spectrum(
+            amp.expand(bshape), s.n_internal, dt, emitter.model,
+            emitter_frequency=batch.k_L[:, :, None, None].expand(bshape),
+            half_width=emitter.half_width)
+    zen_l, az_l = geometry.cartesian_to_spherical(launch)
+    vel_t, vel_p = antenna.analytic_vel(zen_l, az_l, emitter.rot, emitter.templates,
+                                        emitter.kind)
+    deriv = (-1j) * ff_int * n_vertex[:, :, None, None, None] / speed_of_light
+    return (vel_t * vspec * deriv / R_safe[..., None],
+            vel_p * vspec * deriv / R_safe[..., None])
+
+
 def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                    noise_generator: Optional[torch.Generator] = None,
                    keep_traces: bool = False, keep_efields: bool = False,
@@ -496,8 +578,13 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     x1 = batch.vertices[:, :, None, :].expand(G, S, C, 3)
     x2 = ch.positions[None, None, :, :].expand(G, S, C, 3)
     geom = raytrace.to_2d(x1, x2)
-    sols = raytrace.find_solutions(geom.x1y, geom.x1z, geom.x2y, geom.x2z,
-                                   s.ice, n_bisect=s.n_bisect)
+    def solve(x1z, x2z):
+        # with bottom reflections: 2 + 4 n_reflections slots
+        return raytrace.find_solutions_all(geom.x1y, x1z, geom.x2y, x2z, s.ice,
+                                           n_reflections=s.n_reflections,
+                                           n_bisect=s.n_bisect)
+
+    sols = solve(geom.x1z, geom.x2z)
     n_rays = sols.c0.shape[-1]
     bshape = (G, S, C, n_rays)
     launch, receive = raytrace.launch_receive_vectors(geom, sols)
@@ -525,29 +612,60 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
             batch.vertices[:, :, None, :] - ch.positions[None, None, :, :], dim=-1)
         sol_mask = sol_mask & (dist <= d_max[:, :, None])[..., None]
 
-    valid = (sol_mask & (torch.abs(delta_C) <= s.delta_C_cut)
-             & batch.shower_mask[:, :, None, None])                 # [G,S,C,2]
-
-    # ---- 3. Askaryan spectra [G, S, C, 2, F] -------------------------------
-    spec = askaryan.get_frequency_spectrum(
-        batch.energies[:, :, None, None].expand(bshape), viewing_angle,
-        s.n_internal, dt, batch.is_em[:, :, None, None].expand(bshape),
-        n_vertex[:, :, None, None].expand(bshape), R_safe, s.askaryan_model,
-        k_L=batch.k_L[:, :, None, None].expand(bshape))
-
-    # ---- 4. polarization on-sky at the vertex ------------------------------
-    axis = batch.prop_dir[:, :, None, None, :].expand(*bshape, 3)
-    pol = torch.linalg.cross(launch, torch.linalg.cross(axis, launch, dim=-1), dim=-1)
-    pol = pol / torch.clamp(torch.linalg.vector_norm(pol, dim=-1, keepdim=True), min=1e-30)
-    zen_l, az_l = geometry.cartesian_to_spherical(launch)
-    pol_onsky = geometry.ground_to_onsky(pol, zen_l, az_l)
     # the scalar propagation factors fold into one complex scalar per path
     # unless the efield must be materialized: birefringence mixes the two
-    # polarizations segment by segment, keep_efields returns them
-    factored = not (s.birefringence or keep_efields)
-    if not factored:
-        e_theta = pol_onsky[..., 1:2] * spec                   # [G,S,C,2,F]
-        e_phi = pol_onsky[..., 2:3] * spec
+    # polarizations segment by segment, keep_efields returns them, an
+    # emitter's efield has its own components, and a tabulated VEL depends on
+    # the frequency per direction (pipeline.py:750-754)
+    factored = (emitter is None and not s.birefringence and not keep_efields
+                and ch.antenna_table is None)
+
+    def per_pair(x):
+        return x[:, :, None, None].expand(bshape)
+
+    if emitter is None:
+        valid = (sol_mask & (torch.abs(delta_C) <= s.delta_C_cut)
+                 & batch.shower_mask[:, :, None, None])                 # [G,S,C,R]
+
+        # ---- 3. Askaryan spectra [G, S, C, R, F] ---------------------------
+        if s.askaryan_model in ("ARZ2019", "ARZ2020"):
+            # the eTheta component of the semi-analytic trace as a scalar
+            # spectrum (pipeline.py:761-788), for the valid pairs only: the
+            # others are masked out of everything downstream
+            sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
+
+            def picked(x):
+                return x.reshape(-1)[sel]
+
+            lib = arz_library.to(dev, real_dtype)
+            spec = torch.zeros((valid.numel(), ff_int.shape[0]), dtype=ctype, device=dev)
+            spec[sel] = arz_ops.get_frequency_spectrum(
+                picked(per_pair(batch.energies)), picked(viewing_angle), s.n_internal, dt,
+                lib, picked(per_pair(batch.is_em)), picked(per_pair(n_vertex)),
+                picked(R_safe), picked(per_pair(batch.profile_idx)),
+                version=s.askaryan_model)
+            spec = spec.reshape(*bshape, -1)
+        else:
+            spec = askaryan.get_frequency_spectrum(
+                per_pair(batch.energies), viewing_angle, s.n_internal, dt,
+                per_pair(batch.is_em), per_pair(n_vertex), R_safe, s.askaryan_model,
+                k_L=per_pair(batch.k_L))
+
+        # ---- 4. polarization on-sky at the vertex --------------------------
+        axis = batch.prop_dir[:, :, None, None, :].expand(*bshape, 3)
+        pol = torch.linalg.cross(launch, torch.linalg.cross(axis, launch, dim=-1), dim=-1)
+        pol = pol / torch.clamp(torch.linalg.vector_norm(pol, dim=-1, keepdim=True), min=1e-30)
+        zen_l, az_l = geometry.cartesian_to_spherical(launch)
+        pol_onsky = geometry.ground_to_onsky(pol, zen_l, az_l)
+        if not factored:
+            e_theta = pol_onsky[..., 1:2] * spec                   # [G,S,C,R,F]
+            e_phi = pol_onsky[..., 2:3] * spec
+    else:
+        # ---- 3'. emitter mode (pipeline.py:825-892): no delta_C cut ---------
+        valid = sol_mask & batch.shower_mask[:, :, None, None]
+        e_theta, e_phi = _emitter_efields(emitter, batch, launch, R_safe, n_vertex, ff_int,
+                                          s, bshape)
+        pol_onsky = torch.zeros((*bshape, 3), dtype=real_dtype, device=dev)
 
     # ---- 5. SP1 attenuation on the sparse grid -----------------------------
     F_int = ff_int.shape[0]
@@ -555,11 +673,20 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         sparse_np = _attenuation_freq_grid(tuple(ff_int_np), s.n_freq_attenuation,
                                            s.max_detector_freq)
         sparse = torch.as_tensor(sparse_np, dtype=real_dtype, device=dev)
-        att_vals = raytrace.attenuation_factor(
-            sols.c0, geom.x1y[..., None], geom.x1z[..., None],
-            geom.x2y[..., None], geom.x2z[..., None], s.ice, sparse,
-            s.attenuation_model, n_steps=s.attenuation_steps,
-            quadrature=s.attenuation_quadrature)                  # [G,S,C,2,ns]
+        if s.n_reflections > 0:
+            # one code path with per-slot (r, case, mirror) for the base and
+            # the bounce slots, SP1 included (pipeline.py:464-482)
+            att_vals = raytrace.attenuation_factor_slots(
+                sols.c0, sols.sol_type, sols.reflection, sols.refl_case,
+                geom.x1z[..., None], geom.x2z[..., None], s.ice, sparse,
+                s.attenuation_model, n_steps=s.attenuation_steps,
+                quadrature=s.attenuation_quadrature)
+        else:
+            att_vals = raytrace.attenuation_factor(
+                sols.c0, geom.x1y[..., None], geom.x1z[..., None],
+                geom.x2y[..., None], geom.x2z[..., None], s.ice, sparse,
+                s.attenuation_model, n_steps=s.attenuation_steps,
+                quadrature=s.attenuation_quadrature)              # [G,S,C,R,ns]
         att_W = torch.as_tensor(_interp_matrix(tuple(sparse_np), tuple(ff_int_np)),
                                 dtype=real_dtype, device=dev)
         att = torch.where(ff_int > 0, att_vals @ att_W, 1.0)
@@ -572,7 +699,8 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         # a unit attenuation keeps the kernel's contract: ones @ ones = 1
         att_vals = torch.ones((*bshape, 1), dtype=real_dtype, device=dev)
         att_W = torch.ones((1, F_int), dtype=real_dtype, device=dev)
-        spec_att = spec
+        if factored:
+            spec_att = spec
 
     # surface-reflection Fresnel factors, one per surface touch
     n_surf = s.ice.index_of_refraction(torch.tensor(-1e-5, dtype=real_dtype, device=dev))
@@ -583,8 +711,21 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     z_turn_slots = raytrace.turning_depth(sols.c0, s.ice)
     n_touch = raytrace.surface_touches_slots(sols.sol_type, sols.reflection,
                                              sols.refl_case, z_turn_slots)
-    a_p = torch.where(n_touch > 0, r_p, torch.ones_like(r_p))
-    a_s = torch.where(n_touch > 0, r_s, torch.ones_like(r_s))
+    a_p = torch.ones_like(r_p)
+    a_s = torch.ones_like(r_s)
+    # a bounce slot touches the surface up to n_reflections + 1 times; all
+    # touches of a slot share its C0, hence its angle (pipeline.py:928-932)
+    for k in range(s.n_reflections + 1):
+        a_p = torch.where(n_touch > k, a_p * r_p, a_p)
+        a_s = torch.where(n_touch > k, a_s * r_s, a_s)
+    if s.n_reflections > 0:
+        # bottom bounces: refl_coef exp(i phase) per bounce on both
+        # components (apply_propagation_effects:3004-3011)
+        b1 = complex(s.ice.refl_coef * np.exp(1j * s.ice.refl_phase_shift))
+        for k in range(s.n_reflections):
+            bounce = sols.reflection > k
+            a_p = torch.where(bounce, a_p * b1, a_p)
+            a_s = torch.where(bounce, a_s * b1, a_s)
     if not factored:
         e_theta = e_theta * a_p[..., None]
         e_phi = e_phi * a_s[..., None]
@@ -593,18 +734,20 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         # (pipeline.py:947-989)
         lau_ang = torch.arccos(torch.clamp(launch[..., 2], -1.0, 1.0))
         rec_ang = torch.arccos(torch.clamp(-receive[..., 2], -1.0, 1.0))
-        if s.focusing_mode == "implicit":
+        if s.focusing_mode == "implicit" and s.n_reflections == 0:
             # the exact dz -> 0 derivative at the solved root
             d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
             foc_valid = sols.mask
         else:
             # "numeric": the finite difference of a second solve with the
-            # receiver (the 2D x1 where the pair was swapped) moved by dz
+            # receiver (the 2D x1 where the pair was swapped) moved by dz.
+            # With bottom reflections always this one: the slot order of
+            # find_solutions_all is fixed, so the displaced problem's slots
+            # align one to one (pipeline.py:957-963)
             dz = s.focusing_dz
             x1z_d = torch.where(geom.swapped, geom.x1z + dz, geom.x1z)
             x2z_d = torch.where(geom.swapped, geom.x2z, geom.x2z + dz)
-            sols1 = raytrace.find_solutions(geom.x1y, x1z_d, geom.x2y, x2z_d,
-                                            s.ice, n_bisect=s.n_bisect)
+            sols1 = solve(x1z_d, x2z_d)
             launch1, _ = raytrace.launch_receive_vectors(
                 geom._replace(x1z=x1z_d, x2z=x2z_d), sols1)
             lau_ang1 = torch.arccos(torch.clamp(launch1[..., 2], -1.0, 1.0))
@@ -647,16 +790,28 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
 
     # ---- 6b. antenna response: mixing scalars + template gather ------------
     zen_r, az_r = geometry.cartesian_to_spherical(receive)
-    rot_b = ch.rot[None, None, :, None, :, :].expand(*bshape, 3, 3)
-    kind_b = ch.kind[None, None, :, None].expand(bshape)
-    mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b)
-    c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
-    T = ch.templates[c_idx, sector]                                    # [G,S,C,2,F]
-    if factored:
-        combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,2]
-        volt_spec = T * combined[..., None] * spec_att
+    if ch.antenna_table is not None:
+        # tabulated patterns: trilinear complex interpolation of the grids
+        # at every receive direction, channel by channel (pipeline.py:1048-1065)
+        tab = ch.antenna_table
+        vel = [antenna.table_vel(
+            zen_r[:, :, ci], az_r[:, :, ci], ch.rot[ci],
+            antenna.AntennaTable(freqs=tab.freqs, thetas=tab.thetas, phis=tab.phis,
+                                 h_theta=tab.h_theta[ci], h_phi=tab.h_phi[ci]), ff_int)
+            for ci in range(C)]
+        volt_spec = (torch.stack([v[0] for v in vel], dim=2) * e_theta
+                     + torch.stack([v[1] for v in vel], dim=2) * e_phi)
     else:
-        volt_spec = (T * mix_t[..., None]) * e_theta + (T * mix_p[..., None]) * e_phi
+        rot_b = ch.rot[None, None, :, None, :, :].expand(*bshape, 3, 3)
+        kind_b = ch.kind[None, None, :, None].expand(bshape)
+        mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b)
+        c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
+        T = ch.templates[c_idx, sector]                                # [G,S,C,R,F]
+        if factored:
+            combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,R]
+            volt_spec = T * combined[..., None] * spec_att
+        else:
+            volt_spec = (T * mix_t[..., None]) * e_theta + (T * mix_p[..., None]) * e_phi
 
     # per-solution Hilbert-envelope maximum after the filter chain
     volt_spec = torch.where(valid[..., None], volt_spec, 0.0)

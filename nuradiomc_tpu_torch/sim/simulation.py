@@ -1,6 +1,7 @@
 """Host-side simulation orchestrator (torch): the dipole Veff, the
-phased-array, the Gen2 (multi-station, birefringence) and the multi-trigger
-station runs.
+phased-array, the Gen2 (multi-station, birefringence), the multi-trigger
+station, the reflective-bottom (Moore's Bay), the emitter (pulser), the
+tabulated-antenna and the ARZ runs.
 
 Counterpart of ``nuradiomc_tpu/sim/simulation.py::Simulation``: it merges
 the config, calibrates Vrms from the filter chain's bandwidth (and the
@@ -19,9 +20,14 @@ The input is an HDF5 event list (read with h5py) or its ``.npz`` export
 (``sim/io_input.py``), which needs no h5py: that is how ``Simulation`` runs
 where h5py is missing. Writing an output file needs h5py.
 
-Not ported yet (they raise): emitter inputs, ARZ and HCRB2017, tabulated
-antennas, bottom reflections, attenuation models other than SP1, numeric
-birefringence propagation, ``.nur`` output and device meshes.
+An emitter input (``simulation_mode = "emitter"``) makes the run an emitter
+run: the ``emitter_*`` columns give the model, the emitting antenna and the
+per-row amplitude, frequency, polarization and time. ``antenna_models_path``
+holds tabulated antenna pickles as ``<model>/<model>.pkl``;
+``arz_library_path`` the shower library of the ARZ models.
+
+Not ported yet (they raise): numeric birefringence propagation, ``.nur``
+output and device meshes.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils import device as device_util
 from nuradiomc_tpu_torch.utils.constants import boltzmann
 from nuradiomc_tpu_torch.models import ice as ice_models
-from nuradiomc_tpu_torch.ops import antenna, askaryan, phased_array
+from nuradiomc_tpu_torch.ops import (antenna, arz as arz_ops, askaryan,
+                                     emitter as emitter_ops, phased_array)
 from nuradiomc_tpu_torch.sim.io_input import read_input
-from nuradiomc_tpu_torch.sim.pipeline import (ChannelParams, PipelineSettings,
+from nuradiomc_tpu_torch.sim.pipeline import (AntennaTableParams, ChannelParams,
+                                              EmitterParams, PipelineSettings,
                                               ShowerBatch, TriggerSettings,
                                               simulate_batch)
 from nuradiomc_tpu_torch.utils import geometry
@@ -137,7 +145,11 @@ class Simulation:
                  trigger_filter_chain: Optional[Sequence[FilterStage]] = None,
                  outputfilename: Optional[str] = None,
                  antenna_replacements: Optional[dict] = None,
+                 antenna_models_path: Optional[str] = None,
                  chunk_size: int = 256, n_base: int = 2048,
+                 arz_library_path: Optional[str] = None,
+                 spice_pulses_path: Optional[str] = None,
+                 spice_pulse_index: int = 0,
                  device=device_util.DEFAULT, dtype=torch.float64):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
@@ -156,15 +168,19 @@ class Simulation:
                                      if trigger_filter_chain is not None else None)
         self.outputfilename = outputfilename
         self.antenna_replacements = antenna_replacements or {}
+        self.antenna_models_path = antenna_models_path
+        self.spice_pulses_path = spice_pulses_path
+        self.spice_pulse_index = int(spice_pulse_index)
         self.chunk_size = chunk_size
 
         self.station_id = self.det.get_station_ids()[0]
         ch = self.det.get_station(self.station_id).channels
         cfg = self.config
-        if cfg["signal"]["model"] not in ("ZHS1992", "Alvarez2000", "Alvarez2009"):
+        if cfg["signal"]["model"] not in ("ZHS1992", "Alvarez2000", "Alvarez2009",
+                                          "ARZ2019", "ARZ2020"):
             raise NotImplementedError(
-                f"signal model {cfg['signal']['model']} is not ported yet (ROADMAP "
-                "queue 1 item 6, emitter / ARZ / HCRB / tabulated antennas)")
+                f"signal model {cfg['signal']['model']} is not implemented in the "
+                "pipeline (HCRB2017 is the stand-alone op ops/hcrb2017.py)")
         self.internal_rate = float(cfg["sampling_rate"])
         dt = 1.0 / self.internal_rate
         # detector samples at the internal rate (simulation.py:151-153), and
@@ -217,9 +233,7 @@ class Simulation:
         self.channel_params = self.channel_params_per_station[self.station_id]
         self.trigger_names = [t.name for t in self.triggers]
         prop = cfg["propagation"]
-        if int(prop.get("n_reflections", 0) or 0):
-            raise NotImplementedError("bottom reflections are not ported yet "
-                                      "(ROADMAP queue 1 item 5, Moore's Bay reflections)")
+        n_reflections = int(prop.get("n_reflections", 0) or 0)
         self.settings = PipelineSettings(
             triggers=tuple(self._build_trigger_settings(t) for t in self.triggers),
             ice=self.ice,
@@ -228,9 +242,12 @@ class Simulation:
             n_internal=self.n_internal,
             n_base=self.n_base,
             sampling_rate=self.internal_rate,
-            # sub-event readout windows (simulation.py:279-281); without
-            # bottom reflections the default is one
-            n_windows=int(prop.get("n_windows", 0) or 1),
+            n_reflections=n_reflections,
+            # sub-event readout windows: bounce rays arrive microseconds
+            # after the direct pulse, one cluster per (r, case) family, so
+            # the default is one window per cluster; propagation.n_windows
+            # overrides (simulation.py:273-281)
+            n_windows=int(prop.get("n_windows", 0) or (1 + 2 * n_reflections)),
             delta_C_cut=float(cfg["speedup"]["delta_C_cut"]),
             distance_cut=bool(cfg["speedup"]["distance_cut"]),
             distance_cut_coefficients=tuple(cfg["speedup"]["distance_cut_coefficients"]),
@@ -266,13 +283,94 @@ class Simulation:
             raise NotImplementedError(
                 "only analytical birefringence propagation is implemented "
                 "(config propagation.birefringence_propagation)")
+        # the ARZ shower library (simulation.py:321-328)
+        self.arz_library = None
+        if cfg["signal"]["model"] in ("ARZ2019", "ARZ2020"):
+            if arz_library_path is None:
+                raise ValueError("ARZ models require arz_library_path "
+                                 "(reference-format shower library pickle)")
+            self.arz_library = arz_ops.load_library_pickle(arz_library_path).to(
+                self.device, self.dtype)
         self.input = read_input(inputfilename)
+        self._emitter = self._build_emitter_params()
+
+    def _build_emitter_params(self):
+        """EmitterParams when the input declares simulation_mode "emitter"
+        (simulation.py:378): the emitter model and, for voltage models, the
+        emitting antenna's VEL. Static per run; the per-row amplitude,
+        frequency and polarization ride the ShowerBatch."""
         mode = self.input.attrs.get("simulation_mode", "neutrino")
         mode = mode.decode() if isinstance(mode, bytes) else str(mode)
-        if mode == "emitter":
-            raise NotImplementedError(
-                "emitter inputs are not ported yet (ROADMAP queue 1 item 6, "
-                "emitter / ARZ / HCRB / tabulated antennas)")
+        self.emitter_mode = mode == "emitter"
+        if not self.emitter_mode:
+            return None
+        em = self.input.emitter or {}
+
+        def uniq(key, default=None):
+            if key not in em:
+                return default
+            vals = [v.decode() if isinstance(v, bytes) else v for v in em[key]]
+            u = sorted(set(np.asarray(vals).tolist()))
+            if len(u) != 1:
+                raise NotImplementedError(
+                    f"mixed per-row {key} in one emitter run is not "
+                    f"supported (found {u}); split the input file")
+            return u[0]
+
+        model = str(uniq("emitter_model"))
+        half_width = float(uniq("emitter_half_width", 5.0) or 5.0)
+        freqs_int = np.fft.rfftfreq(self.n_internal, 1.0 / self.internal_rate)
+        tpl = np.zeros((3, len(freqs_int)), dtype=complex)
+        rot = np.eye(3)
+        kind = 0
+        if not model.startswith("efield_"):
+            ant = str(uniq("emitter_antenna_type"))
+            ant = self.antenna_replacements.get(ant, ant)
+            if ant not in antenna.ANALYTIC_MODELS:
+                raise NotImplementedError(
+                    f"emitting antenna '{ant}' is not analytic; pass "
+                    "antenna_replacements")
+            kind = antenna.ANALYTIC_MODELS[ant][0]
+            t = antenna.build_analytic_template(ant, freqs_int)
+            tpl[:t.shape[0]] = t
+            if t.shape[0] == 1:
+                tpl[1:] = t[0]
+            rot = antenna.antenna_rotation_matrix(
+                float(uniq("emitter_orientation_theta", 0.0) or 0.0),
+                float(uniq("emitter_orientation_phi", 0.0) or 0.0),
+                float(uniq("emitter_rotation_theta", 0.0) or 0.0),
+                float(uniq("emitter_rotation_phi", 0.0) or 0.0))
+        ctype = torch.complex64 if self.dtype == torch.float32 else torch.complex128
+
+        def real(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=self.dtype,
+                                   device=self.device)
+
+        def cplx(a):
+            return torch.as_tensor(np.asarray(a), dtype=ctype, device=self.device)
+
+        unit_spec = None
+        if model in emitter_ops.MEASURED_MODELS:
+            # a measured lab waveform: the amplitude scales the normalized
+            # trace, so the unit-amplitude spectrum is one constant
+            trace = emitter_ops.get_measured_time_trace(
+                model, 1.0, self.n_internal, 1.0 / self.internal_rate)
+            unit_spec = cplx(np.fft.rfft(trace) / self.internal_rate * np.sqrt(2.0))
+        spice_angles = spice_specs = None
+        if model == "efield_idl1_spice":
+            # the measured SPICE pulser archive: per-launch-angle unit
+            # spectra; the pipeline gathers the nearest angle per ray
+            if self.spice_pulses_path is None:
+                raise ValueError("emitter model efield_idl1_spice needs spice_pulses_path "
+                                 "(the SPice_pulses.xz archive)")
+            archive = emitter_ops.load_spice_archive(self.spice_pulses_path)
+            angles, specs = emitter_ops.spice_unit_specs(
+                archive, self.n_internal, 1.0 / self.internal_rate,
+                iN=self.spice_pulse_index)
+            spice_angles, spice_specs = real(angles), cplx(specs)
+        return EmitterParams(model=model, templates=cplx(tpl), rot=real(rot), kind=int(kind),
+                             half_width=half_width, unit_spec=unit_spec,
+                             spice_angles=spice_angles, spice_specs=spice_specs)
 
     def _chain_response_for(self, freqs, channel_id, chain):
         """Combined response of the stages of ``chain`` that apply to
@@ -330,22 +428,38 @@ class Simulation:
         rot = np.zeros((C, 3, 3))
         kind = np.zeros(C, dtype=np.int64)
         templates = np.zeros((C, 3, len(freqs_int)), dtype=complex)
+        tables = []
         for i in range(C):
             model = self.antenna_replacements.get(ch.antenna_model[i], ch.antenna_model[i])
+            table = None
             if model not in antenna.ANALYTIC_MODELS:
-                raise NotImplementedError(
-                    f"antenna model '{model}' is tabulated; tabulated antennas are "
-                    "not ported yet (ROADMAP queue 1 item 6, emitter / ARZ / HCRB / "
-                    "tabulated antennas) — "
-                    "pass antenna_replacements to an analytic model")
-            kind[i] = antenna.ANALYTIC_MODELS[model][0]
-            tpl = antenna.build_analytic_template(model, freqs_int)
-            templates[i, :tpl.shape[0]] = tpl
-            if tpl.shape[0] == 1:
-                templates[i, 1:] = tpl[0]
+                # a tabulated pattern from a reference-format pickle under
+                # antenna_models_path/<model>/<model>.pkl (antennapattern.py:1363)
+                import os
+                pkl = (os.path.join(self.antenna_models_path, model, f"{model}.pkl")
+                       if self.antenna_models_path else None)
+                if pkl is None or not os.path.exists(pkl):
+                    raise NotImplementedError(
+                        f"antenna model '{model}' has no tabulated data on "
+                        "disk; provide antenna_models_path with the pickle "
+                        "or antenna_replacements to an analytic model")
+                table = antenna.load_antenna_table(pkl)
+            tables.append(table)
+            if table is None:
+                kind[i] = antenna.ANALYTIC_MODELS[model][0]
+                tpl = antenna.build_analytic_template(model, freqs_int)
+                templates[i, :tpl.shape[0]] = tpl
+                if tpl.shape[0] == 1:
+                    templates[i, 1:] = tpl[0]
+                model_orientation = antenna._MODEL_ORIENTATION
+            else:
+                # the detector orientation relative to the simulated antenna
+                # frame stored in the pickle (antennapattern.py:1197)
+                model_orientation = table.orientation
             rot[i] = antenna.antenna_rotation_matrix(
                 ch.orientation_theta[i], ch.orientation_phi[i],
-                ch.rotation_theta[i], ch.rotation_phi[i])
+                ch.rotation_theta[i], ch.rotation_phi[i],
+                model_orientation=model_orientation)
         ids = [int(c) for c in ch.channel_ids]
         filter_response = np.stack([
             self._chain_response_for(freqs_base, c, self.filter_chain) for c in ids])
@@ -374,6 +488,24 @@ class Simulation:
         def cplx(a):
             return torch.as_tensor(a, dtype=ctype, device=self.device)
 
+        antenna_table = None
+        if any(t is not None for t in tables):
+            if not all(t is not None for t in tables):
+                raise NotImplementedError(
+                    "mixing tabulated and analytic antenna models in one "
+                    "station is not supported yet")
+            shapes = {t.h_theta.shape for t in tables}
+            grids = {(tuple(t.freqs), tuple(t.thetas), tuple(t.phis)) for t in tables}
+            if len(shapes) != 1 or len(grids) != 1:
+                raise NotImplementedError(
+                    "tabulated antenna models of one station must share the "
+                    "same (freq, theta, phi) grid")
+            t0 = tables[0]
+            antenna_table = AntennaTableParams(
+                freqs=real(t0.freqs), thetas=real(t0.thetas), phis=real(t0.phis),
+                h_theta=cplx(np.stack([t.h_theta for t in tables])),
+                h_phi=cplx(np.stack([t.h_phi for t in tables])))
+
         return ChannelParams(
             positions=real(ch.positions + station.absolute_position),
             cable_delays=real(ch.cable_delay),
@@ -389,6 +521,7 @@ class Simulation:
                 C, float(self.config["speedup"]["min_efield_amplitude"]) * self.Vrms_efield)),
             trigger_filter_response=(None if trigger_filter_response is None
                                      else cplx(trigger_filter_response)),
+            antenna_table=antenna_table,
         )
 
     def _build_batches(self):
@@ -417,12 +550,22 @@ class Simulation:
             group_ids = np.asarray(new_gids, dtype=group_ids.dtype)
         S = int(count.max())
         dt = np.float64 if self.dtype == torch.float64 else np.float32
-        cols, mask = _pad_columns(
-            {"xx": inp.xx, "yy": inp.yy, "zz": inp.zz,
-             "energies": inp.shower_energies,
-             "is_em": (inp.shower_type == "em").astype(float),
-             "zeniths": inp.zeniths, "azimuths": inp.azimuths,
-             "vertex_times": inp.vertex_times}, order, start, count, S)
+        pad_src = {"xx": inp.xx, "yy": inp.yy, "zz": inp.zz,
+                   "energies": inp.shower_energies,
+                   "is_em": (inp.shower_type == "em").astype(float),
+                   "zeniths": inp.zeniths, "azimuths": inp.azimuths,
+                   "vertex_times": inp.vertex_times}
+        if self.emitter_mode:
+            # the emitter columns of the input (simulation.py:706-714)
+            em = inp.emitter or {}
+            n = inp.n_showers
+            pad_src["emitter_polarization"] = np.asarray(
+                em.get("emitter_polarization", np.full(n, 0.5)), dtype=float)
+            pad_src["emitter_frequency"] = np.asarray(
+                em.get("emitter_frequency", np.zeros(n)), dtype=float)
+            if "emitter_time" in em:
+                pad_src["vertex_times"] = np.asarray(em["emitter_time"], dtype=float)
+        cols, mask = _pad_columns(pad_src, order, start, count, S)
         energies = cols["energies"].astype(dt)
         mask = mask & (energies > 0)
         zen, az = cols["zeniths"].astype(dt), cols["azimuths"].astype(dt)
@@ -430,10 +573,13 @@ class Simulation:
                          np.cos(zen)], axis=-1)
         is_em = cols["is_em"] > 0.5
         k_L = np.zeros_like(energies)
+        profile_idx = None
         self._realizations = {}
-        if self.config["signal"]["model"] == "Alvarez2009":
-            # per-shower k_L: drawn on the host in the JAX package's order
-            # (simulation.py:734-745), or reused from the input file
+        model = self.config["signal"]["model"]
+        if model == "Alvarez2009" or self.arz_library is not None:
+            # per-shower realizations: drawn on the host in the JAX
+            # package's order, first every k_L, then the ARZ library picks
+            # (simulation.py:734-760), or reused from the input file
             rng = np.random.default_rng(np.random.Philox(int(self.config["seed"])))
             k_L = askaryan.draw_alvarez2009_k_L(np.maximum(energies, 1.0), is_em,
                                                 rng).astype(dt)
@@ -441,21 +587,44 @@ class Simulation:
                 reuse, _ = _pad_columns(
                     {"k_L": inp.shower_realization_Alvarez2009}, order, start, count, S)
                 k_L = reuse["k_L"].astype(dt)
+            if self.arz_library is not None:
+                n_em = max(int(self.arz_library.ce_em.shape[0]), 1)
+                n_had = max(int(self.arz_library.ce_had.shape[0]), 1)
+                profile_idx = np.where(
+                    is_em, rng.integers(0, n_em, is_em.shape),
+                    rng.integers(0, n_had, is_em.shape)).astype(np.int64)
+                if inp.shower_realization_ARZ is not None:
+                    reuse, _ = _pad_columns(
+                        {"iN": inp.shower_realization_ARZ}, order, start, count, S)
+                    profile_idx = reuse["iN"].astype(np.int64)
             # unpadded per input row, for the output (simulation.py:762-775)
-            flat = np.zeros(inp.n_showers)
+            arz = model.startswith("ARZ")
+            flat = np.zeros(inp.n_showers, dtype=np.int64 if arz else float)
+            src = profile_idx if arz else k_L
             for g in range(len(start)):
-                flat[order[start[g]:start[g] + count[g]]] = k_L[g, :count[g]]
-            self._realizations["shower_realization_Alvarez2009"] = flat
+                flat[order[start[g]:start[g] + count[g]]] = src[g, :count[g]]
+            self._realizations["shower_realization_ARZ" if arz
+                               else "shower_realization_Alvarez2009"] = flat
+        emitter_pol = None
+        if self.emitter_mode:
+            # emitter runs: k_L carries the per-row emitter frequency (cw,
+            # tone_burst); no Askaryan realizations (simulation.py:776-782)
+            k_L = cols["emitter_frequency"].astype(dt)
+            emitter_pol = cols["emitter_polarization"].astype(dt)
+            self._realizations = {}
         batch = ShowerBatch(
             vertices=np.stack([cols["xx"], cols["yy"], cols["zz"]], axis=-1).astype(dt),
             energies=energies, is_em=is_em, shower_mask=mask,
             prop_dir=(-axis).astype(dt), k_L=k_L,
-            vertex_times=cols["vertex_times"].astype(dt))
+            vertex_times=cols["vertex_times"].astype(dt),
+            profile_idx=profile_idx, emitter_polarization=emitter_pol)
         return group_ids, start, count, order, batch
 
     def _weights(self, group_ids, start, count, order):
         """Per-group earth-absorption weight (simulation.py:791)."""
         inp = self.input
+        if self.emitter_mode:
+            return np.ones(len(group_ids))
         first = order[start]
         return earth_attenuation.get_weight(
             inp.zeniths[first], inp.energies[first], inp.flavors[first],
@@ -492,7 +661,8 @@ class Simulation:
             sl = slice(c0, min(c0 + self.chunk_size, G))
             chunk = ShowerBatch(*[None if a is None else torch.as_tensor(
                 np.ascontiguousarray(a[sl]), device=self.device) for a in batch])
-            out = simulate_batch(chunk, chp, self.settings, noise_generator=gen)
+            out = simulate_batch(chunk, chp, self.settings, noise_generator=gen,
+                                 emitter=self._emitter, arz_library=self.arz_library)
             trig = out.triggered.cpu().numpy()
             triggered[sl] = trig
             max_amp[sl] = out.max_amplitude.cpu().numpy()

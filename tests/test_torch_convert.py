@@ -71,3 +71,59 @@ def test_from_jax_round_trips(dtype):
     assert ps.placement_impl == "kernel"
     with pytest.raises(ValueError):
         convert.from_jax(dataclasses.replace(s, stop_after="ray"), ch, b, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_from_jax_carries_the_reflective_emitter_table_and_arz_fields(dtype, tmp_path):
+    """numpy in, tensors out: ``n_reflections``, ``attenuation_model`` and the
+    reflector of the ice; ``profile_idx`` and ``emitter_polarization`` of the
+    batch; ``AntennaTableParams``; ``EmitterParams``; the ARZ ``ShowerLibrary``."""
+    import os
+
+    import nuradiomc_tpu.models.ice as jice
+    import nuradiomc_tpu.ops.arz as jarz
+    import nuradiomc_tpu.sim.pipeline as jpipe
+
+    s, ch, b = _make_settings_and_inputs()
+    G, S = np.asarray(b.energies).shape
+    rng = np.random.default_rng(2)
+    table = jpipe.AntennaTableParams(
+        freqs=np.linspace(0.1, 1.0, 5), thetas=np.linspace(0, np.pi, 4),
+        phis=np.linspace(0, 2 * np.pi, 3),
+        h_theta=rng.normal(size=(4, 5, 4, 3)) + 1j * rng.normal(size=(4, 5, 4, 3)),
+        h_phi=rng.normal(size=(4, 5, 4, 3)) + 0j)
+    s = dataclasses.replace(s, ice=jice.mooresbay_simple, n_reflections=2, n_windows=5,
+                            attenuation_model="MB1")
+    ch = ch._replace(antenna_table=table)
+    b = b._replace(profile_idx=rng.integers(0, 3, (G, S)).astype(np.int32),
+                   emitter_polarization=rng.uniform(0, 1, (G, S)))
+    ps, pc, pb = convert.from_jax(s, ch, b, device="cpu", dtype=dtype)
+    assert (ps.n_reflections, ps.n_windows, ps.attenuation_model) == (2, 5, "MB1")
+    assert dataclasses.asdict(ps.ice) == dataclasses.asdict(jice.mooresbay_simple)
+    assert pb.profile_idx.dtype == torch.int64 and pb.emitter_polarization.dtype == dtype
+    np.testing.assert_array_equal(pb.profile_idx.numpy(), np.asarray(b.profile_idx))
+    ctype = convert._ctype(dtype)
+    for name, ref in table._asdict().items():
+        port = getattr(pc.antenna_table, name)
+        assert port.dtype == (ctype if name.startswith("h_") else dtype)
+        np.testing.assert_array_equal(port.numpy(), ref.astype(port.numpy().dtype))
+    em = jpipe.EmitterParams(model="hvsp1", templates=np.ones((3, 9), dtype=complex),
+                             rot=np.eye(3), kind=1, half_width=2.5,
+                             unit_spec=np.arange(9) * (1 + 1j),
+                             spice_angles=np.array([0.1, 0.4]),
+                             spice_specs=np.ones((2, 2, 9), dtype=complex))
+    pe = convert.emitter_from_jax(em, device="cpu", dtype=dtype)
+    assert (pe.model, pe.kind, pe.half_width) == ("hvsp1", 1, 2.5)
+    assert pe.templates.dtype == pe.unit_spec.dtype == pe.spice_specs.dtype == ctype
+    assert pe.rot.dtype == pe.spice_angles.dtype == dtype
+    np.testing.assert_array_equal(pe.unit_spec.numpy(), em.unit_spec.astype(pe.unit_spec.numpy().dtype))
+    assert convert.emitter_from_jax(em._replace(unit_spec=None), device="cpu").unit_spec is None
+    lib = jarz.load_library_pickle(os.path.join(os.path.dirname(__file__), "golden",
+                                                "arz_minilib.pkl"))
+    pl = convert.library_from_jax(lib, device="cpu", dtype=dtype)
+    for name in lib._fields:
+        assert getattr(pl, name).dtype == dtype
+        np.testing.assert_allclose(getattr(pl, name).numpy(), np.asarray(getattr(lib, name)),
+                                   rtol=1e-6 if dtype == torch.float32 else 0)
+    assert np.all(np.isfinite(pl.depth.numpy()))          # metres: finite in float32
+    assert convert.library_from_jax(None) is None

@@ -95,11 +95,16 @@ def test_fresnel_reflection_matches():
 def test_ice_model():
     z = np.linspace(-2800.0, 50.0, 301)
     assert tice.get_ice_model("southpole_2015") == tice.southpole_2015
-    for name in ("southpole_2015", "southpole_simple", "greenland_simple"):
+    for name in ("southpole_2015", "southpole_simple", "greenland_simple",
+                 "mooresbay_simple", "mooresbay_simple_2"):
         close(tice.get_ice_model(name).index_of_refraction(t(z)),
               jice.get_ice_model(name).index_of_refraction(jnp.asarray(z)))
+    # the reflective-bottom sites carry their reflector
+    mb, ref = tice.get_ice_model("mooresbay_simple"), jice.get_ice_model("mooresbay_simple")
+    assert (mb.refl_z, mb.refl_coef, mb.refl_phase_shift) == (
+        ref.refl_z, ref.refl_coef, ref.refl_phase_shift)
     with pytest.raises(NotImplementedError):
-        tice.get_ice_model("mooresbay_simple")
+        tice.get_ice_model("no_such_site")
 
 
 def test_sp1_coefficients_and_inverse_length():

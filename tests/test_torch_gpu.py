@@ -76,11 +76,12 @@ def _close_rows(k, p, tol):
 
 
 @pytest.mark.parametrize("dtype, tol, _", DTYPES)
-@pytest.mark.parametrize("s2", [1, 2, 4, 6, 20, 40])
+@pytest.mark.parametrize("s2", [1, 2, 4, 6, 12, 20, 40])
 def test_placement_kernel_matches_plain(dev, dtype, tol, _, s2):
     """The headline widths (K_int 208, K_place 816) at several s2: an output
     row sums s2 input rows in order (tau secondaries: 10 showers x 2 rays
-    give 20; 40 doubles it)."""
+    give 20; 40 doubles it; one bottom reflection: 2 showers x 6 ray slots
+    give 12)."""
     args, kw = _placement_args(dtype, dev, s2=s2)
     before = placement.launches
     k = placement.chain_placement_reduce(*args, **kw)
@@ -154,6 +155,18 @@ def test_placement_kernel_headline_rows(dev, dtype):
                 DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_placement_kernel_reflective_rows(dev, dtype):
+    """Kernel 1 at the reflective-bottom slice's shape: 16384 groups x 4
+    channels = 65536 output rows, each the sum of s2 = 12 (shower, ray slot)
+    rows, 786,432 rows in all."""
+    args, kw = _placement_args(dtype, dev, G_out=65536, s2=12)
+    assert args[0].shape[0] == 786432
+    k = placement.chain_placement_reduce(*args, **kw)
+    _close_rows(k, placement.chain_placement_reduce_plain(*args, **kw),
+                DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])
+
+
 def _trigger_case(dtype, dev, G, C, n_base, K, T=2):
     """Kernel-2 inputs with T trigger columns that alternate high/low and
     threshold kinds, thresholds 2-3 sigma (rising with the column, as a
@@ -189,6 +202,7 @@ def _trigger_case(dtype, dev, G, C, n_base, K, T=2):
     (torch.float32, 1e-5, 2, 2048, 1025, 7), (torch.float64, 1e-12, 2, 2048, 1025, 1),
     (torch.float32, 1e-5, 12, 1000, 501, 7), (torch.float64, 1e-12, 20, 512, 257, 200),
     (torch.float32, 1e-5, 1, 512, 257, 65536), (torch.float64, 1e-12, 2, 1000, 501, 65536),
+    (torch.float32, 1e-5, 4, 2048, 816, 16384), (torch.float64, 1e-12, 4, 2048, 816, 16384),
     (torch.float32, 1e-5, 2, 999, 500, 200),
     (torch.float32, 1e-5, 2, 4096, 2049, 200), (torch.float64, 1e-12, 2, 4096, 2049, 200),
     (torch.float32, 1e-5, 1, 4096, 1632, 7), (torch.float32, 1e-5, 2, 2187, 1094, 200),
@@ -198,7 +212,7 @@ def test_trigger_kernel_matches_plain(dev, dtype, tol, C, n_base, K, G):
     """The inverse FFT of kernel 2 at even and odd lengths (1000 = 2^3 5^3,
     999 = 3^3 37 through the generic prime stage), the full band (K = n/2 +
     1: Im at DC and Nyquist dropped) and a cut one, C 1 to 20, G 1 to
-    65536. Lengths above 2048 (4096, 3000 and the odd 2187 = 3^7) walk the
+    65536 (16384 x C 4 is the reflective-bottom slice's). Lengths above 2048 (4096, 3000 and the odd 2187 = 3^7) walk the
     trace in more than one tile of 128 x 16 samples."""
     args, kw = _trigger_case(dtype, dev, G, C, n_base, K)
     before = trigger_fused.launches
@@ -451,3 +465,22 @@ def test_factored_multishower_float64_on_card(dev):
         assert torch.equal(out.triggered, pipeline.simulate_batch(b, ch, plain).triggered)
         fired += int(out.triggered.sum())
     assert placement.launches == before + 3 and fired > 0
+
+
+@pytest.mark.parametrize("n_reflections", [1, 2])
+def test_reflective_kernel_path_matches_plain_path(dev, n_reflections):
+    """The reflective-bottom station (MB1, bottom bounces, one readout window
+    per bounce family) through kernels 1 (s2 = 2 (2 + 4 n_reflections)) and 2,
+    once per window each, against the plain path on the card, float32."""
+    from nuradiomc_tpu_torch.convert import make_mooresbay_inputs
+    s, ch, b = make_mooresbay_inputs(1024, 0, device=dev, dtype=torch.float32)
+    s = dataclasses.replace(s, n_reflections=n_reflections, n_windows=1 + 2 * n_reflections)
+    plain = dataclasses.replace(s, placement_impl="plain", trigger_impl="plain")
+    placement.launches = trigger_fused.launches = 0
+    out = pipeline.simulate_batch(b, ch, s)
+    assert (placement.launches, trigger_fused.launches) == (s.n_windows, s.n_windows)
+    assert out.c0.shape[-1] == 2 + 4 * n_reflections
+    ref = pipeline.simulate_batch(b, ch, plain)
+    assert int((out.triggered != ref.triggered).sum()) <= 1
+    assert bool(ref.triggered.any()) and bool(out.sol_mask[..., 2:].any())
+    torch.testing.assert_close(out.max_amplitude, ref.max_amplitude, rtol=1e-4, atol=0)

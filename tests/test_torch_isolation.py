@@ -8,8 +8,10 @@ its entry points run on the card unless the CPU is asked for.
   module (without running it), and reads no file under ``nuradiomc_tpu/``.
 * Copies: units, constants, config merging, the filter responses of the
   three workloads' chains, the Earth-attenuation weights, the detector
-  tables and the birefringence model arrays are held to the originals on
-  the same inputs, exactly.
+  tables, the birefringence model arrays, the ice models, the GL3
+  attenuation table, the measured pulser waveforms (``.npz`` copies of the
+  HDF5 files), the exported emitter inputs and the ARZ mini shower library
+  are held to the originals on the same inputs, exactly.
 * Default device: every entry point's ``device`` defaults to "cuda"; with no
   card, a call that omits it raises instead of running on the CPU.
 """
@@ -88,6 +90,16 @@ _ISOLATED = textwrap.dedent("""
     from nuradiomc_tpu_torch import convert
     birefringence.load_model("southpole_A")
     convert.make_headline_inputs(4, 2, 2, 128, 512, device="cpu")
+    # the new copies are read from the port's own data directory
+    from nuradiomc_tpu_torch.ops import attenuation, emitter
+    import torch
+    attenuation.get_attenuation_length(torch.tensor(-100.0), torch.tensor(0.2), "GL3")
+    emitter.get_measured_time_trace("idl1", 1.0, 256, 0.5)
+    convert.emitter_simulation(
+        os.path.join(root, "nuradiomc_tpu_torch", "data", "emitter_voltage_events.npz"),
+        device="cpu")
+    convert.arz_simulation(convert.mooresbay_event_input(2), device="cpu")
+    convert.make_mooresbay_inputs(2, device="cpu")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -102,6 +114,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("modules")[-1])
     assert n >= 30                      # every module of the package was imported
+
+
+def convert_input(name):
+    from nuradiomc_tpu_torch.sim import io_input
+    return io_input.DATA_DIR / name
 
 
 def _public_numbers(mod):
@@ -152,11 +169,13 @@ def test_config_merging_equals_the_original():
             "signal": {"model": "Alvarez2009"}, "noise": True}
     assert tconfig.get_config(None) == jconfig.get_config(None)
     assert tconfig.get_config(user) == jconfig.get_config(user)
-    for default in (convert.DIPOLE_CONFIG, convert.PA_CONFIG, convert.GEN2_CONFIG):
+    for default in (convert.DIPOLE_CONFIG, convert.PA_CONFIG, convert.GEN2_CONFIG,
+                    convert.MOORESBAY_CONFIG, convert.EMITTER_CONFIG):
         assert tconfig.merge_config(user, default) == jconfig.merge_config(user, default)
 
 
-@pytest.mark.parametrize("name", ["DIPOLE_DETECTOR", "PA_DETECTOR", "GEN2_DETECTOR"])
+@pytest.mark.parametrize("name", ["DIPOLE_DETECTOR", "PA_DETECTOR", "GEN2_DETECTOR",
+                                  "MOORESBAY_DETECTOR", "SURFACE_DETECTOR"])
 def test_detector_tables_equal_the_original(name):
     det_dict = getattr(convert, name)
     port, ref = tdetector.Detector(det_dict), jdetector.Detector(det_dict)
@@ -189,8 +208,73 @@ def test_birefringence_models_equal_the_originals():
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_ice_models_equal_the_originals():
+    import dataclasses
+    from nuradiomc_tpu.models import ice as jice
+    from nuradiomc_tpu_torch.models import ice as tice
+    assert sorted(tice._MODELS) == sorted(jice._MODELS)
+    for name in jice._MODELS:
+        a, b = tice.get_ice_model(name), jice.get_ice_model(name)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b), name
+    mb = tice.get_ice_model("mooresbay_simple")
+    assert (mb.refl_z, mb.refl_coef, mb.refl_phase_shift) == (-576.0, 0.82, np.pi)
+    z = np.linspace(-600.0, 5.0, 50)
+    np.testing.assert_allclose(mb.index_of_refraction(torch.as_tensor(z)).numpy(),
+                               np.asarray(jice.mooresbay_simple.index_of_refraction(z)),
+                               rtol=1e-15)
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        tice.get_ice_model("no_such_site")
+
+
+def test_gl3_table_equals_the_original():
+    with open(os.path.join(ROOT, "nuradiomc_tpu", "data", "GL3_params.csv"), "rb") as a, \
+            open(os.path.join(ROOT, "nuradiomc_tpu_torch", "data", "GL3_params.csv"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_pulser_waveforms_equal_the_originals():
+    import h5py
+    from nuradiomc_tpu.ops import emitter as jem
+    from nuradiomc_tpu_torch.ops import emitter as tem
+    assert {k: v[:-4] for k, v in tem.MEASURED_MODELS.items()} == \
+        {k: v[:-5] for k, v in jem.MEASURED_MODELS.items()}
+    assert sorted(os.listdir(tem._DATA_DIR)) == sorted(tem.MEASURED_MODELS.values())
+    for model, name in jem.MEASURED_MODELS.items():
+        with h5py.File(os.path.join(jem._DATA_DIR, name), "r") as f:
+            with np.load(os.path.join(tem._DATA_DIR, tem.MEASURED_MODELS[model])) as z:
+                assert sorted(z.files) == ["time", "voltage"]
+                np.testing.assert_array_equal(z["time"], np.asarray(f["time"]))
+                np.testing.assert_array_equal(z["voltage"], np.asarray(f["voltage"]))
+
+
+@pytest.mark.parametrize("name", ["emitter_events", "emitter_voltage_events"])
+def test_emitter_inputs_equal_the_originals(name):
+    from nuradiomc_tpu.sim import io_hdf5 as jio
+    from nuradiomc_tpu_torch.sim import io_input
+    ref = jio.read_input_hdf5(os.path.join(ROOT, "tests", "golden", name + ".hdf5"))
+    got = io_input.read_input(io_input.DATA_DIR / (name + ".npz"))
+    for field in io_input._ARRAYS:
+        a, b = getattr(ref, field), getattr(got, field)
+        if a is None:
+            assert b is None
+        else:
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=field)
+    assert {k: str(v) for k, v in got.attrs.items()} == {k: str(v) for k, v in ref.attrs.items()}
+    assert sorted(got.emitter) == sorted(ref.emitter)
+    for k in ref.emitter:
+        np.testing.assert_array_equal(got.emitter[k], np.asarray(ref.emitter[k]))
+
+
+def test_arz_minilib_equals_the_original():
+    with open(os.path.join(ROOT, "tests", "golden", "arz_minilib.pkl"), "rb") as a, \
+            open(os.path.join(ROOT, "nuradiomc_tpu_torch", "data", "arz_minilib.pkl"), "rb") as b:
+        assert a.read() == b.read()
+
+
 ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inputs,
-                convert.make_pa_inputs, convert.make_gen2_inputs]
+                convert.make_pa_inputs, convert.make_gen2_inputs,
+                convert.make_multitrigger_inputs, convert.make_mooresbay_inputs,
+                convert.emitter_from_jax, convert.library_from_jax]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -199,7 +283,8 @@ def test_entry_points_default_to_the_card(fn):
 
 
 @pytest.mark.parametrize("call", ["Simulation", "dipole_simulation", "make_headline_inputs",
-                                  "make_pa_inputs", "make_gen2_inputs"])
+                                  "make_pa_inputs", "make_gen2_inputs",
+                                  "make_mooresbay_inputs", "emitter_simulation"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -211,6 +296,9 @@ def test_omitted_device_without_a_card_raises(call):
         "make_headline_inputs": lambda: convert.make_headline_inputs(4, 2, 1, 128, 512),
         "make_pa_inputs": lambda: convert.make_pa_inputs(8),
         "make_gen2_inputs": lambda: convert.make_gen2_inputs(8),
+        "make_mooresbay_inputs": lambda: convert.make_mooresbay_inputs(8),
+        "emitter_simulation": lambda: convert.emitter_simulation(
+            str(convert_input("emitter_events.npz"))),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()

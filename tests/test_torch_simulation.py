@@ -103,9 +103,15 @@ def test_float32_bench_config_reproduces_golden(golden):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError):
+    replacements = {"XFDTD_Vpol_CrossFeed_150mmHole_n1.78": "analytic_VPol"}
+    # HCRB2017 is a stand-alone op, not a pipeline model
+    with pytest.raises(NotImplementedError, match="HCRB2017"):
+        Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "HCRB2017"}},
+                   antenna_replacements=replacements, device="cpu")
+    # the ARZ models run, given their shower library
+    with pytest.raises(ValueError, match="arz_library_path"):
         Simulation(INPUT, DIPOLE_DETECTOR, config={"signal": {"model": "ARZ2019"}},
-                   antenna_replacements={"XFDTD_Vpol_CrossFeed_150mmHole_n1.78":
-                                         "analytic_VPol"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Simulation(INPUT, DIPOLE_DETECTOR, device="cpu")   # tabulated antenna without a replacement
+                   antenna_replacements=replacements, device="cpu")
+    # a tabulated antenna with neither its table on disk nor a replacement
+    with pytest.raises(NotImplementedError, match="antenna_models_path"):
+        Simulation(INPUT, DIPOLE_DETECTOR, device="cpu")
