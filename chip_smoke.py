@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 9,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 10,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
+    python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -78,7 +79,27 @@ result line):
    the 24-pulser emitter inputs (efield and voltage variant, kernel 4), the
    dipole station with a synthetic antenna table (kernel 4), ARZ2020 on the
    mini shower library (kernel 1) and GL1 attenuation (kernel 1), each with
-   its triggered count and one timed step.
+   its triggered count and one timed step;
+10. NuRadioMC's production-scale campaign (test/Veff/1e18eV) on the card,
+   without files or h5py: (a) the 50,000-event seed-10 list generated in
+   memory by the port's ``evtgen``, its digest equal to the golden's
+   ``input_sha1``; (b) ``convert.fullscale_simulation`` in float64 with
+   ``.nur`` output: the golden's 203 triggered groups, weight sum and
+   Veff*4pi 5.77715 km^3 sr at rtol 1e-6, wall time from input to Veff and
+   events/s, kernels 1 and 2 held to their plain versions on the run's own
+   launches with time, bound and library time; (c) the same in float32 at
+   the headline settings (symmetric difference printed, no gate; kernels 1
+   and 2 held as in (b)); (d) the ``.nur`` of (b) read back (one 1 GHz
+   event per triggered group), and the 3000-event dipole input's ``.nur``
+   (kernels 1 and 2 held as in (b)): the 7 traces of NuRadioMC's waveform
+   golden at 2% of peak on its readout grid, trigger times to 1 ns, and
+   against the JAX package's ``keep_traces`` traces at 1e-6 of peak (5e-4
+   where a refracted ray is valid) from
+   ``nuradiomc_tpu_torch/data/e2e_waveforms_reference.npz``; (e) the noisy
+   deep phased-array campaign (10,000 events, digest equal to its golden's)
+   in float64 inside its statistical bands, kernels 1 and 3 held to their
+   plain versions; (f) the Gen2 tau list regenerated with stochastic
+   secondaries equal to its export.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -104,6 +125,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from nuradiomc_tpu_torch.utils import units  # noqa: E402
+from nuradiomc_tpu_torch.framework.base_trace import BaseTrace  # noqa: E402
 from nuradiomc_tpu_torch import convert  # noqa: E402
 from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.ops import (_build, fft_plan, noise, pa_trigger,  # noqa: E402
@@ -140,6 +162,12 @@ EMITTER_JAX_SETS = DATA_DIR / "emitter_jax_sets.npz"
 TABLE_JAX_SETS = DATA_DIR / "antenna_table_jax_sets.npz"
 ARZ_JAX_SETS = DATA_DIR / "arz_jax_sets.npz"
 GL1_JAX_SETS = DATA_DIR / "gl1_jax_sets.npz"
+# NuRadioMC's production-scale campaigns (phase 10) and, for the waveforms,
+# the reference's 7 traces and the JAX package's keep_traces traces (written
+# by python tests/test_torch_nur_output.py)
+FULLSCALE_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_reference.npz")
+FULLSCALE_PA_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_pa_reference.npz")
+WAVEFORMS_REF = DATA_DIR / "e2e_waveforms_reference.npz"
 KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce")
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
@@ -1296,6 +1324,170 @@ def _one_step_ms(sim):
     return _median_step(step, n=1) * 1e3, n
 
 
+class _Recorder:
+    """Wraps the four kernel wrappers for one run and keeps the operands of
+    one of its launches per kernel: the first (kernels 1 and 4), or the first
+    in which a trigger fires (kernels 2 and 3; else their first), since the
+    checks need both decisions. Whether a launch fired is read without a
+    sync: its flag is copied to pinned host memory behind a CUDA event and
+    looked at once the event has passed, at a later launch or on exit, so
+    the timed run waits on nothing the recorder adds. Restores the wrappers
+    on exit; the launch counts are the wrappers' own."""
+
+    SITES = ((placement, "chain_placement_reduce", "placement_chain"),
+             (placement, "placement_reduce", "placement_reduce"),
+             (trigger_fused, "fused_irfft_trigger", "irfft_trigger"),
+             (pa_trigger, "fused_pa_trigger", "pa_trigger"))
+    FIRES = ("irfft_trigger", "pa_trigger")
+
+    def __init__(self):
+        self.calls, self.fired, self._saved = {}, set(), []
+        self._pending = {name: [] for name in self.FIRES}
+
+    def _settle(self, name, wait):
+        """Takes the first pending launch of ``name`` that fired, dropping
+        those that did not, as far as their events have passed (all of
+        them with ``wait``)."""
+        pending = self._pending[name]
+        while pending and name not in self.fired:
+            call, flag, event = pending[0]
+            if not wait and not event.query():
+                return
+            event.synchronize()
+            pending.pop(0)
+            if bool(flag):
+                self.calls[name] = call
+                self.fired.add(name)
+                pending.clear()
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kw):
+            res = fn(*args, **kw)
+            if name not in self.FIRES:
+                self.calls.setdefault(name, (args, kw))
+            elif name not in self.fired:
+                self.calls.setdefault(name, (args, kw))
+                self._settle(name, wait=False)
+                if name not in self.fired:
+                    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+                    flag.copy_(res[0].any(), non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    self._pending[name].append(((args, kw), flag, event))
+            return res
+        return wrapper
+
+    def __enter__(self):
+        for mod, attr, name in self.SITES:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved.clear()
+        for name in self.FIRES:
+            self._settle(name, wait=True)
+
+
+def _reset_launches():
+    placement.launches = placement.reduce_launches = 0
+    trigger_fused.launches = pa_trigger.launches = 0
+
+
+def _launch_counts():
+    return {"placement_chain": placement.launches, "placement_reduce": placement.reduce_launches,
+            "irfft_trigger": trigger_fused.launches, "pa_trigger": pa_trigger.launches}
+
+
+def _check_pa_call(label, args, kw, tol_amp, phase):
+    """Kernel 3 against its plain version on one launch's operands, at that
+    launch's threshold: decisions equal except within 1e-4 of the threshold
+    (phase 2's rule), first frames equal where both fire clear of it,
+    amplitudes within ``tol_amp`` relative and exactly 0 where the plain
+    version's are; timed beside the plain version, its bound and the library
+    transforms."""
+    k_fired, k_frame, k_amp = pa_trigger.fused_pa_trigger(*args, **kw)
+    p_fired, p_frame, p_amp, p_max = pa_trigger.fused_pa_trigger_plain(*args, **kw)
+    torch.cuda.synchronize()
+    thr = kw["threshold"]
+    margin = (p_max - thr).abs() / thr
+    margins = sorted(float(m) for m in margin[k_fired != p_fired])
+    solid = (margin >= 1e-4) & k_fired & p_fired
+    d_frame = int((k_frame != p_frame)[solid].sum())
+    zero = p_amp == 0
+    d_zero = int((zero & (k_amp != 0)).sum())
+    den = torch.where(zero, torch.ones_like(p_amp), p_amp.abs())
+    amp_rel = float(((k_amp - p_amp).abs() / den)[~zero].max()) if not bool(zero.all()) else 0.0
+    amp_abs = float((k_amp - p_amp).abs().max())
+    ms = _median_ms(lambda: pa_trigger.fused_pa_trigger(*args, **kw))
+    plain_ms = _median_ms(lambda: pa_trigger.fused_pa_trigger_plain(*args, **kw))
+    lib_ms = _pa_library_ms(args, kw)
+    bound = _pa_bound(args, kw)
+    print(f"{phase} {label}: {int(p_fired.sum())} of {len(p_fired)} groups fire, fired differs "
+          f"in {len(margins)} (plain-path margins {['%.2e' % m for m in margins]}), frames differ "
+          f"in {d_frame} solid groups, amp max rel err {amp_rel:.3e} (limit {tol_amp:g}), {d_zero} "
+          f"zero rows not 0; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library transforms "
+          f"{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of the "
+          f"bound ({CARD})")
+    if (margins and margins[-1] >= 1e-4) or d_frame or d_zero or not amp_rel <= tol_amp:
+        raise AssertionError(f"{label} disagrees with the plain version")
+    return _entry(amp_abs, ms, plain_ms, bound, lib_ms)
+
+
+def _check_recorded(calls, label, phase):
+    """Every kernel a run launched against its plain version, on the
+    operands of one of the run's own launches (``_Recorder``), with its
+    time, bound and, where there is one, library time."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, kernel, plain, bound_of in (
+            ("placement_chain", placement.chain_placement_reduce,
+             placement.chain_placement_reduce_plain, _placement_chain_bound),
+            ("placement_reduce", placement.placement_reduce,
+             placement.placement_reduce_plain, _reduce_bound)):
+        if name not in calls:
+            continue
+        args, kw = calls.pop(name)
+        f64 = int(args[0].dtype == torch.float64)
+        R, K_int = args[0].shape
+        if name == "placement_chain":
+            live = int(args[5].sum())
+            grid = _build.load(name).placement_chain_grid(
+                R // kw["s2"], K_int, args[2].shape[1], kw["K_place"], kw["n_int"],
+                kw["n_base"], f64)
+        else:
+            live = int(((args[0] != 0) | (args[1] != 0)).any(dim=1).sum())
+            grid = _build.load(name).placement_reduce_grid(
+                R // kw["s2"], K_int, kw["K_place"], kw["n_int"], kw["n_base"], f64)
+        print(f"{phase} {name} operands, {label}: {R} rows ({live} live), s2 {kw['s2']}, "
+              f"K_int {K_int}, K_place {kw['K_place']}, n_int {kw['n_int']}, n_base "
+              f"{kw['n_base']}, {args[0].dtype}; grid {grid} blocks on {sms} SMs")
+        _check_placement(f"{name} {label}", kernel, plain, args, kw,
+                         1e-10 if f64 else 1e-4, bound_of(args, kw), phase=phase)
+        if name == "placement_reduce":
+            print(f"{phase} placement_reduce {label}: library rfft(irfft(V, n_int), n_base) "
+                  f"{_reduce_library_ms(args, kw):.3f} ms ({CARD})")
+    if "irfft_trigger" in calls:
+        args, kw = calls.pop("irfft_trigger")
+        f64 = int(args[0].dtype == torch.float64)
+        R, K = args[0].shape
+        grid = _build.load("irfft_trigger").irfft_trigger_grid(
+            R // kw["C"], kw["C"], kw["n_base"], K, args[2].shape[1], f64)
+        print(f"{phase} irfft_trigger operands, {label}: {R} rows (C {kw['C']}), K {K}, n_base "
+              f"{kw['n_base']}, {args[2].shape[1]} columns, {args[0].dtype}; grid {grid} blocks "
+              f"on {sms} SMs")
+        _check_trigger(f"irfft_trigger {label}", args, kw, 1e-12 if f64 else 1e-5, phase=phase)
+    if "pa_trigger" in calls:
+        args, kw = calls.pop("pa_trigger")
+        f64 = args[0].dtype == torch.float64
+        print(f"{phase} pa_trigger operands, {label}: {args[0].shape[0]} rows (C {kw['C']}), "
+              f"K {args[0].shape[1]}, n_base {kw['n_base']}, n_hi {kw['n_hi']}, decim "
+              f"{kw['decim']}, x{kw['up']}, {len(kw['rolls'])} beams, {args[0].dtype}")
+        _check_pa_call(f"pa_trigger {label}", args, kw, 1e-12 if f64 else 1e-5, phase)
+
+
 def phase_signal_chain(dev):
     """Emitter mode, a tabulated antenna, ARZ2020 and GL1 through
     ``Simulation`` in float64 on the card, each against the JAX package's
@@ -1303,95 +1495,27 @@ def phase_signal_chain(dev):
     import tempfile
 
     total = {"placement_chain": 0, "placement_reduce": 0, "irfft_trigger": 0}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    k1, k2, k4 = (placement.chain_placement_reduce, trigger_fused.fused_irfft_trigger,
-                  placement.placement_reduce)
-    calls = {}      # kernel name -> (args, kw) of one launch of the current run
-
-    def recording(name, kernel):
-        def wrapper(*args, **kw):
-            calls.setdefault(name, (args, kw))
-            return kernel(*args, **kw)
-        return wrapper
-
-    def recording_k2(*args, **kw):
-        """Keeps the run's first call in which a trigger fires (else its
-        first call): the check below needs both decisions."""
-        res = k2(*args, **kw)
-        if "irfft_trigger" not in calls or not calls["irfft_trigger"][2]:
-            calls["irfft_trigger"] = (args, kw, bool(res[0].any()))
-        return res
-
-    def check_kernels(label):
-        """Every kernel the run launched against its plain version, on the
-        operands of one of the run's own launches."""
-        for name, kernel, plain, bound_of in (
-                ("placement_chain", placement.chain_placement_reduce,
-                 placement.chain_placement_reduce_plain, _placement_chain_bound),
-                ("placement_reduce", placement.placement_reduce,
-                 placement.placement_reduce_plain, _reduce_bound)):
-            if name not in calls:
-                continue
-            args, kw = calls.pop(name)
-            f64 = int(args[0].dtype == torch.float64)
-            R, K_int = args[0].shape
-            if name == "placement_chain":
-                live = int(args[5].sum())
-                grid = _build.load(name).placement_chain_grid(
-                    R // kw["s2"], K_int, args[2].shape[1], kw["K_place"], kw["n_int"],
-                    kw["n_base"], f64)
-            else:
-                live = int(((args[0] != 0) | (args[1] != 0)).any(dim=1).sum())
-                grid = _build.load(name).placement_reduce_grid(
-                    R // kw["s2"], K_int, kw["K_place"], kw["n_int"], kw["n_base"], f64)
-            print(f"phase 9 {name} operands, {label}: {R} rows ({live} live), s2 {kw['s2']}, "
-                  f"K_int {K_int}, K_place {kw['K_place']}, n_int {kw['n_int']}, n_base "
-                  f"{kw['n_base']}, {args[0].dtype}; grid {grid} blocks on {sms} SMs")
-            _check_placement(f"{name} {label}", kernel, plain, args, kw,
-                             1e-10 if f64 else 1e-4, bound_of(args, kw), phase="phase 9")
-            if name == "placement_reduce":
-                print(f"phase 9 placement_reduce {label}: library rfft(irfft(V, n_int), n_base) "
-                      f"{_reduce_library_ms(args, kw):.3f} ms ({CARD})")
-        args, kw, _ = calls.pop("irfft_trigger")
-        f64 = int(args[0].dtype == torch.float64)
-        R, K = args[0].shape
-        grid = _build.load("irfft_trigger").irfft_trigger_grid(
-            R // kw["C"], kw["C"], kw["n_base"], K, args[2].shape[1], f64)
-        print(f"phase 9 irfft_trigger operands, {label}: {R} rows (C {kw['C']}), K {K}, n_base "
-              f"{kw['n_base']}, {args[2].shape[1]} columns, {args[0].dtype}; grid {grid} blocks "
-              f"on {sms} SMs")
-        _check_trigger(f"irfft_trigger {label}", args, kw, 1e-12 if f64 else 1e-5,
-                       phase="phase 9")
 
     def run(label, sim, kernel):
         """One ``Simulation`` run with its launches counted; then each kernel
         it launched held to its plain version at the run's own operands."""
-        calls.clear()
-        placement.launches = placement.reduce_launches = trigger_fused.launches = 0
-        placement.chain_placement_reduce = recording("placement_chain", k1)
-        placement.placement_reduce = recording("placement_reduce", k4)
-        trigger_fused.fused_irfft_trigger = recording_k2
-        t0 = time.perf_counter()
-        try:
+        _reset_launches()
+        with _Recorder() as rec:
+            t0 = time.perf_counter()
             res = sim.run()
-        finally:
-            placement.chain_placement_reduce, placement.placement_reduce = k1, k4
-            trigger_fused.fused_irfft_trigger = k2
-        wall = time.perf_counter() - t0
-        counts = {"placement_chain": placement.launches,
-                  "placement_reduce": placement.reduce_launches,
-                  "irfft_trigger": trigger_fused.launches}
+            wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _launch_counts().items() if k in total}
         ms, n = _one_step_ms(sim)
         print(f"phase 9 {label} float64: {res['n_triggered']} of {len(res['triggered'])} groups "
               f"triggered, launches {counts}, run {wall:.2f} s with set-up; one step of {n} "
               f"groups {ms:.1f} ms ({CARD})")
         if counts[kernel] < 1 or counts["irfft_trigger"] < 1:
             raise AssertionError(f"{label}: {kernel} was not launched: {counts}")
-        if sorted(calls) != sorted(name for name, c in counts.items() if c):
-            raise AssertionError(f"{label}: launches {counts} but operands of {sorted(calls)}")
+        if sorted(rec.calls) != sorted(name for name, c in counts.items() if c):
+            raise AssertionError(f"{label}: launches {counts} but operands of {sorted(rec.calls)}")
         for name, c in counts.items():
             total[name] += c
-        check_kernels(label.split(" (")[0].split(",")[0])
+        _check_recorded(rec.calls, label.split(" (")[0].split(",")[0], "phase 9")
         torch.cuda.empty_cache()
         return res
 
@@ -1442,11 +1566,225 @@ def phase_signal_chain(dev):
     return total
 
 
+def _campaign_run(label, make_sim, n_events):
+    """One campaign ``Simulation`` built and run on the card with its
+    launches counted and one launch of each kernel recorded; returns (sim,
+    results, wall seconds from input to Veff with set-up, launch counts,
+    recorded operands)."""
+    _reset_launches()
+    torch.cuda.synchronize()
+    with _Recorder() as rec:
+        t0 = time.perf_counter()
+        sim = make_sim()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    print(f"phase 10 {label}: {res['n_triggered']} of {len(res['triggered'])} groups triggered, "
+          f"{wall:.2f} s from input to Veff with set-up, {n_events / wall:.1f} events/s "
+          f"end to end, launches {counts} ({CARD})")
+    return sim, res, wall, counts, rec.calls
+
+
+def phase_campaign(dev):
+    """NuRadioMC's production-scale campaigns on the card: event lists from
+    the port's generator, ``Simulation`` runs in float64 and float32, the
+    ``.nur`` waveform output read back and held to the reference's waveforms
+    and the JAX package's traces, the noisy phased-array campaign, and the
+    Gen2 tau list; returns the kernel launches of the runs."""
+    import tempfile
+
+    from nuradiomc_tpu_torch.sim import evtgen, io_nur
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    # (a) the 50,000-event list, in memory
+    golden = np.load(FULLSCALE_GOLDEN)
+    t0 = time.perf_counter()
+    data, attrs = convert.fullscale_event_list()
+    gen_s = time.perf_counter() - t0
+    digest = evtgen.list_digest(data)
+    want = golden["input_sha1"].item().decode()
+    print(f"phase 10a evtgen: {attrs['n_events']} events, {len(data['shower_ids'])} showers in "
+          f"{gen_s:.3f} s on the host; digest {digest} (golden {want}) ({CARD})")
+    if digest != want:
+        raise AssertionError("the generated campaign list differs from the golden's input")
+
+    # (b) float64 with the .nur output
+    ref = set(np.unique(golden["group_ids"][golden["triggered"]]).tolist())
+    gid = golden["group_ids"]
+    _, first = np.unique(gid, return_index=True)
+    ref_sum = golden["weights"][first][golden["triggered"][first]].sum()
+    n_events = int(golden["n_events"])
+    with tempfile.TemporaryDirectory() as tmp:
+        nur = os.path.join(tmp, "campaign.nur")
+        sim, res, wall, counts, calls = _campaign_run(
+            "(b) float64, 50,000 events with .nur output",
+            lambda: convert.fullscale_simulation(io_input.from_generated(data, attrs),
+                                                 device=dev, dtype=torch.float64,
+                                                 nur_outputfilename=nur), n_events)
+        add(counts)
+        sel = res["triggered"] & (res["weights"] >= 1e-5)
+        mine = set(res["group_ids"][sel].tolist())
+        w_sum = res["weights"][sel].sum()
+        veff = float(golden["volume"]) * 4 * np.pi * w_sum / n_events
+        print(f"phase 10b float64: {len(mine)} groups above the weight cut (golden {len(ref)}), "
+              f"{len(mine ^ ref)} differ; weight sum {w_sum:.9g} (golden {ref_sum:.9g}); "
+              f"Veff*4pi {veff / units.km ** 3:.6f} km^3 sr (golden "
+              f"{float(golden['veff']) / units.km ** 3:.6f})")
+        if (mine != ref or not abs(w_sum / ref_sum - 1) <= 1e-6
+                or not abs(veff / float(golden["veff"]) - 1) <= 1e-6):
+            raise AssertionError("the float64 campaign does not hold the golden")
+        if min(counts["placement_chain"], counts["irfft_trigger"]) < 1:
+            raise AssertionError(f"a kernel of the campaign was not launched: {counts}")
+        _check_recorded(calls, "campaign float64", "phase 10b")
+        # (d, first part) the .nur file: one event per triggered group, 1 GHz
+        events = list(io_nur.EventReader(nur).run())
+        ids = [e.get_id() for e in events]
+        rates = {ch.get_sampling_rate() for e in events for ch in e.get_station(101).iter_channels()}
+        n_samples = {ch.get_number_of_samples() for e in events
+                     for ch in e.get_station(101).iter_channels()}
+        want_ids = sorted(int(g) for g in res["group_ids"][res["triggered"]])
+        print(f"phase 10d .nur of (b): {len(events)} events (triggered groups {len(want_ids)}), "
+              f"rates {sorted(rates)} GHz, {sorted(n_samples)} samples")
+        if ids != want_ids or rates != {1.0}:
+            raise AssertionError("the campaign's .nur does not hold one 1 GHz event per "
+                                 "triggered group")
+    del sim, res, calls
+    torch.cuda.empty_cache()
+
+    # (c) float32 at the headline settings, no gate
+    bench = {"propagation": {"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28},
+             "perf": {"band_limit_eps": 1e-2}}
+    _, res, _, counts, calls = _campaign_run(
+        "(c) float32, headline settings",
+        lambda: convert.fullscale_simulation(io_input.from_generated(data, attrs), bench,
+                                             device=dev, dtype=torch.float32), n_events)
+    add(counts)
+    mine = set(res["group_ids"][res["triggered"] & (res["weights"] >= 1e-5)].tolist())
+    print(f"phase 10c float32: symmetric difference against the golden set {len(mine ^ ref)} "
+          f"groups (missing {sorted(ref - mine)}, extra {sorted(mine - ref)}; no gate) ({CARD})")
+    if min(counts["placement_chain"], counts["irfft_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the float32 campaign was not launched: {counts}")
+    _check_recorded(calls, "campaign float32", "phase 10c")
+    del res, calls
+    torch.cuda.empty_cache()
+
+    # (d) the 3000-event dipole input with .nur output, against NuRadioMC's
+    # waveforms and the JAX package's keep_traces traces
+    pin = np.load(WAVEFORMS_REF)
+    with tempfile.TemporaryDirectory() as tmp:
+        nur = os.path.join(tmp, "dipole.nur")
+        _, res, _, counts, calls = _campaign_run(
+            "(d) float64, the 3000-event dipole input with .nur output",
+            lambda: convert.dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024,
+                                              device=dev, dtype=torch.float64,
+                                              nur_outputfilename=nur), 3000)
+        add(counts)
+        events = {e.get_id(): e for e in io_nur.EventReader(nur).run()}
+    if min(counts["placement_chain"], counts["irfft_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the dipole run was not launched: {counts}")
+    _check_recorded(calls, "dipole run with .nur output", "phase 10d")
+    del calls
+    worst_ref = worst_jax = worst_tt = worst_tt_jax = 0.0
+    for j, g in enumerate(pin["group_ids"].tolist()):
+        st = events[g].get_station(101)
+        ch = st.get_channel(0)
+        mine, t0_mine = np.asarray(ch.get_trace()), ch.get_trace_start_time()
+        tt = st.get_trigger("default_high_low").get_trigger_time()
+        # on the reference's readout grid (tests/test_e2e_waveforms.py:89-105)
+        ref_tr = pin["ref_traces"][j]
+        bt = BaseTrace()
+        bt.set_trace(mine, ch.get_sampling_rate())
+        bt.resample(float(pin["ref_fs"]))
+        offset = (pin["ref_t0"][j] - t0_mine) * float(pin["ref_fs"])
+        start_bin = int(np.floor(offset))
+        if abs(offset - start_bin) > 1e-9:
+            bt.apply_time_shift(-(offset - start_bin) / float(pin["ref_fs"]))
+        cut = np.asarray(bt.get_trace())[start_bin:start_bin + len(ref_tr)]
+        if len(cut) != len(ref_tr):
+            raise AssertionError(f"group {g}: the trace does not cover the reference's window")
+        worst_ref = max(worst_ref, np.abs(cut - ref_tr).max() / np.abs(ref_tr).max())
+        worst_tt = max(worst_tt, abs(tt - pin["ref_trigger_times"][j]))
+        # the JAX package's keep_traces trace, resampled as the writer does
+        jt = BaseTrace()
+        jt.set_trace(pin["jax_traces"][j], float(pin["jax_rate"]))
+        jt.resample(ch.get_sampling_rate())
+        jax_tr = np.asarray(jt.get_trace())
+        err = np.abs(mine - jax_tr).max() / np.abs(jax_tr).max()
+        worst_jax = max(worst_jax, err / pin["jax_limits"][j])
+        worst_tt_jax = max(worst_tt_jax, abs(tt - pin["jax_trigger_times"][j]),
+                           abs(t0_mine - pin["jax_base_t0"][j]))
+    print(f"phase 10d the golden's {len(pin['group_ids'])} waveforms: max |port - NuRadioMC| "
+          f"{worst_ref:.3e} of peak (limit 2e-2), trigger times within {worst_tt:.3e} ns (limit "
+          f"1); against the JAX package's keep_traces: worst error {worst_jax:.3f} of its limit "
+          f"(1e-6 of peak, 5e-4 where a refracted ray is valid: the turning point), times "
+          f"within {worst_tt_jax:.2e} ns (limit 1e-3)")
+    if not (worst_ref <= 2e-2 and worst_tt <= 1.0 and worst_jax <= 1.0 and worst_tt_jax <= 1e-3):
+        raise AssertionError("the .nur waveforms do not hold the references")
+    del res
+    torch.cuda.empty_cache()
+
+    # (e) the noisy deep phased-array campaign
+    pa_golden = np.load(FULLSCALE_PA_GOLDEN)
+    t0 = time.perf_counter()
+    pa_data, pa_attrs = convert.fullscale_event_list(convert.FULLSCALE_PA_LIST)
+    pa_gen_s = time.perf_counter() - t0
+    digest = evtgen.list_digest(pa_data)
+    want = pa_golden["input_sha1"].item().decode()
+    print(f"phase 10e evtgen: {pa_attrs['n_events']} events in {pa_gen_s:.3f} s on the host; "
+          f"digest {digest} (golden {want}) ({CARD})")
+    if digest != want:
+        raise AssertionError("the generated phased-array list differs from the golden's input")
+    n_pa = int(pa_golden["n_events"])
+    _, res, _, counts, calls = _campaign_run(
+        "(e) phased array, float64, 10,000 events",
+        lambda: convert.fullscale_pa_simulation(io_input.from_generated(pa_data, pa_attrs),
+                                                device=dev, dtype=torch.float64), n_pa)
+    add(counts)
+    sel = res["triggered"] & (res["weights"] >= 1e-5)
+    n_mine, n_ref = len(set(res["group_ids"][sel].tolist())), int(pa_golden["n_triggered"])
+    veff = float(pa_golden["volume"]) * 4 * np.pi * res["weights"][sel].sum() / n_pa
+    rel = veff / float(pa_golden["veff"]) - 1
+    print(f"phase 10e phased array: {n_mine} triggered (golden {n_ref}, band "
+          f"{3 * np.sqrt(n_ref):.1f}), Veff*4pi {veff / units.km ** 3:.5f} km^3 sr (golden "
+          f"{float(pa_golden['veff']) / units.km ** 3:.5f}), rel {rel:+.4f} (band "
+          f"{2 * 2 / np.sqrt(n_ref):.4f})")
+    if abs(n_mine - n_ref) > 3 * np.sqrt(n_ref) or abs(rel) >= 2 * 2 / np.sqrt(n_ref):
+        raise AssertionError("the phased-array campaign is outside its statistical bands")
+    if min(counts["placement_chain"], counts["pa_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the phased-array campaign was not launched: {counts}")
+    _check_recorded(calls, "phased-array campaign float64", "phase 10e")
+    del res, calls
+    torch.cuda.empty_cache()
+
+    # (f) the Gen2 tau list with stochastic secondaries
+    t0 = time.perf_counter()
+    got = io_input.from_generated(*convert.gen2_tau_event_list())
+    gen_s = time.perf_counter() - t0
+    ref_inp = io_input.read_input(INPUT_GEN2)
+    differ = [name for name in io_input._ARRAYS if not (
+        (getattr(got, name) is None and getattr(ref_inp, name) is None)
+        or np.array_equal(getattr(got, name), getattr(ref_inp, name)))]
+    print(f"phase 10f Gen2 tau list: {got.n_showers} showers in {gen_s:.3f} s on the host, "
+          f"columns that differ from its export: {differ} ({CARD})")
+    if differ:
+        raise AssertionError("the Gen2 tau list differs from its export")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s; launches {total} ({CARD})")
+    return total
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
-          "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,)}
+          "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
+          "10": (phase_campaign,)}
 
 
 def _phases_asked(argv):
@@ -1455,7 +1793,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,9|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,10|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -1512,8 +1850,10 @@ def main() -> int:
     mt_launches = phase_multitrigger(dev)
     mb_launches = phase_mooresbay(dev)
     chain_launches = phase_signal_chain(dev)
-    # launches: the counts of the main-path runs (phases 3, 5, 6, 7, 8 and 9)
-    for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches):
+    campaign_launches = phase_campaign(dev)
+    # launches: the counts of the main-path runs (phases 3, 5, 6, 7, 8, 9 and 10)
+    for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
+                   campaign_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

@@ -6,6 +6,8 @@ easy to find:
 ``utils``     units, constants, layered config, fft conventions, geometry
 ``models``    ice models
 ``detector``  the JSON detector description
+``framework`` the event data model (Event, Station, Channel, Trigger,
+              Shower, BaseTrace) that the ``.nur`` files carry
 ``ops``       ray tracing (with implicit focusing), attenuation, Askaryan
               (Alvarez2000, Alvarez2009), antenna, filters, trace, noise,
               trigger ADC, phased array, birefringence, triggers, the FFT
@@ -13,11 +15,16 @@ easy to find:
               hand-written Hopper kernels (``ops/placement.py``,
               ``ops/trigger_fused.py``, ``ops/pa_trigger.py``, sources in
               ``csrc/``)
-``sim``       the batched pipeline, the ``Simulation`` orchestrator, Earth
-              attenuation weights, HDF5 I/O and the h5py-free ``.npz``
-              event-list input (``sim/io_input.py``)
+``sim``       the event generator (``sim/evtgen.py``, with fluxes, cross
+              sections and the muon/tau propagator), the batched pipeline,
+              the ``Simulation`` orchestrator, Earth attenuation weights,
+              HDF5 I/O, the h5py-free event-list input (``sim/io_input.py``:
+              ``.npz`` exports and lists generated in memory), the ``.nur``
+              waveform files (``sim/io_nur.py``) and the Veff tables
+              (``sim/veff.py``)
 ``data``      the ``.npz`` exports of the 3000-event 1e18 eV input and the
-              Gen2 tau input, and the birefringence ice models
+              Gen2 tau input, the flux tables, the birefringence ice models
+              and the reference values ``chip_smoke.py`` compares with
 
 It imports ``torch``, numpy, scipy, yaml and the standard library (h5py only
 inside the functions that read or write HDF5), and nothing of ``jax`` or of

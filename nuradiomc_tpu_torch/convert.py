@@ -641,3 +641,80 @@ def arz_simulation(inputfilename, config=None, **kwargs):
     return dipole_simulation(
         inputfilename, config_util.merge_config(config, {"signal": {"model": "ARZ2020"}}),
         **kwargs)
+
+
+# ---- NuRadioMC's production-scale Veff campaigns (tests/test_veff_fullscale.py)
+
+# the reference's CI campaign test/Veff/1e18eV: 50,000 events at 1e18 eV,
+# seed 10, r < 4 km, -2.7 km < z < 0 (tests/golden/veff_fullscale_reference.npz)
+FULLSCALE_LIST = dict(n_events=50000, volume={
+    "fiducial_rmin": 0, "fiducial_rmax": 4 * units.km,
+    "fiducial_zmin": -2.7 * units.km, "fiducial_zmax": 0})
+# its noisy deep phased-array variant: 10,000 events, r < 3 km, -2 km < z < 0
+# (tests/golden/veff_fullscale_pa_reference.npz)
+FULLSCALE_PA_LIST = dict(n_events=10000, volume={
+    "fiducial_rmin": 0, "fiducial_rmax": 3 * units.km,
+    "fiducial_zmin": -2 * units.km, "fiducial_zmax": 0})
+
+
+def fullscale_event_list(campaign=FULLSCALE_LIST, seed=10):
+    """``(data, attributes)`` of a campaign's event list, generated in memory
+    by the port's ``evtgen`` at 1e18 eV with the CTW cross sections (the
+    golden's ``input_sha1`` is ``evtgen.list_digest`` of ``data``)."""
+    from nuradiomc_tpu_torch.sim import evtgen
+    return evtgen.generate_eventlist_cylinder(
+        None, campaign["n_events"], 1e18 * units.eV, 1e18 * units.eV, campaign["volume"],
+        seed=seed, cross_sections_model="ctw")
+
+
+def fullscale_simulation(event_input, config=None, **kwargs):
+    """The port's ``Simulation`` of the dipole campaign
+    (tests/test_veff_fullscale.py:38-52, :94-114): the station, config,
+    filters, trigger and antenna replacement of :func:`dipole_simulation`,
+    in chunks of 2048 groups; ``event_input`` may be an in-memory
+    ``EventInput`` (``io_input.from_generated``)."""
+    return dipole_simulation(event_input, config, **{"chunk_size": 2048, **kwargs})
+
+
+# the campaign's four RNO-G VPols below 197 m, 5 ns more cable per channel
+FULLSCALE_PA_DETECTOR = {
+    "channels": {str(i + 1): {**PA_DETECTOR["channels"][str(i + 1)],
+                              "cab_time_delay": 1051.0 + 5.0 * i} for i in range(4)},
+    "stations": PA_DETECTOR["stations"],
+}
+FULLSCALE_PA_CONFIG = {"sampling_rate": 2.0, "noise": True,
+                       "propagation": {"ice_model": "southpole_2015", "focusing": True},
+                       "signal": {"model": "Alvarez2009"},
+                       "speedup": {"min_efield_amplitude": 2},
+                       "weights": {"weight_mode": "core_mantle_crust",
+                                   "cross_section_type": "ctw"}}
+
+
+def fullscale_pa_simulation(event_input, config=None, **kwargs):
+    """The port's ``Simulation`` of the noisy deep phased-array campaign
+    (tests/test_veff_fullscale.py:151-198): FULLSCALE_PA_DETECTOR (mapped to
+    analytic_VPol), FULLSCALE_PA_CONFIG (``config`` merged on top), the
+    cheby1 chain and the phased-array trigger, in chunks of 1024 groups."""
+    from nuradiomc_tpu_torch.sim.simulation import FilterStage, Simulation, TriggerSpec
+    return Simulation(
+        event_input, FULLSCALE_PA_DETECTOR,
+        config=config_util.merge_config(config, FULLSCALE_PA_CONFIG),
+        filter_chain=[
+            FilterStage((96 * units.MHz, 100 * units.GHz), "cheby1", {"order": 4, "rp": 0.1}),
+            FilterStage((0, 220 * units.MHz), "cheby1", {"order": 7, "rp": 0.1}),
+        ],
+        antenna_replacements={"RNOG_vpol_v1_n1.73": "analytic_VPol"},
+        **{"trigger": TriggerSpec(trigger_type="phased_array"), "chunk_size": 1024, **kwargs})
+
+
+def gen2_tau_event_list(n_events=2048, seed=21):
+    """``(data, attributes)`` of the Gen2 workload's input (bench.py:492-497):
+    ν_τ CC at 1e19 eV in r < 3 km, -2.7 km < z < 0 with stochastic tau and
+    muon secondaries; ``io_input.INPUT_GEN2`` is the export of the 2048-event
+    list."""
+    from nuradiomc_tpu_torch.sim import evtgen
+    return evtgen.generate_eventlist_cylinder(
+        None, n_events, 1e19, 1e19,
+        {"fiducial_rmin": 0, "fiducial_rmax": 3 * units.km,
+         "fiducial_zmin": -2.7 * units.km, "fiducial_zmax": 0},
+        seed=seed, flavor=(16, -16), interaction_type="cc", secondaries="stochastic")

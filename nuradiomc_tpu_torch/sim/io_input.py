@@ -83,6 +83,31 @@ def head(inp: EventInput, n_groups: int) -> EventInput:
     return select(inp, np.unique(inp.event_group_ids)[:n_groups])
 
 
+def from_generated(data_sets: dict, attributes: dict) -> EventInput:
+    """The ``EventInput`` of a list generated in memory (``evtgen``'s
+    ``(data, attributes)``), equal to the one that writing it with
+    ``evtgen.write_events_to_hdf5`` and reading it back with
+    ``io_hdf5.read_input_hdf5`` gives: strings as the decoded bytes of
+    their fixed-width columns, scalar attributes as numpy scalars, so a
+    campaign needs no file and no h5py."""
+    def column(key):
+        arr = np.asarray(data_sets[key])
+        if arr.dtype.kind in "OU":
+            return np.array([s.decode() for s in arr.astype("S")])
+        return arr.copy()
+
+    def attribute(value):
+        if isinstance(value, str):
+            return value
+        arr = np.asarray(value)
+        return arr[()] if arr.ndim == 0 else arr
+
+    fields = [f.name for f in dataclasses.fields(EventInput)
+              if f.name in data_sets and f.name != "attrs"]
+    return EventInput(**{name: column(name) for name in fields},
+                      attrs={k: attribute(v) for k, v in attributes.items()})
+
+
 def read_input(path) -> EventInput:
     """An ``.npz`` export without h5py; any other file through the HDF5
     reader (needs h5py). An ``EventInput`` made in memory passes through."""

@@ -225,7 +225,7 @@ class PipelineOutput(NamedTuple):
     max_efield: torch.Tensor       # [G]
     trigger_time: torch.Tensor     # [G]
     max_amplitude: torch.Tensor    # [G, C]
-    traces: Optional[torch.Tensor]  # None: keep_traces is not ported
+    traces: Optional[torch.Tensor]  # [G, C, n_base] window 0's readout traces (keep_traces)
     base_t0: torch.Tensor          # [G]
     sol_mask: torch.Tensor         # [G, S, C, 2]
     c0: torch.Tensor
@@ -317,16 +317,11 @@ def _attenuation_freq_grid(ff, n_freq, max_detector_freq=None):
     return np.linspace(pos.min(), pos.max(), n)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
-
-
-_ITEM_REST = "8, the rest"
 _ASKARYAN_MODELS = ("ZHS1992", "Alvarez2000", "Alvarez2009", "ARZ2019", "ARZ2020")
 
 
 def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
-                 keep_traces, emitter, arz_library):
+                 emitter, arz_library):
     if s.apply_focusing and s.focusing_mode not in ("implicit", "numeric"):
         raise ValueError(f"focusing_mode must be 'implicit' or 'numeric', got {s.focusing_mode!r}")
     if emitter is None and s.askaryan_model not in _ASKARYAN_MODELS:
@@ -338,8 +333,6 @@ def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         raise ValueError("ARZ models require arz_library and batch.profile_idx")
     if s.n_reflections > 0 and s.ice.refl_z is None:
         raise ValueError("n_reflections > 0 requires an ice model with a reflective bottom")
-    if keep_traces:
-        _not_ported("keep_traces (the .nur writer's traces)", _ITEM_REST)
     if s.placement_impl not in ("kernel", "plain") or s.trigger_impl not in ("kernel", "plain"):
         raise ValueError("placement_impl / trigger_impl must be 'kernel' or 'plain'")
 
@@ -560,8 +553,12 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     real dtype is ``batch.vertices.dtype`` (float32 or float64). With
     ``s.add_noise`` the noise is drawn from ``noise_generator`` (a
     ``torch.Generator`` on that device), one realization per (group,
-    channel), where the JAX function takes a ``noise_key``."""
-    _check_slice(batch, ch, s, keep_traces, emitter, arz_library)
+    channel), where the JAX function takes a ``noise_key``. With
+    ``keep_traces`` the output carries window 0's readout-chain traces
+    [G, C, n_base] at the internal rate; the trigger decisions still come
+    from kernels 2 and 3, the traces from ``torch.fft.irfft`` of the same
+    full-band spectra (pipeline.py:1437, :1523-1542)."""
+    _check_slice(batch, ch, s, emitter, arz_library)
     if s.add_noise and noise_generator is None:
         raise ValueError("add_noise=True requires a noise_generator")
     trig_list = _trigger_list(s)
@@ -827,13 +824,14 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     cap = (s.n_base - s.n_internal) * dt
     F_base = s.n_base // 2 + 1
     # band limits (pipeline.py:1127-1158): with a separate trigger chain the
-    # efield grid stays full, and the placement covers both chains' supports
+    # efield grid stays full, and the placement covers both chains' supports;
+    # kept traces are user-visible waveforms, so the base grid stays full
     separate_chain = ch.trigger_filter_response is not None
     K_int, K_base, K_trig, K_place = F_int, F_base, F_base, F_base
-    if s.band_limit_eps > 0:
-        if not separate_chain:
-            K_int = _band_support((ch.filter_response_int.cpu().numpy(),),
-                                  s.band_limit_eps, F_int)
+    if s.band_limit_eps > 0 and not separate_chain:
+        K_int = _band_support((ch.filter_response_int.cpu().numpy(),),
+                              s.band_limit_eps, F_int)
+    if s.band_limit_eps > 0 and not keep_traces:
         K_base = _band_support((ch.filter_response.cpu().numpy(),),
                                s.band_limit_eps, F_base)
         K_trig = (_band_support((ch.trigger_filter_response.cpu().numpy(),),
@@ -860,10 +858,11 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         chain_tables = (ch_major(tpl_idx), att_W[:, :K_int].contiguous(),
                         tpl_table[:, :K_int].contiguous())
 
-    def assemble_and_trigger(in_w, offset, t0_w):
+    def assemble_and_trigger(in_w, offset, t0_w, want_traces):
         """One sub-event readout window (pipeline.py:1174-1460): place the
         in-window pulses, add noise, apply the chains, run every trigger.
-        Returns (fired per trigger, time per trigger, amp [G, C])."""
+        Returns (fired per trigger, time per trigger, amp [G, C], the
+        readout traces [G, C, n_base] with ``want_traces``, else None)."""
         if factored:
             place = (placement.chain_placement_reduce if kernel
                      else placement.chain_placement_reduce_plain)
@@ -903,7 +902,11 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         trig = rows_of(ch.trigger_filter_response, K_trig) if separate_chain else readout
         fired, frames, amp = _run_triggers(trig_list, trig, readout if separate_chain else None,
                                            s, ch, G, C)
-        return fired, [t0_w + f for f in frames], amp
+        traces = None
+        if want_traces:
+            traces = fft.freq2time(torch.complex(*readout).reshape(G, C, K_base),
+                                   s.sampling_rate, n=s.n_base)
+        return fired, [t0_w + f for f in frames], amp, traces
 
     # ---- 7b. sub-event windows (pipeline.py:1462-1489) ----------------------
     remaining = valid
@@ -916,7 +919,9 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         t0_w = torch.where(any_rem, t0_w, 0.0)
         offset = t_start - t0_w[:, None, None, None]
         in_w = remaining & (offset <= cap)
-        fired, times, amp_w = assemble_and_trigger(in_w, offset, t0_w)
+        # only window 0's traces are kept
+        fired, times, amp_w, traces_w = assemble_and_trigger(in_w, offset, t0_w,
+                                                             keep_traces and w == 0)
         # a window without pulses never triggers; requires-gating ANDs a
         # trigger with an earlier-declared one inside each window
         # (pipeline.py:1491-1512)
@@ -928,7 +933,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
             gated.append(c)
         per_window.append((gated, times))
         if w == 0:
-            base_t0, max_amp_tr = t0_w, amp_w
+            base_t0, max_amp_tr, traces0 = t0_w, amp_w, traces_w
         else:
             max_amp_tr = torch.maximum(max_amp_tr, amp_w)
         remaining = remaining & ~in_w
@@ -958,7 +963,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         max_efield=torch.amax(ef_max.reshape(G, -1), dim=-1),
         trigger_time=trigger_time,
         max_amplitude=max_amp_tr,
-        traces=None,
+        traces=traces0,
         base_t0=base_t0,
         sol_mask=valid,
         c0=sols.c0, c1=sols.c1, sol_type=sols.sol_type,

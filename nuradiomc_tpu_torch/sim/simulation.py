@@ -13,12 +13,15 @@ with the Alvarez2009 ``k_L`` draws, runs :func:`pipeline.simulate_batch`
 chunk by chunk on ``device`` (noise from one ``torch.Generator`` on that
 device, seeded from ``config["seed"]``), computes the weights and Veff, and
 writes the output HDF5 through ``io_hdf5.write_output_hdf5`` (the port's
-copy; needs h5py). A plain chunk loop takes the place of the JAX
-package's packed executor.
+copy; needs h5py) and, with ``nur_outputfilename``, the triggered events
+with their waveforms through the port's ``io_nur.EventWriter`` (no h5py). A
+plain chunk loop takes the place of the JAX package's packed executor.
 
-The input is an HDF5 event list (read with h5py) or its ``.npz`` export
-(``sim/io_input.py``), which needs no h5py: that is how ``Simulation`` runs
-where h5py is missing. Writing an output file needs h5py.
+The input is an HDF5 event list (read with h5py), its ``.npz`` export
+(``sim/io_input.py``) or an ``EventInput`` made in memory
+(``io_input.from_generated`` on ``evtgen``'s output); the last two need no
+h5py: that is how ``Simulation`` runs where h5py is missing. Writing an
+output HDF5 file needs h5py.
 
 An emitter input (``simulation_mode = "emitter"``) makes the run an emitter
 run: the ``emitter_*`` columns give the model, the emitting antenna and the
@@ -26,8 +29,8 @@ per-row amplitude, frequency, polarization and time. ``antenna_models_path``
 holds tabulated antenna pickles as ``<model>/<model>.pkl``;
 ``arz_library_path`` the shower library of the ARZ models.
 
-Not ported yet (they raise): numeric birefringence propagation, ``.nur``
-output and device meshes.
+Not ported yet (they raise): numeric birefringence propagation and device
+meshes.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 from nuradiomc_tpu_torch.detector.detector import Detector
 from nuradiomc_tpu_torch.ops import filters
 from nuradiomc_tpu_torch.sim import earth_attenuation
+from nuradiomc_tpu_torch.sim.evtgen import group_into_events
 from nuradiomc_tpu_torch.utils import config as config_util
 from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils import device as device_util
@@ -89,25 +93,6 @@ class TriggerSpec:
     requires: str = None
 
 
-# copied from nuradiomc_tpu/sim/evtgen.py:509 (group_into_events)
-def group_into_events(start_times, split_time_gap=1e6):
-    """Split showers of one event group into separate events when their
-    signal arrival times gap by more than ``split_time_gap``
-    (simulation.group_into_events:906-1016).
-
-    Returns an integer sub-event index per shower (sorted stably).
-    """
-    start_times = np.asarray(start_times)
-    order = np.argsort(start_times, kind="stable")
-    event_idx = np.zeros(len(start_times), dtype=int)
-    current = 0
-    for k in range(1, len(order)):
-        if start_times[order[k]] - start_times[order[k - 1]] > split_time_gap:
-            current += 1
-        event_idx[order[k]] = current
-    return event_idx
-
-
 def _group_showers(group_ids):
     """(unique_ids, start, count, order): showers stably sorted by group id
     (the JAX package's native batch builder, native/batch_builder.cpp)."""
@@ -144,6 +129,7 @@ class Simulation:
                  triggers: Optional[Sequence[TriggerSpec]] = None,
                  trigger_filter_chain: Optional[Sequence[FilterStage]] = None,
                  outputfilename: Optional[str] = None,
+                 nur_outputfilename: Optional[str] = None,
                  antenna_replacements: Optional[dict] = None,
                  antenna_models_path: Optional[str] = None,
                  chunk_size: int = 256, n_base: int = 2048,
@@ -167,6 +153,7 @@ class Simulation:
         self.trigger_filter_chain = (list(trigger_filter_chain)
                                      if trigger_filter_chain is not None else None)
         self.outputfilename = outputfilename
+        self.nur_outputfilename = nur_outputfilename
         self.antenna_replacements = antenna_replacements or {}
         self.antenna_models_path = antenna_models_path
         self.spice_pulses_path = spice_pulses_path
@@ -633,6 +620,12 @@ class Simulation:
             vertex_position=np.c_[inp.xx[first], inp.yy[first], inp.zz[first]],
             phi_nu=inp.azimuths[first])
 
+    def _on_device(self, batch, rows):
+        """The ``rows`` (a slice or indices) of the host batch as tensors on
+        the run's device."""
+        return ShowerBatch(*[None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a[rows]), device=self.device) for a in batch])
+
     def _run_station(self, station_id, batch, seed_offset=0):
         """The pipeline over all groups of one station, chunk by chunk; the
         noise comes from one generator on the device, seeded from
@@ -659,8 +652,7 @@ class Simulation:
         cd = chp.cable_delays.cpu().numpy()
         for c0 in range(0, G, self.chunk_size):
             sl = slice(c0, min(c0 + self.chunk_size, G))
-            chunk = ShowerBatch(*[None if a is None else torch.as_tensor(
-                np.ascontiguousarray(a[sl]), device=self.device) for a in batch])
+            chunk = self._on_device(batch, sl)
             out = simulate_batch(chunk, chp, self.settings, noise_generator=gen,
                                  emitter=self._emitter, arz_library=self.arz_library)
             trig = out.triggered.cpu().numpy()
@@ -754,7 +746,73 @@ class Simulation:
         }
         if self.outputfilename is not None:
             self._write_output(results, per_station, group_ids, start, count, order)
+        if self.nur_outputfilename is not None:
+            self._write_nur(group_ids, start, count, order, batch, triggered,
+                            multiple_triggers, trigger_times_per)
         return results
+
+    def _write_nur(self, group_ids, start, count, order, batch, triggered,
+                   multiple_triggers, trigger_times_per):
+        """The triggered groups as events with waveforms in a ``.nur`` file
+        (simulation.py:1253-1317, the reference's outputfilenameNuRadioReco
+        path): the triggered groups run again through ``simulate_batch``
+        with ``keep_traces`` on the run's device (noise seeded from
+        ``config["seed"] + 1``), each channel's readout trace resampled to
+        the detector's rate; one ``Trigger`` per named trigger with its
+        time, and the sim showers."""
+        from nuradiomc_tpu_torch.framework import parameters as par
+        from nuradiomc_tpu_torch.framework.event import (Channel, Event, Shower,
+                                                         Station, Trigger)
+        from nuradiomc_tpu_torch.sim import io_nur
+
+        writer = io_nur.EventWriter(self.nur_outputfilename)
+        idx = np.where(triggered)[0]
+        gen = None
+        if self.settings.add_noise:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(self.config["seed"]) + 1)
+        traces, base_t0 = [], []
+        for c0 in range(0, len(idx), self.chunk_size):
+            sel = idx[c0:c0 + self.chunk_size]
+            chunk = self._on_device(batch, sel)
+            out = simulate_batch(chunk, self.channel_params, self.settings,
+                                 noise_generator=gen, keep_traces=True,
+                                 emitter=self._emitter, arz_library=self.arz_library)
+            traces.append(out.traces.cpu().numpy())
+            base_t0.append(out.base_t0.cpu().numpy())
+        if len(idx):
+            traces, base_t0 = np.concatenate(traces), np.concatenate(base_t0)
+        ch_det = self.det.get_station(self.station_id).channels
+        shp = par.showerParameters
+        inp = self.input
+        for j, g in enumerate(idx):
+            evt = Event(0, int(group_ids[g]))
+            station = Station(self.station_id)
+            for ci, cid in enumerate(ch_det.channel_ids):
+                ch = Channel(int(cid))
+                ch.set_trace(traces[j, ci], self.internal_rate,
+                             trace_start_time=float(base_t0[j]))
+                ch.resample(float(ch_det.sampling_frequency[ci]))
+                station.add_channel(ch)
+            for iT, spec in enumerate(self.triggers):
+                fired = bool(multiple_triggers[g, iT])
+                trig = Trigger(spec.name, list(spec.channels) or
+                               [int(c) for c in ch_det.channel_ids], spec.trigger_type)
+                trig.set_triggered(fired)
+                if fired:
+                    trig.set_trigger_time(float(trigger_times_per[g, iT]))
+                station.set_trigger(trig)
+            evt.set_station(station)
+            for r in order[start[g]:start[g] + count[g]]:
+                sh = Shower(int(inp.shower_ids[r]))
+                sh[shp.energy] = float(inp.shower_energies[r])
+                sh[shp.zenith] = float(inp.zeniths[r])
+                sh[shp.azimuth] = float(inp.azimuths[r])
+                sh[shp.vertex] = np.array([inp.xx[r], inp.yy[r], inp.zz[r]])
+                sh[shp.type] = str(inp.shower_type[r])
+                evt.add_sim_shower(sh)
+            writer.run(evt)
+        writer.end()
 
     def _write_output(self, results, per_station, group_ids, start, count, order):
         """Output HDF5 through the port's copy of the HDF5 writer (needs h5py)."""

@@ -484,3 +484,89 @@ def test_reflective_kernel_path_matches_plain_path(dev, n_reflections):
     assert int((out.triggered != ref.triggered).sum()) <= 1
     assert bool(ref.triggered.any()) and bool(out.sol_mask[..., 2:].any())
     torch.testing.assert_close(out.max_amplitude, ref.max_amplitude, rtol=1e-4, atol=0)
+
+
+def test_keep_traces_float64_on_card_matches_cpu(dev, monkeypatch):
+    """``simulate_batch(keep_traces=True)`` in float64 on the card (kernels 1
+    and 2 make the decisions, ``torch.fft`` the traces) against the same call
+    on the CPU: decisions and trigger times equal, and in every group
+    without a valid refracted ray the traces within 1e-10 of the group's
+    peak (a peak below 1e-6 of the batch's largest, far under any noise
+    floor, counts as 1e-6 of it).
+
+    A refracted ray's closed form takes a square root that vanishes at the
+    turning point (ROADMAP "The turning point"), so the two devices' ray
+    solutions differ in their last bits there and the arrival moves. The
+    test shows that this is the whole difference: every group whose traces
+    differ by more than 1e-10 has a travel time that differs between the
+    devices, and the CPU run given the card's ray solutions (the rest of
+    the pipeline on the CPU as before) equals the card's traces within
+    1e-10 of peak in every group, refracted ones included, and its
+    ``base_t0`` within 1e-9 ns. Against the CPU's own solutions the
+    refracted groups stay under the turning-point bound of
+    tests/test_torch_nur_output.py, 5e-4 of peak."""
+    from nuradiomc_tpu_torch.convert import dipole_simulation
+    from nuradiomc_tpu_torch.ops import raytrace
+    from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
+    solve = raytrace.find_solutions_all
+    card_sols = []
+
+    def recording(*args, **kw):
+        card_sols.append(solve(*args, **kw))
+        return card_sols[-1]
+
+    def replaying(*args, **kw):
+        sols = card_sols.pop(0)
+        return raytrace.RaySolutions(*[None if t is None else t.cpu() for t in sols])
+
+    def run(where, find_solutions_all):
+        monkeypatch.setattr(raytrace, "find_solutions_all", find_solutions_all)
+        sim = dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024, device=where,
+                                dtype=torch.float64)
+        batch = sim._build_batches()[-1]
+        b = pipeline.ShowerBatch(*[None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a[:1024]), device=sim.device) for a in batch])
+        before = (placement.launches, trigger_fused.launches)
+        out = pipeline.simulate_batch(b, sim.channel_params, sim.settings, keep_traces=True)
+        launched = (placement.launches - before[0], trigger_fused.launches - before[1])
+        return pipeline.PipelineOutput(*[t.cpu() if torch.is_tensor(t) else t
+                                         for t in out]), launched
+
+    card, launched = run(dev, recording)
+    assert launched == (1, 1)
+    cpu, _ = run("cpu", solve)
+    cpu_card_rays, _ = run("cpu", replaying)
+    assert not card_sols
+
+    assert torch.equal(card.triggered, cpu.triggered) and bool(cpu.triggered.any())
+    torch.testing.assert_close(card.trigger_time[cpu.triggered],
+                               cpu.trigger_time[cpu.triggered], rtol=0, atol=1e-9)
+    peak = cpu.traces.abs().amax(dim=(1, 2))
+    scale = torch.clamp(peak, min=1e-6 * float(peak.max()))
+
+    def rel_err(a, b):
+        return (a.traces - b.traces).abs().amax(dim=(1, 2)) / scale
+
+    err, err_same_rays = rel_err(card, cpu), rel_err(card, cpu_card_rays)
+    valid = cpu.sol_mask.flatten(1)
+    refracted = ((cpu.sol_type == 2) & cpu.sol_mask).flatten(1).any(dim=1)
+    d_tt = torch.where(valid, (card.travel_time - cpu.travel_time).abs().flatten(1),
+                       0.0).amax(dim=1)
+    d_c0 = torch.where(valid, ((card.c0 - cpu.c0) / cpu.c0).abs().flatten(1), 0.0).amax(dim=1)
+    d_t0 = (card.base_t0 - cpu.base_t0).abs()
+    moved = err > 1e-10
+    for g in torch.nonzero(moved | (refracted & (d_tt > 0))).flatten().tolist():
+        print(f"group {g}: refracted {bool(refracted[g])}, peak {float(peak[g]):.3e}, trace "
+              f"err {float(err[g]):.3e} of peak, {float(err_same_rays[g]):.3e} with the card's "
+              f"rays; travel time moved {float(d_tt[g]):.3e} ns, c0 {float(d_c0[g]):.3e} rel, "
+              f"base_t0 {float(d_t0[g]):.3e} ns")
+    print(f"{int(moved.sum())} of {len(moved)} groups' traces differ by more than 1e-10 of "
+          f"peak ({int(refracted.sum())} with a refracted ray), worst {float(err.max()):.3e}; "
+          f"with the card's rays worst {float(err_same_rays.max()):.3e}")
+    assert int((~refracted & (peak > 0)).sum()) > 100
+    assert float(err[~refracted].max()) <= 1e-10
+    assert bool((d_tt[moved] > 0).all())
+    assert float(err[refracted].max()) <= 5e-4
+    assert float(err_same_rays.max()) <= 1e-10
+    torch.testing.assert_close(card.base_t0, cpu_card_rays.base_t0, rtol=0, atol=1e-9)
+    torch.testing.assert_close(card.base_t0, cpu.base_t0, rtol=0, atol=1e-3)

@@ -10,8 +10,13 @@ its entry points run on the card unless the CPU is asked for.
   three workloads' chains, the Earth-attenuation weights, the detector
   tables, the birefringence model arrays, the ice models, the GL3
   attenuation table, the measured pulser waveforms (``.npz`` copies of the
-  HDF5 files), the exported emitter inputs and the ARZ mini shower library
-  are held to the originals on the same inputs, exactly.
+  HDF5 files), the exported emitter inputs, the ARZ mini shower library, the
+  flux tables and fluxes, the muon and tau propagator, the event data model
+  (parameters, parameter storage, BaseTrace, Event), the ``.nur`` container
+  and the Veff tables are held to the originals on the same inputs, exactly
+  (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
+  tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
+  tests/test_torch_fullscale.py).
 * Default device: every entry point's ``device`` defaults to "cuda"; with no
   card, a call that omits it raises instead of running on the CPU.
 """
@@ -37,6 +42,7 @@ from nuradiomc_tpu_torch.detector import detector as tdetector
 from nuradiomc_tpu_torch.ops import birefringence as tbire
 from nuradiomc_tpu_torch.ops import filters as tfilters
 from nuradiomc_tpu_torch.sim import earth_attenuation as tearth
+from nuradiomc_tpu_torch.sim import io_input
 from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
 from nuradiomc_tpu_torch.sim.simulation import Simulation
 from nuradiomc_tpu_torch.utils import config as tconfig
@@ -100,6 +106,19 @@ _ISOLATED = textwrap.dedent("""
         device="cpu")
     convert.arz_simulation(convert.mooresbay_event_input(2), device="cpu")
     convert.make_mooresbay_inputs(2, device="cpu")
+    # the campaign path: the generator with a named flux (the port's flux
+    # tables) and secondaries, a .nur file written and read back
+    import tempfile
+    from nuradiomc_tpu_torch.sim import evtgen, io_input, io_nur
+    from nuradiomc_tpu_torch.framework.event import Event
+    evtgen.get_energies(4, 1e16, 1e20, "GZK-1+GZK-2")
+    data, attrs = convert.gen2_tau_event_list(8)
+    io_input.from_generated(data, attrs)
+    with tempfile.TemporaryDirectory() as tmp:
+        w = io_nur.EventWriter(os.path.join(tmp, "e.nur"))
+        w.run(Event(0, 1))
+        w.end()
+        assert [e.get_id() for e in io_nur.EventReader(os.path.join(tmp, "e.nur")).run()] == [1]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -271,6 +290,61 @@ def test_arz_minilib_equals_the_original():
         assert a.read() == b.read()
 
 
+def test_flux_tables_and_fluxes_equal_the_originals():
+    from nuradiomc_tpu.sim import fluxes as jfluxes
+    from nuradiomc_tpu_torch.sim import fluxes as tfluxes
+    ref_dir = os.path.join(ROOT, "nuradiomc_tpu", "data", "fluxes")
+    port_dir = os.path.join(ROOT, "nuradiomc_tpu_torch", "data", "fluxes")
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(ref_dir))
+    for f in os.listdir(ref_dir):
+        with open(os.path.join(ref_dir, f), "rb") as a, open(os.path.join(port_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+    E = 10 ** np.linspace(14, 21, 200) * junits.eV
+    for name in ("ice_cube_nu_fit", "ice_cube_nu_fit_2022", "get_proton_10", "get_TAGZK_flux",
+                 "get_TAGZK_flux_ICRC2021"):
+        np.testing.assert_array_equal(getattr(tfluxes, name)(E), getattr(jfluxes, name)(E))
+    veff = np.full(E.shape, 1e9)
+    np.testing.assert_array_equal(tfluxes.get_limit_e2_flux(E, veff, 3e7),
+                                  jfluxes.get_limit_e2_flux(E, veff, 3e7))
+
+
+def test_muon_and_tau_propagation_equal_the_originals():
+    from nuradiomc_tpu.sim import muon_propagation as jmp
+    from nuradiomc_tpu_torch.sim import muon_propagation as tmp
+    E = 10 ** np.linspace(17, 20, 12)
+    for fn in ("propagate_muons", "propagate_taus"):
+        a = getattr(tmp, fn)(E, 4000.0, rng=np.random.default_rng(np.random.Philox(3)))
+        b = getattr(jmp, fn)(E, 4000.0, rng=np.random.default_rng(np.random.Philox(3)))
+        assert repr(a) == repr(b), fn
+    assert sum(len(x) for x in a[0]) > 0
+    np.testing.assert_array_equal(tmp.csda_mean_energy(E, 1e5), jmp.csda_mean_energy(E, 1e5))
+
+
+def test_event_data_model_equals_the_original():
+    from nuradiomc_tpu.framework import base_trace as jbt, parameters as jpar
+    from nuradiomc_tpu_torch.framework import base_trace as tbt, parameters as tpar
+    for name in dir(jpar):
+        enum = getattr(jpar, name)
+        if isinstance(enum, type) and issubclass(enum, jpar.Enum) and enum is not jpar.Enum:
+            assert [m.name for m in getattr(tpar, name)] == [m.name for m in enum], name
+    trace = np.random.default_rng(1).normal(size=512)
+    a, b = tbt.BaseTrace(trace, 2.0, 10.0), jbt.BaseTrace(trace, 2.0, 10.0)
+    for x in (a, b):
+        x.apply_time_shift(0.3)
+        x.resample(1.0)
+    np.testing.assert_array_equal(a.get_trace(), b.get_trace())
+    np.testing.assert_array_equal(a.get_times(), b.get_times())
+
+
+def test_veff_helpers_equal_the_originals():
+    from nuradiomc_tpu.sim import veff as jveff
+    from nuradiomc_tpu_torch.sim import veff as tveff
+    for n in (0, 3, 20, 150):
+        assert tveff.FC_limits(n) == jveff.FC_limits(n)
+    assert tveff.get_Veff_water_equivalent(2.5) == jveff.get_Veff_water_equivalent(2.5)
+    assert tveff.get_veff_output(1e9, 7.5, 100) == jveff.get_veff_output(1e9, 7.5, 100)
+
+
 ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inputs,
                 convert.make_pa_inputs, convert.make_gen2_inputs,
                 convert.make_multitrigger_inputs, convert.make_mooresbay_inputs,
@@ -284,7 +358,8 @@ def test_entry_points_default_to_the_card(fn):
 
 @pytest.mark.parametrize("call", ["Simulation", "dipole_simulation", "make_headline_inputs",
                                   "make_pa_inputs", "make_gen2_inputs",
-                                  "make_mooresbay_inputs", "emitter_simulation"])
+                                  "make_mooresbay_inputs", "emitter_simulation",
+                                  "fullscale_simulation", "fullscale_pa_simulation"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -299,6 +374,10 @@ def test_omitted_device_without_a_card_raises(call):
         "make_mooresbay_inputs": lambda: convert.make_mooresbay_inputs(8),
         "emitter_simulation": lambda: convert.emitter_simulation(
             str(convert_input("emitter_events.npz"))),
+        "fullscale_simulation": lambda: convert.fullscale_simulation(
+            io_input.from_generated(*convert.fullscale_event_list(convert.FULLSCALE_PA_LIST))),
+        "fullscale_pa_simulation": lambda: convert.fullscale_pa_simulation(
+            io_input.from_generated(*convert.fullscale_event_list(convert.FULLSCALE_PA_LIST))),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()

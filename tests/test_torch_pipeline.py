@@ -127,13 +127,13 @@ def test_plain_impl_equals_kernel_impl_on_cpu(case32):
 
 
 def test_unported_options_raise():
-    """What still raises: ``keep_traces`` (with its ROADMAP item) and a model
-    name the pipeline does not know; the options ported since then run (their
-    own test files hold them to the JAX package)."""
+    """What still raises: a model name the pipeline does not know; the
+    options ported since then run (their own test files hold them to the JAX
+    package), ``keep_traces`` among them (tests/test_torch_nur_output.py)."""
     s, ch, b = _make_settings_and_inputs()
     ps, pc, pb = from_jax(s, ch, b, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.simulate_batch(pb, pc, ps, keep_traces=True)
+    kept = tpipe.simulate_batch(pb, pc, ps, keep_traces=True)
+    assert kept.traces.shape == (pb.energies.shape[0], pc.positions.shape[0], ps.n_base)
     with pytest.raises(NotImplementedError, match="not implemented"):
         tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, askaryan_model="HCRB2017"))
     with pytest.raises(NotImplementedError, match="not implemented"):
