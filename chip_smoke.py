@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 10,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 11,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
+    python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -28,7 +29,10 @@ result line):
    profiling tool's (with its no-phase variant); kernel 3 also reports,
    without a gate, how many ADC samples take another count in the kernel
    than in the plain version (an FFT and a dense product round a sample
-   near a count boundary to either side);
+   near a count boundary to either side), and runs at 1024 groups x C 24
+   (float64) and x C 64 (float32, float64), where a group is split over a
+   thread-block cluster (the cluster size printed), decisions and first
+   frames equal to the plain version's (float64: in every group);
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -99,7 +103,23 @@ result line):
    deep phased-array campaign (10,000 events, digest equal to its golden's)
    in float64 inside its statistical bands, kernels 1 and 3 held to their
    plain versions; (f) the Gen2 tau list regenerated with stochastic
-   secondaries equal to its export.
+   secondaries equal to its export;
+11. processes sharing the card (``parallel.dryrun.spawn``: gloo, one rank
+   per process, started after phase 1's build), each run against its
+   single-process twin on the card in float64, equal bit for bit: (a) the
+   3000-event dipole golden through ``Simulation(mesh=)`` on (2,1), (2,2)
+   and (4,1) meshes with its triggered set and Veff 0.22978 km^3; (b) the
+   ``parallel/dryrun.py`` list on (2,2), noise off and on; (c) the noisy
+   phased-array campaign's first 2048 groups on (2,2), its four channels
+   split over the channel axis (kernel 3 on the mesh path); (d) a ``Runner``
+   streaming ``evtgen`` batches through the mesh ``Simulation`` to a trigger
+   budget, stopped after two batches and resumed to the uninterrupted
+   state; kernels 1, 2 and 3 held to their plain versions on recorded
+   launches of the mesh runs; (e) NuRadioMC's 2500-muon Aeff campaign
+   (test/atmospheric_Aeff/1e18eV) in one process, its set equal to the JAX
+   package's (``nuradiomc_tpu_torch/data/surface_muons_jax_sets.npz``) and
+   Aeff within 0.45027 +- 2 x 0.06549 km^2; the wall time and events/s of
+   every run beside its twin's.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -109,6 +129,7 @@ nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -693,15 +714,16 @@ def phase_headline(dev):
     return launches
 
 
-def _pa_kernel_inputs(dtype, dev, gen):
+def _pa_kernel_inputs(dtype, dev, gen, G=PA_GROUPS, C=4):
     """Kernel-3 inputs at the bench shapes: 16384 groups x 4 channels,
     K_base 512, n_base 2048, n_hi 5120 and decim 10 (n_dec 512, the 0.5 GHz
-    ADC), x2 upsampling (n_up 1024), the 11 beams of the 4-channel array,
-    window 16, step 8; band-limited noise spectra and an ADC range of 15
-    counts per noise Vrms, as the workload."""
-    C, K, n_base, n_hi, decim = 4, 512, 2048, 5120, 10
+    ADC), x2 upsampling (n_up 1024), the 11 beams of a vertical array at 1 m
+    spacing, window 16, step 8; band-limited noise spectra and an ADC range
+    of 15 counts per noise Vrms, as the workload. ``G`` and ``C`` give
+    other group and channel counts at the same widths."""
+    K, n_base, n_hi, decim = 512, 2048, 5120, 10
     spec = noise.bandlimited_noise_spectrum(
-        gen, (PA_GROUPS * C,), n_base, 2.0, torch.tensor(1e-5, dtype=dtype, device=dev),
+        gen, (G * C,), n_base, 2.0, torch.tensor(1e-5, dtype=dtype, device=dev),
         dtype=dtype)[:, :K]
     spec_re, spec_im = spec.real.contiguous(), spec.imag.contiguous()
     scale_dec = 5.0 / np.sqrt(2.0)
@@ -804,6 +826,51 @@ def phase_pa_kernel(dev):
         del args
         torch.cuda.empty_cache()
     return summary
+
+
+def phase_pa_large(dev):
+    """Kernel 3 beyond one block's shared memory: 1024 groups x C 64 in
+    float32 and float64 and x C 24 in float64, where a group's C upsampled
+    traces are split over a thread-block cluster; fired and the first frame
+    equal to the plain version's in every group (float32: except within
+    1e-4 of the threshold, phase 2's rule, with the count printed), amp
+    within phase 2's tolerance; timed beside the plain version, its bound
+    and the library transforms, with the cluster size."""
+    for C, dtype, tol_amp in ((24, torch.float64, 1e-12), (64, torch.float32, 1e-5),
+                              (64, torch.float64, 1e-12)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261017 + C)
+        tag = f"1024 x C {C} {str(dtype).replace('torch.', '')}"
+        args, kw = _pa_kernel_inputs(dtype, dev, gen, G=1024, C=C)
+        k = pa_trigger.cluster_size(C, args[0].shape[1], kw["n_base"], kw["n_hi"], kw["decim"],
+                                    kw["up"], len(kw["rolls"]), dtype)
+        lib = _build.load("pa_trigger")
+        grid = lib.pa_trigger_grid(1024, C, args[0].shape[1], kw["n_base"], kw["n_hi"],
+                                   kw["decim"], kw["up"], len(kw["rolls"]),
+                                   int(dtype == torch.float64))
+        smem = lib.pa_trigger_smem_bytes(C, args[0].shape[1], kw["n_base"], kw["n_hi"],
+                                         kw["decim"], kw["up"], len(kw["rolls"]),
+                                         int(dtype == torch.float64))
+        print(f"phase 2 pa_trigger {tag}: a cluster of {k} blocks a group, {smem} bytes of "
+              f"shared memory a block, grid {grid} blocks")
+        if k < 2:
+            raise AssertionError(f"pa_trigger {tag}: expected a cluster beyond one block")
+        max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=float("inf"), **kw)[3]
+        for q in (0.3, 0.9):
+            thr = float(torch.quantile(max_power, q))
+            kf, kframe, _ = pa_trigger.fused_pa_trigger(*args, threshold=thr, **kw)
+            pf, pframe, _, _ = pa_trigger.fused_pa_trigger_plain(*args, threshold=thr, **kw)
+            torch.cuda.synchronize()
+            d_fired = int((kf != pf).sum())
+            d_frame = int(((kframe != pframe) & kf & pf).sum())
+            print(f"phase 2 pa_trigger {tag} threshold at quantile {q}: {int(pf.sum())} of 1024 "
+                  f"fire, fired differs in {d_fired}, frames differ in {d_frame} groups")
+            if dtype == torch.float64 and (d_fired or d_frame):
+                raise AssertionError(f"pa_trigger {tag}: decisions differ from the plain version")
+            _check_pa_call(f"pa_trigger {tag} at quantile {q}", args,
+                           {**kw, "threshold": thr}, tol_amp, "phase 2")
+        del args, max_power
+        torch.cuda.empty_cache()
 
 
 def _triggered_groups(res):
@@ -1566,7 +1633,7 @@ def phase_signal_chain(dev):
     return total
 
 
-def _campaign_run(label, make_sim, n_events):
+def _campaign_run(label, make_sim, n_events, phase="phase 10"):
     """One campaign ``Simulation`` built and run on the card with its
     launches counted and one launch of each kernel recorded; returns (sim,
     results, wall seconds from input to Veff with set-up, launch counts,
@@ -1580,7 +1647,7 @@ def _campaign_run(label, make_sim, n_events):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = _launch_counts()
-    print(f"phase 10 {label}: {res['n_triggered']} of {len(res['triggered'])} groups triggered, "
+    print(f"{phase} {label}: {res['n_triggered']} of {len(res['triggered'])} groups triggered, "
           f"{wall:.2f} s from input to Veff with set-up, {n_events / wall:.1f} events/s "
           f"end to end, launches {counts} ({CARD})")
     return sim, res, wall, counts, rec.calls
@@ -1779,12 +1846,223 @@ def phase_campaign(dev):
     return total
 
 
+# ---- phase 11: processes sharing the card on a mesh, and the muon campaign ------
+
+MUON_JAX_SETS = DATA_DIR / "surface_muons_jax_sets.npz"
+PA_MESH_EVENTS = 2048    # the phase 10e list cut to its first 2048 event groups
+RUNNER_BATCH, RUNNER_BUDGET, RUNNER_STOP = 200, 70, 2
+
+
+def _p11_pa_input():
+    inp = io_input.from_generated(*convert.fullscale_event_list(convert.FULLSCALE_PA_LIST))
+    return io_input.select(inp, np.unique(inp.event_group_ids)[:PA_MESH_EVENTS])
+
+
+def _p11_run(kind, mesh, dev, ckpt_dir):
+    """One phase-11 job on ``mesh`` (None: this process alone): a results
+    dict, or the runner's states."""
+    from nuradiomc_tpu_torch.parallel import dryrun
+    if kind == "dipole":
+        return convert.dipole_simulation(str(INPUT_1E18_N3000), chunk_size=512, device=dev,
+                                         dtype=torch.float64, mesh=mesh).run()
+    if kind in ("dryrun", "dryrun noise"):
+        return dryrun.dryrun_simulation(mesh=mesh, device=dev, noise=kind == "dryrun noise").run()
+    if kind == "pa":
+        return convert.fullscale_pa_simulation(_p11_pa_input(), device=dev, dtype=torch.float64,
+                                               mesh=mesh).run()
+    if kind == "runner":
+        return dryrun.dryrun_runner(mesh, dev, ckpt_dir, RUNNER_BATCH, RUNNER_BUDGET,
+                                    RUNNER_STOP)
+    raise ValueError(kind)
+
+
+def _p11_timed(kind, mesh, dev, ckpt_dir, record):
+    """A job with its launches counted from 0 and its wall time; with
+    ``record``, one launch of each kernel it ran held to its plain version
+    (``_Recorder``, ``_check_recorded``)."""
+    from nuradiomc_tpu_torch.parallel import dryrun
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    with _Recorder() if record else contextlib.nullcontext() as rec:
+        t0 = time.perf_counter()
+        res = _p11_run(kind, mesh, dev, ckpt_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    if record:
+        shape = "one process" if mesh is None else f"mesh {mesh.n_event}x{mesh.n_channel}"
+        _check_recorded(rec.calls, f"{kind} on {shape}", "phase 11")
+    if kind != "runner":
+        res = {k: res[k] for k in dryrun.RESULT_KEYS}
+    return res, wall, counts
+
+
+def _p11_worker(rank, n_procs, card, jobs, ckpt_dir):
+    """A spawned process of phase 11: each job on its ``(n_event,
+    n_channel)`` mesh of the gloo group, the ranks started together; rank 0
+    holds the recorded launches of the jobs marked so. Returns per job the
+    results, rank 0's wall seconds and this rank's launches."""
+    import torch.distributed as dist
+
+    from nuradiomc_tpu_torch.parallel import mesh as mesh_util
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, kind, shape, record in jobs:
+        mesh = mesh_util.make_mesh(*shape, device="cuda")
+        dist.barrier()
+        out[name] = _p11_timed(kind, mesh, mesh.device, ckpt_dir, record and rank == 0)
+    return out
+
+
+def phase_multiprocess(dev):
+    """Meshes of 2 and 4 gloo processes sharing the card (built in phase 1,
+    before any process starts), each run against its single-process twin on
+    the card, float64: (a) the 3000-event dipole golden on (2,1), (2,2) and
+    (4,1): the golden set and Veff 0.22978 km^3; (b) the dryrun list on
+    (2,2), noise off and on; (c) the noisy phased-array campaign's first
+    2048 groups on (2,2) (kernel 3 on the mesh path, four channels split
+    over the channel axis); (d) a Runner streaming evtgen batches to a
+    trigger budget on (2,2), stopped after two batches and resumed, its
+    state equal to the uninterrupted one; every mesh result equal to the
+    twin's bit for bit (Veff at rtol 1e-12); kernels 1, 2 and 3 held to
+    their plain versions on recorded launches of the mesh runs; (e) the
+    2500-muon Aeff campaign in one process: the JAX package's set equal and
+    Aeff within NuRadioMC's 0.45027 +- 2 x 0.06549 km^2. Every run's wall
+    time and events/s beside its twin's. Returns the launches of every run,
+    the ranks' included."""
+    import shutil
+    import tempfile
+
+    from nuradiomc_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    events = {"dipole": 3000, "dryrun": 300, "dryrun noise": 300, "pa": PA_MESH_EVENTS}
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    try:
+        twins = {}
+        for kind in ("dipole", "dryrun", "dryrun noise", "pa", "runner"):
+            sub = os.path.join(ckpt, "single")
+            os.makedirs(sub, exist_ok=True)
+            twins[kind] = _p11_timed(kind, None, dev, sub, False)
+            add(twins[kind][2])
+        torch.cuda.empty_cache()
+        # each spawn starts with an untimed dryrun, so the first timed job
+        # does not carry the processes' first-call costs (the twins ran warm)
+        jobs2 = [("warm-up", "dryrun", (2, 1), False), ("dipole 2x1", "dipole", (2, 1), False)]
+        jobs4 = [("warm-up", "dryrun", (2, 2), False),
+                 ("dipole 2x2", "dipole", (2, 2), True), ("dipole 4x1", "dipole", (4, 1), False),
+                 ("dryrun 2x2", "dryrun", (2, 2), False),
+                 ("dryrun noise 2x2", "dryrun noise", (2, 2), False),
+                 ("pa 2x2", "pa", (2, 2), True), ("runner 2x2", "runner", (2, 2), False)]
+        runs = {}
+        for n, jobs in ((2, jobs2), (4, jobs4)):
+            t0 = time.perf_counter()
+            ranks = dryrun.spawn(_p11_worker, n, (CARD, jobs, ckpt), backend="gloo")
+            print(f"phase 11 {n} gloo processes on the card: {time.perf_counter() - t0:.1f} s "
+                  f"with start-up ({CARD})")
+            for name, kind, shape, _ in jobs:
+                for r in ranks:
+                    add(r[name][2])
+                if name != "warm-up":
+                    runs[name] = (kind, shape, [r[name][0] for r in ranks], ranks[0][name][1],
+                                  [r[name][2] for r in ranks])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    golden = np.load(E2E_GOLDEN)
+    ref_set = set(int(g) for g in np.unique(golden["group_ids"]))
+    for name, (kind, shape, results, wall, counts) in runs.items():
+        twin, twin_wall, twin_counts = twins[kind]
+        if kind == "runner":
+            states = [r[run][0] for r in results for run in ("whole", "resumed", "clock")]
+            first = results[0]["first"][0]
+            print(f"phase 11 (d) Runner on {shape}: uninterrupted {twin['whole'][0]} in "
+                  f"{results[0]['whole'][1]:.2f} s (one process {twin['whole'][1]:.2f} s); "
+                  f"stopped after {first.n_batches} batches ({first.n_triggered} triggered), "
+                  f"resumed to {results[0]['resumed'][0]} ({CARD})")
+            if (any(st != twin["whole"][0] for st in states) or first.n_batches != RUNNER_STOP
+                    or first.n_triggered >= RUNNER_BUDGET
+                    or twin["whole"][0].n_batches <= RUNNER_STOP):
+                raise AssertionError("the mesh Runner's states differ from the uninterrupted "
+                                     "one-process run")
+            if twin["resumed"][0] != twin["whole"][0]:
+                raise AssertionError("the one-process Runner does not resume to its state")
+            continue
+        for rank, res in enumerate(results):
+            dryrun.compare(res, twin, f"{name} rank {rank}")
+        if kind == "dipole":
+            mine = _triggered_groups(results[0])
+            if mine != ref_set or round(results[0]["veff"] / units.km ** 3, 5) != 0.22978:
+                raise AssertionError(f"{name}: the golden does not hold")
+        n_ev = events[kind]
+        launched = {k: sum(c[k] for c in counts) for k in KERNELS if any(c[k] for c in counts)}
+        print(f"phase 11 {name}: {results[0]['n_triggered']} triggered, equal to one process "
+              f"bit for bit (Veff {results[0]['veff'] / units.km ** 3:.6f} km^3); "
+              f"{wall:.2f} s, {n_ev / wall:.1f} events/s, one process {twin_wall:.2f} s, "
+              f"{n_ev / twin_wall:.1f} events/s; launches on all ranks {launched} ({CARD})")
+        if not launched:
+            raise AssertionError(f"{name}: no kernel was launched")
+    if not runs["pa 2x2"][4][0]["pa_trigger"]:
+        raise AssertionError("kernel 3 was not launched on the mesh path")
+    # what every rank of (c) repeats on the host: the set-up and the weights
+    t0 = time.perf_counter()
+    sim = convert.fullscale_pa_simulation(_p11_pa_input(), device=dev, dtype=torch.float64)
+    t1 = time.perf_counter()
+    gids, start, count, order, _ = sim._build_batches()
+    t2 = time.perf_counter()
+    sim._weights(gids, start, count, order)
+    t3 = time.perf_counter()
+    print(f"phase 11 (c) host work of the 2048 phased-array groups that every rank repeats: "
+          f"Simulation set-up {t1 - t0:.2f} s, batches {t2 - t1:.2f} s, core_mantle_crust "
+          f"weights {t3 - t2:.2f} s ({CARD})")
+    del sim
+
+    # (e) the surface-muon Aeff campaign
+    pin = np.load(MUON_JAX_SETS)
+    aeff_mean, aeff_sigma = convert.SURFACE_MUON_AEFF
+    t0 = time.perf_counter()
+    data, attrs = convert.surface_muon_event_list()
+    gen_s = time.perf_counter() - t0
+    _, res, wall, counts, calls = _campaign_run(
+        "(e) 2500 surface muons, float64", lambda: convert.surface_muon_simulation(
+            io_input.from_generated(data, attrs), device=dev, dtype=torch.float64),
+        int(attrs["n_events"]), phase="phase 11")
+    add(counts)
+    aeff = res["aeff"]
+    differ = int((res["triggered"] != pin["triggered"]).sum())
+    print(f"phase 11 (e) surface muons: list {len(data['xx'])} showers in {gen_s:.3f} s on the "
+          f"host; {res['n_triggered']} of {len(res['triggered'])} groups triggered (the JAX "
+          f"package's {int(pin['n_triggered'])}), {differ} differ; Aeff "
+          f"{aeff / units.km ** 2:.5f} km^2 (NuRadioMC {aeff_mean / units.km ** 2:.5f} +- 2 x "
+          f"{aeff_sigma / units.km ** 2:.5f}); {wall:.2f} s, {attrs['n_events'] / wall:.1f} "
+          f"events/s ({CARD})")
+    if (not np.array_equal(res["group_ids"], pin["group_ids"]) or differ
+            or not np.all(res["weights"] == 1.0)):
+        raise AssertionError("the surface-muon set differs from the JAX package's")
+    if not abs(aeff - aeff_mean) < 2 * aeff_sigma:
+        raise AssertionError("the surface-muon Aeff is outside NuRadioMC's band")
+    if min(counts["placement_chain"], counts["irfft_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the muon campaign was not launched: {counts}")
+    _check_recorded(calls, "surface-muon campaign float64", "phase 11")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s; launches {total} ({CARD})")
+    return total
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
-PHASES = {"2": (phase_kernels, phase_pa_kernel), "3": (phase_headline,),
+PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
-          "10": (phase_campaign,)}
+          "10": (phase_campaign,), "11": (phase_multiprocess,)}
 
 
 def _phases_asked(argv):
@@ -1793,7 +2071,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,10|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,11|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -1843,6 +2121,7 @@ def main() -> int:
               f"result line)")
         return 0
     summary = {**phase_kernels(dev), **phase_pa_kernel(dev)}
+    phase_pa_large(dev)
     launches = phase_headline(dev)
     phase_simulation(dev)
     pa_launches = phase_pa(dev)
@@ -1851,9 +2130,10 @@ def main() -> int:
     mb_launches = phase_mooresbay(dev)
     chain_launches = phase_signal_chain(dev)
     campaign_launches = phase_campaign(dev)
-    # launches: the counts of the main-path runs (phases 3, 5, 6, 7, 8, 9 and 10)
+    mesh_launches = phase_multiprocess(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 11)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
-                   campaign_launches):
+                   campaign_launches, mesh_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

@@ -20,8 +20,12 @@ easy to find:
               the ``Simulation`` orchestrator, Earth attenuation weights,
               HDF5 I/O, the h5py-free event-list input (``sim/io_input.py``:
               ``.npz`` exports and lists generated in memory), the ``.nur``
-              waveform files (``sim/io_nur.py``) and the Veff tables
-              (``sim/veff.py``)
+              waveform files (``sim/io_nur.py``), the Veff and Aeff tables
+              (``sim/veff.py``), the surface-muon generator and flux
+              (``sim/muon_flux.py``) and the job runner (``sim/runner.py``)
+``parallel``  the ``(event, channel)`` process mesh on ``torch.distributed``
+              (``parallel/mesh.py``) and multi-process runs with the
+              sharded-equals-single dryrun (``parallel/dryrun.py``)
 ``data``      the ``.npz`` exports of the 3000-event 1e18 eV input and the
               Gen2 tau input, the flux tables, the birefringence ice models
               and the reference values ``chip_smoke.py`` compares with

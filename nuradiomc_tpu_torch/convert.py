@@ -707,6 +707,43 @@ def fullscale_pa_simulation(event_input, config=None, **kwargs):
         **{"trigger": TriggerSpec(trigger_type="phased_array"), "chunk_size": 1024, **kwargs})
 
 
+# ---- NuRadioMC's atmospheric-muon campaign (test/atmospheric_Aeff/1e18eV) ------
+
+# the generator's arguments of tests/test_atmospheric_aeff.py: 2500 muons at
+# 1e18 eV entering the top of a 4 km x 3 km cylinder at 58-62 deg zenith, their
+# in-ice losses from the stochastic propagator (sim/muon_propagation.py)
+SURFACE_MUON_LIST = dict(n_events=2500, Emin=1e18 * units.eV, Emax=1e18 * units.eV,
+                         volume={"fiducial_rmin": 0, "fiducial_rmax": 4 * units.km,
+                                 "fiducial_zmin": -3 * units.km, "fiducial_zmax": 0},
+                         thetamin=np.deg2rad(58), thetamax=np.deg2rad(62), seed=42,
+                         secondaries="stochastic")
+# NuRadioMC's anchor: Aeff over 256 re-runs, mean and spread (T03check_output.py:44-47)
+SURFACE_MUON_AEFF = (0.45027 * units.km ** 2, 0.06549 * units.km ** 2)
+
+
+def surface_muon_event_list(n_events=None, secondaries=None):
+    """The surface-muon campaign's list in memory, ``(data, attrs)``
+    (``SURFACE_MUON_LIST``, optionally with fewer muons or another
+    secondaries mode)."""
+    from nuradiomc_tpu_torch.sim import evtgen
+    kw = dict(SURFACE_MUON_LIST)
+    if n_events is not None:
+        kw["n_events"] = n_events
+    if secondaries is not None:
+        kw["secondaries"] = secondaries
+    n = kw.pop("n_events")
+    return evtgen.generate_surface_muons(None, n, kw.pop("Emin"), kw.pop("Emax"),
+                                         kw.pop("volume"), **kw)
+
+
+def surface_muon_simulation(event_input, config=None, **kwargs):
+    """The surface-muon campaign's ``Simulation``: the dipole golden's
+    station, chain and 2-sigma high/low trigger (T01/T02 of
+    test/atmospheric_Aeff/1e18eV), chunks of 256 groups; its results carry
+    ``aeff``."""
+    return dipole_simulation(event_input, config, **{"chunk_size": 256, **kwargs})
+
+
 def gen2_tau_event_list(n_events=2048, seed=21):
     """``(data, attributes)`` of the Gen2 workload's input (bench.py:492-497):
     ν_τ CC at 1e19 eV in r < 3 km, -2.7 km < z < 0 with stochastic tau and

@@ -31,26 +31,42 @@
 // FLOP, fed the MXU; on the CUDA cores they made the kernel compute-bound at
 // 26-80 ms.)
 //
-// The design: a block (128 threads, persistent, groups G/grid apart) owns
-// whole groups, because the beams sum channels. Per channel row, in shared
-// memory (fft_common.cuh): the row's K bins are staged with cp.async,
+// The design: a cluster of k blocks (128 threads each, persistent, groups
+// G/n_clusters apart) owns whole groups, because the beams sum channels;
+// k = 1 unless a group's C upsampled traces do not fit one block's shared
+// memory, then the smallest k <= 8 (the portable cluster size) whose
+// ceil(C / k) channels fit. Block r of the cluster takes channels
+// [r Cl, (r + 1) Cl), Cl = ceil(C / k). Per channel row, in shared memory
+// (fft_common.cuh): the row's K bins are staged with cp.async,
 // double-buffered so the next row's copy runs during this row's transforms;
 // an inverse real FFT of n_base gives the full-rate trace, read once for its
 // maximum and never kept; the decimated trace is an inverse real FFT of n_dec
 // of the folded spectrum (FoldIn) when decim divides n_hi, else the full
 // inverse of n_hi read at the stride; the ADC is applied as the forward real
 // FFT of n_dec reads the trace (up > 1), and the inverse real FFT of n_up over
-// its bins lands in the channel's slot of the group's upsampled traces, the
-// only trace kept (C n_up values). Then each beam's powers are formed once per
-// sample, two beams' alternating in the FFT buffers, and summed over each
-// frame's window directly; the first frame is a block minimum.
+// its bins lands in the channel's slot of the block's upsampled traces, the
+// only trace kept (Cl n_up values). After a cluster barrier each block forms
+// the powers of beams r, r + k, ... once per sample, summing all C channels
+// in order from the cluster's blocks (distributed shared memory,
+// map_shared_rank), two beams' alternating in the FFT buffers, and sums them
+// over each frame's window directly; the first frame is a block minimum, then
+// an atomic minimum in rank 0's shared memory, which rank 0 writes out after
+// a second cluster barrier (that barrier also keeps every block's traces in
+// place until all readers are done). Every block gets the same scalars, so
+// they agree on the ADC and the threshold arithmetic.
+
+#include <cooperative_groups.h>
 
 #include "fft_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int NTH = 128;     // threads per block
 constexpr int NWARP = NTH / 32;
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+constexpr size_t SMEM_LIMIT = 232448;   // shared memory one block may use (H100)
 // blocks per SM the registers must allow: 5 in float32 (shared memory at the
 // phased-array shape allows 5), 2 in float64
 template <typename T> constexpr int min_blocks() { return sizeof(T) == 4 ? 5 : 2; }
@@ -62,6 +78,7 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 
 struct PaParams {
   int G, C, K;
+  int k, Cl;           // blocks a group's cluster has, channels a block holds
   int Kh;              // bins the n_hi transform uses: min(K, n_hi / 2 + 1)
   int n_hi, decim, n_dec, up, n_up;
   int fold;            // decim divides n_hi: the folded spectrum at length n_dec
@@ -79,11 +96,13 @@ struct PaPlans {
 };
 
 inline PaParams params_of(int G, int C, int K, int n_base, int n_hi, int decim, int up, int B,
-                          int window, int step, int n_counts) {
+                          int window, int step, int n_counts, int k) {
   PaParams p;
   p.G = G;
   p.C = C;
   p.K = K;
+  p.k = k;
+  p.Cl = k > 0 ? (C + k - 1) / k : 0;
   p.Kh = K < n_hi / 2 + 1 ? K : n_hi / 2 + 1;
   p.n_hi = n_hi;
   p.decim = decim;
@@ -102,9 +121,10 @@ inline PaParams params_of(int G, int C, int K, int n_base, int n_hi, int decim, 
   return p;
 }
 
-// shared-memory layout, each part 16-byte aligned:
-//   staged rows [2][2 K] T | A, B [Lw] T2 | up [C][n_up] T |
-//   amp partials [C][NWARP] T | rolls [B][C] int | scratch [NWARP] int
+// shared-memory layout of one block, each part 16-byte aligned:
+//   staged rows [2][2 K] T | A, B [Lw] T2 | up [Cl][n_up] T |
+//   amp partials [Cl][NWARP] T | rolls [B][C] int | scratch [NWARP + 1] int
+// (the last int: the cluster's first frame, used in rank 0)
 struct Layout {
   size_t stage, A, B, up, amp, rolls, iscr, total;
 };
@@ -117,10 +137,10 @@ __host__ __device__ inline Layout layout_of(const PaParams& p) {
   l.A = 2 * fftc::align16(2 * (size_t)p.K * sizeof(T));
   l.B = l.A + fftc::align16((size_t)p.Lw * sizeof(T2));
   l.up = l.B + fftc::align16((size_t)p.Lw * sizeof(T2));
-  l.amp = l.up + fftc::align16((size_t)p.C * p.n_up * sizeof(T));
-  l.rolls = l.amp + fftc::align16((size_t)p.C * NWARP * sizeof(T));
+  l.amp = l.up + fftc::align16((size_t)p.Cl * p.n_up * sizeof(T));
+  l.rolls = l.amp + fftc::align16((size_t)p.Cl * NWARP * sizeof(T));
   l.iscr = l.rolls + fftc::align16((size_t)p.B * p.C * sizeof(int));
-  l.total = l.iscr + NWARP * sizeof(int);
+  l.total = l.iscr + (NWARP + 1) * sizeof(int);
   return l;
 }
 
@@ -151,10 +171,15 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
     const __grid_constant__ PaPlans pl) {
   using T2 = typename Vec2<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int k = p.k;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wid = tid >> 5;
-  const int C = p.C, K = p.K;
+  const int C = p.C, K = p.K, Cl = p.Cl;
+  const int c_lo = rank * Cl;
+  const int c_hi = min(C, c_lo + Cl);            // the block's channels [c_lo, c_hi)
   const Layout lay = layout_of<T>(p);
   T* stage = reinterpret_cast<T*>(smem_raw + lay.stage);
   const size_t sst = lay.A / 2 / sizeof(T);      // elements per staging buffer
@@ -164,32 +189,42 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
   T* amp_s = reinterpret_cast<T*>(smem_raw + lay.amp);
   int* rolls_s = reinterpret_cast<int*>(smem_raw + lay.rolls);
   int* iscr = reinterpret_cast<int*>(smem_raw + lay.iscr);
+  int* cl_first = iscr + NWARP;                  // the cluster's first frame (rank 0's)
+  // the upsampled traces of every block of the cluster, own ones directly
+  const T* up_of[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    up_of[r] = r == rank ? up : (r < k ? cluster.map_shared_rank(up, r) : nullptr);
+  int* cl_first0 = rank == 0 ? cl_first : cluster.map_shared_rank(cl_first, 0);
 
   const int nf = (p.n_up - p.window) / p.step;   // frames on the grid
   const bool packed_dec = p.fold ? p.n_dec % 2 == 0 : p.n_hi % 2 == 0;
   const T top = T(p.n_counts - 1);
+  const int n_clusters = gridDim.x / k;
 
-  int g = blockIdx.x;
-  if (g >= p.G) return;
+  int g = blockIdx.x / k;
+  if (g >= p.G) return;                          // the cluster's blocks leave together
   for (int i = tid; i < p.B * C; i += NTH) rolls_s[i] = rolls[i];
-  // the block's rows in order are (g, c) for g = blockIdx.x, + gridDim.x, ...;
-  // row number ``it`` of the block is staged in buffer it & 1
+  // the block's rows in order are (g, c), c in [c_lo, c_hi), for g = its
+  // cluster's index, + n_clusters, ...; row number ``it`` of the block is
+  // staged in buffer it & 1
   auto fetch = [&](size_t row, int buf) {
     T* s = stage + buf * sst;
     fftc::row_async(s, spec_re + row * K, K);
     fftc::row_async(s + K, spec_im + row * K, K);
     fftc::cp_async_commit();
   };
-  fetch((size_t)g * C, 0);
+  fetch((size_t)g * C + c_lo, 0);
   int it = 0;
-  for (; g < p.G; g += gridDim.x) {
+  for (; g < p.G; g += n_clusters) {
     const size_t row0 = (size_t)g * C;
-    for (int c = 0; c < C; ++c, ++it) {
+    for (int c = c_lo; c < c_hi; ++c, ++it) {
+      const int lc = c - c_lo;                   // the channel's slot in the block
       const T* s = stage + (it & 1) * sst;
       fftc::cp_async_wait_all();
       __syncthreads();                           // the row is staged; the other buffer free
-      const int ng = c + 1 < C ? g : g + gridDim.x;
-      if (ng < p.G) fetch(c + 1 < C ? row0 + c + 1 : (size_t)ng * C, (it + 1) & 1);
+      const int ng = c + 1 < c_hi ? g : g + n_clusters;
+      if (ng < p.G) fetch(c + 1 < c_hi ? row0 + c + 1 : (size_t)ng * C + c_lo, (it + 1) & 1);
       const fftc::StagedRow<T> X{s, K};
 
       // ---- full-rate trace: its maximum, not kept ------------------------------
@@ -202,7 +237,7 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
         T m = T(0);
         for (int t = tid; t < pl.base.n; t += NTH) m = max(m, abs(x(t)));
         m = fftc::warp_max(m);
-        if (lane == 0) amp_s[c * NWARP + wid] = m;
+        if (lane == 0) amp_s[lc * NWARP + wid] = m;
       }
 
       // ---- decimated trace (o is free while rb is read above) -----------------
@@ -220,7 +255,7 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
       }
 
       // ---- ADC, then the upsampled trace into the channel's slot ----------------
-      T* slot = up + (size_t)c * p.n_up;
+      T* slot = up + (size_t)lc * p.n_up;
       const Adc<T> adc{fftc::Trace<T>{rd, packed_dec}, p.fold ? 1 : p.decim, sc.scale_dec,
                        sc.v_min, sc.lsb, top, sc.offset,
                        counts_out ? counts_out + (row0 + c) * p.n_dec : nullptr};
@@ -246,36 +281,45 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
         for (int t = tid; t < p.n_up; t += NTH) slot[t] = ru[t].x;
       }
     }
-    __syncthreads();                             // the group's traces and amp partials
+    __syncthreads();                             // the block's traces and amp partials
 
-    for (int cc = tid; cc < C; cc += NTH) {
-      T m = amp_s[cc * NWARP];
+    for (int cc = c_lo + tid; cc < c_hi; cc += NTH) {
+      const int lc = cc - c_lo;
+      T m = amp_s[lc * NWARP];
 #pragma unroll
-      for (int w = 1; w < NWARP; ++w) m = max(m, amp_s[cc * NWARP + w]);
+      for (int w = 1; w < NWARP; ++w) m = max(m, amp_s[lc * NWARP + w]);
       amp_out[row0 + cc] = m;
     }
+    if (rank == 0 && tid == 0) *cl_first = nf;
+    cluster.sync();                              // every block's traces; rank 0's minimum reset
 
-    // ---- beams, window power sums, threshold, first frame ----------------------
-    // beam b's powers in pw[b & 1]: the FFT buffers, free until the next group
+    // ---- beams r, r + k, ...: window power sums, threshold, first frame --------
+    // a beam's powers in pw[j & 1] (j its number in the block): the FFT
+    // buffers, free until the next group
     T* pw[2] = {reinterpret_cast<T*>(A), reinterpret_cast<T*>(B)};
     auto beam_power = [&](int b, T* out) {
       const int* rb_c = rolls_s + b * C;
       for (int m = tid; m < p.n_up; m += NTH) {
         T v = T(0);
-        for (int cc = 0; cc < C; ++cc) {
-          int idx = m - rb_c[cc];
-          if (idx < 0) idx += p.n_up;
-          v += up[(size_t)cc * p.n_up + idx];
+        for (int r = 0; r < k; ++r) {            // the channels in order, block by block
+          const T* u = up_of[r];
+          const int c1 = min(C, (r + 1) * Cl);
+          for (int cc = r * Cl; cc < c1; ++cc, u += p.n_up) {
+            int idx = m - rb_c[cc];
+            if (idx < 0) idx += p.n_up;
+            v += u[idx];
+          }
         }
         out[m] = mul_rn(v, v);
       }
     };
     int first = nf;                              // the thread's first frame above
-    beam_power(0, pw[0]);
+    const int nb = rank < p.B ? (p.B - rank + k - 1) / k : 0;   // the block's beams
+    if (nb > 0) beam_power(rank, pw[0]);
     __syncthreads();
-    for (int b = 0; b < p.B; ++b) {
-      if (b + 1 < p.B) beam_power(b + 1, pw[(b + 1) & 1]);
-      const T* P = pw[b & 1];
+    for (int j = 0; j < nb; ++j) {
+      if (j + 1 < nb) beam_power(rank + (j + 1) * k, pw[(j + 1) & 1]);
+      const T* P = pw[j & 1];
       for (int f = tid; f < nf && f < first; f += NTH) {
         T sum = T(0);
         const T* w0 = P + f * p.step;
@@ -285,26 +329,73 @@ __global__ void __launch_bounds__(NTH, min_blocks<T>()) pa_trigger_kernel(
           break;
         }
       }
-      __syncthreads();                           // beam b read; its buffer free
+      __syncthreads();                           // beam j read; its buffer free
     }
     first = fftc::block_min<NWARP>(first, iscr);
-    if (tid == 0) {
-      fired_out[g] = first < nf ? 1 : 0;
-      frame_out[g] = first < nf ? first : 0;
+    if (tid == 0 && first < nf) atomicMin(cl_first0, first);
+    cluster.sync();                              // every minimum in; every trace read
+    if (rank == 0 && tid == 0) {
+      const int f0 = *cl_first;
+      fired_out[g] = f0 < nf ? 1 : 0;
+      frame_out[g] = f0 < nf ? f0 : 0;
     }
   }
   fftc::cp_async_wait_all();
 }
 
+// the cluster a group gets: the smallest k <= MAX_CLUSTER whose ceil(C / k)
+// channels fit one block's shared memory, taken down to ceil(C / Cl) so that
+// every block holds at least one channel; 0 when none fits
 template <typename T>
-cudaError_t grid_of(int G, size_t smem, int* n_blocks) {
-  return fftc::persistent_grid(pa_trigger_kernel<T>, NTH, smem, G, n_blocks);
+int cluster_of(PaParams p) {
+  for (int k = 1; k <= MAX_CLUSTER && k <= p.C; ++k) {
+    p.k = k;
+    p.Cl = (p.C + k - 1) / k;
+    if (layout_of<T>(p).total <= SMEM_LIMIT) return (p.C + p.Cl - 1) / p.Cl;
+  }
+  return 0;
+}
+
+template <typename T>
+PaParams with_cluster(PaParams p) {
+  p.k = cluster_of<T>(p);
+  p.Cl = p.k > 0 ? (p.C + p.k - 1) / p.k : 0;
+  return p;
+}
+
+// a launch of k-block clusters: the grid is filled with as many clusters as
+// fit on the card at once (after the kernel's dynamic shared memory is
+// allowed), at most one per group
+template <typename T>
+cudaError_t grid_of(const PaParams& p, size_t smem, int* n_blocks) {
+  auto kernel = pa_trigger_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(p.k);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n_clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&n_clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n_clusters < 1) return cudaErrorInvalidConfiguration;
+  *n_blocks = (p.G < n_clusters ? p.G : n_clusters) * p.k;
+  return cudaSuccess;
 }
 
 bool params_ok(const PaParams& p, int n_base) {
   return p.G >= 1 && p.C >= 1 && p.K >= 1 && p.K <= n_base / 2 + 1 && n_base >= 2 &&
          p.n_hi >= 2 && p.decim >= 1 && p.n_dec >= 2 && p.up >= 1 && p.B >= 1 &&
-         p.window >= 1 && p.step >= 1 && p.n_up >= p.window && p.n_counts >= 1;
+         p.window >= 1 && p.step >= 1 && p.n_up >= p.window && p.n_counts >= 1 &&
+         p.k >= 1 && p.k <= MAX_CLUSTER && (p.k - 1) * p.Cl < p.C && p.k * p.Cl >= p.C;
 }
 
 template <typename T>
@@ -319,12 +410,25 @@ int launch(const T* spec_re, const T* spec_im, const int* rolls, const void* Eb,
     return (int)cudaErrorInvalidValue;
   const size_t smem = layout_of<T>(p).total;
   int n_blocks = 0;
-  const cudaError_t err = grid_of<T>(p.G, smem, &n_blocks);
+  cudaError_t err = grid_of<T>(p, smem, &n_blocks);
   if (err != cudaSuccess) return (int)err;
-  pa_trigger_kernel<T><<<n_blocks, NTH, smem, (cudaStream_t)stream>>>(
-      spec_re, spec_im, rolls, static_cast<const T2*>(Eb), static_cast<const T2*>(Eh),
-      static_cast<const T2*>(Ed), static_cast<const T2*>(Eu), fired, frame, amp, counts, p, sc,
-      pl);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pa_trigger_kernel<T>, spec_re, spec_im, rolls,
+                           static_cast<const T2*>(Eb), static_cast<const T2*>(Eh),
+                           static_cast<const T2*>(Ed), static_cast<const T2*>(Eu), fired, frame,
+                           amp, counts, p, sc, pl);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -336,7 +440,8 @@ int launch_c(const T* spec_re, const T* spec_im, const int* rolls, const void* E
              int nst_base, const int* radix_hi, int nst_hi, const int* radix_dec, int nst_dec,
              const int* radix_up, int nst_up, T norm_full, T norm_hi, T norm_up, T scale_dec,
              T threshold, T v_min, T lsb, T offset, void* stream) {
-  const PaParams p = params_of(G, C, K, n_base, n_hi, decim, up, B, window, step, n_counts);
+  const PaParams p = with_cluster<T>(
+      params_of(G, C, K, n_base, n_hi, decim, up, B, window, step, n_counts, 1));
   if (!params_ok(p, n_base)) return (int)cudaErrorInvalidValue;
   const PaPlans pl = {fftc::make_plan(n_base, radix_base, nst_base),
                       fftc::make_plan(n_hi, radix_hi, nst_hi),
@@ -347,24 +452,40 @@ int launch_c(const T* spec_re, const T* spec_im, const int* rolls, const void* E
                    pl, sc, stream);
 }
 
+PaParams sized(int G, int C, int K, int n_base, int n_hi, int decim, int up, int B, int f64) {
+  const PaParams p = params_of(G, C, K, n_base, n_hi, decim, up, B, 1, 1, 1, 1);
+  return f64 ? with_cluster<double>(p) : with_cluster<float>(p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// shared memory one block needs: the wrapper refuses sizes beyond a block's
+// the blocks of a group's cluster at these sizes (1 to 8), or 0 when even
+// eight blocks cannot hold the group's upsampled traces
+int pa_trigger_cluster(int C, int K, int n_base, int n_hi, int decim, int up, int B, int f64) {
+  return sized(1, C, K, n_base, n_hi, decim, up, B, f64).k;
+}
+
+// shared memory one block of that cluster needs (at eight blocks when none fits)
 long pa_trigger_smem_bytes(int C, int K, int n_base, int n_hi, int decim, int up, int B,
                            int f64) {
-  const PaParams p = params_of(1, C, K, n_base, n_hi, decim, up, B, 1, 1, 1);
+  PaParams p = sized(1, C, K, n_base, n_hi, decim, up, B, f64);
+  if (p.k == 0) {
+    p.k = MAX_CLUSTER;
+    p.Cl = (C + MAX_CLUSTER - 1) / MAX_CLUSTER;
+  }
   return (long)(f64 ? layout_of<double>(p).total : layout_of<float>(p).total);
 }
 
-// the grid a launch of these sizes uses (blocks), or -1
+// the grid a launch of these sizes uses (blocks, k per group), or -1
 int pa_trigger_grid(int G, int C, int K, int n_base, int n_hi, int decim, int up, int B,
                     int f64) {
-  const PaParams p = params_of(G, C, K, n_base, n_hi, decim, up, B, 1, 1, 1);
+  const PaParams p = sized(G, C, K, n_base, n_hi, decim, up, B, f64);
+  if (p.k == 0) return -1;
   int n = 0;
-  const cudaError_t err = f64 ? grid_of<double>(G, layout_of<double>(p).total, &n)
-                              : grid_of<float>(G, layout_of<float>(p).total, &n);
+  const cudaError_t err = f64 ? grid_of<double>(p, layout_of<double>(p).total, &n)
+                              : grid_of<float>(p, layout_of<float>(p).total, &n);
   return err == cudaSuccess ? n : -1;
 }
 

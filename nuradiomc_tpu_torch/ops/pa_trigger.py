@@ -4,9 +4,13 @@ Replaces ``nuradiomc_tpu/ops/pa_pallas.py::fused_pa_trigger``
 (pa_pallas.py:130, kernel ``_kernel`` :61, ``_sliding_sum_fwd`` :45,
 pallas_call :181). The CUDA kernel is ``csrc/pa_trigger.cu``, a chain of
 shared-memory FFTs (``csrc/fft_common.cuh``); its source note says what
-bounds it on the H100 and how the design answers that.
-:func:`fused_pa_trigger` launches it for CUDA tensors and runs
-:func:`fused_pa_trigger_plain` for CPU tensors; there is no other fallback.
+bounds it on the H100 and how the design answers that. A group whose C
+upsampled traces do not fit one block's shared memory is split over a
+thread-block cluster of up to 8 blocks (:func:`cluster_size`); beyond that
+the wrapper raises (at n_up 1024, 11 beams and K 512: C > 368 in float32,
+C > 168 in float64). :func:`fused_pa_trigger` launches it for CUDA tensors
+and runs :func:`fused_pa_trigger_plain` for CPU tensors; there is no other
+fallback.
 
 Contract (rows (group, channel), channel fastest, R = G * C):
 
@@ -49,7 +53,7 @@ from nuradiomc_tpu_torch.ops import _build, adc, fft_plan, phased_array
 # kernel launches since the count was last set to 0
 launches = 0
 
-_SMEM_LIMIT = 232448          # bytes of shared memory one block may use
+MAX_CLUSTER = 8               # blocks a group's cluster may have (the portable size)
 
 
 def n_dec_of(n_hi: int, decim: int) -> int:
@@ -99,7 +103,19 @@ def _kernel_fn(dtype):
     fn.restype = ctypes.c_int
     lib.pa_trigger_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.pa_trigger_smem_bytes.restype = ctypes.c_long
+    lib.pa_trigger_cluster.argtypes = [ctypes.c_int] * 8
+    lib.pa_trigger_cluster.restype = ctypes.c_int
     return fn, scalar, lib
+
+
+def cluster_size(C: int, K: int, n_base: int, n_hi: int, decim: int, up: int, B: int,
+                 dtype) -> int:
+    """Blocks of the thread-block cluster that holds one group on the card
+    (1 when its C upsampled traces fit one block's shared memory), or 0 when
+    even eight blocks cannot hold them."""
+    lib = _kernel_fn(dtype)[2]
+    return lib.pa_trigger_cluster(C, K, n_base, n_hi, decim, up, B,
+                                  int(dtype == torch.float64))
 
 
 def fused_pa_trigger(spec_re, spec_im, *, n_base: int, n_hi: int, decim: int, up: int,
@@ -155,12 +171,12 @@ def fused_pa_trigger(spec_re, spec_im, *, n_base: int, n_hi: int, decim: int, up
                          f"[{R}, {n_dec}] tensor on {dev}")
     fn, scalar, lib = _kernel_fn(dtype)
     elem = spec_re.element_size()
-    smem = lib.pa_trigger_smem_bytes(C, K, n_base, n_hi, decim, up, B, int(elem == 8))
-    if smem > _SMEM_LIMIT:
+    if lib.pa_trigger_cluster(C, K, n_base, n_hi, decim, up, B, int(elem == 8)) < 1:
+        smem = lib.pa_trigger_smem_bytes(C, K, n_base, n_hi, decim, up, B, int(elem == 8))
         raise ValueError(
             f"phased-array trigger: the upsampled traces C * n_up * sizeof = {C} * {n_up} * "
-            f"{elem} bytes and the FFT buffers ({smem} bytes in all) do not fit the "
-            f"{_SMEM_LIMIT} bytes of shared memory of one block")
+            f"{elem} bytes do not fit a cluster of {MAX_CLUSTER} blocks ({smem} bytes of "
+            f"shared memory a block, beyond the card's limit)")
     fold = n_hi % decim == 0
     lengths = (n_base, n_hi, n_dec, n_up)
     stages = [fft_plan.plan(n)[1] for n in lengths]

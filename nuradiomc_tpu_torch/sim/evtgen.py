@@ -1,7 +1,6 @@
-# copied from nuradiomc_tpu/sim/evtgen.py:1-703 without generate_surface_muons,
-# whose muon flux needs MCEq/crflux tables that are not in the repository, and
-# with BGR18 inelasticities raising (their tables are a download); the port
-# keeps its own copy and imports nothing of the JAX package
+# copied from nuradiomc_tpu/sim/evtgen.py:1-703 (generate_surface_muons from
+# :368-508), with BGR18 inelasticities raising (their tables are a download);
+# the port keeps its own copy and imports nothing of the JAX package
 """Neutrino event-list generation (host-side numpy, fully vectorized).
 
 Re-implementation of the reference generator
@@ -391,6 +390,147 @@ def _insert_lepton_secondaries(data, attributes, rnd):
         if data[key].dtype.kind == "U":
             extra = extra.astype(data[key].dtype)
         data[key] = np.concatenate([data[key], extra])[order]
+
+
+def generate_surface_muons(filename, n_events, Emin, Emax, volume,
+                           thetamin=0.0, thetamax=np.pi / 2,
+                           phimin=0.0, phimax=2 * np.pi,
+                           start_event_id=1, plus_minus="mix",
+                           spectrum="log_uniform", seed=None,
+                           secondaries="proposal",
+                           loss_fraction_range=(0.01, 0.5)):
+    """Atmospheric-muon event generator for effective-area studies
+    (generator.generate_surface_muons:739-1020).
+
+    Muons are generated on the upper surface of the fiducial volume with
+    downward-going directions. Their in-ice energy losses (the radio-emitting
+    showers) come from the PROPOSAL lepton propagator when the external
+    ``proposal`` package is installed (the reference's approach,
+    EvtGen/NuRadioProposal.py). When unavailable,
+    ``secondaries='parametrized'`` places a single stochastic energy loss at
+    an exponentially-sampled depth with a log-uniform loss fraction — a
+    documented approximation for machinery tests, NOT a physics-accurate
+    replacement for PROPOSAL.
+    """
+    rnd = np.random.default_rng(np.random.Philox(seed))
+    n_events = int(n_events)
+
+    attributes = {
+        "n_events": n_events, "start_event_id": start_event_id,
+        "simulation_mode": "atmospheric_muon",
+        "thetamin": thetamin, "thetamax": thetamax,
+        "phimin": phimin, "phimax": phimax,
+        "Emin": Emin, "Emax": Emax,
+        "flavors": np.array([13, -13]), "deposited": False,
+    }
+    set_volume_attributes(volume, attributes)
+
+    # entry points uniform on the top surface
+    rr = rnd.uniform(attributes["rmin"] ** 2, attributes["rmax"] ** 2, n_events) ** 0.5
+    phi = rnd.uniform(0, 2 * np.pi, n_events)
+    xx = rr * np.cos(phi) + attributes["x0"]
+    yy = rr * np.sin(phi) + attributes["y0"]
+    z_top = attributes["zmax"]
+
+    zeniths = np.arccos(rnd.uniform(np.cos(thetamax), np.cos(thetamin), n_events))
+    azimuths = rnd.uniform(phimin, phimax, n_events)
+    energies = get_energies(n_events, Emin, Emax, spectrum, rnd)
+    if plus_minus == "plus":
+        flavors = np.full(n_events, -13)
+    elif plus_minus == "minus":
+        flavors = np.full(n_events, 13)
+    else:
+        flavors = np.where(rnd.random(n_events) < 0.5, 13, -13)
+
+    if secondaries == "proposal":
+        try:
+            import proposal  # noqa: F401
+        except ImportError as exc:
+            raise ImportError(
+                "PROPOSAL is not installed; pass secondaries='stochastic' for "
+                "the in-repo propagator or 'parametrized' for a single loss") from exc
+        raise NotImplementedError(
+            "PROPOSAL-driven secondaries: hook NuRadioProposal-equivalent here")
+
+    if secondaries == "stochastic":
+        # in-repo stochastic propagator (sim/muon_propagation.py): full
+        # multi-loss treatment with the standard a + bE parameterization
+        from nuradiomc_tpu_torch.sim import muon_propagation
+        from nuradiomc_tpu_torch.utils.constants import speed_of_light
+
+        prop_dir = -np.stack([np.sin(zeniths) * np.cos(azimuths),
+                              np.sin(zeniths) * np.sin(azimuths),
+                              np.cos(zeniths)], axis=-1)
+        depth_cap = (z_top - attributes["zmin"]) / np.maximum(
+            np.cos(zeniths), 0.05)
+        all_losses, _ = muon_propagation.propagate_muons(
+            energies, depth_cap, rng=rnd)
+
+        rows = {k: [] for k in
+                ("event_group_ids", "xx", "yy", "zz", "vertex_times",
+                 "azimuths", "zeniths", "energies", "flavors",
+                 "n_interaction", "interaction_type", "inelasticity",
+                 "shower_energies", "shower_type")}
+        for i, loss_list in enumerate(all_losses):
+            entry = np.array([xx[i], yy[i], z_top])
+            for k, (dist, e_sh, kind) in enumerate(loss_list):
+                pos = entry + prop_dir[i] * dist
+                r_h = np.hypot(pos[0] - attributes["x0"],
+                               pos[1] - attributes["y0"])
+                if r_h > attributes["rmax"] or pos[2] < attributes["zmin"]:
+                    continue
+                rows["event_group_ids"].append(i + start_event_id)
+                rows["xx"].append(pos[0])
+                rows["yy"].append(pos[1])
+                rows["zz"].append(pos[2])
+                rows["vertex_times"].append(dist / speed_of_light)
+                rows["azimuths"].append(azimuths[i])
+                rows["zeniths"].append(zeniths[i])
+                rows["energies"].append(energies[i])
+                rows["flavors"].append(flavors[i])
+                rows["n_interaction"].append(k + 1)
+                rows["interaction_type"].append(kind)
+                rows["inelasticity"].append(e_sh / energies[i])
+                rows["shower_energies"].append(e_sh)
+                rows["shower_type"].append(kind)
+        data = {k: np.asarray(v) for k, v in rows.items()}
+        data["shower_type"] = data["shower_type"].astype("U3")
+        data["interaction_type"] = data["interaction_type"].astype("U3")
+        data["shower_ids"] = np.arange(len(data["xx"]), dtype=int)
+        if filename is not None:
+            write_events_to_hdf5(filename, data, attributes)
+        return data, attributes
+
+    # parametrized single stochastic loss along the track
+    prop_dir = -np.stack([np.sin(zeniths) * np.cos(azimuths),
+                          np.sin(zeniths) * np.sin(azimuths),
+                          np.cos(zeniths)], axis=-1)
+    # exponential path length with ~1 km scale, capped at the volume depth
+    track = rnd.exponential(1000.0, n_events)
+    depth_cap = (z_top - attributes["zmin"]) / np.maximum(np.cos(zeniths), 0.05)
+    track = np.minimum(track, depth_cap * rnd.random(n_events))
+    vert = np.stack([xx, yy, np.full(n_events, z_top)], axis=-1) +         prop_dir * track[:, None]
+    loss = 10 ** rnd.uniform(np.log10(loss_fraction_range[0]),
+                             np.log10(loss_fraction_range[1]), n_events)
+
+    from nuradiomc_tpu_torch.utils.constants import speed_of_light
+    data = {
+        "event_group_ids": np.arange(n_events) + start_event_id,
+        "xx": vert[:, 0], "yy": vert[:, 1], "zz": vert[:, 2],
+        "vertex_times": track / speed_of_light,
+        "azimuths": azimuths, "zeniths": zeniths,
+        "energies": energies,
+        "flavors": flavors,
+        "n_interaction": np.ones(n_events, dtype=int),
+        "interaction_type": np.full(n_events, "had", dtype="U3"),
+        "inelasticity": loss,
+        "shower_energies": energies * loss,
+        "shower_type": np.full(n_events, "had", dtype="U3"),
+        "shower_ids": np.arange(n_events, dtype=int),
+    }
+    if filename is not None:
+        write_events_to_hdf5(filename, data, attributes)
+    return data, attributes
 
 
 def group_into_events(start_times, split_time_gap=1e6):

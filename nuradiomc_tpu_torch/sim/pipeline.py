@@ -39,6 +39,19 @@ later than the window's length after its first arrival go to the next
 window, decisions OR across windows and the trigger time is the earliest
 fired window's.
 
+With ``channel_axis`` (a ``parallel.mesh.Axis`` over which C divides),
+steps 1-7 run on this rank's slice of the channels; the OR over channels
+(``candidate``, ``any_valid``, each window's ``any_rem``), the window
+anchor's MIN and ``max_efield``'s MAX are collectives over the axis, the
+per-solution outputs are gathered along it, and each window's readout
+spectrum is gathered before step 8, which every rank of the axis then runs
+on all C channels with the same noise draws. MIN, OR and MAX are exact and
+no channel's steps 1-7 read another channel, so the sharded call equals the
+unsharded one bit for bit on the card. On the CPU, ATen's vectorized loops
+run the last elements of a tensor through scalar code, whose complex
+products can round a last bit differently at a rank's last channel; no
+decision or amplitude has moved (tests/test_torch_channel_split.py).
+
 ``placement_impl`` / ``trigger_impl`` = "kernel" (default) go through the
 kernel wrappers, which launch the CUDA kernels on CUDA tensors and run their
 plain versions on CPU tensors; "plain" calls the plain versions directly on
@@ -63,6 +76,7 @@ from nuradiomc_tpu_torch.ops import (antenna, arz as arz_ops, askaryan, birefrin
                                      placement, raytrace, trace as trace_ops,
                                      trigger_fused)
 from nuradiomc_tpu_torch.ops import fft_plan
+from nuradiomc_tpu_torch.parallel import mesh as mesh_util
 from nuradiomc_tpu_torch.utils import fft, geometry
 from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
@@ -548,7 +562,8 @@ def _emitter_efields(emitter: EmitterParams, batch: ShowerBatch, launch, R_safe,
 def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
                    noise_generator: Optional[torch.Generator] = None,
                    keep_traces: bool = False, keep_efields: bool = False,
-                   emitter=None, arz_library=None) -> PipelineOutput:
+                   emitter=None, arz_library=None,
+                   channel_axis: Optional[mesh_util.Axis] = None) -> PipelineOutput:
     """Run the chain on a padded batch. All tensors share one device; the
     real dtype is ``batch.vertices.dtype`` (float32 or float64). With
     ``s.add_noise`` the noise is drawn from ``noise_generator`` (a
@@ -557,12 +572,21 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     ``keep_traces`` the output carries window 0's readout-chain traces
     [G, C, n_base] at the internal rate; the trigger decisions still come
     from kernels 2 and 3, the traces from ``torch.fft.irfft`` of the same
-    full-band spectra (pipeline.py:1437, :1523-1542)."""
+    full-band spectra (pipeline.py:1437, :1523-1542). ``channel_axis``:
+    steps 1-7 on this rank's channels (see the module docstring); ``ch``
+    holds all channels either way, and so do the outputs."""
     _check_slice(batch, ch, s, emitter, arz_library)
     if s.add_noise and noise_generator is None:
         raise ValueError("add_noise=True requires a noise_generator")
     trig_list = _trigger_list(s)
     G, S = batch.energies.shape
+    C_all = ch.positions.shape[0]
+    # steps 1-7 read ``ch`` (this rank's channels), step 8 ``ch_all``
+    ch_all = ch
+    ch_slice = mesh_util.channel_split(C_all, channel_axis)
+    ch_axis = channel_axis if ch_slice is not None else None
+    if ch_slice is not None:
+        ch = mesh_util.slice_channels(ch_all, ch_slice)
     C = ch.positions.shape[0]
     dt = s.dt
     real_dtype = batch.vertices.dtype
@@ -772,7 +796,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
 
     # ---- 6a. candidate cut (simulation.py:283-286) -------------------------
     min_eff = ch.min_efield_amplitude
-    if bool(torch.all(min_eff <= 0)):
+    if bool(torch.all(ch_all.min_efield_amplitude <= 0)):
         ef_max = torch.zeros(bshape, dtype=real_dtype, device=dev)
         candidate = torch.ones((G,), dtype=torch.bool, device=dev)
     else:
@@ -783,7 +807,8 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         ef_traces = fft.freq2time(torch.stack(pols), s.sampling_rate, n=s.n_internal)
         ef_max = torch.amax(torch.abs(ef_traces), dim=(0, -1))
         ef_max = torch.where(valid, ef_max, 0.0)
-        candidate = torch.any((ef_max > min_eff[None, None, :, None]).reshape(G, -1), dim=-1)
+        candidate = mesh_util.all_reduce_or(
+            torch.any((ef_max > min_eff[None, None, :, None]).reshape(G, -1), dim=-1), ch_axis)
 
     # ---- 6b. antenna response: mixing scalars + template gather ------------
     zen_r, az_r = geometry.cartesian_to_spherical(receive)
@@ -820,7 +845,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     # ---- 7. placement into the common time base ----------------------------
     t_start = (batch.vertex_times[:, :, None, None] + sols.travel_time
                - 0.5 * s.n_internal * dt + ch.cable_delays[None, None, :, None])
-    any_valid = torch.any(valid.reshape(G, -1), dim=-1)
+    any_valid = mesh_util.all_reduce_or(torch.any(valid.reshape(G, -1), dim=-1), ch_axis)
     cap = (s.n_base - s.n_internal) * dt
     F_base = s.n_base // 2 + 1
     # band limits (pipeline.py:1127-1158): with a separate trigger chain the
@@ -829,12 +854,12 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     separate_chain = ch.trigger_filter_response is not None
     K_int, K_base, K_trig, K_place = F_int, F_base, F_base, F_base
     if s.band_limit_eps > 0 and not separate_chain:
-        K_int = _band_support((ch.filter_response_int.cpu().numpy(),),
+        K_int = _band_support((ch_all.filter_response_int.cpu().numpy(),),
                               s.band_limit_eps, F_int)
     if s.band_limit_eps > 0 and not keep_traces:
-        K_base = _band_support((ch.filter_response.cpu().numpy(),),
+        K_base = _band_support((ch_all.filter_response.cpu().numpy(),),
                                s.band_limit_eps, F_base)
-        K_trig = (_band_support((ch.trigger_filter_response.cpu().numpy(),),
+        K_trig = (_band_support((ch_all.trigger_filter_response.cpu().numpy(),),
                                 s.band_limit_eps, F_base) if separate_chain else K_base)
         K_place = max(K_base, K_trig)
 
@@ -880,31 +905,33 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         raw_spec = torch.complex(out_re, out_im)
         if K_place < F_base:
             raw_spec = torch.nn.functional.pad(raw_spec, (0, F_base - K_place))
-        raw_spec = raw_spec.reshape(G, C, F_base)
+        # every channel's readout spectrum on every rank of the axis
+        raw_spec = mesh_util.all_gather(raw_spec.reshape(G, C, F_base), 1, ch_axis)
 
         # ---- 8. noise, filter multiply, triggers ---------------------------
+        # (on all C_all channels)
         if s.add_noise:
             # one realization per (group, channel), added before the filter
             # (pipeline.py:1294-1310); each window draws anew
             raw_spec = raw_spec + noise_ops.bandlimited_noise_spectrum(
-                noise_generator, (G, C), s.n_base, s.sampling_rate,
-                ch.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
+                noise_generator, (G, C_all), s.n_base, s.sampling_rate,
+                ch_all.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
                 type=s.noise_type, dtype=real_dtype, sampler=s.noise_sampler)
 
         def rows_of(response, K):
-            k = (raw_spec * response[None, :, :]).reshape(G * C, F_base)[:, :K]
+            k = (raw_spec * response[None, :, :]).reshape(G * C_all, F_base)[:, :K]
             return k.real.contiguous(), k.imag.contiguous()
 
-        readout = rows_of(ch.filter_response, K_base)
+        readout = rows_of(ch_all.filter_response, K_base)
         # a separate trigger chain reads the same raw spectrum through its
         # own response (pipeline.py:1437-1447); max_amplitude stays the
         # readout chain's
-        trig = rows_of(ch.trigger_filter_response, K_trig) if separate_chain else readout
+        trig = rows_of(ch_all.trigger_filter_response, K_trig) if separate_chain else readout
         fired, frames, amp = _run_triggers(trig_list, trig, readout if separate_chain else None,
-                                           s, ch, G, C)
+                                           s, ch_all, G, C_all)
         traces = None
         if want_traces:
-            traces = fft.freq2time(torch.complex(*readout).reshape(G, C, K_base),
+            traces = fft.freq2time(torch.complex(*readout).reshape(G, C_all, K_base),
                                    s.sampling_rate, n=s.n_base)
         return fired, [t0_w + f for f in frames], amp, traces
 
@@ -913,9 +940,10 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     per_window = []
     name_to_col = {t.name: i for i, t in enumerate(trig_list)}
     for w in range(max(1, s.n_windows)):
-        any_rem = torch.any(remaining.reshape(G, -1), dim=-1)
+        any_rem = mesh_util.all_reduce_or(torch.any(remaining.reshape(G, -1), dim=-1), ch_axis)
         # anchored at the earliest arrival that is still to be read out
-        t0_w = torch.amin(torch.where(remaining, t_start, 1e30).reshape(G, -1), dim=-1)
+        t0_w = mesh_util.all_reduce_min(
+            torch.amin(torch.where(remaining, t_start, 1e30).reshape(G, -1), dim=-1), ch_axis)
         t0_w = torch.where(any_rem, t0_w, 0.0)
         offset = t_start - t0_w[:, None, None, None]
         in_w = remaining & (offset <= cap)
@@ -955,23 +983,27 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     trigger_time = torch.where(triggered, torch.amin(tt_masked, dim=-1),
                                trigger_times_per[..., 0])
 
+    def gathered(x, dim=2):
+        # a per-solution output [G, S, C, R, ...] over all channels
+        return None if x is None else mesh_util.all_gather(x, dim, ch_axis)
+
     return PipelineOutput(
         triggered=triggered,
         candidate=candidate & any_valid,
         triggered_per=triggered_per,
         trigger_times_per=trigger_times_per,
-        max_efield=torch.amax(ef_max.reshape(G, -1), dim=-1),
+        max_efield=mesh_util.all_reduce_max(torch.amax(ef_max.reshape(G, -1), dim=-1), ch_axis),
         trigger_time=trigger_time,
         max_amplitude=max_amp_tr,
         traces=traces0,
         base_t0=base_t0,
-        sol_mask=valid,
-        c0=sols.c0, c1=sols.c1, sol_type=sols.sol_type,
-        travel_time=sols.travel_time, path_length=sols.path_length,
-        launch_vector=launch, receive_vector=receive,
-        polarization=pol_onsky, viewing_angle=viewing_angle,
-        max_amp_per_solution=max_amp_sol,
-        focusing=foc,
-        reflection=sols.reflection, refl_case=sols.refl_case,
-        efields=torch.stack([e_theta, e_phi]) if keep_efields else None,
+        sol_mask=gathered(valid),
+        c0=gathered(sols.c0), c1=gathered(sols.c1), sol_type=gathered(sols.sol_type),
+        travel_time=gathered(sols.travel_time), path_length=gathered(sols.path_length),
+        launch_vector=gathered(launch), receive_vector=gathered(receive),
+        polarization=gathered(pol_onsky), viewing_angle=gathered(viewing_angle),
+        max_amp_per_solution=gathered(max_amp_sol),
+        focusing=gathered(foc),
+        reflection=gathered(sols.reflection), refl_case=gathered(sols.refl_case),
+        efields=gathered(torch.stack([e_theta, e_phi]), 3) if keep_efields else None,
     )

@@ -10,8 +10,9 @@ the per-channel tensors, the list of named triggers (high/low, threshold and
 the phased array with its trigger ADC, each on all channels or on a subset
 given by channel ids) and the padded [group x shower] batch
 with the Alvarez2009 ``k_L`` draws, runs :func:`pipeline.simulate_batch`
-chunk by chunk on ``device`` (noise from one ``torch.Generator`` on that
-device, seeded from ``config["seed"]``), computes the weights and Veff, and
+chunk by chunk on ``device`` (noise from one ``torch.Generator`` per chunk on
+that device, seeded from ``config["seed"]``, the station and the chunk's
+index), computes the weights and Veff, and
 writes the output HDF5 through ``io_hdf5.write_output_hdf5`` (the port's
 copy; needs h5py) and, with ``nur_outputfilename``, the triggered events
 with their waveforms through the port's ``io_nur.EventWriter`` (no h5py). A
@@ -27,10 +28,30 @@ An emitter input (``simulation_mode = "emitter"``) makes the run an emitter
 run: the ``emitter_*`` columns give the model, the emitting antenna and the
 per-row amplitude, frequency, polarization and time. ``antenna_models_path``
 holds tabulated antenna pickles as ``<model>/<model>.pkl``;
-``arz_library_path`` the shower library of the ARZ models.
+``arz_library_path`` the shower library of the ARZ models. A surface-muon
+input (``simulation_mode = "atmospheric_muon"``, ``evtgen.generate_surface_muons``)
+runs as a neutrino input does (its downgoing muons get weight 1 from the
+Earth model, as in the JAX package); its results carry the input's
+``area``, ``thetamin``, ``thetamax`` and ``n_events`` and the effective
+area ``aeff`` (``veff.aeff_from_results``).
 
-Not ported yet (they raise): numeric birefringence propagation and device
-meshes.
+With ``mesh`` (a ``parallel.mesh.Mesh``, or ``"auto"``: every rank of the
+process group on one event axis) the run is one process per rank. The
+event axis deals whole chunks round-robin: rank e of an event row runs
+chunks e, e + n_event, ..., so every chunk has the shape and the numbers
+it has in a single-process run (the noise too: its generator belongs to
+the chunk), and the host results of the chunks are gathered to every rank.
+The JAX package instead splits each chunk over its event axis and rounds
+``chunk_size`` up to a multiple of it; the port does neither, because a
+chunk split over ranks would change the chunk's shape and hence which
+groups share a launch, where dealing whole chunks keeps the single-process
+run's numbers. The channel axis splits steps 1-7 of each chunk over the
+ranks of a column (``simulate_batch(channel_axis=)``). Weights and Veff are
+computed on every rank; rank 0 alone writes ``outputfilename`` and
+``nur_outputfilename`` (whose re-run of the triggered groups runs on the
+mesh too).
+
+Not ported yet (it raises): numeric birefringence propagation.
 """
 
 from __future__ import annotations
@@ -43,7 +64,9 @@ import torch
 
 from nuradiomc_tpu_torch.detector.detector import Detector
 from nuradiomc_tpu_torch.ops import filters
+from nuradiomc_tpu_torch.parallel import mesh as mesh_util
 from nuradiomc_tpu_torch.sim import earth_attenuation
+from nuradiomc_tpu_torch.sim import veff as veff_util
 from nuradiomc_tpu_torch.sim.evtgen import group_into_events
 from nuradiomc_tpu_torch.utils import config as config_util
 from nuradiomc_tpu_torch.utils import units
@@ -121,6 +144,9 @@ class Simulation:
     where and in which precision the pipeline runs: the CUDA card unless
     ``device="cpu"`` is asked for (without a card the default raises);
     float64 is the production default, float32 the benchmark configuration.
+    ``mesh``: ``None`` (one process), ``"auto"`` or a ``parallel.mesh.Mesh``
+    (see the module docstring); the run then takes the mesh's device, whose
+    type must be ``device``'s.
     """
 
     def __init__(self, inputfilename: str, detector, config=None,
@@ -136,10 +162,20 @@ class Simulation:
                  arz_library_path: Optional[str] = None,
                  spice_pulses_path: Optional[str] = None,
                  spice_pulse_index: int = 0,
-                 device=device_util.DEFAULT, dtype=torch.float64):
+                 device=device_util.DEFAULT, dtype=torch.float64, mesh=None):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-        self.device = device_util.resolve(device)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
+            mesh = mesh_util.make_mesh(device=torch.device(device).type)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = device_util.resolve(device)
+        else:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} but the mesh runs on {mesh.device}")
+            self.device = mesh.device
         self.dtype = dtype
         self.config = config_util.get_config(config)
         self.det = detector if isinstance(detector, Detector) else Detector(detector)
@@ -288,6 +324,7 @@ class Simulation:
         frequency and polarization ride the ShowerBatch."""
         mode = self.input.attrs.get("simulation_mode", "neutrino")
         mode = mode.decode() if isinstance(mode, bytes) else str(mode)
+        self.simulation_mode = mode
         self.emitter_mode = mode == "emitter"
         if not self.emitter_mode:
             return None
@@ -626,70 +663,106 @@ class Simulation:
         return ShowerBatch(*[None if a is None else torch.as_tensor(
             np.ascontiguousarray(a[rows]), device=self.device) for a in batch])
 
+    def _noise_generator(self, seed_offset, chunk_index, stream=0):
+        """The noise generator of one chunk on the run's device (None without
+        noise), seeded from ``SeedSequence([seed, seed_offset, chunk_index])``
+        (``stream`` appended for the ``.nur`` re-run), so a chunk draws the
+        same numbers on whichever rank runs it."""
+        if not self.settings.add_noise:
+            return None
+        key = [int(self.config["seed"]), int(seed_offset), int(chunk_index)]
+        seq = np.random.SeedSequence(key + [int(stream)] if stream else key)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seq.generate_state(1, np.uint64)[0]))
+        return gen
+
+    def _my_chunks(self, n):
+        """The chunk indices of ``n`` chunks this rank runs: all of them
+        without a mesh, else every n_event-th from its event index."""
+        if self.mesh is None:
+            return range(n)
+        return range(self.mesh.event.index, n, self.mesh.n_event)
+
+    def _run_chunk(self, station_id, batch, sl, gen, **kw):
+        """``simulate_batch`` on the groups ``sl`` of the host batch (on the
+        mesh's channel axis where there is one)."""
+        return simulate_batch(self._on_device(batch, sl), self.channel_params_per_station[
+            station_id], self.settings, noise_generator=gen, emitter=self._emitter,
+            arz_library=self.arz_library,
+            channel_axis=None if self.mesh is None else self.mesh.channel, **kw)
+
     def _run_station(self, station_id, batch, seed_offset=0):
-        """The pipeline over all groups of one station, chunk by chunk; the
-        noise comes from one generator on the device, seeded from
-        ``config["seed"] + seed_offset`` and advanced chunk by chunk."""
+        """The pipeline over all groups of one station, chunk by chunk (this
+        rank's chunks on a mesh, then every chunk's host results gathered
+        over the event axis); the noise of chunk i comes from
+        :meth:`_noise_generator` ``(seed_offset, i)``."""
         G = batch.energies.shape[0]
-        gen = None
-        if self.settings.add_noise:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(self.config["seed"]) + seed_offset)
         chp = self.channel_params_per_station[station_id]
         C = chp.positions.shape[0]
         T = len(self.triggers)
+        keys = ("max_amp_shower_and_ray", "ray_tracing_C0", "ray_tracing_C1",
+                "ray_tracing_solution_type", "ray_tracing_reflection",
+                "ray_tracing_reflection_case", "focusing_factor", "launch_vectors",
+                "receive_vectors", "polarization", "travel_times", "travel_distances",
+                "time_shower_and_ray", "sol_mask")
+        cd = chp.cable_delays.cpu().numpy()
+        n_chunks = -(-G // self.chunk_size)
+        mine = []
+        for i in self._my_chunks(n_chunks):
+            sl = slice(i * self.chunk_size, min((i + 1) * self.chunk_size, G))
+            out = self._run_chunk(station_id, batch, sl,
+                                  self._noise_generator(seed_offset, i))
+            trig = out.triggered.cpu().numpy()
+            res = {"i": i, "triggered": trig, "max_amp": out.max_amplitude.cpu().numpy(),
+                   "trigger_time": out.trigger_time.cpu().numpy(),
+                   "triggered_per": out.triggered_per.cpu().numpy(),
+                   "trigger_times_per": out.trigger_times_per.cpu().numpy()}
+            idx = np.where(trig)[0]
+            if len(idx):
+                sel = torch.as_tensor(idx, device=self.device)
+
+                def pick(t):
+                    return t[sel].cpu().numpy()
+
+                # cartesian polarization at the antenna (HDF5_structure.rst)
+                rec = out.receive_vector[sel]
+                zen = torch.arccos(torch.clamp(rec[..., 2], -1.0, 1.0))
+                az = torch.atan2(rec[..., 1], rec[..., 0])
+                tt = pick(out.travel_time)
+                res["rows"] = {
+                    "g_idx": idx + sl.start,
+                    "max_amp_shower_and_ray": pick(out.max_amp_per_solution),
+                    "ray_tracing_C0": pick(out.c0), "ray_tracing_C1": pick(out.c1),
+                    "ray_tracing_solution_type": pick(out.sol_type),
+                    "ray_tracing_reflection": pick(out.reflection),
+                    "ray_tracing_reflection_case": pick(out.refl_case),
+                    "focusing_factor": pick(out.focusing),
+                    "launch_vectors": pick(out.launch_vector),
+                    "receive_vectors": pick(out.receive_vector),
+                    "polarization": geometry.onsky_to_ground(
+                        out.polarization[sel], zen, az).cpu().numpy(),
+                    "travel_times": tt, "travel_distances": pick(out.path_length),
+                    "time_shower_and_ray": tt + cd[None, None, :, None],
+                    "sol_mask": pick(out.sol_mask)}
+            mine.append(res)
+        chunks = mine
+        if self.mesh is not None:
+            chunks = [r for part in mesh_util.gather_objects(mine, self.mesh.event) for r in part]
         triggered = np.zeros(G, dtype=bool)
         max_amp = np.zeros((G, C))
         trigger_times = np.zeros(G)
         trig_per = np.zeros((G, T), dtype=bool)
         tt_per = np.zeros((G, T))
-        rows = {k: [] for k in (
-            "g_idx", "max_amp_shower_and_ray", "ray_tracing_C0", "ray_tracing_C1",
-            "ray_tracing_solution_type", "ray_tracing_reflection",
-            "ray_tracing_reflection_case", "focusing_factor", "launch_vectors",
-            "receive_vectors", "polarization", "travel_times", "travel_distances",
-            "time_shower_and_ray", "sol_mask")}
-        cd = chp.cable_delays.cpu().numpy()
-        for c0 in range(0, G, self.chunk_size):
-            sl = slice(c0, min(c0 + self.chunk_size, G))
-            chunk = self._on_device(batch, sl)
-            out = simulate_batch(chunk, chp, self.settings, noise_generator=gen,
-                                 emitter=self._emitter, arz_library=self.arz_library)
-            trig = out.triggered.cpu().numpy()
-            triggered[sl] = trig
-            max_amp[sl] = out.max_amplitude.cpu().numpy()
-            trigger_times[sl] = out.trigger_time.cpu().numpy()
-            trig_per[sl] = out.triggered_per.cpu().numpy()
-            tt_per[sl] = out.trigger_times_per.cpu().numpy()
-            idx = np.where(trig)[0]
-            if not len(idx):
-                continue
-            sel = torch.as_tensor(idx, device=self.device)
-
-            def pick(t):
-                return t[sel].cpu().numpy()
-
-            rows["g_idx"].append(idx + sl.start)
-            rows["max_amp_shower_and_ray"].append(pick(out.max_amp_per_solution))
-            rows["ray_tracing_C0"].append(pick(out.c0))
-            rows["ray_tracing_C1"].append(pick(out.c1))
-            rows["ray_tracing_solution_type"].append(pick(out.sol_type))
-            rows["ray_tracing_reflection"].append(pick(out.reflection))
-            rows["ray_tracing_reflection_case"].append(pick(out.refl_case))
-            rows["focusing_factor"].append(pick(out.focusing))
-            rows["launch_vectors"].append(pick(out.launch_vector))
-            rows["receive_vectors"].append(pick(out.receive_vector))
-            # cartesian polarization at the antenna (HDF5_structure.rst)
-            rec = out.receive_vector[sel]
-            zen = torch.arccos(torch.clamp(rec[..., 2], -1.0, 1.0))
-            az = torch.atan2(rec[..., 1], rec[..., 0])
-            rows["polarization"].append(geometry.onsky_to_ground(
-                out.polarization[sel], zen, az).cpu().numpy())
-            tt = pick(out.travel_time)
-            rows["travel_times"].append(tt)
-            rows["travel_distances"].append(pick(out.path_length))
-            rows["time_shower_and_ray"].append(tt + cd[None, None, :, None])
-            rows["sol_mask"].append(pick(out.sol_mask))
+        rows = {k: [] for k in ("g_idx",) + keys}
+        for res in sorted(chunks, key=lambda r: r["i"]):
+            sl = slice(res["i"] * self.chunk_size, min((res["i"] + 1) * self.chunk_size, G))
+            triggered[sl] = res["triggered"]
+            max_amp[sl] = res["max_amp"]
+            trigger_times[sl] = res["trigger_time"]
+            trig_per[sl] = res["triggered_per"]
+            tt_per[sl] = res["trigger_times_per"]
+            for k, v in res.get("rows", {}).items():
+                rows[k].append(v)
         return triggered, max_amp, trigger_times, rows, trig_per, tt_per
 
     def run(self):
@@ -744,7 +817,15 @@ class Simulation:
             "n_triggered": int(np.sum(trig_parent)),
             **self._realizations,
         }
-        if self.outputfilename is not None:
+        if self.simulation_mode == "atmospheric_muon":
+            # surface muons: the generation area and zenith band carry
+            # through, and Aeff comes from the results (T03check_output.py)
+            results.update(area=float(self.input.attrs["area"]),
+                           thetamin=float(self.input.attrs["thetamin"]),
+                           thetamax=float(self.input.attrs["thetamax"]), n_events=n_events)
+            results["aeff"] = veff_util.aeff_from_results(results)
+        rank0 = self.mesh is None or self.mesh.rank == 0
+        if self.outputfilename is not None and rank0:
             self._write_output(results, per_station, group_ids, start, count, order)
         if self.nur_outputfilename is not None:
             self._write_nur(group_ids, start, count, order, batch, triggered,
@@ -756,32 +837,33 @@ class Simulation:
         """The triggered groups as events with waveforms in a ``.nur`` file
         (simulation.py:1253-1317, the reference's outputfilenameNuRadioReco
         path): the triggered groups run again through ``simulate_batch``
-        with ``keep_traces`` on the run's device (noise seeded from
-        ``config["seed"] + 1``), each channel's readout trace resampled to
-        the detector's rate; one ``Trigger`` per named trigger with its
-        time, and the sim showers."""
+        with ``keep_traces`` on the run's device (chunk i's noise from
+        :meth:`_noise_generator` ``(0, i, stream=1)``; on a mesh each rank
+        runs its chunks and rank 0 writes the file), each channel's readout
+        trace resampled to the detector's rate; one ``Trigger`` per named
+        trigger with its time, and the sim showers."""
         from nuradiomc_tpu_torch.framework import parameters as par
         from nuradiomc_tpu_torch.framework.event import (Channel, Event, Shower,
                                                          Station, Trigger)
         from nuradiomc_tpu_torch.sim import io_nur
 
-        writer = io_nur.EventWriter(self.nur_outputfilename)
         idx = np.where(triggered)[0]
-        gen = None
-        if self.settings.add_noise:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(self.config["seed"]) + 1)
-        traces, base_t0 = [], []
-        for c0 in range(0, len(idx), self.chunk_size):
-            sel = idx[c0:c0 + self.chunk_size]
-            chunk = self._on_device(batch, sel)
-            out = simulate_batch(chunk, self.channel_params, self.settings,
-                                 noise_generator=gen, keep_traces=True,
-                                 emitter=self._emitter, arz_library=self.arz_library)
-            traces.append(out.traces.cpu().numpy())
-            base_t0.append(out.base_t0.cpu().numpy())
+        mine = []
+        for i in self._my_chunks(-(-len(idx) // self.chunk_size)):
+            sel = idx[i * self.chunk_size:(i + 1) * self.chunk_size]
+            out = self._run_chunk(self.station_id, batch, sel,
+                                  self._noise_generator(0, i, stream=1), keep_traces=True)
+            mine.append((i, out.traces.cpu().numpy(), out.base_t0.cpu().numpy()))
+        parts = mine
+        if self.mesh is not None:
+            parts = [r for part in mesh_util.gather_objects(mine, self.mesh.event) for r in part]
+            if self.mesh.rank != 0:
+                return
+        parts = sorted(parts, key=lambda r: r[0])
         if len(idx):
-            traces, base_t0 = np.concatenate(traces), np.concatenate(base_t0)
+            traces = np.concatenate([r[1] for r in parts])
+            base_t0 = np.concatenate([r[2] for r in parts])
+        writer = io_nur.EventWriter(self.nur_outputfilename)
         ch_det = self.det.get_station(self.station_id).channels
         shp = par.showerParameters
         inp = self.input

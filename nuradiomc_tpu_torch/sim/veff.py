@@ -1,4 +1,5 @@
-# copied from nuradiomc_tpu/sim/veff.py:1-408 (the port keeps its own copy; it imports nothing of the JAX package)
+# copied from nuradiomc_tpu/sim/veff.py:1-408, with projected_area and aeff_from_results
+# added (the port keeps its own copy; it imports nothing of the JAX package)
 """Effective-volume / effective-area post-processing.
 
 Re-implementation of NuRadioMC/utilities/Veff.py: per-file Veff/Aeff with
@@ -50,6 +51,27 @@ def get_veff_output(volume, counts, all_events):
     v_eff_error = v_eff / np.sqrt(counts) if counts else 0.0
     return [v_eff, v_eff_error, counts,
             volume * fc_low / all_events, volume * fc_high / all_events]
+
+
+def projected_area(area, thetamin, thetamax):
+    """The generation area of surface muons projected perpendicular to the
+    flux (Veff.py:268-275, T03check_output.py:11-31)."""
+    return area * 0.5 * (abs(np.cos(thetamin)) + abs(np.cos(thetamax)))
+
+
+def aeff_from_results(results: dict, min_weight: float = 0.0) -> float:
+    """Aeff of a surface-muon run from ``Simulation.run``'s results dict
+    (no file, no h5py): the projected generation area times the weighted
+    count of triggered event groups over the number of events, as
+    ``get_Veff_Aeff_single(..., veff_aeff="aeff_surface_muons")`` computes
+    it from the output file; weights below ``min_weight`` count as 0."""
+    gids, first = np.unique(results["group_ids"], return_index=True)
+    trig = np.zeros(len(gids), dtype=bool)
+    np.logical_or.at(trig, np.searchsorted(gids, results["group_ids"]), results["triggered"])
+    w = np.asarray(results["weights"], dtype=float)[first]
+    w = np.where(w < min_weight, 0.0, w)
+    return (projected_area(results["area"], results["thetamin"], results["thetamax"])
+            * float(np.sum(w[trig])) / results["n_events"])
 
 
 def remove_duplicate_triggers(triggered, gids):
@@ -112,8 +134,7 @@ def get_Veff_Aeff_single(filename, trigger_combinations=None,
         if veff_aeff == "veff":
             volume = float(f.attrs["volume"])
         elif veff_aeff == "aeff_surface_muons":
-            volume = float(f.attrs["area"]) * 0.5 * (
-                abs(np.cos(thetamin)) + abs(np.cos(thetamax)))
+            volume = projected_area(float(f.attrs["area"]), thetamin, thetamax)
         else:
             raise AttributeError(veff_aeff)
         # per-event-group station amplitudes for the efficiency option

@@ -336,13 +336,17 @@ def _pa_args(dtype, dev, G, C, K=512, n_base=2048, up=2, n_bits=8, n_hi=None, de
     (torch.float32, 1e-5, 4, 512, 2048, {"up": 3}),
     (torch.float32, 1e-5, 3, 451, 900, {"up": 3}),               # odd n_up 675
     (torch.float64, 1e-12, 8, 512, 2048, {}),
-    (torch.float64, 1e-12, 8, 451, 900, {"decim": 7, "up": 3})])
+    (torch.float64, 1e-12, 8, 451, 900, {"decim": 7, "up": 3}),
+    (torch.float64, 1e-12, 24, 512, 2048, {}),                 # a cluster of 2 blocks
+    (torch.float32, 1e-5, 64, 512, 2048, {}),                  # 2 blocks
+    (torch.float64, 1e-12, 64, 512, 2048, {})])                # 4 blocks
 def test_pa_kernel_matches_plain(dev, dtype, tol, C, K, n_base, extra):
     """C = 20 (float32) and 12 (float64) groups; K = 1025 is the full band (no
     band limit); n_base = 1000 (n_dec 250, n_up 500); n_base 900 gives an odd
     n_dec (225); decim 7 into n_hi 5120 and the odd n_hi 5121 take the
     general route (the full inverse of n_hi read at the stride); up 1 skips
-    the upsampling, up 3 with an odd n_dec gives an odd n_up."""
+    the upsampling, up 3 with an odd n_dec gives an odd n_up. C 24 (float64)
+    and 64 split each group over a thread-block cluster."""
     G = 603                       # not a multiple of the blocks
     args, kw = _pa_args(dtype, dev, G=G, C=C, K=K, n_base=n_base, **extra)
     _, _, _, max_power = pa_trigger.fused_pa_trigger_plain(*args, threshold=1.0, **kw)
@@ -381,6 +385,29 @@ def test_pa_kernel_refuses_oversized_groups(dev):
     kw = {**kw, "n_hi": 40960, "decim": 2, "C": 4}                 # 4 x 40960 x 8 B of traces
     with pytest.raises(ValueError, match="shared"):
         pa_trigger.fused_pa_trigger(*args, threshold=1.0, **kw)
+
+
+@pytest.mark.parametrize("C, dtype, k", [
+    (4, torch.float32, 1), (4, torch.float64, 1), (24, torch.float64, 2),
+    (64, torch.float32, 2), (64, torch.float64, 4), (368, torch.float32, 8),
+    (369, torch.float32, 0), (168, torch.float64, 8), (169, torch.float64, 0)])
+def test_pa_kernel_cluster_sizes(dev, C, dtype, k):
+    """The blocks a group's cluster takes at n_up 1024 and 11 beams, K 512:
+    the smallest k whose ceil(C / k) upsampled traces fit a block, up to 8;
+    beyond, the wrapper raises."""
+    assert pa_trigger.cluster_size(C, 512, 2048, 5120, 10, 2, 11, dtype) == k
+    if k == 0:
+        args, kw = _pa_args(dtype, dev, G=2, C=C)
+        with pytest.raises(ValueError, match="cluster of 8 blocks"):
+            pa_trigger.fused_pa_trigger(*args, threshold=1.0, **kw)
+
+
+def test_two_rank_gloo_mesh_on_card(dev):
+    """The sharded dryrun on two gloo processes sharing the card, noise on:
+    equal to the single-process run (parallel/dryrun.py raises otherwise)."""
+    from nuradiomc_tpu_torch.parallel import dryrun
+    out = dryrun.dryrun_multichip(2, backend="gloo", device="cuda", noise=True)
+    assert out["shape"] == {"event": 1, "channel": 2} and out["n_triggered"] > 0
 
 
 def test_simulate_batch_pa_kernel_path_matches_plain_path(dev):

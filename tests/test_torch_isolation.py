@@ -12,8 +12,10 @@ its entry points run on the card unless the CPU is asked for.
   attenuation table, the measured pulser waveforms (``.npz`` copies of the
   HDF5 files), the exported emitter inputs, the ARZ mini shower library, the
   flux tables and fluxes, the muon and tau propagator, the event data model
-  (parameters, parameter storage, BaseTrace, Event), the ``.nur`` container
-  and the Veff tables are held to the originals on the same inputs, exactly
+  (parameters, parameter storage, BaseTrace, Event), the ``.nur`` container,
+  the Veff tables, the time logger, the muon flux, the surface-muon
+  generator, the job runner and the mesh's group padding are held to the
+  originals on the same inputs, exactly
   (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
   tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
   tests/test_torch_fullscale.py).
@@ -41,6 +43,8 @@ from nuradiomc_tpu_torch import convert
 from nuradiomc_tpu_torch.detector import detector as tdetector
 from nuradiomc_tpu_torch.ops import birefringence as tbire
 from nuradiomc_tpu_torch.ops import filters as tfilters
+from nuradiomc_tpu_torch.parallel import dryrun
+from nuradiomc_tpu_torch.parallel import mesh as mesh_util
 from nuradiomc_tpu_torch.sim import earth_attenuation as tearth
 from nuradiomc_tpu_torch.sim import io_input
 from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
@@ -119,6 +123,14 @@ _ISOLATED = textwrap.dedent("""
         w.run(Event(0, 1))
         w.end()
         assert [e.get_id() for e in io_nur.EventReader(os.path.join(tmp, "e.nur")).run()] == [1]
+    # the multi-device slice's copies: the surface-muon generator and flux,
+    # the runner and the time logger
+    from nuradiomc_tpu_torch.sim import muon_flux, runner
+    from nuradiomc_tpu_torch.utils import timing
+    convert.surface_muon_event_list(4)
+    muon_flux.MuonFlux(os.path.join(root, "unused.pkl")).get_mu_flux(1.0)
+    runner.Runner(lambda i, rng: (None, None), lambda b: (b, {})).run()
+    timing.pretty_time_delta(61)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -345,10 +357,39 @@ def test_veff_helpers_equal_the_originals():
     assert tveff.get_veff_output(1e9, 7.5, 100) == jveff.get_veff_output(1e9, 7.5, 100)
 
 
+def test_multi_device_copies_equal_the_originals():
+    import types
+
+    from nuradiomc_tpu.parallel import mesh as jmesh
+    from nuradiomc_tpu.sim import evtgen as jevtgen, muon_flux as jflux
+    from nuradiomc_tpu.utils import timing as jtiming
+    from nuradiomc_tpu_torch.parallel import mesh as tmesh
+    from nuradiomc_tpu_torch.sim import evtgen as tevtgen, muon_flux as tflux
+    from nuradiomc_tpu_torch.utils import timing as ttiming
+    for sec in (0, 59, 3725, 90061):
+        assert ttiming.pretty_time_delta(sec) == jtiming.pretty_time_delta(sec)
+    E = 10 ** np.linspace(11, 20, 20)
+    np.testing.assert_array_equal(tflux.gaisser_flux(E, 1.0), jflux.gaisser_flux(E, 1.0))
+    vol = {"fiducial_rmin": 0, "fiducial_rmax": 2000.0, "fiducial_zmin": -1000.0,
+           "fiducial_zmax": 0}
+    for sec in ("parametrized", "stochastic"):
+        a, _ = tevtgen.generate_surface_muons(None, 20, 1e17, 1e19, vol, seed=4,
+                                              secondaries=sec)
+        b, _ = jevtgen.generate_surface_muons(None, 20, 1e17, 1e19, vol, seed=4,
+                                              secondaries=sec)
+        assert tevtgen.list_digest(a) == tevtgen.list_digest(b), sec
+    for n_ev in (1, 3, 4):
+        port = types.SimpleNamespace(n_event=n_ev)
+        ref = types.SimpleNamespace(shape={"event": n_ev})
+        assert [tmesh.pad_groups(g, port) for g in range(1, 13)] == \
+            [jmesh.pad_groups(g, ref) for g in range(1, 13)]
+
+
 ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inputs,
                 convert.make_pa_inputs, convert.make_gen2_inputs,
                 convert.make_multitrigger_inputs, convert.make_mooresbay_inputs,
-                convert.emitter_from_jax, convert.library_from_jax]
+                convert.emitter_from_jax, convert.library_from_jax,
+                mesh_util.make_mesh, dryrun.dryrun_simulation, dryrun.dryrun_multichip]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -359,7 +400,8 @@ def test_entry_points_default_to_the_card(fn):
 @pytest.mark.parametrize("call", ["Simulation", "dipole_simulation", "make_headline_inputs",
                                   "make_pa_inputs", "make_gen2_inputs",
                                   "make_mooresbay_inputs", "emitter_simulation",
-                                  "fullscale_simulation", "fullscale_pa_simulation"])
+                                  "fullscale_simulation", "fullscale_pa_simulation",
+                                  "surface_muon_simulation", "dryrun_simulation"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -378,6 +420,9 @@ def test_omitted_device_without_a_card_raises(call):
             io_input.from_generated(*convert.fullscale_event_list(convert.FULLSCALE_PA_LIST))),
         "fullscale_pa_simulation": lambda: convert.fullscale_pa_simulation(
             io_input.from_generated(*convert.fullscale_event_list(convert.FULLSCALE_PA_LIST))),
+        "surface_muon_simulation": lambda: convert.surface_muon_simulation(
+            io_input.from_generated(*convert.surface_muon_event_list(4))),
+        "dryrun_simulation": lambda: dryrun.dryrun_simulation(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()
