@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 11,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 12,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
+    python3 chip_smoke.py --phases 12      # the in-ice reconstruction path
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -119,7 +120,33 @@ result line):
    (test/atmospheric_Aeff/1e18eV) in one process, its set equal to the JAX
    package's (``nuradiomc_tpu_torch/data/surface_muons_jax_sets.npz``) and
    Aeff within 0.45027 +- 2 x 0.06549 km^2; the wall time and events/s of
-   every run beside its twin's.
+   every run beside its twin's;
+12. the in-ice reconstruction path (no kernel of the four; float64): (a)
+   NuRadioReco's three ``.nur`` files in tests/golden read by the port's
+   ``io_nur.EventReader``, the waveform golden's traces bit-equal to
+   ``data/e2e_waveforms_reference.npz``, each file written by the port's
+   ``eventWriter`` and read back equal; (b) examples/03's chain (fold,
+   noise seed 42, band-pass, observables, unfold) on the card and the CPU,
+   within 1e-9 of each trace's peak, the same noise draws; (c) the
+   travel-time tables of run_reco_chain.py's 7 antenna depths at the
+   package defaults (3,680,125 points each, 25.8M ray solves) with their
+   seconds, solves/s, chunk and peak memory, 1/64 of each table re-solved on
+   the CPU (slot validity equal but for refracted rays at the turning point,
+   travel times within 1e-6 relative, those rays within 1e-5; the witness:
+   the card's re-solve of the sample equal to its table, and the CPU's
+   travel time at the card's own root c0 within 1e-6 for every entry), and
+   the 3D vertex within tests/test_vertex.py's bounds and equal to the CPU's
+   from the card's tables; (d) the neutrino direction
+   at the defaults (20 x 20 x 16, two zooms, GL1) with its triples/s and 256
+   chi2 values within 1e-9 of the CPU's, and on the example's 9 x 9 x 9 grid
+   within tests/test_nu_direction.py's bounds; (e) the correlation and
+   beam-forming fitters at their default grids giving the same direction on
+   card and CPU, the IFT unfolding's 600 Adam steps at tests/test_ift_efield.py's
+   135 deg (an LPDA phase-sector edge) within 1e-6 of the CPU's spectrum and
+   within that test's bounds, a warm call's time and a profiled step's
+   kernels, and the trigger
+   modules and the RNO-G surface trigger on the events of (a) with the same
+   decisions, times and channels.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -2057,12 +2084,514 @@ def phase_multiprocess(dev):
     return total
 
 
+# ---- phase 12: the in-ice reconstruction path ------------------------------
+
+RECO_FILES = {"e2e_reference_waveforms.nur": 7, "reference_events.nur": 3,
+              "trigger_test_input.nur": 10}
+RECO_SAMPLE = 64            # one table point in 64 re-solved on the CPU
+RECO_TT_RTOL = 1e-6         # travel times, card against CPU
+# a refracted ray at the turning point: the closed forms take the square root
+# of a vanishing quantity there, and two devices' roots c0 move its arrival
+# by up to ~1e-4 ns (ROADMAP "The turning point"); the witness holds every
+# entry, these included, to RECO_TT_RTOL once the CPU takes the card's root
+RECO_TT_TURNING_RTOL = 1e-5
+RECO_CHI2_RTOL = 1e-9       # chi2 of 256 random triples, card against CPU
+RECO_CHAIN_TOL = 1e-9       # example-03 traces and spectra, of each one's peak
+RECO_IFT_RTOL = 1e-6        # the IFT spectrum after 600 steps, of its peak
+
+
+def _reco_gold(name):
+    return os.path.join(HERE, "tests", "golden", name)
+
+
+def _p12_files(tmp):
+    """(a) NuRadioReco's three files through the port's reader, the waveform
+    golden's traces bit-equal to the port's copy of them, and each file
+    written by the port's eventWriter and read back unchanged."""
+    from nuradiomc_tpu_torch.reco.examples import assert_same_tree, event_tree
+    from nuradiomc_tpu_torch.sim import io_nur, io_nur_reference
+
+    events = {}
+    for name, n in RECO_FILES.items():
+        evts = list(io_nur.EventReader(_reco_gold(name)).run())
+        assert len(evts) == n, (name, len(evts))
+        out = os.path.join(tmp, name)
+        w = io_nur_reference.eventWriter()
+        w.begin(out)
+        for e in evts:
+            w.run(e)
+        assert w.end() == n
+        assert_same_tree([event_tree(e) for e in io_nur.EventReader(out).run()],
+                         [event_tree(e) for e in evts])
+        events[name] = evts
+    pin = np.load(WAVEFORMS_REF)
+    by_run = {e.get_run_number(): e.get_station(101) for e in events["e2e_reference_waveforms.nur"]}
+    for i, gid in enumerate(pin["group_ids"]):
+        ch = by_run[int(gid)].get_channel(0)
+        assert np.array_equal(np.asarray(ch.get_trace()), pin["ref_traces"][i]), gid
+        assert ch.get_trace_start_time() == pin["ref_t0"][i]
+        assert ch.get_sampling_rate() == pin["ref_fs"]
+    print(f"phase 12 (a) NuRadioReco's .nur: {sum(RECO_FILES.values())} events of 3 files read "
+          f"by io_nur.EventReader, the waveform golden's 7 traces bit-equal to "
+          f"data/e2e_waveforms_reference.npz, each file written by the port's eventWriter and "
+          f"read back equal")
+    return events
+
+
+def _p12_example03(dev):
+    """(b) simple_reconstruction.py's chain on ``dev``; returns the station
+    and the noise adder's generator state."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev, parameters as fpar
+    from nuradiomc_tpu_torch.reco import channel_processing as cp, efield_converters as ec
+    from nuradiomc_tpu_torch.reco import examples
+
+    det = Detector(examples.SIMPLE_DETECTOR)
+    evt, st = examples.simple_event(fev, fpar)
+    conv = ec.efieldToVoltageConverter(device=dev)
+    conv.begin()
+    conv.run(evt, st, det)
+    noise = cp.channelGenericNoiseAdder(device=dev)
+    noise.begin(seed=42)
+    noise.run(evt, st, det, amplitude=1e-6, type="rayleigh")
+    cp.channelBandPassFilter(device=dev).run(evt, st, det, passband=[0.1, 0.5],
+                                             filter_type="butter", order=4)
+    rec = cp.channelSignalReconstructor(device=dev)
+    rec.begin()
+    rec.run(evt, st, det)
+    unfold = ec.voltageToEfieldConverter(device=dev)
+    unfold.begin()
+    unfold.run(evt, st, det, use_channels=[0, 1])
+    return st, noise._rng.bit_generator.state
+
+
+def _p12_chain(dev):
+    t0 = time.perf_counter()
+    card, card_rng = _p12_example03(dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu, cpu_rng = _p12_example03("cpu")
+    assert repr(card_rng) == repr(cpu_rng)        # the same numbers drawn on the host
+    worst = 0.0
+    pairs = [(card.get_channel(c).get_trace(), cpu.get_channel(c).get_trace()) for c in (0, 1)]
+    pairs.append((card.get_electric_fields()[-1].get_frequency_spectrum(),
+                  cpu.get_electric_fields()[-1].get_frequency_spectrum()))
+    for a, b in pairs:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape
+        for ra, rb in zip(np.atleast_2d(a), np.atleast_2d(b)):
+            peak = np.max(np.abs(rb))
+            if peak == 0:
+                assert np.all(ra == 0)
+                continue
+            worst = max(worst, float(np.max(np.abs(ra - rb))) / peak)
+    assert worst <= RECO_CHAIN_TOL, worst
+    print(f"phase 12 (b) example-03 chain (fold, noise seed 42, band-pass, observables, "
+          f"unfold) f64: card against CPU max |diff| {worst:.2e} of each trace's peak "
+          f"(gate {RECO_CHAIN_TOL:g}), the noise generator's state equal; {t_card:.3f} s on "
+          f"the card ({CARD})")
+
+
+def _p12_turning(cpu_sols, z_pt, z_ant, ice):
+    """[point, ray type]: a refracted ray (type index 1) whose turning depth
+    lies within 1 m of the upper endpoint, where two correct solvers differ
+    most (ROADMAP "The turning point")."""
+    from nuradiomc_tpu_torch.ops import raytrace
+
+    upper = torch.maximum(z_pt, torch.full_like(z_pt, z_ant))
+    zt = raytrace.turning_depth(cpu_sols.c0, ice)
+    near = ((torch.abs(zt - upper[:, None]) < 1.0)
+            & (cpu_sols.sol_type == raytrace.SOL_REFRACTED)).any(dim=-1)
+    out = torch.zeros((len(z_pt), 3), dtype=torch.bool)
+    out[:, 1] = near
+    return out
+
+
+def _p12_by_type(sols):
+    """[3, points] travel time of each ray type (0 where none) as
+    vertex.build_travel_time_table files it (a later slot wins), and the
+    slot it came from."""
+    tt = torch.zeros((3, sols.c0.shape[0]), dtype=torch.float64)
+    slot_of = torch.zeros((3, sols.c0.shape[0]), dtype=torch.int64)
+    for slot in range(2):
+        for k in range(3):
+            hit = sols.mask[:, slot] & (sols.sol_type[:, slot] == k + 1)
+            tt[k] = torch.where(hit, sols.travel_time[:, slot], tt[k])
+            slot_of[k] = torch.where(hit, slot, slot_of[k])
+    return tt, slot_of
+
+
+def _p12_vertex(dev, ice, det, evt, st):
+    """(c) the travel-time tables at the package defaults for each antenna
+    depth, a sample of each re-solved on the CPU, and the 3D vertex on
+    run_reco_chain.py's search volume at the reconstructor's default steps."""
+    from nuradiomc_tpu_torch.ops import raytrace
+    from nuradiomc_tpu_torch.reco import examples, vertex as vx
+
+    truth = examples.RECO_CHAIN_TRUTH["vertex"]
+    depths = sorted({round(float(p[2]), 3) for p in examples.RECO_CHAIN_POSITIONS})
+    reco = vx.neutrino3DVertexReconstructor(ice, device=dev)
+    gen = np.random.default_rng(12)
+    n_sampled = 0
+    differ_turn = differ_other = 0
+    resolve_diff = 0.0
+    wit_c0, wit_tt = [0.0, 0.0], [0.0, 0.0]     # [turning point, other]
+    # build_travel_time_table's default grid: x 10 m-5 km, z -3 km to -50 m, 2 m
+    n_grid = len(np.arange(10.0, 5000.0, 2.0)) * len(np.arange(-3000.0, -50.0, 2.0))
+    chunks = []
+    rel_other, rel_turn = [], []
+    secs = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for z_ant in depths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks.append(vx.table_chunk(n_grid, dev))
+        header, table = vx.build_travel_time_table(ice, z_ant, chunk=chunks[-1], device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        reco._tables[z_ant] = (header, table)
+        n_pts = header["n_x"] * header["n_z"]
+        pick = np.sort(gen.choice(n_pts, n_pts // RECO_SAMPLE, replace=False))
+        ix, iz = pick // header["n_z"], pick % header["n_z"]
+        x = torch.as_tensor(header["x_min"] + ix * header["d_x"], dtype=torch.float64)
+        z = torch.as_tensor(header["z_min"] + iz * header["d_z"], dtype=torch.float64)
+        x1 = torch.stack([x, torch.zeros_like(x), z], dim=-1)
+        x2 = torch.tensor([0.0, 0.0, z_ant], dtype=torch.float64).expand_as(x1)
+        g = raytrace.to_2d(x1, x2)
+        sols = raytrace.find_solutions(g.x1y, g.x1z, g.x2y, g.x2z, ice)
+        cpu, cpu_slot = _p12_by_type(sols)
+        card = table.reshape(3, -1)[:, torch.as_tensor(pick, device=dev)].cpu()
+        turning = _p12_turning(sols, z, z_ant, ice).T                  # [3, points]
+        differ = (card > 0) != (cpu > 0)
+        differ_turn += int((differ & turning).sum())
+        differ_other += int((differ & ~turning).sum())
+        both = (card > 0) & (cpu > 0)
+        rel = torch.abs(card - cpu) / torch.where(both, cpu, 1.0)
+        rel_other.append(rel[both & ~turning])
+        rel_turn.append(rel[both & turning])
+        # the witness of the turning-point rays: the card re-solves the sampled
+        # points (the table's program on fewer points), the CPU evaluates the
+        # travel time at the card's own root c0
+        dev_sols = raytrace.find_solutions(*(t.to(dev) for t in (g.x1y, g.x1z, g.x2y, g.x2z)),
+                                           ice)
+        dev_sols = type(dev_sols)(*(t.cpu() for t in dev_sols))
+        card_rs, card_slot = _p12_by_type(dev_sols)
+        resolve_diff = max(resolve_diff, float(torch.abs(card_rs - card).max()))
+        k_w, i_w = torch.nonzero(both, as_tuple=True)
+        c0_card = dev_sols.c0[i_w, card_slot[k_w, i_w]]
+        c0_cpu = sols.c0[i_w, cpu_slot[k_w, i_w]]
+        t_at_card_c0 = raytrace.travel_time(c0_card, g.x1y[i_w], g.x1z[i_w], g.x2y[i_w],
+                                            g.x2z[i_w], ice)
+        at_turn = turning[k_w, i_w]
+        rel_c0 = torch.abs(c0_card - c0_cpu) / c0_cpu
+        rel_wit = torch.abs(t_at_card_c0 - card[k_w, i_w]) / card[k_w, i_w]
+        for j, part in enumerate((at_turn, ~at_turn)):
+            if part.any():
+                wit_c0[j] = max(wit_c0[j], float(rel_c0[part].max()))
+                wit_tt[j] = max(wit_tt[j], float(rel_wit[part].max()))
+        n_sampled += len(pick)
+        zt = raytrace.turning_depth(sols.c0, ice)
+        for k, i in torch.nonzero((both & ~turning & (rel > RECO_TT_RTOL))
+                                  | (differ & ~turning)).tolist()[:5]:
+            slot = int(torch.nonzero(sols.sol_type[i] == k + 1).flatten()[0]) \
+                if bool((sols.sol_type[i] == k + 1).any()) else 0
+            print(f"phase 12 (c) depth {z_ant} m, point x {float(x[i]):.0f} z {float(z[i]):.0f} "
+                  f"m, ray type {k + 1}: card {float(card[k, i]):.9f} cpu {float(cpu[k, i]):.9f} "
+                  f"ns, rel {float(rel[k, i]):.2e}, CPU turning depth {float(zt[i, slot]):.4f} m")
+    peak = torch.cuda.max_memory_allocated(dev)
+    rel_other, rel_turn = torch.cat(rel_other), torch.cat(rel_turn)
+    worst_other = float(rel_other.max())
+    worst_turn = float(rel_turn.max()) if len(rel_turn) else 0.0
+    n_pts = header["n_x"] * header["n_z"]
+    total = sum(secs)
+    print(f"phase 12 (c) travel-time tables f64 at the package defaults (x 10 m-5 km, z -3 km"
+          f" to -50 m, 2 m): {len(depths)} depths x {n_pts} points = {len(depths) * n_pts} ray "
+          f"solves in {total:.2f} s ({len(depths) * n_pts / total:.0f} solves/s; per table "
+          + ", ".join(f"{s:.3f}" for s in secs) + f" s), chunks used {min(chunks)}-{max(chunks)} "
+          f"points, peak device "
+          f"memory {peak / 2**30:.2f} GiB ({CARD})")
+    print(f"phase 12 (c) {n_sampled} sampled points re-solved on the CPU: slot validity differs "
+          f"in {differ_turn} (point, ray type) entries where a refracted ray sits at the turning "
+          f"point and in {differ_other} others (gate 0); {len(rel_other)} valid travel times "
+          f"within {worst_other:.2e} relative (gate {RECO_TT_RTOL:g}), and {len(rel_turn)} of "
+          f"refracted rays at the turning point within {worst_turn:.2e} (gate "
+          f"{RECO_TT_TURNING_RTOL:g})")
+    print(f"phase 12 (c) witness: the card's re-solve of the sampled points against its table "
+          f"max |diff| {resolve_diff:.3e} ns (gate 0); the card's root c0 against the CPU's "
+          f"{wit_c0[0]:.3e} relative at the turning point, {wit_c0[1]:.3e} elsewhere; the CPU's "
+          f"travel time at the card's c0 against the card's {wit_tt[0]:.3e} at the turning "
+          f"point, {wit_tt[1]:.3e} elsewhere (gate {RECO_TT_RTOL:g})")
+    assert differ_other == 0
+    assert worst_other <= RECO_TT_RTOL and worst_turn <= RECO_TT_TURNING_RTOL
+    assert resolve_diff == 0.0 and max(wit_tt) <= RECO_TT_RTOL, (resolve_diff, wit_tt)
+    channels = list(range(len(examples.RECO_CHAIN_POSITIONS)))
+    reco.begin(1, channels, det)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = reco.run(evt, st, max_distance=1000.0, z_range=(-1000.0, -50.0))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    # the rest of the vertex path: the CPU given the card's tables
+    on_cpu = vx.neutrino3DVertexReconstructor(ice, device="cpu")
+    on_cpu._tables = {k: (h, t.cpu()) for k, (h, t) in reco._tables.items()}
+    on_cpu.begin(1, channels, det)
+    v_cpu = on_cpu.run(evt, st, max_distance=1000.0, z_range=(-1000.0, -50.0))
+    assert np.array_equal(np.asarray(v), np.asarray(v_cpu)), (v, v_cpu)
+    r, r_true = np.hypot(v[0], v[1]), np.hypot(truth[0], truth[1])
+    d_az = abs(np.arctan2(v[1], v[0]) - np.arctan2(truth[1], truth[0]))
+    print(f"phase 12 (c) 3D vertex (run_reco_chain.py's search volume, coarse_steps 24, n_zoom "
+          f"3, 28 pairs x 9 ray-type pairs): {np.round(v, 1)} m against the truth {truth} m, "
+          f"{t_run:.3f} s ({CARD}); the CPU given the card's tables: the same vertex")
+    b = examples.VERTEX_BOUNDS
+    assert d_az < np.deg2rad(b["azimuth_deg"]), v
+    assert abs(v[2] / r - truth[2] / r_true) < b["slope"], v
+    assert abs(r - r_true) < b["range_m"], v
+    return total
+
+
+def _p12_direction(dev, ice, det, evt, st, noise):
+    """(d) the neutrino direction and energy at the defaults, on the card,
+    chi2 of 256 random triples recomputed on the CPU."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.reco import examples, nu_direction as nd
+
+    t = examples.RECO_CHAIN_TRUTH
+    w = {"zenith_range": (t["zenith"] - np.deg2rad(10), t["zenith"] + np.deg2rad(10)),
+         "azimuth_range": (t["azimuth"] - np.deg2rad(10), t["azimuth"] + np.deg2rad(10)),
+         "energy_range": (t["log10_energy"] - 1, t["log10_energy"] + 1)}
+    channels = list(range(len(examples.RECO_CHAIN_POSITIONS)))
+    reco = nd.neutrinoDirectionReconstructor(device=dev)
+    reco.begin(ice, attenuation_model="GL1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zen, az, logE = reco.run(evt, st, det, vertex=t["vertex"], use_channels=channels,
+                             noise_RMS=noise, **w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_triples = sum(len(p) for p, _ in reco.grids)
+    cpu = nd.neutrinoDirectionReconstructor(device="cpu")
+    cpu.begin(ice, attenuation_model="GL1")
+    cpu.run(evt, st, Detector(examples.RECO_CHAIN_DETECTOR), vertex=t["vertex"],
+            use_channels=channels, noise_RMS=noise, coarse_steps=(2, 2, 2), n_zoom=0, **w)
+    gen = np.random.default_rng(13)
+    pts = np.concatenate([p for p, _ in reco.grids])
+    chi2 = np.concatenate([c for _, c in reco.grids])
+    pick = gen.choice(len(pts), 256, replace=False)
+    ref = cpu.chi2(pts[pick]).numpy()
+    worst = float(np.max(np.abs(chi2[pick] - ref) / np.abs(ref)))
+    assert worst <= RECO_CHI2_RTOL, worst
+    truth = np.array([[t["zenith"], t["azimuth"], t["log10_energy"]]])
+    chi2_truth, chi2_fit = (float(reco.chi2(p)) for p in (truth, np.array([[zen, az, logE]])))
+    print(f"phase 12 (d) neutrino direction at the defaults (20 x 20 x 16, n_zoom 2, GL1, +-10 "
+          f"deg / +-1 dex, {len(channels)} channels, the true vertex): ({np.rad2deg(zen):.2f}, "
+          f"{np.rad2deg(az):.2f}) deg, log10 E {logE:.3f} against (120, 35) deg, 17.5, chi2 "
+          f"{chi2_fit:.1f} (at the truth {chi2_truth:.1f}); {n_triples} triples in {secs:.3f} s = "
+          f"{n_triples / secs:.0f} triples/s; chi2 of 256 random triples on the CPU within "
+          f"{worst:.2e} relative (gate {RECO_CHI2_RTOL:g}) ({CARD})")
+    # the physics gate on run_reco_chain.py's own grid (odd steps: the
+    # window's centre is a grid point; the defaults' even grid is not)
+    zen, az, logE = reco.run(evt, st, det, vertex=t["vertex"], use_channels=channels,
+                             noise_RMS=noise, coarse_steps=(9, 9, 9), n_zoom=2, **w)
+    b = examples.DIRECTION_BOUNDS
+    d_az = abs(np.mod(az - t["azimuth"] + np.pi, 2 * np.pi) - np.pi)
+    assert abs(zen - t["zenith"]) < np.deg2rad(b["zenith_deg"]), zen
+    assert d_az < np.deg2rad(b["azimuth_deg"]), az
+    assert abs(logE - t["log10_energy"]) < b["log10_energy"], logE
+    print(f"phase 12 (d) neutrino direction on the example's grid (9 x 9 x 9, n_zoom 2): "
+          f"({np.rad2deg(zen):.2f}, {np.rad2deg(az):.2f}) deg, log10 E {logE:.3f}, within "
+          f"tests/test_nu_direction.py's bounds of the truth")
+
+
+def _p12_fitters(dev):
+    """(e) the correlation and beam-forming fitters at their default grids
+    and the IFT unfolding's 600 Adam steps, card against CPU."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev, parameters as fpar
+    from nuradiomc_tpu_torch.reco import direction as rdir, efield_converters as ec
+    from nuradiomc_tpu_torch.reco import examples, ift_efield
+
+    stnp = fpar.stationParameters
+    square = Detector(examples.SQUARE_DETECTOR)
+
+    def vel_theta(cid, ff, zen, az):
+        return ec.get_channel_vel(square, 7, cid, ff, zen, az, device="cpu")[0].numpy()
+
+    fits = {}
+    for d in (dev, "cpu"):
+        out = []
+        for cls, make, kw in (
+                (rdir.correlationDirectionFitter, lambda: examples.plane_wave_event(fev),
+                 {"n_index": 1.0}),
+                (rdir.beamFormingDirectionFitter,
+                 lambda: examples.beamforming_event(fev, vel_theta),
+                 {"polarization": 0, "n_index": 1.0})):
+            evt, st = make()
+            fitter = cls(device=d)
+            fitter.begin()
+            t0 = time.perf_counter()
+            fitter.run(evt, st, square, **kw)
+            out.append((st[stnp.zenith], st[stnp.azimuth], time.perf_counter() - t0))
+        fits[str(d)] = out
+    for (za, aa, ta), (zb, ab, _), name in zip(fits[str(dev)], fits["cpu"],
+                                              ("correlation", "beam-forming")):
+        assert abs(za - zb) < 1e-9 and abs(aa - ab) < 1e-9, (name, za, zb, aa, ab)
+        print(f"phase 12 (e) {name} fitter at its default grid: ({np.rad2deg(za):.3f}, "
+              f"{np.rad2deg(aa):.3f}) deg on the card and the CPU, {ta:.3f} s on the card")
+
+    mixed = Detector(examples.MIXED_DETECTOR)
+    # 135 deg zenith lies exactly 45 deg off the LPDAs' axis, the edge of two
+    # phase sectors: the sector the card's own arithmetic picks there, and
+    # the one the reco modules take (decided on the host for every device)
+    from nuradiomc_tpu_torch.ops import antenna
+    zen = torch.tensor(examples.IFT_TRUTH["zenith"], dtype=torch.float64, device=dev)
+    az = torch.tensor(examples.IFT_TRUTH["azimuth"], dtype=torch.float64, device=dev)
+    rots = [antenna.antenna_rotation_matrix(*mixed.get_antenna_orientation(7, c))
+            for c in range(4)]
+    on_card = [int(antenna.analytic_vel_mix(zen, az, torch.as_tensor(r, device=dev),
+                                            torch.tensor(antenna.KIND_LPDA, device=dev))[2])
+               for r in rots]
+    taken = [int(antenna.lpda_sector_host(zen, az, r, antenna.KIND_LPDA)) for r in rots]
+    print(f"phase 12 (e) LPDA phase sector at {np.rad2deg(examples.IFT_TRUTH['zenith']):.0f} "
+          f"deg zenith (a sector edge), channels 0-3: the card's own arithmetic {on_card}, "
+          f"taken on every device {taken}")
+    def ift_run(d, n_iterations=600):
+        reco = ift_efield.iftElectricFieldReconstructor(device=d)
+        reco.begin(passband=examples.IFT_TRUTH["band"], noise_rms=examples.IFT_TRUTH["noise"],
+                   n_iterations=n_iterations)
+        evt, st = examples.ift_event(
+            fev, fpar, lambda cid, ff, z, a: [x.numpy() for x in ec.get_channel_vel(
+                mixed, 7, cid, ff, z, a, device="cpu")])
+        if d != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ef = reco.run(evt, st, mixed, use_channels=[0, 1, 2, 3])
+        if d != "cpu":
+            torch.cuda.synchronize()
+        return (np.asarray(ef.get_frequency_spectrum()), time.perf_counter() - t0,
+                ef[fpar.electricFieldParameters.polarization_angle])
+
+    (sa, ta, pa), (sb, tb, _) = ift_run(dev), ift_run("cpu")
+    worst = float(np.max(np.abs(sa - sb)) / np.max(np.abs(sb)))
+    assert worst <= RECO_IFT_RTOL, worst
+    ff = np.fft.rfftfreq(512, 1.0)
+    band = (ff >= 0.08) & (ff <= 0.45)
+    amp = np.sqrt(np.abs(sa[1][band]) ** 2 + np.abs(sa[2][band]) ** 2)
+    true = np.abs(examples.ift_true_spectrum(ff)[band])
+    good = true > 10 * examples.IFT_TRUTH["noise"]
+    med = float(np.median(np.abs(amp[good] / true[good] - 1)))
+    assert med < 0.25 and abs(pa - examples.IFT_TRUTH["pol"]) < 0.15, (med, pa)
+    warm = ift_run(dev)[1]
+    print(f"phase 12 (e) IFT unfolding (600 Adam steps, lr 0.03): spectrum card against CPU "
+          f"{worst:.2e} of its peak (gate {RECO_IFT_RTOL:g}), median amplitude error "
+          f"{med:.3f}, polarization {pa:.3f} (truth 0.6); on the card {ta:.2f} s the first call, "
+          f"{warm:.2f} s the next, {tb:.2f} s on the CPU ({CARD})")
+    steps = 50
+    dev_ms, wall, n = _device_busy(lambda: ift_run(dev, steps))
+    busy = "not measured" if dev_ms is None else f"{dev_ms / steps:.3f} ms"
+    print(f"phase 12 (e) IFT under the profiler, {steps} steps: {n / steps:.0f} device kernels "
+          f"and {busy} of device time per step, {wall / steps:.2f} ms of wall time per step "
+          f"(set-up included) ({CARD})")
+
+
+def _p12_triggers(dev, events):
+    """(e) the trigger modules and the RNO-G surface trigger on the events
+    of (a): the same decisions, times and channels on the card and the CPU."""
+    import copy
+
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.reco import rnog, trigger_modules as tm
+
+    pa_det = Detector(_reco_gold("trigger_test_detector.json"))
+
+    def run(d):
+        mods = {name: getattr(tm, name)(device=d) for name in (
+            "triggerSimulatorSimple", "triggerSimulatorHighLow", "triggerSimulatorMultiHighLow",
+            "BeamformedPowerIntegrationTrigger")}
+        mods["BeamformedPowerIntegrationTrigger"].begin()
+        surface = rnog.rnogSurfaceTrigger(device=d)
+        rows = []
+        for name, evts in events.items():
+            for evt in copy.deepcopy(evts):
+                for st in evt.get_stations():
+                    ids = list(st.get_channel_ids())
+                    s = float(np.median([np.std(st.get_channel(c).get_trace()) for c in ids]))
+                    mods["triggerSimulatorSimple"].run(evt, st, None, threshold=8 * s,
+                                                       number_concidences=1)
+                    mods["triggerSimulatorHighLow"].run(
+                        evt, st, None, threshold_high=6 * s, threshold_low=-6 * s,
+                        number_concidences=1)
+                    mods["triggerSimulatorMultiHighLow"].run(
+                        evt, st, None, trigger_name="multi", threshold_high=5 * s,
+                        threshold_low=-5 * s, n_high_lows=2, number_concidences=1)
+                    surface.run(evt, st, None, threshold=5 * s ** 2, triggered_channels=ids,
+                                number_coincidences=1, temperature=300 * units.kelvin)
+                    if name == "trigger_test_input.nur":
+                        mods["BeamformedPowerIntegrationTrigger"].run(
+                            evt, st, pa_det, Vrms=0.02 * units.mV, threshold=1.5e-8)
+                    rows.append({k: (t.has_triggered(), t.get_trigger_time(),
+                                     list(t.get_triggered_channels() or []))
+                                 for k, t in st.get_triggers().items()})
+        return rows
+
+    t0 = time.perf_counter()
+    card = run(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu = run("cpu")
+    assert card == cpu
+    fired = {}
+    for row in card:
+        for k, (f, _, _) in row.items():
+            fired[k] = fired.get(k, 0) + int(f)
+    print(f"phase 12 (e) trigger modules and the RNO-G surface trigger on the {len(card)} "
+          f"stations of (a): decisions, times and channels equal on the card and the CPU; "
+          f"fired {fired}; {secs:.2f} s on the card ({CARD})")
+
+
+def phase_reco(dev):
+    """The in-ice reconstruction path on the card (no kernel of the four:
+    the path runs on the port's ray solver and torch): (a) NuRadioReco's
+    files, (b) the example-03 chain, (c) the vertex at full size, (d) the
+    neutrino direction at full size, (e) the direction fitters, the IFT
+    unfolding and the trigger modules. Returns the launch counts of the
+    path (all 0)."""
+    import shutil
+    import tempfile
+
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.reco import examples, nu_direction as nd
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reco_")
+    try:
+        events = _p12_files(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _p12_chain(dev)
+    ice = ice_models.get_ice_model(examples.GREENLAND)
+    det = Detector(examples.RECO_CHAIN_DETECTOR)
+    forward = nd.neutrinoDirectionReconstructor(device=dev)
+    forward.begin(ice, attenuation_model="GL1")
+    evt, st, noise = examples.reco_chain_event(fev, forward, det)
+    t_tables = _p12_vertex(dev, ice, det, evt, st)
+    _p12_direction(dev, ice, det, evt, st, noise)
+    _p12_fitters(dev)
+    _p12_triggers(dev, events)
+    counts = _launch_counts()
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s (tables {t_tables:.1f} s); "
+          f"launches {counts} (the reconstruction path runs none of the four kernels) ({CARD})")
+    return counts
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
-          "10": (phase_campaign,), "11": (phase_multiprocess,)}
+          "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,)}
 
 
 def _phases_asked(argv):
@@ -2071,7 +2600,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,11|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,12|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -2131,9 +2660,10 @@ def main() -> int:
     chain_launches = phase_signal_chain(dev)
     campaign_launches = phase_campaign(dev)
     mesh_launches = phase_multiprocess(dev)
-    # launches: the counts of the main-path runs (phases 3, 5 to 11)
+    reco_launches = phase_reco(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 12)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
-                   campaign_launches, mesh_launches):
+                   campaign_launches, mesh_launches, reco_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

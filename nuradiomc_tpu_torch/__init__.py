@@ -26,6 +26,11 @@ easy to find:
 ``parallel``  the ``(event, channel)`` process mesh on ``torch.distributed``
               (``parallel/mesh.py``) and multi-process runs with the
               sharded-equals-single dryrun (``parallel/dryrun.py``)
+``reco``      NuRadioReco's in-ice reconstruction modules (channel
+              processing, efield converters, direction fitters, vertex,
+              neutrino direction, IFT unfolding, trigger and RNO-G modules),
+              each module's array work on its ``device``; with
+              ``sim/io_nur_reference.py`` for NuRadioReco's own ``.nur``
 ``data``      the ``.npz`` exports of the 3000-event 1e18 eV input and the
               Gen2 tau input, the flux tables, the birefringence ice models
               and the reference values ``chip_smoke.py`` compares with
@@ -34,8 +39,9 @@ It imports ``torch``, numpy, scipy, yaml and the standard library (h5py only
 inside the functions that read or write HDF5), and nothing of ``jax`` or of
 ``nuradiomc_tpu``: what it shares with the JAX package it keeps as its own
 copy, each marked with the file and lines it was copied from. Its entry
-points (``Simulation``, ``convert.from_jax``, ``convert.make_*_inputs``)
-run on the CUDA card unless the caller passes ``device="cpu"``. Importing
+points (``Simulation``, ``convert.from_jax``, ``convert.make_*_inputs``,
+every ``reco`` module) run on the CUDA card unless the caller passes
+``device="cpu"``. Importing
 this package builds no kernel: a kernel is built on its first launch on a
 CUDA tensor.
 """

@@ -1,4 +1,5 @@
-# copied from nuradiomc_tpu/framework/base_trace.py:1-165 (the port keeps its own copy; it imports nothing of the JAX package)
+# copied from nuradiomc_tpu/framework/base_trace.py:1-165, with is_time_domain added (the port keeps
+# its own copy; it imports nothing of the JAX package)
 """BaseTrace: lazy dual time/frequency trace container.
 
 Re-implementation of NuRadioReco/framework/base_trace.py:16-568 with the same
@@ -70,6 +71,11 @@ class BaseTrace:
             self.__time_domain_up_to_date = False
             self._time_trace = None
         return self._frequency_spectrum
+
+    def is_time_domain(self) -> bool:
+        """True when the trace is held in the time domain (the port's
+        reconstruction modules transform it on their device)."""
+        return self.__time_domain_up_to_date
 
     def get_sampling_rate(self):
         return self._sampling_rate

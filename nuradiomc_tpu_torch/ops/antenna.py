@@ -165,15 +165,34 @@ def analytic_vel_mix(zenith, azimuth, rot, kind):
     return mix_theta, mix_phi, _lpda_sector(kind, theta_a)
 
 
-def analytic_vel(zenith, azimuth, rot, templates, kind):
+def lpda_sector_host(zenith, azimuth, rot, kind) -> torch.Tensor:
+    """The sector :func:`analytic_vel_mix` gives, computed by the same
+    formulas on the CPU in float64 whatever the device of the inputs: the
+    sector is a discrete choice, and a direction on a sector edge (45 deg
+    off a downward LPDA's axis, e.g. a 135 deg arrival) must take the same
+    sector on every device, where the devices' antenna-frame zenith may
+    differ in the last bit. ``zenith``/``azimuth`` numbers or tensors of one
+    shape, ``rot`` [3, 3], ``kind`` an int; returns a CPU tensor."""
+    def on_cpu(x):
+        return torch.as_tensor(x).to("cpu", torch.float64)
+
+    zen, az = torch.broadcast_tensors(on_cpu(zenith), on_cpu(azimuth))
+    rot = on_cpu(rot).expand(*zen.shape, 3, 3)
+    v_ant = torch.einsum("...ij,...j->...i", rot, geometry.spherical_to_cartesian(zen, az))
+    theta_a, _ = geometry.cartesian_to_spherical(v_ant)
+    return _lpda_sector(torch.as_tensor(kind).expand(zen.shape), theta_a)
+
+
+def analytic_vel(zenith, azimuth, rot, templates, kind, sector=None):
     """On-sky VEL (theta, phi components) [..., F] of an analytic antenna
     (antenna.py:167), elementwise over the batch axes of ``zenith`` /
     ``azimuth``: ``rot`` [3, 3] or [..., 3, 3], ``templates`` [K, F] complex,
-    ``kind`` an int or a tensor."""
+    ``kind`` an int or a tensor. ``sector`` (of the batch shape, from
+    :func:`lpda_sector_host`) replaces the sector the device computes."""
     kind = torch.as_tensor(kind, device=zenith.device).expand(zenith.shape)
     rot = rot.expand(*zenith.shape, 3, 3)
-    mix_theta, mix_phi, sector = analytic_vel_mix(zenith, azimuth, rot, kind)
-    T = templates[sector]
+    mix_theta, mix_phi, dev_sector = analytic_vel_mix(zenith, azimuth, rot, kind)
+    T = templates[dev_sector if sector is None else sector.to(zenith.device)]
     return T * mix_theta[..., None], T * mix_phi[..., None]
 
 

@@ -3,10 +3,9 @@
 Counterpart of ``nuradiomc_tpu/ops/phased_array.py:31-105`` (reference
 NuRadioReco/modules/phasedarray/phasedArrayBase.py): integer beam delays
 from antenna depths and cable delays (host numpy, copied), coherent beam
-sums by static rolls, sliding power sums at ``step`` intervals, and the
-power-integration trigger of the RNO-G / Gen2 deep arrays. The envelope
-trigger (``phased_envelope_trigger``) is not ported yet (ROADMAP queue 1
-item 8, with the reco trigger modules).
+sums by static rolls, sliding power sums at ``step`` intervals, the
+power-integration trigger of the RNO-G / Gen2 deep arrays and the
+beamformed envelope trigger.
 """
 
 from __future__ import annotations
@@ -82,3 +81,22 @@ def phased_power_trigger(traces, rolls, threshold, window: int = 32, step: int =
     triggered = torch.any(any_beam, dim=-1)
     frame = torch.argmax(any_beam.to(torch.int8), dim=-1)
     return triggered, frame, torch.amax(power, dim=(-2, -1)), torch.any(above, dim=-1)
+
+
+def phased_envelope_trigger(traces, rolls, threshold, return_n_triggers: bool = False):
+    """Beamformed Hilbert-envelope threshold trigger (phased_array.py:108;
+    phasedarray/digitalBeamformedEnvelopeTrigger.py:21-188, ideal-transformer
+    mode): coherent beam sums, their analytic-signal envelope, an absolute
+    amplitude threshold. traces [..., C, N]; rolls static (B, C) ints.
+    Returns (triggered [...], first bin [...], n_triggers [...]: rising edges
+    over all beams when asked for, else zeros)."""
+    from nuradiomc_tpu_torch.ops import trace as trace_ops
+
+    env = trace_ops.hilbert_envelope(phase_signals(traces, rolls))    # [..., B, N]
+    over = env > threshold
+    triggered = torch.any(over, dim=(-2, -1))
+    first = torch.argmax(torch.any(over, dim=-2).to(torch.int8), dim=-1)
+    if return_n_triggers:
+        rising = over[..., 1:] & ~over[..., :-1]
+        return triggered, first, torch.sum(rising, dim=(-2, -1))
+    return triggered, first, torch.zeros_like(first)

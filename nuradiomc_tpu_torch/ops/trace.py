@@ -1,7 +1,9 @@
 """Trace operations in the rFFT domain (torch).
 
-Counterpart of ``nuradiomc_tpu/ops/trace.py``: the factored sub-bin phase
-ramp and the Hilbert envelope taken straight from a one-sided spectrum.
+Counterpart of ``nuradiomc_tpu/ops/trace.py``: sub-bin Fourier time shifts
+(the plain and the factored phase ramp), FFT resampling, and the Hilbert
+envelope of a trace or straight from a one-sided spectrum. All functions act
+on the last axis.
 """
 
 from __future__ import annotations
@@ -9,6 +11,18 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def time_shift_phase(frequencies: torch.Tensor, dt_shift) -> torch.Tensor:
+    """Phase factor exp(-2 pi i f dt) delaying a spectrum by ``dt_shift``
+    (trace.py:18)."""
+    arg = (-2 * math.pi) * frequencies * dt_shift
+    return torch.complex(torch.cos(arg), torch.sin(arg))
+
+
+def shift_spectrum(spectrum, frequencies, dt_shift):
+    """Delay a spectrum by ``dt_shift`` (BaseTrace.apply_time_shift)."""
+    return spectrum * time_shift_phase(frequencies, dt_shift)
 
 
 def time_shift_phase_uniform(n_freqs: int, df: float, dt_shift: torch.Tensor,
@@ -43,3 +57,50 @@ def hilbert_envelope_from_rfft(spectrum: torch.Tensor, n: int,
     full = torch.cat([head, 2.0 * spectrum[..., 1:-1], nyq, pad], dim=-1)
     z = torch.fft.ifft(full, dim=-1) * (sampling_rate / math.sqrt(2.0))
     return torch.abs(z)
+
+
+def hilbert_envelope(trace: torch.Tensor) -> torch.Tensor:
+    """|analytic signal| of a real trace (scipy.signal.hilbert convention,
+    trace.py:103)."""
+    n = trace.shape[-1]
+    spec = torch.fft.fft(trace, dim=-1)
+    h = torch.zeros(n, dtype=trace.dtype, device=trace.device)
+    h[0] = 1.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+        h[1:n // 2] = 2.0
+    else:
+        h[1:(n + 1) // 2] = 2.0
+    return torch.abs(torch.fft.ifft(spec * h, dim=-1))
+
+
+def resample_spectrum(spectrum: torch.Tensor, n_in: int, n_out: int) -> torch.Tensor:
+    """FFT-domain resampling (trace.py:119): down-sampling truncates the
+    spectrum (the new Nyquist bin taken real), up-sampling zero-pads."""
+    n_freq_out = n_out // 2 + 1
+    n_freq_in = spectrum.shape[-1]
+    if n_freq_out <= n_freq_in:
+        out = spectrum[..., :n_freq_out].clone()
+        if n_out < n_in and n_out % 2 == 0:
+            out[..., -1] = out[..., -1].real.to(out.dtype)
+        return out
+    return torch.nn.functional.pad(spectrum, (0, n_freq_out - n_freq_in))
+
+
+def scipy_resample(trace: torch.Tensor, num: int) -> torch.Tensor:
+    """``scipy.signal.resample(trace, num, axis=-1)`` of a real trace
+    (BaseTrace.resample): rfft, copy the bins up to the smaller Nyquist,
+    double (down) or halve (up) an even Nyquist bin, irfft to ``num``
+    samples, times num / n."""
+    n_x = trace.shape[-1]
+    X = torch.fft.rfft(trace, dim=-1)
+    Y = torch.zeros((*trace.shape[:-1], num // 2 + 1), dtype=X.dtype, device=X.device)
+    N = min(num, n_x)
+    nyq = N // 2 + 1
+    Y[..., :nyq] = X[..., :nyq]
+    if N % 2 == 0:
+        if num < n_x:
+            Y[..., N // 2] *= 2.0
+        elif n_x < num:
+            Y[..., N // 2] *= 0.5
+    return torch.fft.irfft(Y, num, dim=-1) * (float(num) / float(n_x))

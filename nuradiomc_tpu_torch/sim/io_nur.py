@@ -1,5 +1,5 @@
-# copied from nuradiomc_tpu/sim/io_nur.py:1-221; its EventReader reads the port's
-# container only (the port keeps its own copy; it imports nothing of the JAX package)
+# copied from nuradiomc_tpu/sim/io_nur.py:1-221 (the port keeps its own copy; it imports
+# nothing of the JAX package)
 """.nur-style event file I/O.
 
 The reference persists events as length-prefixed byte blocks, each a pickled
@@ -183,23 +183,30 @@ class EventWriter:
 
 
 class EventReader:
-    """Sequential event reader (NuRadioRecoio semantics) of the container
-    above. A file NuRadioReco wrote (version 2.x block format) raises: its
-    reader, ``io_nur_reference``, is not ported yet (ROADMAP queue 1 item 8)."""
+    """Sequential event reader (NuRadioRecoio semantics).
+
+    Reads both the container above (MAGIC header) and files NuRadioReco
+    wrote (version 2.x block format), the latter through
+    ``sim/io_nur_reference.NuRadioRecoio``."""
 
     def __init__(self, filename: str):
+        self._ref_io = None
         self._f = open(filename, "rb")
         magic = self._f.read(len(MAGIC))
         if magic != MAGIC:
             version = int.from_bytes(magic[:6], "little")
             self._f.close()
+            self._f = None
             if version == 2:
-                raise NotImplementedError(
-                    f"{filename} was written by NuRadioReco; reading it is not ported yet "
-                    "(ROADMAP queue 1 item 8, io_nur_reference)")
-            raise IOError(f"{filename} is not a .nur event file")
+                from nuradiomc_tpu_torch.sim import io_nur_reference
+                self._ref_io = io_nur_reference.NuRadioRecoio(filename)
+            else:
+                raise IOError(f"{filename} is not a .nur event file")
 
     def run(self):
+        if self._ref_io is not None:
+            yield from self._ref_io.get_events()
+            return
         while True:
             head = self._f.read(4)
             if len(head) < 4:
@@ -212,4 +219,5 @@ class EventReader:
         return self.run()
 
     def end(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

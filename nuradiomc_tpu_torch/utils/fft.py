@@ -8,9 +8,15 @@ sqrt(2)). All functions act on the last axis.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _SQRT2 = 1.4142135623730951
+
+
+def freqs_np(num_samples: int, sampling_rate: float) -> np.ndarray:
+    """Host-side (numpy) frequency bins."""
+    return np.fft.rfftfreq(num_samples, d=1.0 / sampling_rate)
 
 
 def time2freq(trace: torch.Tensor, sampling_rate: float) -> torch.Tensor:

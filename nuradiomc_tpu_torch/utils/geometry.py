@@ -12,6 +12,8 @@ Counterpart of ``nuradiomc_tpu/utils/geometry.py``. Conventions:
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -52,6 +54,41 @@ def onsky_to_ground(v_onsky, zenith, azimuth):
     """Inverse of :func:`ground_to_onsky` (the basis is orthonormal)."""
     basis = onsky_basis(zenith, azimuth)
     return torch.einsum("...ji,...j->...i", basis, v_onsky)
+
+
+# ---- Fresnel coefficients (from medium n_1 into / off medium n_2) -----------
+
+def _real(x) -> torch.Tensor:
+    """A tensor as it is; a number or array as a float64 tensor."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=torch.float64)
+
+
+def fresnel_angle(zenith_incoming, n_2=1.3, n_1=1.0):
+    """Snell's-law refraction angle, NaN beyond total internal reflection
+    (geometry.py:68; geometryUtilities.get_fresnel_angle:115-141)."""
+    zenith_incoming = _real(zenith_incoming)
+    t = n_1 / n_2 * torch.sin(zenith_incoming)
+    angle = torch.arcsin(torch.clamp(t, -1.0, 1.0))
+    angle = torch.where(zenith_incoming > 0.5 * math.pi, math.pi - angle, angle)
+    return torch.where(torch.abs(t) > 1.0, torch.full_like(angle, math.nan), angle)
+
+
+def fresnel_t_p(zenith_incoming, n_2=1.3, n_1=1.0):
+    """Transmission amplitude for p / eTheta (0 beyond TIR)."""
+    zenith_incoming = _real(zenith_incoming)
+    out = fresnel_angle(zenith_incoming, n_2, n_1)
+    t = 2 * n_1 * torch.cos(zenith_incoming) / (n_1 * torch.cos(out)
+                                                + n_2 * torch.cos(zenith_incoming))
+    return torch.where(torch.isnan(out), torch.zeros_like(t), t)
+
+
+def fresnel_t_s(zenith_incoming, n_2=1.3, n_1=1.0):
+    """Transmission amplitude for s / ePhi (0 beyond TIR)."""
+    zenith_incoming = _real(zenith_incoming)
+    out = fresnel_angle(zenith_incoming, n_2, n_1)
+    t = 2 * n_1 * torch.cos(zenith_incoming) / (n_1 * torch.cos(zenith_incoming)
+                                                + n_2 * torch.cos(out))
+    return torch.where(torch.isnan(out), torch.zeros_like(t), t)
 
 
 def _csqrt(x: torch.Tensor) -> torch.Tensor:

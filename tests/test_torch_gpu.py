@@ -597,3 +597,166 @@ def test_keep_traces_float64_on_card_matches_cpu(dev, monkeypatch):
     assert float(err_same_rays.max()) <= 1e-10
     torch.testing.assert_close(card.base_t0, cpu_card_rays.base_t0, rtol=0, atol=1e-9)
     torch.testing.assert_close(card.base_t0, cpu.base_t0, rtol=0, atol=1e-3)
+
+
+# ---- the reconstruction path: each entry point on the card against the CPU --
+
+def _reco_example03(where):
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev, parameters as fpar
+    from nuradiomc_tpu_torch.reco import channel_processing as cp, efield_converters as ec
+    from nuradiomc_tpu_torch.reco import examples
+
+    det = Detector(examples.SIMPLE_DETECTOR)
+    evt, st = examples.simple_event(fev, fpar)
+    conv = ec.efieldToVoltageConverter(device=where)
+    conv.begin()
+    conv.run(evt, st, det)
+    noise = cp.channelGenericNoiseAdder(device=where)
+    noise.begin(seed=42)
+    noise.run(evt, st, det, amplitude=1e-6, type="rayleigh")
+    cp.channelBandPassFilter(device=where).run(evt, st, det, passband=[0.1, 0.5],
+                                               filter_type="butter", order=4)
+    cp.channelResampler(device=where).run(evt, st, det, sampling_rate=3.0)
+    rec = cp.channelSignalReconstructor(device=where)
+    rec.begin()
+    rec.run(evt, st, det)
+    unfold = ec.voltageToEfieldConverter(device=where)
+    unfold.begin()
+    unfold.run(evt, st, det, use_channels=[0, 1])
+    return ([np.asarray(st.get_channel(c).get_trace()) for c in (0, 1)]
+            + list(np.asarray(st.get_electric_fields()[-1].get_frequency_spectrum())))
+
+
+def test_reco_channel_chain_card_equals_cpu(dev):
+    """The example-03 chain (with a resampling) in float64: every trace and
+    spectrum within 1e-9 of its peak."""
+    for a, b in zip(_reco_example03(dev), _reco_example03("cpu")):
+        scale = max(float(np.max(np.abs(b))), 1e-300)
+        assert float(np.max(np.abs(a - b))) <= 1e-9 * scale
+
+
+def test_reco_travel_time_table_card_equals_cpu(dev):
+    """A table at 20 m steps: validity equal except a refracted ray at the
+    turning point (none on this grid), travel times within 1e-6 relative."""
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.reco import vertex
+
+    ice = ice_models.get_ice_model("greenland_simple")
+    kw = dict(d_x=20.0, d_z=20.0)
+    _, card = vertex.build_travel_time_table(ice, -100.0, device=dev, **kw)
+    _, cpu = vertex.build_travel_time_table(ice, -100.0, device="cpu", **kw)
+    card = card.cpu()
+    assert torch.equal(card > 0, cpu > 0)
+    ok = cpu > 0
+    torch.testing.assert_close(card[ok], cpu[ok], rtol=1e-6, atol=0)
+
+
+def test_reco_direction_fitters_and_ift_card_equal_cpu(dev):
+    """The correlation and beam-forming fitters at their default grids give
+    the same direction, the IFT spectrum after 50 steps agrees within 1e-6 of
+    its peak."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev, parameters as fpar
+    from nuradiomc_tpu_torch.reco import direction, efield_converters as ec, examples
+    from nuradiomc_tpu_torch.reco import ift_efield
+
+    square = Detector(examples.SQUARE_DETECTOR)
+    stnp = fpar.stationParameters
+
+    def vel_theta(cid, ff, zen, az):
+        return ec.get_channel_vel(square, 7, cid, ff, zen, az, device="cpu")[0].numpy()
+
+    for cls, make, kw in ((direction.correlationDirectionFitter,
+                           lambda: examples.plane_wave_event(fev), {"n_index": 1.0}),
+                          (direction.beamFormingDirectionFitter,
+                           lambda: examples.beamforming_event(fev, vel_theta), {"n_index": 1.0})):
+        got = []
+        for where in (dev, "cpu"):
+            evt, st = make()
+            cls(device=where).run(evt, st, square, **kw)
+            got.append((st[stnp.zenith], st[stnp.azimuth]))
+        assert np.allclose(got[0], got[1], rtol=0, atol=1e-9), (cls.__name__, got)
+
+    mixed = Detector(examples.MIXED_DETECTOR)
+    specs = []
+    for where in (dev, "cpu"):
+        reco = ift_efield.iftElectricFieldReconstructor(device=where)
+        reco.begin(passband=examples.IFT_TRUTH["band"], noise_rms=examples.IFT_TRUTH["noise"],
+                   n_iterations=50)
+        evt, st = examples.ift_event(fev, fpar, lambda c, f, z, a: [x.numpy() for x in (
+            ec.get_channel_vel(mixed, 7, c, f, z, a, device="cpu"))])
+        specs.append(np.asarray(reco.run(evt, st, mixed).get_frequency_spectrum()))
+    assert float(np.max(np.abs(specs[0] - specs[1]))) <= 1e-6 * float(np.max(np.abs(specs[1])))
+
+
+def test_reco_vertex_and_nu_direction_card_equal_cpu(dev):
+    """run_reco_chain.py's event: the chi2 grid of a small direction fit
+    within 1e-9 relative, the same fit; the 3D vertex on 20 m tables equal."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.reco import examples, nu_direction, vertex
+
+    ice = ice_models.get_ice_model(examples.GREENLAND)
+    det = Detector(examples.RECO_CHAIN_DETECTOR)
+    t = examples.RECO_CHAIN_TRUTH
+    forward = nu_direction.neutrinoDirectionReconstructor(device="cpu")
+    forward.begin(ice, attenuation_model="GL1")
+    evt, st, noise = examples.reco_chain_event(fev, forward, det)
+    w = dict(zenith_range=(t["zenith"] - 0.1, t["zenith"] + 0.1),
+             azimuth_range=(t["azimuth"] - 0.1, t["azimuth"] + 0.1),
+             energy_range=(t["log10_energy"] - 0.5, t["log10_energy"] + 0.5),
+             coarse_steps=(5, 5, 5), n_zoom=1)
+    fits, grids, vertices = [], [], []
+    for where in (dev, "cpu"):
+        reco = nu_direction.neutrinoDirectionReconstructor(device=where)
+        reco.begin(ice, attenuation_model="GL1")
+        fits.append(reco.run(evt, st, det, vertex=t["vertex"], use_channels=list(range(8)),
+                             noise_RMS=noise, **w))
+        grids.append(np.concatenate([c for _, c in reco.grids]))
+        v = vertex.neutrino3DVertexReconstructor(ice, device=where, table_kwargs=dict(
+            x_min=20.0, x_max=1200.0, d_x=20.0, z_min=-1100.0, z_max=-30.0, d_z=20.0))
+        v.begin(1, list(range(8)), det)
+        vertices.append(v.run(evt, st, max_distance=1000.0, z_range=(-1000.0, -50.0),
+                              coarse_steps=12, n_zoom=3))
+    np.testing.assert_allclose(grids[0], grids[1], rtol=1e-9)
+    assert fits[0] == fits[1]
+    np.testing.assert_array_equal(vertices[0], vertices[1])
+
+
+def test_reco_triggers_card_equal_cpu(dev):
+    """The trigger modules and the RNO-G surface trigger on NuRadioReco's
+    trigger_test_input.nur: the same decisions, times and channels."""
+    import copy
+    import os
+
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.reco import rnog, trigger_modules as tm
+    from nuradiomc_tpu_torch.sim import io_nur
+    from nuradiomc_tpu_torch.utils import units
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    events = list(io_nur.EventReader(os.path.join(golden, "trigger_test_input.nur")).run())
+    det = Detector(os.path.join(golden, "trigger_test_detector.json"))
+    rows = []
+    for where in (dev, "cpu"):
+        phased = tm.BeamformedPowerIntegrationTrigger(device=where)
+        phased.begin()
+        out = []
+        for evt in copy.deepcopy(events):
+            st = evt.get_station(1)
+            tm.triggerSimulatorHighLow(device=where).run(
+                evt, st, det, threshold_high=0.12 * units.mV, threshold_low=-0.12 * units.mV)
+            tm.triggerSimulatorMultiHighLow(device=where).run(
+                evt, st, det, threshold_high=0.1 * units.mV, threshold_low=-0.1 * units.mV,
+                n_high_lows=2)
+            phased.run(evt, st, det, Vrms=0.02 * units.mV, threshold=1.5e-8)
+            rnog.rnogSurfaceTrigger(device=where).run(
+                evt, st, det, threshold=1e-9, triggered_channels=(0, 1, 2, 3),
+                temperature=300 * units.kelvin)
+            out.append({k: (v.has_triggered(), v.get_trigger_time(),
+                            list(v.get_triggered_channels() or []))
+                        for k, v in st.get_triggers().items()})
+        rows.append(out)
+    assert rows[0] == rows[1]

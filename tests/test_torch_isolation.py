@@ -19,8 +19,9 @@ its entry points run on the card unless the CPU is asked for.
   (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
   tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
   tests/test_torch_fullscale.py).
-* Default device: every entry point's ``device`` defaults to "cuda"; with no
-  card, a call that omits it raises instead of running on the CPU.
+* Default device: every entry point's ``device`` defaults to "cuda" (every
+  reconstruction module class, through ``reco.base.Module``); with no card, a
+  call that omits it raises instead of running on the CPU.
 """
 
 import inspect
@@ -45,6 +46,10 @@ from nuradiomc_tpu_torch.ops import birefringence as tbire
 from nuradiomc_tpu_torch.ops import filters as tfilters
 from nuradiomc_tpu_torch.parallel import dryrun
 from nuradiomc_tpu_torch.parallel import mesh as mesh_util
+from nuradiomc_tpu_torch.reco import base as reco_base
+from nuradiomc_tpu_torch.reco import efield_converters as reco_ec
+from nuradiomc_tpu_torch.reco import trigger_modules as reco_tm
+from nuradiomc_tpu_torch.reco import vertex as reco_vertex
 from nuradiomc_tpu_torch.sim import earth_attenuation as tearth
 from nuradiomc_tpu_torch.sim import io_input
 from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
@@ -131,6 +136,21 @@ _ISOLATED = textwrap.dedent("""
     muon_flux.MuonFlux(os.path.join(root, "unused.pkl")).get_mu_flux(1.0)
     runner.Runner(lambda i, rng: (None, None), lambda b: (b, {})).run()
     timing.pretty_time_delta(61)
+    # the reconstruction slice: NuRadioReco's own .nur through the port's
+    # reader, and the reco modules on the CPU
+    ev = list(io_nur.EventReader(os.path.join(root, "tests", "golden",
+                                              "reference_events.nur")).run())
+    assert len(ev) == 3
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as fev, parameters as fpar
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.reco import channel_processing, examples, vertex
+    evt, st = examples.simple_event(fev, fpar)
+    channel_processing.channelBandPassFilter(device="cpu").run(
+        evt, st, Detector(examples.SIMPLE_DETECTOR), passband=[0.1, 0.5])
+    vertex.build_travel_time_table(ice_models.get_ice_model("greenland_simple"), -100.0,
+                                   x_max=200.0, d_x=50.0, z_min=-300.0, d_z=50.0,
+                                   device="cpu")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -389,7 +409,32 @@ ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inp
                 convert.make_pa_inputs, convert.make_gen2_inputs,
                 convert.make_multitrigger_inputs, convert.make_mooresbay_inputs,
                 convert.emitter_from_jax, convert.library_from_jax,
-                mesh_util.make_mesh, dryrun.dryrun_simulation, dryrun.dryrun_multichip]
+                mesh_util.make_mesh, dryrun.dryrun_simulation, dryrun.dryrun_multichip,
+                reco_base.Module.__init__, reco_vertex.neutrino2DVertexReconstructor.__init__,
+                reco_vertex.build_travel_time_table, reco_ec.get_channel_vel,
+                reco_tm.get_digital_trace]
+
+
+def _reco_module_classes():
+    """Every module class of the reconstruction slice (all on reco.base.Module)."""
+    import importlib
+    import pkgutil
+
+    import nuradiomc_tpu_torch.reco as reco
+    out = []
+    for m in pkgutil.iter_modules(reco.__path__):
+        mod = importlib.import_module(f"nuradiomc_tpu_torch.reco.{m.name}")
+        out += [c for c in vars(mod).values()
+                if isinstance(c, type) and issubclass(c, reco_base.Module)
+                and c is not reco_base.Module and c.__module__ == mod.__name__]
+    return out
+
+
+def test_every_reco_module_takes_a_device_defaulting_to_the_card():
+    classes = _reco_module_classes()
+    assert len(classes) >= 30
+    for cls in classes:
+        assert inspect.signature(cls).parameters["device"].default == "cuda", cls
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -401,7 +446,8 @@ def test_entry_points_default_to_the_card(fn):
                                   "make_pa_inputs", "make_gen2_inputs",
                                   "make_mooresbay_inputs", "emitter_simulation",
                                   "fullscale_simulation", "fullscale_pa_simulation",
-                                  "surface_muon_simulation", "dryrun_simulation"])
+                                  "surface_muon_simulation", "dryrun_simulation",
+                                  "reco_module", "travel_time_table"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -423,6 +469,8 @@ def test_omitted_device_without_a_card_raises(call):
         "surface_muon_simulation": lambda: convert.surface_muon_simulation(
             io_input.from_generated(*convert.surface_muon_event_list(4))),
         "dryrun_simulation": lambda: dryrun.dryrun_simulation(),
+        "reco_module": lambda: reco_vertex.neutrino3DVertexReconstructor(None),
+        "travel_time_table": lambda: reco_vertex.build_travel_time_table(None, -100.0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()

@@ -133,8 +133,15 @@ def test_nur_files_are_interchangeable(writer, reader, tmp_path):
 
 
 def test_reference_nur_raises_in_the_port():
-    with pytest.raises(NotImplementedError, match="io_nur_reference"):
-        tnur.EventReader(GOLDEN_NUR)
+    """The port's reader once raised on a file NuRadioReco wrote; it now
+    dispatches to its ``io_nur_reference``, and reads the golden's traces bit
+    for bit as the JAX package's reader does."""
+    got = list(tnur.EventReader(GOLDEN_NUR).run())
+    ref = list(rio.NuRadioRecoio(GOLDEN_NUR).get_events())
+    assert [e.get_id() for e in got] == [e.get_id() for e in ref] and len(got) == 7
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.get_station(STATION).get_channel(0).get_trace(),
+                                      b.get_station(STATION).get_channel(0).get_trace())
 
 
 # ---- keep_traces on the waveform golden's groups -----------------------------
