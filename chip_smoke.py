@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 12,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 13,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
     python3 chip_smoke.py --phases 12      # the in-ice reconstruction path
+    python3 chip_smoke.py --phases 13      # ray solvers, noise-rate tuning, hardware modules
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -146,7 +147,28 @@ result line):
    within that test's bounds, a warm call's time and a profiled step's
    kernels, and the trigger
    modules and the RNO-G surface trigger on the events of (a) with the same
-   decisions, times and channels.
+   decisions, times and channels;
+13. the ray solvers beyond the analytic one, the noise-trigger-rate tuning
+   and the RNO-G hardware modules (float64 unless named): (a)
+   tests/test_noise_rate.py's 4-channel phased array behind its 8-bit ADC,
+   2^20 noise traces in float32 (traces/s, beam windows/s, the 100 Hz
+   threshold beside the reference's 30.85 Vrms^2, the rate curve
+   monotone), and 8192 traces drawn on the card transformed there and on
+   the CPU (maxima within 1e-9); (b) the stratified numeric solver on
+   65,536 firn pairs (pair solves/s, float32 reported only), 1024 against
+   the CPU (masks equal, within 1e-9; rays turning near the firn's segment
+   boundary or just above the receiver within 1e-3, reported apart); (c)
+   the RK4 loop in CUDA graphs equal to eager launches bit for bit, then
+   tests/test_raytrace_3d.py's cases at their full settings (ds 1 m, 3000-
+   6000 steps, a fan of 90, 30 bisections) against the port's analytic
+   solver at that test's tolerances, and its tilted field's 6-step Newton
+   polish, seconds each; (d) 100k ice-to-air pairs (solves/s) against the
+   CPU within 1e-9; (e) the analytic LPDA's phase sector on its edges (135
+   deg arrivals, the IFT geometry): the card's step-by-step differences
+   from the CPU measured, then ``simulate_batch``'s sectors equal to the
+   CPU's and the JAX package's (``data/lpda_sector_jax_sets.npz``), kernels
+   1 and 2 held to their plain versions on the run's launches; (f) the
+   cosmic-ray templates on the card against the CPU within 1e-10.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -158,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2586,12 +2609,502 @@ def phase_reco(dev):
     return counts
 
 
+# ---- phase 13: ray solvers beyond the analytic one, noise-rate tuning, the
+# RNO-G hardware response, and the LPDA phase sector on its edges
+
+LPDA_SECTOR_JAX_SETS = DATA_DIR / "lpda_sector_jax_sets.npz"
+
+
+def _bits_differ(a, b):
+    """How many elements of two tensors of one shape differ in any bit, and
+    the largest difference in units in the last place."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if not a.is_floating_point():
+        return int((a != b).sum()), 0
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    ia, ib = a.contiguous().view(it).to(torch.int64), b.contiguous().view(it).to(torch.int64)
+    return int((ia != ib).sum()), int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _p13_sectors(dev):
+    """(e) the analytic LPDA's phase sector at arrivals on its edges (135 deg
+    zenith on examples.MIXED_DETECTOR's downward LPDAs, and the IFT
+    geometry). Measures, step by step, where the card's float64 arithmetic
+    leaves the CPU's (each step fed the CPU's own inputs): the old decision
+    (angles and back, einsum rotation, vector_norm, arccos) against the one
+    the port takes (``antenna.lpda_sector`` of the receive vector). Then
+    ``simulate_batch`` on the card with those arrivals: its sectors equal to
+    the CPU's and to the JAX package's for each arrival direction
+    (``lpda_sector_jax_sets.npz``), kernels 1 and 2 against their plain
+    versions on the run's own launches."""
+    from nuradiomc_tpu_torch.ops import antenna, raytrace
+    from nuradiomc_tpu_torch.reco import examples
+    from nuradiomc_tpu_torch.utils import geometry
+
+    with np.load(LPDA_SECTOR_JAX_SETS) as z:
+        sets = {k: z[k] for k in z.files}
+    f64 = torch.float64
+    rots = torch.as_tensor(sets["rotations"], dtype=f64)
+    A = sets["receive"].shape[0]
+    lpda = torch.tensor(antenna.KIND_LPDA)
+    deg45, deg90 = 45 * units.deg, 90 * units.deg
+
+    def old_sector(theta):
+        return torch.where(theta <= deg45, 0, torch.where(theta <= deg90, 1, 2))
+
+    rec = torch.as_tensor(sets["receive"], dtype=f64)[:, None, :].expand(A, 4, 3)
+    ift_zen = torch.full((4,), examples.IFT_TRUTH["zenith"], dtype=f64)
+    ift_az = torch.full((4,), examples.IFT_TRUTH["azimuth"], dtype=f64)
+    steps = {
+        "cartesian_to_spherical (vector_norm, arccos, atan2)":
+            lambda d, x: torch.stack(geometry.cartesian_to_spherical(x["rec"].to(d)), -1),
+        "spherical_to_cartesian (sin, cos)":
+            lambda d, x: geometry.spherical_to_cartesian(x["zen"].to(d), x["az"].to(d)),
+        "einsum rotation (a batched matmul on the card)":
+            lambda d, x: torch.einsum("...ij,...j->...i", x["rot"].to(d), x["v"].to(d)),
+        "vector_norm": lambda d, x: torch.linalg.vector_norm(x["old_ant"].to(d), dim=-1),
+        "division z / r": lambda d, x: x["old_ant"][..., 2].to(d) / x["old_r"].to(d),
+        "arccos": lambda d, x: torch.arccos(torch.clamp(x["old_c"].to(d), -1.0, 1.0)),
+        "old sector (<= 45, 90 deg)": lambda d, x: old_sector(x["old_theta"].to(d)),
+        "antenna._rotate (emulated fused multiply-adds)":
+            lambda d, x: antenna._rotate(x["rot"].to(d), x["v"].to(d)),
+        "antenna._norm (emulated, rounded-to-nearest sqrt)":
+            lambda d, x: antenna._norm(x["new_ant"].to(d)),
+        "antenna.lpda_sector": lambda d, x: antenna.lpda_sector(lpda.to(d), x["new_ant"].to(d)),
+    }
+
+    def chain(d, zen, az, direction=None):
+        """Every intermediate of both decisions on device ``d``."""
+        x = {"zen": zen.to(d), "az": az.to(d), "rot": rots.to(d).expand(*zen.shape, 3, 3)}
+        x["v"] = geometry.spherical_to_cartesian(x["zen"], x["az"])
+        x["old_ant"] = torch.einsum("...ij,...j->...i", x["rot"], x["v"])
+        x["old_r"] = torch.linalg.vector_norm(x["old_ant"], dim=-1)
+        x["old_c"] = x["old_ant"][..., 2] / x["old_r"]
+        x["old_theta"] = torch.arccos(torch.clamp(x["old_c"], -1.0, 1.0))
+        x["new_ant"] = antenna._rotate(x["rot"], x["v"] if direction is None
+                                       else direction.to(d))
+        return x
+
+    for label, make, direction, want in (
+            ("edge arrivals", lambda d: geometry.cartesian_to_spherical(rec.to(d)), rec,
+             sets["edge_direct"]),
+            ("IFT geometry (angles)", lambda d: (ift_zen.to(d), ift_az.to(d)), None,
+             sets["ift"])):
+        cpu = chain("cpu", *make("cpu"), direction)
+        cpu["rec"] = rec
+        card = chain(dev, *make(dev), direction)
+        for name, fn in steps.items():
+            if name.startswith("cartesian") and direction is None:
+                continue
+            n, ulp = _bits_differ(fn(dev, cpu), fn("cpu", cpu))
+            print(f"phase 13 (e) {label}: {name} on the card from the CPU's inputs: {n} of "
+                  f"{fn('cpu', cpu).numel()} elements differ (at most {ulp} ulp)")
+        old = [old_sector(x["old_theta"]).cpu() for x in (card, cpu)]
+        new = [antenna.lpda_sector(lpda.to(x["v"].device), x["new_ant"]).cpu()
+               for x in (card, cpu)]
+        want = torch.as_tensor(want)
+        print(f"phase 13 (e) {label}: whole chain, old decision (angles, einsum, vector_norm, "
+              f"arccos): card and CPU differ in {int((old[0] != old[1]).sum())} of "
+              f"{old[0].numel()} sectors, card and JAX package in "
+              f"{int((old[0] != want).sum())}; lpda_sector of "
+              f"{'the receive vector' if direction is not None else 'the angles on the device'}"
+              f": card and CPU differ in {int((new[0] != new[1]).sum())}, card and JAX "
+              f"package in {int((new[0] != want).sum())}")
+        if direction is not None:
+            assert torch.equal(new[0], new[1]) and torch.equal(new[0], want), label
+            print(f"phase 13 (e) the JAX pipeline's own round trip through angles moves "
+                  f"{int((torch.as_tensor(sets['edge']) != want).sum())} of {want.numel()} "
+                  f"arrivals across the edge (the JAX set 'edge')")
+        else:
+            host = torch.stack([antenna.lpda_sector_host(ift_zen.to(dev), ift_az.to(dev), r,
+                                                         antenna.KIND_LPDA)[c]
+                                for c, r in enumerate(sets["rotations"])])
+            print(f"phase 13 (e) {label}: lpda_sector_host (the reco modules) {host.tolist()}")
+            assert torch.equal(host, want)
+
+    # simulate_batch with the edge arrivals, card against CPU and the JAX set
+    got = {}
+    for d in (dev, "cpu"):
+        s, ch, b, vectors = convert.make_lpda_edge_inputs(device=d)
+        mix, solver_vectors, seen = antenna.analytic_vel_mix, raytrace.launch_receive_vectors, []
+
+        def recording(*args, **kw):
+            out = mix(*args, **kw)
+            seen.append(out[2])
+            return out
+
+        antenna.analytic_vel_mix, raytrace.launch_receive_vectors = recording, vectors
+        try:
+            if d == dev:
+                _reset_launches()
+                with _Recorder() as rec_k:
+                    out = pipeline.simulate_batch(b, ch, s)
+                counts = _launch_counts()
+                plain = pipeline.simulate_batch(b, ch, dataclasses.replace(
+                    s, placement_impl="plain", trigger_impl="plain"))
+            else:
+                out = pipeline.simulate_batch(b, ch, s)
+        finally:
+            antenna.analytic_vel_mix, raytrace.launch_receive_vectors = mix, solver_vectors
+        got[str(d)] = (seen[0].cpu(), out)
+    sec_card, out_card = got[str(dev)]
+    sec_cpu, out_cpu = got["cpu"]
+    want = torch.as_tensor(sets["edge_direct"])[:, None, :, None].expand(sec_card.shape)
+    print(f"phase 13 (e) simulate_batch, {A} groups x 2 showers x 4 LPDAs x 2 slots at the "
+          f"edge arrivals (float64): sectors card vs CPU differ in "
+          f"{int((sec_card != sec_cpu).sum())}, card vs the JAX package in "
+          f"{int((sec_card != want).sum())} of {sec_card.numel()}; launches {counts}")
+    assert torch.equal(sec_card, sec_cpu) and torch.equal(sec_card, want)
+    assert torch.equal(out_card.triggered, plain.triggered)
+    torch.testing.assert_close(out_card.max_amplitude, plain.max_amplitude, rtol=1e-12, atol=0)
+    peak = out_cpu.max_amp_per_solution.abs().max()
+    err = (out_card.max_amp_per_solution.cpu() - out_cpu.max_amp_per_solution).abs().max()
+    print(f"phase 13 (e) per-solution amplitudes card vs CPU {float(err / peak):.3e} of peak")
+    assert float(err) <= 1e-9 * float(peak)
+    # no group fires at these arrivals, so kernel 2 is held through the step
+    # (triggered and amplitudes against the plain path, above), kernel 1 on
+    # its own launch
+    rec_k.calls.pop("irfft_trigger", None)
+    print("phase 13 (e) irfft_trigger: no group fires at the edge arrivals; held through the "
+          "step's decisions and amplitudes against the plain path")
+    _check_recorded(rec_k.calls, "LPDA edge arrivals", "phase 13 (e)")
+    return counts
+
+
+# tests/test_noise_rate.py's 4-channel deep phased array behind its ADC
+P13_FS, P13_N, P13_C = 2.0, 1024, 4
+P13_VRMS = 5.6749e-6
+P13_REFERENCE_VRMS2 = 30.85      # the reference's 100 Hz threshold, D05phased_array_deep.py:20-22
+
+
+def _p13_pa_setup():
+    from nuradiomc_tpu_torch.ops import filters
+    ff = np.fft.rfftfreq(P13_N, 1 / P13_FS)
+    chain = [((96 * units.MHz, 100 * units.GHz), "cheby1", {"order": 4, "rp": 0.1}),
+             ((0, 220 * units.MHz), "cheby1", {"order": 7, "rp": 0.1})]
+    filt = filters.chain_response(ff, chain)
+    bw = filters.bandwidth_integral(ff, filt)
+    amp = P13_VRMS / np.sqrt(bw / (0.5 * P13_FS))
+    rolls = phased_array.beam_rolls(np.array([-197.0, -198.0, -199.0, -200.0]), np.zeros(4),
+                                    phased_array.default_angles, 1.75, 1.0)
+    kw = dict(window=16, step=8, adc_fs=0.5, adc_nbits=8, adc_range=P13_VRMS * 255 / 15,
+              upsampling=2)
+    return filt, amp, rolls, kw
+
+
+def _p13_noise_rate(dev):
+    """(a) the noise-trigger-rate tuning: 2^20 traces in float32 on the card
+    (traces/s, windows/s, the 100 Hz threshold beside the reference's, the
+    rate curve monotone), then 8192 traces whose card draws go to the CPU:
+    the card's and the CPU's transforms in float64 within 1e-9."""
+    from nuradiomc_tpu_torch.sim import noise_rate
+    filt, amp, rolls, kw = _p13_pa_setup()
+    n_traces, batch = 1 << 20, 1 << 16
+    duration = P13_N / P13_FS
+    noise_rate.run_phased_array_tuning(batch, P13_N, P13_FS, amp, filt, rolls, P13_C, seed=9,
+                                       batch=batch, device=dev, dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mp = noise_rate.run_phased_array_tuning(n_traces, P13_N, P13_FS, amp, filt, rolls, P13_C,
+                                            seed=1, batch=batch, device=dev,
+                                            dtype=torch.float32, **kw)
+    secs = time.perf_counter() - t0
+    # windows per trace: beams x power windows of the upsampled trace
+    n_up = (P13_N * 5 // 2) // 10 * kw["upsampling"]
+    windows = len(phased_array.default_angles) * ((n_up - kw["window"]) // kw["step"] + 1)
+    thr = noise_rate.tune_threshold(100 * units.Hz, mp, duration)
+    thrs = np.linspace(5, 40, 36) * P13_VRMS ** 2
+    rates = noise_rate.estimate_rate_curve(thrs, mp, duration)
+    print(f"phase 13 (a) noise-rate tuning, {n_traces} traces x {P13_C} channels in float32 "
+          f"(batches of {batch}): {secs:.3f} s, {n_traces / secs:,.0f} traces/s, "
+          f"{n_traces * windows / secs:,.0f} beam windows/s ({windows} a trace); threshold "
+          f"for 100 Hz {thr / P13_VRMS ** 2:.3f} Vrms^2 (the reference's {P13_REFERENCE_VRMS2}; "
+          f"no gate) ({CARD})")
+    assert np.all(np.diff(rates) <= 0) and rates[0] > rates[-1]
+
+    # card draws to the CPU: the two transforms in float64
+    gen = noise_rate.chunk_generator(3, 0, dev)
+    draws = noise.draw_noise(gen, (8192, P13_C), P13_N, torch.float64)
+    maxima = []
+    for d in (dev, "cpu"):
+        spec = noise.noise_spectrum_from_draws(
+            tuple(x.to(d) for x in draws), P13_N, P13_FS,
+            torch.tensor(amp, dtype=torch.float64, device=d), None, P13_FS / 2)
+        maxima.append(noise_rate.max_beam_power_from_spectra(
+            spec, P13_N, P13_FS, filt, rolls, **kw).cpu())
+    rel = float(((maxima[0] - maxima[1]).abs() / maxima[1].abs()).max())
+    print(f"phase 13 (a) 8192 traces drawn on the card, float64: card vs CPU maxima {rel:.3e} "
+          f"relative (gate 1e-9)")
+    assert rel <= 1e-9
+
+
+def _p13_numeric(dev):
+    """(b) the stratified numeric solver on 65,536 firn pairs (solves/s in
+    float64, float32 reported only), 1024 of them against the CPU: masks
+    equal, Snell parameter, travel time and path length within 1e-9, those
+    of rays turning near the firn's segment boundary or just above the
+    receiver reported apart (within 1e-3, the quadrature's own error)."""
+    from nuradiomc_tpu_torch.models import ice_profiles
+    from nuradiomc_tpu_torch.ops import raytrace_numeric
+    prof = ice_profiles.greenland_firn
+    n = 65536
+    rng = np.random.default_rng(13)
+    z1, z2, r = rng.uniform(-1200, -200, n), rng.uniform(-150, -30, n), rng.uniform(100, 1200, n)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        args = [torch.as_tensor(x, dtype=dtype, device=dev) for x in (np.zeros(n), z1, r, z2)]
+        raytrace_numeric.find_solutions_numeric(prof, *(a[:256] for a in args), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[dtype] = raytrace_numeric.find_solutions_numeric(prof, *args, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"phase 13 (b) numeric solver, {n} firn pairs x 2 slots, {dtype}: {secs:.3f} s, "
+              f"{n / secs:,.0f} pair solves/s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+              f" GiB ({CARD})")
+    card = out[torch.float64]
+    k = 1024
+    cpu = raytrace_numeric.find_solutions_numeric(prof, np.zeros(k), z1[:k], r[:k], z2[:k],
+                                                  device="cpu")
+    mask = cpu.mask
+    assert torch.equal(card.mask[:k].cpu(), mask) and bool(mask.any())
+    # rays turning within 1 m of the firn's segment boundary (-14.9 m), where
+    # n(z) steps down by 7e-4: there the turning-depth bisection has two
+    # crossings to choose from, a last bit decides which, and the quadrature
+    # grids (192 points up to that depth) move with it; and refracted rays
+    # turning within 1 m above the receiver
+    z_b = prof.z_tops[1]
+    near_b = ((cpu.s >= prof.index_of_refraction(torch.tensor(z_b + 1.0, dtype=torch.float64)))
+              & (cpu.s <= prof.index_of_refraction(torch.tensor(z_b - 1.0, dtype=torch.float64))))
+    n_near = prof.index_of_refraction(torch.as_tensor(z2[:k]) + 1.0)[:, None]
+    near_r = (cpu.sol_type == 2) & (cpu.s >= n_near)
+    worst = {}
+    for field in ("s", "travel_time", "path_length"):
+        a, b = getattr(card, field)[:k].cpu(), getattr(cpu, field)
+        rel = ((a - b).abs() / b.abs().clamp(min=1e-300))
+        for label, sel in (("elsewhere", mask & ~near_b & ~near_r),
+                           ("near the firn boundary", mask & near_b),
+                           ("turning near the receiver", mask & near_r)):
+            worst[field, label] = float(rel[sel].max()) if bool(sel.any()) else 0.0
+    print(f"phase 13 (b) 1024 pairs card vs CPU (float64): masks equal ({int(mask.sum())} valid "
+          f"slots, {int((mask & near_b).sum())} turning within 1 m of the firn boundary, "
+          f"{int((mask & near_r).sum())} within 1 m above the receiver); relative "
+          + ", ".join(f"{f} {lab} {v:.3e}" for (f, lab), v in worst.items()))
+    assert all(v <= 1e-9 for (f, lab), v in worst.items() if lab == "elsewhere")
+    assert all(v <= 1e-3 for v in worst.values())
+
+
+def _p13_rays3d(dev):
+    """(c) tests/test_raytrace_3d.py's cases at their full settings on the
+    card, held to the port's analytic solver at that test's tolerances, and
+    the Newton polish of its tilted field; seconds each."""
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.ops import raytrace, raytrace_3d
+    ice = ice_models.southpole_simple
+    f64 = torch.float64
+
+    def strat(x, y, z):
+        return torch.where(z > 0, 1.000293, ice.index_of_refraction(z))
+
+    def blob(x, y, z):
+        b = 0.05 * torch.exp(-(((x - 300.0) / 120.0) ** 2 + (y / 120.0) ** 2
+                               + ((z + 450.0) / 120.0) ** 2))
+        return strat(x, y, z) + torch.where(z > 0, 0.0, b)
+
+    def tilt(x, y, z):
+        return strat(x, y, z) + torch.where(z > 0, 0.0, 2e-5 * y)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def analytic(src, rec):
+        x1, x2 = torch.tensor(src, dtype=f64), torch.tensor(rec, dtype=f64)
+        geom = raytrace.to_2d(x1, x2)
+        sols = raytrace.find_solutions(geom.x1y, geom.x1z, geom.x2y, geom.x2z, ice)
+        launch, _ = raytrace.launch_receive_vectors(geom, sols)
+        return sols, launch
+
+    # the CUDA-graph blocks of the RK4 loop change no number: a fan and a
+    # Newton evaluation (with its tangents), graphs on and off
+    x1 = torch.tensor((600.0, 200.0, -800.0), dtype=f64, device=dev)
+    x2 = torch.tensor((0.0, 0.0, -100.0), dtype=f64, device=dev)
+    fan = torch.linspace(0.02, math.pi - 0.02, 90, dtype=f64, device=dev)
+    angles = torch.stack([fan, torch.full_like(fan, 1e-3)], dim=-1)
+    tangent = torch.ones_like(angles)
+    runs = []
+    for graph_steps in (raytrace_3d._GRAPH_STEPS, 0):
+        saved, raytrace_3d._GRAPH_STEPS = raytrace_3d._GRAPH_STEPS, graph_steps
+        try:
+            m, rec = raytrace_3d._miss_of_zenith(strat, x1, x2, fan, 1.0, 450)
+            m2, rec2 = raytrace_3d._miss2_of_angles(tilt, x1, x2, angles[:, 0], angles[:, 1],
+                                                    1.0, 450, tangent=tangent)
+            runs.append([m, rec["t"], rec["p"], m2, rec2["z_dot"], rec2["lat_dot"]])
+        finally:
+            raytrace_3d._GRAPH_STEPS = saved
+    differ = sum(_bits_differ(a, b)[0] for a, b in zip(*runs))
+    print(f"phase 13 (c) RK4 in CUDA graphs of {raytrace_3d._GRAPH_STEPS} steps against eager "
+          f"launches (450 steps, 90 rays, with and without tangents): {differ} numbers differ")
+    assert differ == 0
+
+    for src, rec, n_steps in (((600.0, 200.0, -800.0), (0.0, 0.0, -100.0), 6000),
+                              ((1200.0, -300.0, -1500.0), (0.0, 0.0, -200.0), 6000)):
+        s3, secs = timed(raytrace_3d.find_solutions_3d, strat, src, rec, ds=1.0, n_steps=n_steps,
+                         device=dev)
+        ana, launch = analytic(src, rec)
+        m3, ma = s3.mask.cpu(), ana.mask
+        assert int(m3.sum()) == int(ma.sum()), (m3, ma)
+        lz3 = torch.sort(s3.launch_zenith.cpu()[m3]).values
+        lza = torch.sort(torch.arccos(torch.clamp(launch[ma][:, 2], -1, 1))).values
+        worst = float((lz3 - lza).abs().max())
+        rel = [float((torch.sort(getattr(s3, f).cpu()[m3]).values
+                      / torch.sort(getattr(ana, f)[ma]).values - 1).abs().max())
+               for f in ("path_length", "travel_time")]
+        print(f"phase 13 (c) 3D solver, stratified {src} -> {rec}, ds 1 m, {n_steps} steps, fan 90,"
+              f" 30 bisections: {secs:.2f} s; {int(m3.sum())} solutions, against the analytic "
+              f"solver launch zenith {worst:.2e} rad (gate 2e-3), path {rel[0]:.2e}, time "
+              f"{rel[1]:.2e} (gate 2e-3) ({CARD})")
+        assert worst < 2e-3 and max(rel) < 2e-3
+
+    src, rec = (700.0, 0.0, -300.0), (0.0, 0.0, -50.0)
+    s3, secs = timed(raytrace_3d.find_solutions_3d, strat, src, rec, ds=1.0, n_steps=4000,
+                     device=dev)
+    ana, _ = analytic(src, rec)
+    n_refl_ana = int(((ana.sol_type == raytrace.SOL_REFLECTED) & ana.mask).sum())
+    n_refl_3d = int((s3.n_reflections.cpu()[s3.mask.cpu()] > 0).sum())
+    print(f"phase 13 (c) 3D solver, the surface bounce {src} -> {rec}: {secs:.2f} s; bounced "
+          f"solutions {n_refl_3d}, the analytic solver's reflected {n_refl_ana} ({CARD})")
+    assert n_refl_3d == n_refl_ana
+
+    src, rec = (600.0, 0.0, -800.0), (0.0, 0.0, -100.0)
+    pert, secs_p = timed(raytrace_3d.find_solutions_3d, blob, src, rec, ds=1.0, n_steps=4000,
+                         device=dev)
+    base, secs_b = timed(raytrace_3d.find_solutions_3d, strat, src, rec, ds=1.0, n_steps=4000,
+                         device=dev)
+    mp, mb = pert.mask.cpu(), base.mask.cpu()
+    tp = float(torch.sort(pert.travel_time.cpu()[mp]).values[0])
+    tb = float(torch.sort(base.travel_time.cpu()[mb]).values[0])
+    print(f"phase 13 (c) 3D solver, the blob field: {secs_p:.2f} s (base {secs_b:.2f} s); "
+          f"first arrival moved {tp - tb:.3f} ns (bounds 0.05-50) ({CARD})")
+    assert mp.sum() >= 1 and mb.sum() >= 1 and 0.05 < abs(tp - tb) < 50.0
+
+    src, rec = (500.0, 0.0, -700.0), (0.0, 0.0, -100.0)
+    sols, secs_f = timed(raytrace_3d.find_solutions_3d, tilt, src, rec, ds=1.0, n_steps=3000,
+                         device=dev)
+    (refined, beta), secs_n = timed(raytrace_3d.refine_solutions_3d, tilt, src, rec, sols,
+                                    ds=1.0, n_steps=3000, device=dev)
+    mr = refined.mask.cpu()
+    miss, _ = raytrace_3d._miss2_of_angles(
+        tilt, torch.tensor(src, dtype=f64, device=dev), torch.tensor(rec, dtype=f64, device=dev),
+        refined.launch_zenith, beta, 1.0, 3000)
+    worst = float(miss.cpu()[mr].abs().max())
+    beta_max = float(beta.cpu()[mr].abs().max())
+    print(f"phase 13 (c) Newton polish of the tilted field: find {secs_f:.2f} s, 6 Newton steps "
+          f"{secs_n:.2f} s; {int(mr.sum())} solutions, miss after {worst:.2e} m (gate 0.05), "
+          f"out-of-plane azimuth up to {beta_max:.2e} rad ({CARD})")
+    assert int(mr.sum()) >= 1 and worst < 0.05 and beta_max > 1e-5
+
+
+def _p13_ice_to_air(dev):
+    """(d) 100k ice-to-air pairs on the card, solves/s, against the CPU."""
+    from nuradiomc_tpu_torch.models import ice as ice_models
+    from nuradiomc_tpu_torch.ops import raytrace
+    ice = ice_models.southpole_2015
+    n = 100_000
+    rng = np.random.default_rng(17)
+    pts = np.stack([np.zeros(n), rng.uniform(-1000.0, -5.0, n), rng.uniform(10.0, 3000.0, n),
+                    rng.uniform(1.0, 2000.0, n)])
+    args = [torch.as_tensor(x, device=dev) for x in pts]
+    raytrace.find_solution_ice_to_air(*(a[:256] for a in args), ice, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = raytrace.find_solution_ice_to_air(*args, ice, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu = raytrace.find_solution_ice_to_air(*pts, ice, device="cpu")
+    assert torch.equal(card.mask.cpu(), cpu.mask)
+    m = cpu.mask
+    rel = {f: float(((getattr(card, f).cpu() - getattr(cpu, f)).abs()
+                     / getattr(cpu, f).abs().clamp(min=1e-300))[m].max())
+           for f in ("c0", "travel_time", "path_length")}
+    print(f"phase 13 (d) ice-to-air, {n} pairs (float64): {secs:.3f} s, {n / secs:,.0f} solves/s;"
+          f" {int(m.sum())} reachable; card vs CPU relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (gate 1e-9) ({CARD})")
+    assert max(rel.values()) <= 1e-9
+
+
+P13_CR_DETECTOR = {"channels": {"1": {
+    "adc_n_samples": 2048, "adc_sampling_frequency": 3.2,
+    "ant_orientation_phi": 0.0, "ant_orientation_theta": 0.0,
+    "ant_position_x": 0.0, "ant_position_y": 0.0, "ant_position_z": -2.0,
+    "ant_rotation_phi": 160.0, "ant_rotation_theta": 90.0,
+    "ant_type": "analytic_LPDA", "amp_type": "rno_surface",
+    "cab_time_delay": 0.0, "adc_nbits": None,
+    "channel_id": 0, "station_id": 101}},
+    "stations": {"1": {"station_id": 101, "pos_altitude": 0,
+                       "pos_easting": 0, "pos_northing": 0}}}
+
+
+def _p13_templates(dev):
+    """(f) tests/test_rnog.py's cosmic-ray templates on the card against the
+    CPU, each within 1e-10 of its peak."""
+    import pickle
+    import tempfile
+    from nuradiomc_tpu_torch.reco import rnog
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_templates_") as tmp:
+        for d in (dev, "cpu"):
+            creator = rnog.crRNOGTemplateCreator(device=d)
+            creator.begin(P13_CR_DETECTOR, tmp)
+            creator.set_template_parameter(
+                template_run_id=(0, 0), template_event_id=(0, 1),
+                template_station_id=(101, 101), template_channel_id=(0, 0),
+                efield_width=(5, 2), antenna_rotation=(160, 160), cr_zenith=(55, 55),
+                cr_azimuth=(0, 0))
+            t0 = time.perf_counter()
+            creator.run(bandpass_filter={"passband": [0.08, 0.18], "filter_type": "butter",
+                                         "order": 4})
+            secs[str(d)] = time.perf_counter() - t0
+            with open(os.path.join(tmp, "templates_cr_station_101.pickle"), "rb") as f:
+                out[str(d)] = pickle.load(f)
+    zen, az = np.deg2rad(55), np.deg2rad(0)
+    worst = 0.0
+    for width in (5, 2):
+        a = np.asarray(out[str(dev)][0][zen][az][width])
+        b = np.asarray(out["cpu"][0][zen][az][width])
+        worst = max(worst, float(np.max(np.abs(a - b)) / np.max(np.abs(b))))
+    print(f"phase 13 (f) cosmic-ray templates (widths 5, 2): card vs CPU {worst:.3e} of peak "
+          f"(gate 1e-10); {secs[str(dev)]:.2f} s on the card, {secs['cpu']:.2f} s on the CPU "
+          f"({CARD})")
+    assert worst <= 1e-10
+
+
+def phase_rays(dev):
+    """Ray solvers beyond the analytic one, noise-rate tuning, the RNO-G
+    hardware response and the LPDA sector on its edges; returns the kernel
+    launches of the phase (kernels 1 and 2, in (e) only)."""
+    t_phase = time.perf_counter()
+    _p13_noise_rate(dev)
+    _p13_numeric(dev)
+    _p13_rays3d(dev)
+    _p13_ice_to_air(dev)
+    counts = _p13_sectors(dev)
+    _p13_templates(dev)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; launches {counts} ({CARD})")
+    return counts
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
-          "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,)}
+          "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,),
+          "13": (phase_rays,)}
 
 
 def _phases_asked(argv):
@@ -2600,7 +3113,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,12|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,13|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -2661,9 +3174,10 @@ def main() -> int:
     campaign_launches = phase_campaign(dev)
     mesh_launches = phase_multiprocess(dev)
     reco_launches = phase_reco(dev)
-    # launches: the counts of the main-path runs (phases 3, 5 to 12)
+    rays_launches = phase_rays(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 13)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
-                   campaign_launches, mesh_launches, reco_launches):
+                   campaign_launches, mesh_launches, reco_launches, rays_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

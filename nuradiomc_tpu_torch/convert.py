@@ -755,3 +755,46 @@ def gen2_tau_event_list(n_events=2048, seed=21):
         {"fiducial_rmin": 0, "fiducial_rmax": 3 * units.km,
          "fiducial_zmin": -2.7 * units.km, "fiducial_zmax": 0},
         seed=seed, flavor=(16, -16), interaction_type="cc", secondaries="stochastic")
+
+
+# ---- arrivals on the analytic LPDA's phase-sector edges
+
+# 135 deg zenith is 45 deg off a downward LPDA's axis, the edge of its first
+# two phase sectors; one arrival per azimuth (60 deg is examples.IFT_TRUTH's)
+LPDA_EDGE_ZENITH = np.deg2rad(135.0)
+LPDA_EDGE_AZIMUTHS = np.deg2rad(np.arange(0.0, 360.0, 15.0))
+
+
+def lpda_edge_receive_vectors():
+    """The receive directions [A, 3] of the edge arrivals, in numpy float64:
+    the same numbers on every device."""
+    az = LPDA_EDGE_AZIMUTHS
+    st = np.sin(LPDA_EDGE_ZENITH)
+    return np.stack([st * np.cos(az), st * np.sin(az),
+                     np.full_like(az, np.cos(LPDA_EDGE_ZENITH))], axis=-1)
+
+
+def make_lpda_edge_inputs(*, device=device_util.DEFAULT, dtype=torch.float64):
+    """(settings, ch, batch, launch_receive_vectors) of the dipole
+    configuration on ``reco.examples.MIXED_DETECTOR``'s four downward LPDAs,
+    one group per edge arrival. The returned function stands in for
+    ``raytrace.launch_receive_vectors`` in ``simulate_batch``: it keeps the
+    launch vectors and puts group g's arrival at every (shower, channel,
+    slot), so each LPDA sees a direction on a sector edge."""
+    from nuradiomc_tpu_torch.ops import raytrace
+    from nuradiomc_tpu_torch.reco import examples
+    n = len(LPDA_EDGE_AZIMUTHS)
+    sim = dipole_simulation(mooresbay_event_input(n), detector=examples.MIXED_DETECTOR,
+                            device=device, dtype=dtype)
+    batch = ShowerBatch(*[None if a is None else torch.as_tensor(
+        np.ascontiguousarray(a), device=sim.device) for a in sim._build_batches()[-1]])
+    arrivals = lpda_edge_receive_vectors()
+    solver_vectors = raytrace.launch_receive_vectors
+
+    def launch_receive_vectors(geom, sols):
+        launch, receive = solver_vectors(geom, sols)
+        edge = torch.as_tensor(arrivals[:receive.shape[0]], dtype=receive.dtype,
+                               device=receive.device)
+        return launch, edge[:, None, None, None, :].expand(receive.shape).contiguous()
+
+    return sim.settings, sim.channel_params, batch, launch_receive_vectors

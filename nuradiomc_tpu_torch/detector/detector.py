@@ -1,5 +1,5 @@
 # copied from nuradiomc_tpu/detector/detector.py:1-354 (the port keeps its own copy; it imports
-# nothing of the JAX package; the SQL backend is not carried)
+# nothing of the JAX package; the SQL backend reads the port's detector_sql)
 """Detector description: JSON -> struct-of-arrays channel tables.
 
 The reference wraps a tinydb JSON database in accessor classes
@@ -101,9 +101,10 @@ class Detector:
     def __init__(self, source, default_station: Optional[int] = None):
         if isinstance(source, str):
             if source.endswith((".db", ".sqlite", ".sqlite3")):
-                raise NotImplementedError(
-                    "the SQL detector backend is not ported; export the "
-                    "detector to JSON (or pass its dict)")
+                # SQL backend (reference detector.py:114-118 source="sql"):
+                # buffer the relational DB into the dict format
+                from nuradiomc_tpu_torch.detector.detector_sql import SQLDetector
+                db = SQLDetector(source).buffer()
             else:
                 with open(source) as f:
                     db = json.load(f)

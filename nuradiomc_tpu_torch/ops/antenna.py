@@ -138,18 +138,109 @@ def _direction_factors(kind, theta_a, phi_a):
     return d_theta, d_phi
 
 
-def _lpda_sector(kind, theta_a):
-    """LPDA phase sector index (antennapattern.py:1700-1707); 0 otherwise."""
-    one = torch.ones_like(theta_a, dtype=torch.int64)
-    sector = torch.where(theta_a <= 45 * units.deg, 0 * one,
-                         torch.where(theta_a <= 90 * units.deg, one, 2 * one))
+# The LPDA's phase-sector edges (antennapattern.py:1700-1707: 45 and 90 deg of
+# antenna-frame zenith) as cosines: for each dtype the smallest number c
+# whose arccos, as the JAX package computes it on the CPU, is at most 45 (90)
+# deg, found by bisection over the numbers of that dtype. In float64 numpy's
+# and torch's arccos put the edges at the same two numbers.
+_SECTOR_COS = {torch.float64: (0.7071067811865476, -4.9789962505148006e-17),
+               torch.float32: (0.7071068, -1.3510254e-07)}
+
+
+def _two_sum(a, b):
+    """s + e = a + b exactly (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """p + e = a b exactly (Dekker's product with Veltkamp's split)."""
+    split = 134217729.0 if a.dtype == torch.float64 else 4097.0    # 2^27 + 1, 2^12 + 1
+
+    def halves(x):
+        c = split * x
+        hi = c - (c - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a, b, c):
+    """a b + c rounded once, from elementwise operations that round alike
+    on every device (Boldo and Melquiond's emulation: the exact product and
+    sum, their low parts added with rounding to odd, then one rounding to
+    nearest). The JAX package's CPU products are fused multiply-adds;
+    ``torch.addcmul`` is one on some code paths only."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    bits = v.view(torch.int64 if v.dtype == torch.float64 else torch.int32)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(v.dtype)
+    v = torch.where((err != 0) & ((bits & 1) == 0), torch.nextafter(v, toward), v)
+    return th + v
+
+
+def _rotate(rot, v):
+    """``rot @ v`` over the batch axes ([..., 3, 3], [..., 3]) as the JAX
+    package's matrix-vector product on the CPU rounds it: each row
+    fma(r2, v2, fma(r1, v1, r0 v0))."""
+    return _fma(rot[..., 2], v[..., 2, None],
+                _fma(rot[..., 1], v[..., 1, None], rot[..., 0] * v[..., 0, None]))
+
+
+def _sqrt(x):
+    """The square root rounded to nearest on every device: ``torch.sqrt`` on
+    the CPU may miss it by one unit in the last place, so of the root and its
+    two neighbours take the one whose exact square lies nearest ``x``."""
+    def miss(r):
+        p, e = _two_prod(r, r)
+        return torch.abs((p - x) + e)
+
+    root = torch.sqrt(x)
+    best, best_miss = root, miss(root)
+    for side in (-torch.inf, torch.inf):
+        r = torch.nextafter(root, torch.full_like(root, side))
+        m = miss(r)
+        closer = m < best_miss
+        best, best_miss = torch.where(closer, r, best), torch.where(closer, m, best_miss)
+    return best
+
+
+def _norm(v):
+    """|v| over the last axis as ``jnp.linalg.norm`` rounds it on the CPU."""
+    x, y, z = v.unbind(-1)
+    return _sqrt(_fma(z, z, _fma(y, y, x * x)))
+
+
+def lpda_sector(kind, v_ant):
+    """LPDA phase sector (antennapattern.py:1700-1707; 0 for other kinds)
+    of the antenna-frame direction ``v_ant`` [..., 3], decided on the
+    device: the cosine of the antenna-frame zenith, its norm rounded as the
+    JAX package rounds it, against the edges' cosines of ``_SECTOR_COS``.
+    No arccos, whose last bit differs between devices, takes part, so a
+    direction on an edge (a 135 deg arrival at a downward LPDA) takes the
+    JAX package's sector on every device."""
+    r = _norm(v_ant)
+    cos_a = torch.clamp(v_ant[..., 2] / torch.where(r == 0, torch.ones_like(r), r), -1.0, 1.0)
+    c45, c90 = _SECTOR_COS[cos_a.dtype]
+    one = torch.ones_like(cos_a, dtype=torch.int64)
+    sector = torch.where(cos_a >= c45, 0 * one, torch.where(cos_a >= c90, one, 2 * one))
     return torch.where(kind == KIND_LPDA, sector, 0 * one)
 
 
-def analytic_vel_mix(zenith, azimuth, rot, kind):
+def analytic_vel_mix(zenith, azimuth, rot, kind, direction=None):
     """Frequency-independent part of the analytic VEL (antenna.py:147):
     (mix_theta, mix_phi, template_sector), elementwise over the batch axes
-    of ``zenith``/``azimuth``/``kind``; ``rot`` is [..., 3, 3]."""
+    of ``zenith``/``azimuth``/``kind``; ``rot`` is [..., 3, 3].
+
+    The sector is decided from ``direction`` [..., 3] when it is given (the
+    receive vector the angles came from: ``simulate_batch``), so that no
+    sine, cosine or arccos, whose last bits differ between the card and the
+    CPU, takes part; else from the angles' direction."""
     v_global = geometry.spherical_to_cartesian(zenith, azimuth)
     v_ant = torch.einsum("...ij,...j->...i", rot, v_global)
     theta_a, phi_a = geometry.cartesian_to_spherical(v_ant)
@@ -162,36 +253,37 @@ def analytic_vel_mix(zenith, azimuth, rot, kind):
 
     mix_theta = M[..., 1, 1] * d_theta + M[..., 1, 2] * d_phi
     mix_phi = M[..., 2, 1] * d_theta + M[..., 2, 2] * d_phi
-    return mix_theta, mix_phi, _lpda_sector(kind, theta_a)
+    sector = lpda_sector(kind, _rotate(rot, v_global if direction is None else direction))
+    return mix_theta, mix_phi, sector
 
 
 def lpda_sector_host(zenith, azimuth, rot, kind) -> torch.Tensor:
-    """The sector :func:`analytic_vel_mix` gives, computed by the same
-    formulas on the CPU in float64 whatever the device of the inputs: the
-    sector is a discrete choice, and a direction on a sector edge (45 deg
-    off a downward LPDA's axis, e.g. a 135 deg arrival) must take the same
-    sector on every device, where the devices' antenna-frame zenith may
-    differ in the last bit. ``zenith``/``azimuth`` numbers or tensors of one
-    shape, ``rot`` [3, 3], ``kind`` an int; returns a CPU tensor."""
+    """The sector of the direction given by angles, decided on the CPU in
+    float64 whatever the device of the inputs: the angles' direction takes a
+    sine and a cosine, whose last bits differ between the card and the CPU,
+    and a direction on a sector edge (a 135 deg arrival at a downward LPDA)
+    must take the same sector on every device. ``zenith``/``azimuth``
+    numbers or tensors of one shape, ``rot`` [3, 3], ``kind`` an int;
+    returns a CPU tensor (the reconstruction modules' VELs)."""
     def on_cpu(x):
         return torch.as_tensor(x).to("cpu", torch.float64)
 
     zen, az = torch.broadcast_tensors(on_cpu(zenith), on_cpu(azimuth))
-    rot = on_cpu(rot).expand(*zen.shape, 3, 3)
-    v_ant = torch.einsum("...ij,...j->...i", rot, geometry.spherical_to_cartesian(zen, az))
-    theta_a, _ = geometry.cartesian_to_spherical(v_ant)
-    return _lpda_sector(torch.as_tensor(kind).expand(zen.shape), theta_a)
+    v_ant = _rotate(on_cpu(rot).expand(*zen.shape, 3, 3),
+                    geometry.spherical_to_cartesian(zen, az))
+    return lpda_sector(torch.as_tensor(kind).expand(zen.shape), v_ant)
 
 
-def analytic_vel(zenith, azimuth, rot, templates, kind, sector=None):
+def analytic_vel(zenith, azimuth, rot, templates, kind, sector=None, direction=None):
     """On-sky VEL (theta, phi components) [..., F] of an analytic antenna
     (antenna.py:167), elementwise over the batch axes of ``zenith`` /
     ``azimuth``: ``rot`` [3, 3] or [..., 3, 3], ``templates`` [K, F] complex,
     ``kind`` an int or a tensor. ``sector`` (of the batch shape, from
-    :func:`lpda_sector_host`) replaces the sector the device computes."""
+    :func:`lpda_sector_host`) replaces the sector the device computes;
+    ``direction`` is passed to :func:`analytic_vel_mix`."""
     kind = torch.as_tensor(kind, device=zenith.device).expand(zenith.shape)
     rot = rot.expand(*zenith.shape, 3, 3)
-    mix_theta, mix_phi, dev_sector = analytic_vel_mix(zenith, azimuth, rot, kind)
+    mix_theta, mix_phi, dev_sector = analytic_vel_mix(zenith, azimuth, rot, kind, direction)
     T = templates[dev_sector if sector is None else sector.to(zenith.device)]
     return T * mix_theta[..., None], T * mix_phi[..., None]
 

@@ -174,3 +174,12 @@ def get_frequency_spectrum(energy, theta, N: int, dt: float, is_em, n_index,
     # 90 deg phase + roll to the window centre + sqrt(2) rFFT normalization
     roll = torch.exp(torch.complex(torch.zeros_like(ff), -2 * math.pi * ff * k * dt))
     return math.sqrt(2.0) * S.to(ctype) * 1j * roll
+
+
+def get_time_trace(energy, theta, N: int, dt: float, is_em, n_index, R,
+                   model: str, k_L=None):
+    """Time-domain pulse [..., N] (askaryan.py:202; SignalGen/askaryan.
+    get_time_trace): the spectrum without the sqrt(2) normalization, irfft,
+    times the sampling rate."""
+    spec = get_frequency_spectrum(energy, theta, N, dt, is_em, n_index, R, model, k_L)
+    return torch.fft.irfft(spec / math.sqrt(2.0), n=N) / dt

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from nuradiomc_tpu_torch.utils import fft
+
 
 def draw_noise(generator: torch.Generator, shape, n_samples: int, dtype,
                type: str = "rayleigh", sampler: str = "phase"):
@@ -90,3 +92,16 @@ def bandlimited_noise_spectrum(generator: torch.Generator, shape, n_samples: int
     draws = draw_noise(generator, shape, n_samples, dtype, type, sampler)
     return noise_spectrum_from_draws(draws, n_samples, sampling_rate, amplitude,
                                      min_freq, max_freq, type, sampler)
+
+
+def bandlimited_noise_trace(generator: torch.Generator, shape, n_samples: int,
+                            sampling_rate: float, amplitude, min_freq=None, max_freq=None,
+                            type: str = "rayleigh", dtype=torch.float32):
+    """``len(shape)``-batched time-domain noise traces [..., n_samples]
+    (noise.py:94; bandlimited_noise with time_domain=True): the spectrum of
+    :func:`bandlimited_noise_spectrum` through the framework ``freq2time``.
+    :func:`draw_noise` and :func:`noise_spectrum_from_draws` keep the draw
+    apart from the transform."""
+    spec = bandlimited_noise_spectrum(generator, shape, n_samples, sampling_rate, amplitude,
+                                      min_freq, max_freq, type, dtype)
+    return fft.freq2time(spec, sampling_rate, n=n_samples)

@@ -11,8 +11,10 @@ loop. ``focusing_dtheta_dz`` gives the implicit-mode focusing derivative.
 The numeric focusing re-solve is ``find_solutions`` at a displaced receiver
 (``sim/pipeline.py``). ``find_solutions_all`` adds the bottom-reflection
 slots of a reflective-bottom ice (Moore's Bay), with their closed-form
-observables and the per-slot attenuation ``attenuation_factor_slots``. The
-ice-to-air solver is not ported yet (ROADMAP queue 1 item 8).
+observables and the per-slot attenuation ``attenuation_factor_slots``.
+``reflection_angle`` gives the surface-incidence zenith of reflected rays,
+and ``find_solution_ice_to_air`` the single solution for a receiver above
+the surface (the closed-form in-ice leg and a straight air leg).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils.constants import speed_of_light
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
 from nuradiomc_tpu_torch.ops import attenuation as attenuation_ops
+from nuradiomc_tpu_torch.utils import device as device_util
 
 SOL_DIRECT = 1
 SOL_REFRACTED = 2
@@ -295,6 +298,15 @@ def receive_angle(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
     ang = torch.atan(dy)
     ang = torch.where(past_turn, math.pi - ang, ang)
     return math.pi - ang
+
+
+def reflection_angle(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
+    """Surface-incidence zenith for reflected rays, NaN otherwise
+    (raytrace.py:661, get_reflection_angle:1201-1237); elementwise."""
+    _, z_turn = _turning_point(c0, ice)
+    ang = torch.atan(_dy_dz(torch.zeros_like(c0), c0, ice))
+    sol = _solution_type(c0, x1y, x1z, x2y, x2z, ice)
+    return torch.where((sol == SOL_REFLECTED) & (z_turn >= 0), ang, torch.nan)
 
 
 def _bouma_beta_alpha(c0, x1z, ice: IceModelSimple):
@@ -678,6 +690,90 @@ def find_solutions_all(x1y, x1z, x2y, x2z, ice: IceModelSimple,
                 travel_time=pick(lambda m: travel_time_general(c0, b, d, ice, r, case, m)),
                 reflection=one * r, refl_case=one * case))
     return RaySolutions(*(torch.cat(xs, dim=-1) for xs in zip(*parts)))
+
+
+# ---- ice to air (raytrace.py:906-991): one solution lies between the
+# vertical ray and the ray that leaves at the critical angle. The
+# reference's own Python path returns none here (its objective cannot
+# change sign for a receiver in the air); this solves the physics directly.
+
+def _air_miss(logc0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
+    """Horizontal miss at a receiver in the air: the closed-form in-ice path
+    to the surface, then a straight Snell-refracted line."""
+    c0 = _c0_from_log(logc0, ice.n_ice)
+    y_exit = x1y + _w_up(torch.zeros_like(c0), c0, ice) - _w_up(x1z, c0, ice)
+    n_surf = ice.n_ice - ice.delta_n
+    sin_ice = 1.0 / (c0 * n_surf)          # zenith sine at the surface, in the ice
+    sin_air = torch.clamp(n_surf * sin_ice, 0.0, 1.0 - 1e-12)
+    tan_air = sin_air / torch.sqrt(1.0 - sin_air ** 2)
+    return x2y - (y_exit + x2z * tan_air)
+
+
+def find_solution_ice_to_air(x1y, x1z, x2y, x2z, ice: IceModelSimple, n_bisect: int = 96,
+                             device=device_util.DEFAULT) -> RaySolutions:
+    """The single solution for a receiver above the surface (x2z > 0),
+    batched over the inputs' axes (raytrace.py:928): a bisection in log C0
+    between the ray leaving at the critical angle and the vertical one.
+    Numbers or arrays are put on ``device`` (float64); every field gains a
+    trailing slot axis of 1."""
+    dev = device_util.resolve(device)
+    x1y, x1z, x2y, x2z = torch.broadcast_tensors(*(
+        x.to(dev) if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float64, device=dev)
+        for x in (x1y, x1z, x2y, x2z)))
+    n_surf = ice.n_ice - ice.delta_n
+    eps = 1e-12 if x1y.dtype == torch.float64 else 1e-5
+    # the flattest escaping ray leaves at the critical angle: c0 = 1 / n_surf
+    lo0 = torch.full_like(x1y, math.log(1.0 / n_surf - 1.0 / ice.n_ice) + eps)
+    hi0 = torch.full_like(x1y, _LOGC0_HI)
+
+    def f(lg):
+        return _air_miss(lg, x1y, x1z, x2y, x2z, ice)
+
+    s_lo = torch.sign(f(lo0))
+    has = s_lo != torch.sign(f(hi0))
+    lo, hi = lo0, hi0
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        same = torch.sign(f(mid)) == s_lo
+        lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
+    c0 = _c0_from_log(0.5 * (lo + hi), ice.n_ice)
+
+    # observables: the in-ice leg to z = 0 in closed form, plus the air leg
+    beta, alpha = _bouma_beta_alpha(c0, x1z, ice)
+    zero = torch.zeros_like(c0)
+
+    def parts(z):
+        nz = _n_z(z, ice)
+        gam = torch.clamp(nz ** 2 - beta ** 2, min=0.0)
+        l1 = torch.sqrt(alpha * gam) + ice.n_ice * nz - beta ** 2
+        l2 = torch.sqrt(gam) + nz
+        return gam, l1, l2
+
+    def s_of(z):
+        _, l1, l2 = parts(z)
+        return (ice.n_ice / torch.sqrt(alpha) * (z - ice.z_0 * torch.log(l1))
+                + ice.z_0 * torch.log(l2))
+
+    def ct_of(z):
+        gam, l1, l2 = parts(z)
+        return (ice.z_0 * (torch.sqrt(gam) - ice.n_ice ** 2 / torch.sqrt(alpha) * torch.log(l1)
+                           + ice.n_ice * torch.log(l2))
+                + ice.n_ice ** 2 * z / torch.sqrt(alpha))
+
+    y_exit = x1y + _w_up(zero, c0, ice) - _w_up(x1z, c0, ice)
+    d_air = torch.sqrt((x2y - y_exit) ** 2 + x2z ** 2)
+    path = s_of(zero) - s_of(x1z) + d_air
+    ttime = (ct_of(zero) - ct_of(x1z)) / speed_of_light + d_air / speed_of_light
+    sin_air = torch.clamp(n_surf * (1.0 / (c0 * n_surf)), 0.0, 1.0 - 1e-12)
+    one = torch.ones_like(c0, dtype=torch.int32)
+    sol_type = torch.where(has, one * SOL_DIRECT, 0 * one)
+    sols = RaySolutions(
+        c0=c0, c1=_c1_of(x1y, x1z, c0, ice), mask=has, sol_type=sol_type,
+        launch_angle=torch.atan(_dy_dz(x1z, c0, ice)),
+        receive_angle=math.pi - torch.asin(sin_air),   # from +z, arriving from below
+        path_length=path, travel_time=ttime,
+        reflection=0 * one, refl_case=one)
+    return RaySolutions(*(t[..., None] for t in sols))
 
 
 def to_2d(x1, x2) -> Geometry2D:

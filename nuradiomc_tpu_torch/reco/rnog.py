@@ -12,6 +12,11 @@ estimates (medians of standard deviations) on the host.
   (modules/RNO_G/triggerBoardResponse.py:19-277) — picks the HMCAD1511 gain
   step that realizes the configured number of noise bits, then quantizes with
   the perfect floor comparator.
+* crRNOGTemplateCreator: cosmic-ray voltage templates from gaussian electric
+  fields folded through the antenna, the RNO-G surface-amp response
+  (``detector/hardware_response.py``) and a band-pass
+  (modules/RNO_G/crRNOGTemplateCreator.py:26-289), pickled in the
+  Templates-provider layout.
 """
 
 from __future__ import annotations
@@ -199,17 +204,139 @@ class triggerBoardResponse(Module):
         return equalized
 
 
+# copied from nuradiomc_tpu/reco/rnog.py:204-205
+def _gaussian_func(x, A, mu, sigma):
+    return A * np.exp(-(x - mu) ** 2 / (2 * sigma ** 2))
+
+
+# copied from nuradiomc_tpu/reco/rnog.py:208-335 (the modules it calls are the
+# port's, on the module's device)
 class crRNOGTemplateCreator(Module):
-    """Cosmic-ray voltage templates from gaussian electric fields
-    (modules/RNO_G/crRNOGTemplateCreator.py:26-289). Not ported yet: it folds
-    the templates through the RNO-G hardware response
-    (``detector/hardware_response.py``), which the port does not have
-    (ROADMAP queue 1 item 8, ``detector/*``)."""
+    """Create cosmic-ray voltage templates from gaussian electric fields
+    (modules/RNO_G/crRNOGTemplateCreator.py:26-289): per (zenith, azimuth,
+    efield width) a gaussian E-field is folded through the antenna (+
+    optionally the RNO-G surface-amp response and a bandpass) and the channel
+    traces are pickled in the Templates-provider layout
+    ``[{zen_rad: {az_rad: {width: trace}}}]``. The folding (antenna, RNO-G
+    hardware response, band-pass) runs on the module's device."""
 
-    def begin(self, *args, **kwargs):
-        raise NotImplementedError(
-            "crRNOGTemplateCreator needs detector/hardware_response.py, which is not "
-            "ported yet (ROADMAP queue 1 item 8, detector/*)")
+    def begin(self, detector_source, template_save_path,
+              antenna_replacements=None, debug=False):
+        self._detector_source = detector_source
+        self._save_path = template_save_path
+        self._antenna_replacements = antenna_replacements
+        self._params = None
 
-    def run(self, *args, **kwargs):
-        self.begin()
+    def set_template_parameter(
+            self, template_run_id=(0, 0, 0), template_event_id=(0, 1, 2),
+            template_station_id=(101, 101, 101), template_channel_id=(0, 0, 0),
+            efield_width=(5, 4, 2), antenna_rotation=(160, 160, 160),
+            efield_amplitudes=(-0.2, 0.8), cr_zenith=(55, 55, 55),
+            cr_azimuth=(0, 0, 0), sampling_rate=3.2, number_of_samples=2048):
+        """Template-set parameters (crRNOGTemplateCreator.py:88-136);
+        ``efield_amplitudes`` is (E_theta, E_phi)."""
+        self._params = dict(
+            run_id=list(template_run_id), event_id=list(template_event_id),
+            station_id=list(template_station_id),
+            channel_id=list(template_channel_id),
+            efield_width=list(efield_width),
+            antenna_rotation=list(antenna_rotation),
+            efield_amplitudes=tuple(efield_amplitudes),
+            cr_zenith=list(cr_zenith), cr_azimuth=list(cr_azimuth),
+            sampling_rate=sampling_rate, n_samples=int(number_of_samples))
+
+    def _create_efield_event(self, det, rid, eid, cid, sid, width,
+                             e_theta, e_phi, zen, az, fs, n):
+        from nuradiomc_tpu_torch.framework import parameters as par
+        from nuradiomc_tpu_torch.framework.event import (ElectricField, Event,
+                                                   SimChannel, SimStation,
+                                                   Station)
+        efp = par.electricFieldParameters
+        stnp = par.stationParameters
+
+        event = Event(rid, eid)
+        station = Station(sid)
+        event.set_station(station)
+        sim_station = SimStation(sid)
+        station.set_sim_station(sim_station)
+        sim_station.add_channel(SimChannel(cid, 0, 0))
+
+        x = np.arange(n)
+        e_field = np.zeros((3, n))
+        e_field[1] = _gaussian_func(x, e_theta, 1000, width)
+        e_field[2] = _gaussian_func(x, e_phi, 1000, width)
+        ef = ElectricField([cid])
+        ef.set_trace(e_field, fs)
+        sim_station.add_electric_field(ef)
+        sim_station.set_is_cosmic_ray()
+
+        sim_station[stnp.zenith] = np.deg2rad(zen)
+        sim_station[stnp.azimuth] = np.deg2rad(az)
+        ef[efp.ray_path_type] = "direct"
+        ef[efp.zenith] = np.deg2rad(zen)
+        ef[efp.azimuth] = np.deg2rad(az)
+        return event
+
+    def run(self, template_filename="templates_cr_station_101.pickle",
+            include_hardware_response=True, return_templates=False,
+            bandpass_filter=None):
+        import os
+        import pickle
+
+        from nuradiomc_tpu_torch.detector.detector import Detector
+        from nuradiomc_tpu_torch.detector.hardware_response import (
+            rnogHardwareResponseIncorporator)
+        from nuradiomc_tpu_torch.reco.channel_processing import channelBandPassFilter
+        from nuradiomc_tpu_torch.reco.efield_converters import efieldToVoltageConverter
+
+        if self._params is None:
+            self.set_template_parameter()
+        p = self._params
+
+        converter = efieldToVoltageConverter(device=self.device)
+        converter.begin(antenna_replacements=self._antenna_replacements)
+        hardware = rnogHardwareResponseIncorporator(device=self.device)
+        hardware.begin()
+        bandpass = channelBandPassFilter(device=self.device)
+
+        template_events = []
+        save_dic = {}
+        for crz in sorted(set(p["cr_zenith"])):
+            save_dic_help = {}
+            for cra in sorted(set(p["cr_azimuth"])):
+                templates = {}
+                for rid, eid, sid, cid, width, antrot, zen, az in zip(
+                        p["run_id"], p["event_id"], p["station_id"],
+                        p["channel_id"], p["efield_width"],
+                        p["antenna_rotation"], p["cr_zenith"], p["cr_azimuth"]):
+                    if zen != crz or az != cra:
+                        continue
+                    det = Detector(self._detector_source)
+                    det.get_channel(sid, cid)["ant_rotation_phi"] = antrot
+                    det.update(None)  # rebuild with the modified rotation
+
+                    evt = self._create_efield_event(
+                        det, rid, eid, cid, sid, width,
+                        p["efield_amplitudes"][0], p["efield_amplitudes"][1],
+                        zen, az, p["sampling_rate"], p["n_samples"])
+                    station = evt.get_station(sid)
+                    converter.run(evt, station, det)
+                    if include_hardware_response:
+                        hardware.run(evt, station, det, sim_to_data=True)
+                    if bandpass_filter is not None:
+                        bandpass.run(evt, station, det, **bandpass_filter)
+                    template_events.append(evt)
+                    templates[width] = np.asarray(
+                        station.get_channel(cid).get_trace())
+                if templates:
+                    save_dic_help[np.deg2rad(cra)] = templates
+            if save_dic_help:
+                save_dic[np.deg2rad(crz)] = save_dic_help
+
+        with open(os.path.join(self._save_path, template_filename), "wb") as f:
+            pickle.dump([save_dic], f)
+        if return_templates:
+            return template_events
+
+    def end(self):
+        pass

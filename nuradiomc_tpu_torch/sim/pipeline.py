@@ -553,7 +553,7 @@ def _emitter_efields(emitter: EmitterParams, batch: ShowerBatch, launch, R_safe,
             half_width=emitter.half_width)
     zen_l, az_l = geometry.cartesian_to_spherical(launch)
     vel_t, vel_p = antenna.analytic_vel(zen_l, az_l, emitter.rot, emitter.templates,
-                                        emitter.kind)
+                                        emitter.kind, direction=launch)
     deriv = (-1j) * ff_int * n_vertex[:, :, None, None, None] / speed_of_light
     return (vel_t * vspec * deriv / R_safe[..., None],
             vel_p * vspec * deriv / R_safe[..., None])
@@ -826,7 +826,8 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     else:
         rot_b = ch.rot[None, None, :, None, :, :].expand(*bshape, 3, 3)
         kind_b = ch.kind[None, None, :, None].expand(bshape)
-        mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b)
+        mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b,
+                                                        direction=receive)
         c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
         T = ch.templates[c_idx, sector]                                # [G,S,C,R,F]
         if factored:

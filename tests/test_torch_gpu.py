@@ -760,3 +760,50 @@ def test_reco_triggers_card_equal_cpu(dev):
                         for k, v in st.get_triggers().items()})
         rows.append(out)
     assert rows[0] == rows[1]
+
+
+# ---- the LPDA phase sector on its edges (simulation path) -------------------
+
+def test_lpda_sector_on_card_matches_jax(dev, monkeypatch):
+    """``simulate_batch`` in float64 on examples.MIXED_DETECTOR's downward
+    LPDAs with arrivals exactly on a sector edge (135 deg zenith, 24
+    azimuths; ``convert.make_lpda_edge_inputs``): the sector the card
+    decides from each receive vector equals the CPU's and the JAX package's
+    for that direction (``nuradiomc_tpu_torch/data/lpda_sector_jax_sets.npz``,
+    written by tests/test_torch_lpda_sector.py) at every (group, shower,
+    channel, slot); the IFT geometry's angles through ``lpda_sector_host``
+    (the reco modules) take the JAX package's sectors from either device."""
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.ops import antenna, raytrace
+    from nuradiomc_tpu_torch.reco import examples
+    from nuradiomc_tpu_torch.sim.io_input import DATA_DIR
+
+    with np.load(DATA_DIR / "lpda_sector_jax_sets.npz") as z:
+        sets = {k: z[k] for k in z.files}
+    mix = antenna.analytic_vel_mix
+    solver_vectors = raytrace.launch_receive_vectors
+    taken = {}
+    for where in (dev, "cpu"):
+        s, ch, b, vectors = convert.make_lpda_edge_inputs(device=where)
+        seen = []
+
+        def recording(*args, **kw):
+            out = mix(*args, **kw)
+            seen.append(out[2])
+            return out
+
+        monkeypatch.setattr(raytrace, "launch_receive_vectors", vectors)
+        monkeypatch.setattr(antenna, "analytic_vel_mix", recording)
+        pipeline.simulate_batch(b, ch, s)
+        monkeypatch.setattr(raytrace, "launch_receive_vectors", solver_vectors)
+        monkeypatch.setattr(antenna, "analytic_vel_mix", mix)
+        taken[str(where)] = seen[0].cpu()
+    want = torch.as_tensor(sets["edge_direct"])[:, None, :, None].expand(taken["cpu"].shape)
+    assert torch.equal(taken[str(dev)], taken["cpu"])
+    assert torch.equal(taken[str(dev)], want)
+    for where in (dev, "cpu"):
+        zen = torch.tensor(examples.IFT_TRUTH["zenith"], dtype=torch.float64, device=where)
+        az = torch.tensor(examples.IFT_TRUTH["azimuth"], dtype=torch.float64, device=where)
+        got = [int(antenna.lpda_sector_host(zen, az, r, antenna.KIND_LPDA))
+               for r in sets["rotations"]]
+        assert got == list(sets["ift"]), (where, got)

@@ -14,8 +14,10 @@ its entry points run on the card unless the CPU is asked for.
   flux tables and fluxes, the muon and tau propagator, the event data model
   (parameters, parameter storage, BaseTrace, Event), the ``.nur`` container,
   the Veff tables, the time logger, the muon flux, the surface-muon
-  generator, the job runner and the mesh's group padding are held to the
-  originals on the same inputs, exactly
+  generator, the job runner, the mesh's group padding, the measured
+  hardware-response tables and functions, the SQL schema, the RNO-G site
+  table, the template creator's pulse and the noise-rate curve and
+  threshold are held to the originals on the same inputs, exactly
   (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
   tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
   tests/test_torch_fullscale.py).
@@ -54,6 +56,11 @@ from nuradiomc_tpu_torch.sim import earth_attenuation as tearth
 from nuradiomc_tpu_torch.sim import io_input
 from nuradiomc_tpu_torch.sim.io_input import INPUT_1E18_N3000
 from nuradiomc_tpu_torch.sim.simulation import Simulation
+from nuradiomc_tpu_torch.detector import hardware_response as thr
+from nuradiomc_tpu_torch.ops import raytrace as trt
+from nuradiomc_tpu_torch.ops import raytrace_3d as t3d
+from nuradiomc_tpu_torch.ops import raytrace_numeric as tnum
+from nuradiomc_tpu_torch.sim import noise_rate as trate
 from nuradiomc_tpu_torch.utils import config as tconfig
 from nuradiomc_tpu_torch.utils import constants as tconstants
 from nuradiomc_tpu_torch.utils import units as tunits
@@ -151,6 +158,32 @@ _ISOLATED = textwrap.dedent("""
     vertex.build_travel_time_table(ice_models.get_ice_model("greenland_simple"), -100.0,
                                    x_max=200.0, d_x=50.0, z_min=-300.0, d_z=50.0,
                                    device="cpu")
+    # the tenth slice: the measured response tables from the port's data
+    # directory, the RNO-G export and SQL detectors, the new solvers and the
+    # noise-rate chain on the CPU
+    from nuradiomc_tpu_torch.detector import detector_sql, hardware_response, rnog_detector
+    from nuradiomc_tpu_torch.models import ice_profiles
+    from nuradiomc_tpu_torch.ops import raytrace, raytrace_3d, raytrace_numeric
+    from nuradiomc_tpu_torch.sim import noise_rate
+    for amp in ("100", "200", "300"):
+        hardware_response.get_amplifier_response([0.1, 0.3], amp)
+    for amp in hardware_response.RNOG_AMPLIFIERS:
+        hardware_response.load_rnog_amp_response(amp)["gain"]([0.1, 0.3])
+    hardware_response.get_ara_system_response()([0.2])
+    detector_sql.export_detector_to_sql(convert.DIPOLE_DETECTOR, ":memory:").buffer()
+    try:
+        rnog_detector.RNOGDetector()
+    except NotImplementedError:
+        pass
+    raytrace.find_solution_ice_to_air(0.0, -100.0, 100.0, 200.0,
+                                      ice_models.get_ice_model("southpole_2015"), device="cpu")
+    raytrace_numeric.find_solutions_numeric(ice_profiles.greenland_firn, 0.0, -700.0, 900.0,
+                                            -80.0, device="cpu")
+    raytrace_3d.find_solutions_3d(lambda x, y, z: 1.78 + 0.0 * z, (300.0, 0.0, -300.0),
+                                  (0.0, 0.0, -100.0), n_fan=4, n_bisect=1, ds=50.0,
+                                  n_steps=12, device="cpu")
+    noise_rate.run_phased_array_tuning(8, 256, 2.0, 1e-5, np.ones(129), [[0, 1]], 2, 16, 8,
+                                       batch=8, device="cpu")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -405,6 +438,56 @@ def test_multi_device_copies_equal_the_originals():
             [jmesh.pad_groups(g, ref) for g in range(1, 13)]
 
 
+def test_hardware_response_copies_equal_the_originals():
+    """The measured tables byte for byte, and the host numpy functions of
+    detector/hardware_response.py on the same grids, exactly."""
+    from nuradiomc_tpu.detector import hardware_response as jhr
+    ref_dir = os.path.join(ROOT, "nuradiomc_tpu", "data", "hardware_responses")
+    port_dir = os.path.join(ROOT, "nuradiomc_tpu_torch", "data", "hardware_responses")
+    ref_files = sorted(os.path.relpath(os.path.join(d, f), ref_dir)
+                       for d, _, fs in os.walk(ref_dir) for f in fs)
+    port_files = sorted(os.path.relpath(os.path.join(d, f), port_dir)
+                        for d, _, fs in os.walk(port_dir) for f in fs)
+    assert port_files == ref_files and len(ref_files) == 14
+    for f in ref_files:
+        with open(os.path.join(ref_dir, f), "rb") as a, open(os.path.join(port_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+    ff = np.linspace(0.0, 1.2, 601)
+    for amp in ("100", "200", "300"):
+        np.testing.assert_array_equal(thr.get_amplifier_response(ff, amp),
+                                      jhr.get_amplifier_response(ff, amp))
+    for cable in ("LMR_400", "LMR_240"):
+        np.testing.assert_array_equal(thr.get_cable_response_parametrized(ff, cable, 30.0),
+                                      jhr.get_cable_response_parametrized(ff, cable, 30.0))
+    np.testing.assert_array_equal(thr.get_ara_system_response()(ff),
+                                  jhr.get_ara_system_response()(ff))
+    assert thr.RNOG_AMPLIFIERS == jhr.RNOG_AMPLIFIERS
+    for amp in jhr.RNOG_AMPLIFIERS:
+        a, b = thr.load_rnog_amp_response(amp), jhr.load_rnog_amp_response(amp)
+        for temp in (243.15, 293.15):
+            np.testing.assert_array_equal(a["gain"](ff, temp), b["gain"](ff, temp))
+        np.testing.assert_array_equal(a["phase"](ff), b["phase"](ff))
+
+
+def test_detector_backend_and_tuning_copies_equal_the_originals():
+    from nuradiomc_tpu.detector import detector_sql as jsql, rnog_detector as jrd
+    from nuradiomc_tpu.reco import rnog as jrnog
+    from nuradiomc_tpu.sim import noise_rate as jrate
+    from nuradiomc_tpu_torch.detector import detector_sql as tsql, rnog_detector as trd
+    from nuradiomc_tpu_torch.reco import rnog as trnog
+    assert tsql.SQL_SCHEMA == jsql.SQL_SCHEMA
+    assert trd.SITE_COORDINATES == jrd.SITE_COORDINATES
+    x = np.linspace(0.0, 2047.0, 2048)
+    np.testing.assert_array_equal(trnog._gaussian_func(x, 0.8, 1000, 4),
+                                  jrnog._gaussian_func(x, 0.8, 1000, 4))
+    mp = np.random.default_rng(2).exponential(size=5000)
+    thr_ = np.linspace(0.0, 8.0, 33)
+    np.testing.assert_array_equal(trate.estimate_rate_curve(thr_, mp, 512.0),
+                                  jrate.estimate_rate_curve(thr_, mp, 512.0))
+    for target in (1e-6, 1e-4, 1e-3):
+        assert trate.tune_threshold(target, mp, 512.0) == jrate.tune_threshold(target, mp, 512.0)
+
+
 ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inputs,
                 convert.make_pa_inputs, convert.make_gen2_inputs,
                 convert.make_multitrigger_inputs, convert.make_mooresbay_inputs,
@@ -412,7 +495,10 @@ ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inp
                 mesh_util.make_mesh, dryrun.dryrun_simulation, dryrun.dryrun_multichip,
                 reco_base.Module.__init__, reco_vertex.neutrino2DVertexReconstructor.__init__,
                 reco_vertex.build_travel_time_table, reco_ec.get_channel_vel,
-                reco_tm.get_digital_trace]
+                reco_tm.get_digital_trace, trt.find_solution_ice_to_air,
+                tnum.find_solutions_numeric, t3d.find_solutions_3d, t3d.refine_solutions_3d,
+                trate.run_phased_array_tuning, thr.hardwareResponseIncorporator.__init__,
+                thr.rnogHardwareResponseIncorporator.__init__]
 
 
 def _reco_module_classes():
@@ -447,7 +533,9 @@ def test_entry_points_default_to_the_card(fn):
                                   "make_mooresbay_inputs", "emitter_simulation",
                                   "fullscale_simulation", "fullscale_pa_simulation",
                                   "surface_muon_simulation", "dryrun_simulation",
-                                  "reco_module", "travel_time_table"])
+                                  "reco_module", "travel_time_table", "ice_to_air",
+                                  "numeric_solver", "solver_3d", "noise_tuning",
+                                  "hardware_response"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -471,6 +559,13 @@ def test_omitted_device_without_a_card_raises(call):
         "dryrun_simulation": lambda: dryrun.dryrun_simulation(),
         "reco_module": lambda: reco_vertex.neutrino3DVertexReconstructor(None),
         "travel_time_table": lambda: reco_vertex.build_travel_time_table(None, -100.0),
+        "ice_to_air": lambda: trt.find_solution_ice_to_air(0.0, -100.0, 100.0, 200.0, None),
+        "numeric_solver": lambda: tnum.find_solutions_numeric(None, 0.0, -700.0, 900.0, -80.0),
+        "solver_3d": lambda: t3d.find_solutions_3d(None, (300.0, 0.0, -300.0),
+                                                   (0.0, 0.0, -100.0)),
+        "noise_tuning": lambda: trate.run_phased_array_tuning(8, 256, 2.0, 1e-5, None,
+                                                              [[0, 1]], 2, 16, 8),
+        "hardware_response": lambda: thr.rnogHardwareResponseIncorporator(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()

@@ -238,5 +238,12 @@ def test_rnog_board_matches():
 
 
 def test_cr_template_creator_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        trnog.crRNOGTemplateCreator(device="cpu").begin("det.json", ".")
+    """The creator is ported (its templates against the JAX package's in
+    tests/test_torch_hardware.py): it begins on the CPU when asked for and
+    takes the card by default."""
+    import inspect
+    creator = trnog.crRNOGTemplateCreator(device="cpu")
+    creator.begin("det.json", ".")
+    creator.set_template_parameter()
+    assert creator._params["n_samples"] == 2048
+    assert inspect.signature(trnog.crRNOGTemplateCreator).parameters["device"].default == "cuda"
