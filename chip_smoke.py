@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 13,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 14,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
     python3 chip_smoke.py --phases 12      # the in-ice reconstruction path
     python3 chip_smoke.py --phases 13      # ray solvers, noise-rate tuning, hardware modules
+    python3 chip_smoke.py --phases 14      # the cosmic-ray side (LOFAR, RIT, CoREAS, cleaning)
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -168,7 +169,32 @@ result line):
    from the CPU measured, then ``simulate_batch``'s sectors equal to the
    CPU's and the JAX package's (``data/lpda_sector_jax_sets.npz``), kernels
    1 and 2 held to their plain versions on the run's launches; (f) the
-   cosmic-ray templates on the card against the CPU within 1e-10.
+   cosmic-ray templates on the card against the CPU within 1e-10;
+14. the cosmic-ray side (float64, no kernel of the four): (a) LOFAR's six
+   superterp stations (48 dual-polarised antennas, 65,536 samples at 200
+   MHz, a plane-wave pulse, two CW lines; ``convert.make_lofar_stations``)
+   through stationRFIFilter (blocks of 8192), stationGalacticCalibrator,
+   stationPulseFinder, planeWaveDirectionFitter and
+   beamformingDirectionFitter (15 x 15, 4 zoom levels, chunked over
+   directions), with each module's seconds, the beam search's directions/s,
+   chunk and peak memory; station 0 again on the CPU: dirty channels,
+   reference antenna and good antennas equal, phase stability within
+   1e-12, calibrated spectra within 1e-12 of peak, pulse windows equal,
+   SNRs within 1e-9, every zoom level's grid powers within 1e-10 and the
+   same chosen point; every station's fits within tests/test_lofar.py's 2
+   deg (plane wave) and 1.5 deg (beam search) of the injected direction;
+   (b) tests/test_rit.py's line emitter at 240 antennas over +-400 m: X_RIT
+   (within 30 g/cm^2 of the truth) and the shower axis at five depths
+   (within 0.45 deg, the core within 60 m) with points/s, the longitudinal
+   profile and one 7 x 7 lateral plane against the CPU within 1e-9 (a point
+   whose summed-grid length differs between the devices printed and
+   excused); (c) a 160-observer CoREAS star read through the mapping path
+   onto 100 random cores (seed 3) of tests/test_coreas_readers.py's
+   four-LPDA station, folded, with galactic (192 pixels) and ice thermal
+   noise and the energy estimator, the first 8 cores against the CPU: the
+   spectra after each adder within 1e-12 of peak from the same host draws,
+   the energy within 1e-10; (d) the CW notch, stop filter and readout-window
+   cutter on station 0 of (a), card against CPU within 1e-12 of peak.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -3098,13 +3124,441 @@ def phase_rays(dev):
     return counts
 
 
+# ---- phase 14: the cosmic-ray side (float64) --------------------------------
+
+P14_ZEN, P14_AZI = np.deg2rad(35.0), np.deg2rad(120.0)      # tests/test_lofar.py's
+P14_GUESS = (P14_ZEN + np.deg2rad(3.0), P14_AZI - np.deg2rad(4.0))
+P14_UNIX = 1386848000.0
+P14_LOFAR = dict(n_ant=48, n_samples=65536)    # LBA_OUTER, readLOFARData's trace length
+P14_RFI_BLOCK = 8192
+P14_RIT = dict(n_ant=240, n_samples=2048, half_width=400.0)
+P14_RIT_DEPTHS = (450.0, 550.0, 650.0, 750.0, 850.0)
+P14_COREAS_CORES = 100
+P14_COREAS_CPU = 8          # the first cores repeated on the CPU
+P14_PLANE_DEG, P14_BEAM_DEG = 2.0, 1.5         # tests/test_lofar.py's bounds
+P14_RIT_XMAX, P14_RIT_ANGLE_DEG, P14_RIT_CORE = 30.0, 0.45, 60.0   # tests/test_rit.py's
+
+
+def _p14_of_peak(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _p14_angle(zen, azi, zen0, azi0):
+    u = np.array([np.sin(zen) * np.cos(azi), np.sin(zen) * np.sin(azi), np.cos(zen)])
+    v = np.array([np.sin(zen0) * np.cos(azi0), np.sin(zen0) * np.sin(azi0), np.cos(zen0)])
+    return np.rad2deg(np.arccos(np.clip(u @ v, -1.0, 1.0)))
+
+
+def _p14_lofar_chain(events, det, device, record):
+    """stationRFIFilter (blocks of 8192) -> stationGalacticCalibrator ->
+    stationPulseFinder -> planeWaveDirectionFitter -> beamformingDirectionFitter
+    on ``events`` (one station each); ``record`` gets each module's seconds
+    and station 0's state after each step."""
+    from nuradiomc_tpu_torch.framework.parameters import channelParameters as chp
+    from nuradiomc_tpu_torch.framework.parameters import stationParameters as stnp
+    from nuradiomc_tpu_torch.reco import lofar
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        for i, event in enumerate(events):
+            fn(event)
+            if i == 0:
+                record.setdefault("station0", {}).update(state(name, event))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        record.setdefault("seconds", {})[name] = time.perf_counter() - t0
+
+    rfi = lofar.stationRFIFilter(device=device)
+    rfi.begin(rfi_cleaning_trace_length=P14_RFI_BLOCK)
+    cal = lofar.stationGalacticCalibrator(device=device)
+    cal.begin()
+    finder = lofar.stationPulseFinder(device=device)
+    finder.begin(window=256, noise_window=10000, cr_snr=6.5, good_channels=6)
+    plane = lofar.planeWaveDirectionFitter(device=device)
+    plane.begin(cr_snr=6.5)
+    beam = lofar.beamformingDirectionFitter(device=device)
+    beam.begin(cr_snr=6.5)
+
+    def state(name, event):
+        st = next(iter(event.get_stations()))
+        if name == "rfi":
+            r = rfi.last_result
+            return {"dirty": np.asarray(st.get_parameter(stnp.dirty_fft_channels)),
+                    "ref": r["ref_antenna"], "good": r["antenna_is_good"],
+                    "stability": r["phase_stability"]}
+        if name == "calibrator":
+            return {"spectra": np.array([ch.get_frequency_spectrum()
+                                         for ch in st.iter_channels()])}
+        if name == "pulse finder":
+            return {"windows": [list(ch.get_parameter(chp.signal_regions))
+                                for ch in st.iter_channels()],
+                    "snr": np.array([ch.get_parameter(chp.SNR) for ch in st.iter_channels()])}
+        if name == "beam search":
+            return {"levels": beam.levels, "chunk": beam.chunk}
+        return {}
+
+    timed("rfi", lambda e: rfi.run(e))
+    timed("calibrator", lambda e: cal.run(e, det, unix_time=P14_UNIX))
+    timed("pulse finder", lambda e: finder.run(e, det, P14_GUESS))
+    timed("plane wave", lambda e: plane.run(e, det))
+    record["plane"] = [(next(iter(e.get_stations())).get_parameter(stnp.cr_zenith),
+                        next(iter(e.get_stations())).get_parameter(stnp.cr_azimuth))
+                       for e in events]
+    timed("beam search", lambda e: beam.run(e, det))
+    record["beam"] = [(next(iter(e.get_stations())).get_parameter(stnp.cr_zenith),
+                       next(iter(e.get_stations())).get_parameter(stnp.cr_azimuth))
+                      for e in events]
+
+
+def _p14_lofar(dev):
+    """(a) the six superterp stations through the LOFAR chain on the card,
+    station 0 again on the CPU; returns station 0's raw event for (d)."""
+    import copy
+
+    from nuradiomc_tpu_torch.framework import event as fev
+
+    t0 = time.perf_counter()
+    event, det = convert.make_lofar_stations(fev, P14_ZEN, P14_AZI, **P14_LOFAR)
+    events = []
+    for st in event.get_stations():
+        one = fev.Event(0, 1)
+        one.set_station(st)
+        events.append(one)
+    raw0 = copy.deepcopy(events[0])
+    cpu_events = [copy.deepcopy(events[0])]
+    make_s = time.perf_counter() - t0
+    n_ch = events[0].get_station(2).get_number_of_channels()
+    torch.cuda.reset_peak_memory_stats()
+    card, cpu = {}, {}
+    _p14_lofar_chain(events, det, dev, card)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _p14_lofar_chain(cpu_events, det, "cpu", cpu)
+    c0, p0 = card["station0"], cpu["station0"]
+    # station 0, card against CPU
+    np.testing.assert_array_equal(c0["dirty"], p0["dirty"])
+    assert len(c0["dirty"]) > 0
+    assert c0["ref"] == p0["ref"]
+    np.testing.assert_array_equal(c0["good"], p0["good"])
+    stab = float(np.max(np.abs(c0["stability"] - p0["stability"])))
+    assert stab <= 1e-12, stab
+    spec = _p14_of_peak(c0["spectra"], p0["spectra"])
+    assert spec <= 1e-12, spec
+    assert c0["windows"] == p0["windows"]
+    snr = float(np.max(np.abs(c0["snr"] - p0["snr"]) / np.abs(p0["snr"])))
+    assert snr <= 1e-9, snr
+    worst_power = 0.0
+    for (zc, ac, pc), (zp, ap, pp) in zip(c0["levels"], p0["levels"]):
+        np.testing.assert_array_equal(zc, zp)
+        np.testing.assert_array_equal(ac, ap)
+        worst_power = max(worst_power, float(np.max(np.abs(pc - pp) / np.abs(pp))))
+        assert np.argmax(pc) == np.argmax(pp)
+    assert worst_power <= 1e-10, worst_power
+    # all stations on the card against the injected direction
+    plane_err = [_p14_angle(z, a, P14_ZEN, P14_AZI) for z, a in card["plane"]]
+    beam_zen = [abs(z - P14_ZEN) for z, _ in card["beam"]]
+    beam_azi = [abs((a - P14_AZI + np.pi) % (2 * np.pi) - np.pi) for _, a in card["beam"]]
+    plane_zen = [abs(z - P14_ZEN) for z, _ in card["plane"]]
+    plane_azi = [abs((a - P14_AZI + np.pi) % (2 * np.pi) - np.pi) for _, a in card["plane"]]
+    assert max(plane_zen + plane_azi) < np.deg2rad(P14_PLANE_DEG), (plane_zen, plane_azi)
+    assert max(beam_zen + beam_azi) < np.deg2rad(P14_BEAM_DEG), (beam_zen, beam_azi)
+    secs = card["seconds"]
+    n_dirs = len(events) * len(c0["levels"]) * c0["levels"][0][2].size
+    print(f"phase 14 (a) LOFAR superterp: {len(events)} stations x {n_ch} dipoles x "
+          f"{P14_LOFAR['n_samples']} samples at 200 MHz made in {make_s:.2f} s on the host; "
+          f"card seconds " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; beam search {n_dirs} directions ({len(c0['levels'])} levels of 15 x 15) in "
+          f"{secs['beam search']:.3f} s = {n_dirs / secs['beam search']:.0f} directions/s, "
+          f"{c0['chunk']} directions per chunk, peak device memory {peak:.2f} GiB ({CARD})")
+    print(f"phase 14 (a) station 0 card vs CPU: dirty channels ({len(c0['dirty'])}), reference "
+          f"antenna {c0['ref']}, good antennas equal; phase stability {stab:.2e} (gate 1e-12); "
+          f"calibrated spectra {spec:.2e} of peak (gate 1e-12); pulse windows equal, SNR "
+          f"{snr:.2e} (gate 1e-9); grid powers {worst_power:.2e} (gate 1e-10), chosen points "
+          f"equal at every level; CPU seconds " + ", ".join(
+              f"{k} {v:.2f}" for k, v in cpu["seconds"].items()) + f" ({CARD})")
+    print(f"phase 14 (a) directions on the card: plane wave worst {max(plane_err):.3f} deg "
+          f"(gate {P14_PLANE_DEG} in zenith and azimuth), beam search worst zenith "
+          f"{np.rad2deg(max(beam_zen)):.3f} deg, azimuth {np.rad2deg(max(beam_azi)):.3f} deg "
+          f"(gate {P14_BEAM_DEG})")
+    # one zoom level of station 0 under the profiler; its memory traffic is
+    # counted from the tensors beamformer materialises (lofar.BEAM_TRAFFIC_BYTES
+    # per direction, antenna and bin), not measured
+    from nuradiomc_tpu_torch.reco import base, lofar
+    st = events[0].get_station(2)
+    dom = [ch for ch in st.iter_channels() if ch.get_id() % 2 == 0]
+    spec = base.stack_spectra(dom, dev)
+    freqs = torch.as_tensor(dom[0].get_frequencies(), device=dev)
+    pos = torch.as_tensor(np.array([det.get_relative_position(2, ch.get_id()) for ch in dom]),
+                          device=dev)
+    zg, ag, _ = c0["levels"][0]
+    dev_ms, wall, n_k = _device_busy(lambda: lofar.beam_powers(spec, freqs, pos,
+                                                               dom[0].get_number_of_samples(),
+                                                               zg, ag))
+    traffic = zg.size * ag.size * spec.numel() * lofar.BEAM_TRAFFIC_BYTES
+    label = (f"phase 14 (a) one beam-search level ({zg.size * ag.size} directions x "
+             f"{spec.shape[0]} antennas x {spec.shape[1]} bins):")
+    if dev_ms is None:
+        print(f"{label} device busy share not measured (the profiler saw no device activity); "
+              f"profiled call {wall:.2f} ms ({CARD})")
+    else:
+        print(f"{label} {dev_ms:.2f} ms of device kernels ({n_k} kernels) in a profiled call of "
+              f"{wall:.2f} ms = {dev_ms / wall:.1%} busy; {traffic / 1e9:.1f} GB of memory "
+              f"traffic counted from the materialised tensors (an estimate, not measured) = "
+              f"{traffic / (dev_ms / 1e3) / 1e9:.0f} GB/s against {HBM_BYTES_PER_S / 1e9:.0f} "
+              f"({CARD})")
+    return raw0, det
+
+
+def _p14_rit(dev):
+    """(b) RIT depth and axis fits at 240 antennas on the card; the profile and
+    one lateral plane against the CPU."""
+    from nuradiomc_tpu_torch.reco import rit
+
+    positions, traces, times, axis, _, _ = convert.make_rit_event(**P14_RIT)
+    depth = rit.efieldInterferometricDepthReco(device=dev)
+    depth.begin()
+    t0 = time.perf_counter()
+    depths, fine, sig, sig_fine, popt = depth.reconstruct_interferometric_depth(
+        traces, times, positions, axis, np.zeros(3), return_profile=True)
+    t_depth = time.perf_counter() - t0
+    n_depth_points = len(depths) + len(fine)
+    cpu = rit.efieldInterferometricDepthReco(device="cpu")
+    cpu.begin()
+    t0 = time.perf_counter()
+    sig_cpu = cpu.sample_longitudinal_profile(traces, times, positions, axis, np.zeros(3),
+                                              depths=np.concatenate([depths, fine]))
+    t_depth_cpu = time.perf_counter() - t0
+    profile_points = np.concatenate([
+        axis * depth._at.get_distance_xmax_geometric(np.arccos(axis[2]), d, 0.0)
+        for d in np.concatenate([depths, fine])[:, None]]).reshape(-1, 3)
+    len_card = depth.interferometer(traces, times, positions).grids(profile_points)[4]
+    len_cpu = cpu.interferometer(traces, times, positions).grids(profile_points)[4]
+    same = len_card == len_cpu
+    for k in np.nonzero(~same)[0]:
+        print(f"phase 14 (b) profile point {k}: summed-grid length {len_card[k]} on the card, "
+              f"{len_cpu[k]} on the CPU (excused)")
+    prof = np.concatenate([sig, sig_fine])
+    prof_err = float(np.max(np.abs(prof - sig_cpu)[same] / np.abs(sig_cpu)[same]))
+    assert prof_err <= 1e-9, prof_err
+    assert abs(popt[1] - 650.0) < P14_RIT_XMAX, popt
+
+    axis_reco = rit.efieldInterferometricAxisReco(device=dev)
+    axis_reco.begin()
+    zen_g = np.deg2rad(32.5)
+    az = np.deg2rad(70.0)
+    guess = np.array([np.sin(zen_g) * np.cos(az), np.sin(zen_g) * np.sin(az), np.cos(zen_g)])
+    b_field = np.array([0.0, 18.0, -49.0])
+    t0 = time.perf_counter()
+    zen, azi, core = axis_reco.reconstruct_shower_axis(
+        traces, times, positions, guess, np.array([60.0, 0.0, 0.0]), b_field,
+        depths=P14_RIT_DEPTHS, grid_size=250.0)
+    t_axis = time.perf_counter() - t0
+    chunks = dict(axis_reco.last_interferometer.last_chunks)
+    n_axis_points = 2 * 5 * len(P14_RIT_DEPTHS) * 49
+    angle = _p14_angle(zen, azi, np.deg2rad(32.0), az)
+    assert angle < P14_RIT_ANGLE_DEG and np.linalg.norm(core[:2]) < P14_RIT_CORE, (angle, core)
+    # one lateral plane (7 x 7 at X 650) card against CPU
+    frame = rit.shower_frame(np.deg2rad(32.0), np.deg2rad(250.0), b_field)
+    xs = np.linspace(-250.0, 250.0, 7)
+    p_axis = axis * depth._at.get_distance_xmax_geometric(np.arccos(axis[2]), 650.0, 0.0)
+    planes = {}
+    for where, mod in ((dev, axis_reco), ("cpu", rit.efieldInterferometricAxisReco(device="cpu"))):
+        mod.begin()
+        itf = mod.interferometer(traces, times, positions)
+        pts = (p_axis + xs[:, None, None] * frame[0] + xs[None, :, None] * frame[1]).reshape(-1, 3)
+        planes[str(where)] = (itf.signals(pts), itf.grids(pts)[4])
+    (s_card, l_card), (s_cpu, l_cpu) = planes[str(dev)], planes["cpu"]
+    same_p = l_card == l_cpu
+    for k in np.nonzero(~same_p)[0]:
+        print(f"phase 14 (b) lateral point {k}: summed-grid length {l_card[k]} on the card, "
+              f"{l_cpu[k]} on the CPU (excused)")
+    plane_err = float(np.max(np.abs(s_card - s_cpu)[same_p] / np.abs(s_cpu)[same_p]))
+    # the first zoom level of an axis pass (5 depths x 7 x 7 points) under the profiler
+    itf = axis_reco.interferometer(traces, times, positions)
+    pts = np.concatenate([(axis * depth._at.get_distance_xmax_geometric(np.arccos(axis[2]), d, 0.0)
+                           + xs[:, None, None] * frame[0] + xs[None, :, None] * frame[1])
+                          .reshape(-1, 3) for d in P14_RIT_DEPTHS])
+    lengths = itf.grids(pts)[4]
+    dev_ms, wall, n_k = _device_busy(lambda: itf.signals(pts))
+    label = (f"phase 14 (b) one lateral zoom level ({len(pts)} points x {P14_RIT['n_ant']} "
+             f"antennas, summed grids of {lengths.min()}-{lengths.max()} samples, "
+             f"{len(np.unique(lengths))} lengths):")
+    if dev_ms is None:
+        print(f"{label} device busy share not measured (the profiler saw no device activity); "
+              f"profiled call {wall:.2f} ms ({CARD})")
+    else:
+        print(f"{label} {dev_ms:.2f} ms of device kernels ({n_k} kernels) in a profiled call "
+              f"of {wall:.2f} ms = {dev_ms / wall:.1%} busy ({CARD})")
+    assert plane_err <= 1e-9, plane_err
+    assert same.sum() >= len(same) - 2 and same_p.sum() >= len(same_p) - 2
+    print(f"phase 14 (b) RIT, {P14_RIT['n_ant']} antennas x {P14_RIT['n_samples']} samples: "
+          f"X_RIT {popt[1]:.2f} g/cm^2 (truth 650, gate {P14_RIT_XMAX}) from {n_depth_points} "
+          f"points in {t_depth:.3f} s = {n_depth_points / t_depth:.0f} points/s (CPU "
+          f"{t_depth_cpu:.2f} s for the same profile); axis {angle:.3f} deg off (gate "
+          f"{P14_RIT_ANGLE_DEG}), core {np.linalg.norm(core[:2]):.1f} m (gate {P14_RIT_CORE}) from "
+          f"{n_axis_points} points in {t_axis:.3f} s = {n_axis_points / t_axis:.0f} points/s, "
+          f"points per chunk {chunks}; "
+          f"card vs CPU: profile {prof_err:.2e}, lateral plane {plane_err:.2e} (gate 1e-9), "
+          f"{(~same).sum() + (~same_p).sum()} points excused ({CARD})")
+
+
+def _p14_coreas_chain(star, cores, device):
+    """readCoREASDetector onto the four-LPDA station, the fold into channel
+    voltages, galactic noise, ice thermal noise and the energy estimator (on
+    the station's interpolated efield; the station's four LPDAs share one
+    orientation, so no unfolding) for each core: the spectra after each
+    adder, the energies and the seconds of each module."""
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework.parameters import electricFieldParameters as efp
+    from nuradiomc_tpu_torch.framework.parameters import stationParameters as stnp
+    from nuradiomc_tpu_torch.framework.event import ElectricField
+    from nuradiomc_tpu_torch.reco import advanced, coreas_readers, efield_converters as ec
+
+    det = Detector(convert.coreas_lpda_detector())
+    secs = {}
+
+    def tick(name, t0):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reader = coreas_readers.readCoREASDetector(device=device)
+    reader.begin(star)
+    events = list(reader.run(det, cores))
+    tick("reader", t0)
+    fold = ec.efieldToVoltageConverter(device=device)
+    fold.begin()
+    galactic = advanced.channelGalacticNoiseAdder(device=device)
+    galactic.begin(n_pixels=192, seed=12)
+    thermal = advanced.channelIceThermalNoiseAdder(device=device)
+    thetas = np.linspace(0, np.pi, 20)
+    thermal.begin({-1.0: (thetas, 250.0 + 20.0 * np.cos(thetas))}, nr_phi_bins=16, seed=13)
+    energy = advanced.cosmicRayEnergyReconstructor(device=device)
+    energy.begin(site="summit")
+    out = {"galactic": [], "thermal": [], "energy": []}
+    for evt in events:
+        st = evt.get_station(7)
+        t0 = time.perf_counter()
+        fold.run(evt, st, det)
+        tick("fold", t0)
+        t0 = time.perf_counter()
+        galactic.run(evt, st, det)
+        tick("galactic noise", t0)
+        out["galactic"].append(np.array([c.get_frequency_spectrum() for c in st.iter_channels()]))
+        t0 = time.perf_counter()
+        thermal.run(evt, st, det)
+        tick("thermal noise", t0)
+        out["thermal"].append(np.array([c.get_frequency_spectrum() for c in st.iter_channels()]))
+        t0 = time.perf_counter()
+        sim_ef = st.get_sim_station().get_electric_fields()[0]
+        ef = ElectricField(sim_ef.get_channel_ids(), position=sim_ef.get_position())
+        ef.set_trace(np.asarray(sim_ef.get_trace()), sim_ef.get_sampling_rate())
+        ef[efp.cr_spectrum_slope] = -2.5            # as tests/test_misc_modules.py
+        ef[efp.cr_spectrum_quadratic_term] = 0.1
+        st.add_electric_field(ef)
+        st[stnp.zenith] = st.get_sim_station()[stnp.zenith]
+        st[stnp.azimuth] = st.get_sim_station()[stnp.azimuth]
+        out["energy"].append(energy.run(evt, st))
+        tick("energy", t0)
+    out["seconds"] = secs
+    return out
+
+
+def _p14_coreas(dev):
+    """(c) a 160-observer CoREAS star read through the mapping path onto 100
+    cores, noise adders and the energy estimator; the first cores again on
+    the CPU."""
+    from nuradiomc_tpu_torch.reco import coreas_readers
+
+    star = convert.make_coreas_star()
+    cores = coreas_readers.get_random_core_positions(-150, 150, -150, 150, P14_COREAS_CORES,
+                                                     seed=3)
+    card = _p14_coreas_chain(star, cores, dev)
+    cpu = _p14_coreas_chain(star, cores[:P14_COREAS_CPU], "cpu")
+    worst = {"galactic": 0.0, "thermal": 0.0}
+    for key in worst:
+        for a, b in zip(card[key], cpu[key]):
+            worst[key] = max(worst[key], _p14_of_peak(a, b))
+        assert worst[key] <= 1e-12, (key, worst[key])
+    e_err = max(abs(a - b) / abs(b) for a, b in zip(card["energy"], cpu["energy"]))
+    assert e_err <= 1e-10, e_err
+    energies = np.array(card["energy"])
+    assert np.all(np.isfinite(energies)) and np.all(energies > 0)
+    secs = card["seconds"]
+    total = sum(secs.values())
+    print(f"phase 14 (c) CoREAS star ({len(star['CoREAS']['observers'])} observers x 2048 "
+          f"samples at 0.2 ns, mapping path) onto {len(cores)} cores of the four-LPDA station: "
+          f"card seconds " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f" = {len(cores) / total:.1f} cores/s; energies {energies.min():.3e}.."
+          f"{energies.max():.3e} eV; first {P14_COREAS_CPU} cores card vs CPU: spectra after "
+          f"the galactic adder {worst['galactic']:.2e}, after the thermal adder "
+          f"{worst['thermal']:.2e} of peak (gate 1e-12, the same host draws), energy "
+          f"{e_err:.2e} (gate 1e-10) ({CARD})")
+
+
+def _p14_cleaning(dev, raw0, det):
+    """(d) channelCWNotchFilter, channelStopFilter and
+    channelReadoutWindowCutter on station 0 of (a), card against CPU."""
+    import copy
+
+    from nuradiomc_tpu_torch.framework import event as fev
+    from nuradiomc_tpu_torch.reco import cleaning
+
+    cut_det = copy.copy(det)
+    cut_det.readout_samples = P14_LOFAR["n_samples"] // 4
+    out, secs = {}, {}
+    for where in (dev, "cpu"):
+        evt = copy.deepcopy(raw0)
+        st = next(iter(evt.get_stations()))
+        trig = fev.Trigger("lora", st.get_channel_ids(),
+                           pre_trigger_times=cut_det.readout_samples / 2 / convert.LOFAR_FS)
+        trig.set_triggered(True)
+        trig.set_trigger_time(P14_LOFAR["n_samples"] / 2 / convert.LOFAR_FS)
+        st.set_trigger(trig)
+        t0 = time.perf_counter()
+        notch = cleaning.channelCWNotchFilter(device=where)
+        notch.begin(threshold_db=10.0)
+        notch.run(evt, st, det)
+        cleaning.channelStopFilter(device=where).run(evt, st, det)
+        cleaning.channelReadoutWindowCutter(device=where).run(evt, st, cut_det)
+        secs[str(where)] = time.perf_counter() - t0
+        out[str(where)] = ([np.array(c.get_trace()) for c in st.iter_channels()],
+                           [c.get_trace_start_time() for c in st.iter_channels()])
+    (tr_card, t_card), (tr_cpu, t_cpu) = out[str(dev)], out["cpu"]
+    assert t_card == t_cpu
+    worst = max(_p14_of_peak(a, b) for a, b in zip(tr_card, tr_cpu))
+    assert worst <= 1e-12, worst
+    print(f"phase 14 (d) cleaning of station 0 ({len(tr_card)} channels: CW notch, stop "
+          f"filter, readout window of {tr_card[0].shape[0]} samples): card vs CPU {worst:.2e} "
+          f"of peak (gate 1e-12), start times equal; {secs[str(dev)]:.3f} s on the card, "
+          f"{secs['cpu']:.3f} s on the CPU ({CARD})")
+
+
+def phase_cosmic_ray(dev):
+    """The cosmic-ray side on the card in float64 (no kernel of the four):
+    (a) the LOFAR chain on the six superterp stations, (b) the RIT fits,
+    (c) CoREAS with the noise adders and the energy estimator, (d) the
+    cleaning modules. Returns the launch counts of the path (all 0)."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    raw0, det = _p14_lofar(dev)
+    _p14_rit(dev)
+    _p14_coreas(dev)
+    _p14_cleaning(dev, raw0, det)
+    counts = _launch_counts()
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s; launches {counts} ({CARD})")
+    return counts
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
           "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,),
-          "13": (phase_rays,)}
+          "13": (phase_rays,), "14": (phase_cosmic_ray,)}
 
 
 def _phases_asked(argv):
@@ -3113,7 +3567,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,13|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,14|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -3175,9 +3629,11 @@ def main() -> int:
     mesh_launches = phase_multiprocess(dev)
     reco_launches = phase_reco(dev)
     rays_launches = phase_rays(dev)
-    # launches: the counts of the main-path runs (phases 3, 5 to 13)
+    cosmic_launches = phase_cosmic_ray(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 14)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
-                   campaign_launches, mesh_launches, reco_launches, rays_launches):
+                   campaign_launches, mesh_launches, reco_launches, rays_launches,
+                   cosmic_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

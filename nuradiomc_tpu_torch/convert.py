@@ -798,3 +798,219 @@ def make_lpda_edge_inputs(*, device=device_util.DEFAULT, dtype=torch.float64):
         return launch, edge[:, None, None, None, :].expand(receive.shape).contiguous()
 
     return sim.settings, sim.channel_params, batch, launch_receive_vectors
+
+
+# ---- the cosmic-ray side: in-memory inputs (no files, no h5py)
+
+LOFAR_FS = 0.2                                  # LBA: 200 MHz in internal GHz
+LOFAR_SUPERTERP = (2, 3, 4, 5, 6, 7)            # CS002-CS007
+
+
+class LofarDetector:
+    """Duck-typed LOFAR detector (tests/test_lofar.py's FakeLOFARDetector) for
+    several stations: per station ``n_ant`` dual-polarised antennas in the
+    z=0 plane, drawn uniform in a square of half-width ``half_width``;
+    channel 2k (Y dipole, 135 deg) and 2k+1 (X dipole, 225 deg) belong to
+    antenna k and to channel group 2k; ``readout_samples`` at 200 MHz is
+    the readout window of every channel."""
+
+    def __init__(self, n_ant=24, seed=0, station_ids=(2,), half_width=150.0,
+                 readout_samples=65536):
+        rng = np.random.default_rng(seed)
+        self.n_ant = n_ant
+        self.readout_samples = readout_samples
+        self.positions = {}
+        for sid in station_ids:
+            pos = np.zeros((n_ant, 3))
+            pos[:, :2] = rng.uniform(-half_width, half_width, (n_ant, 2))
+            self.positions[sid] = pos
+
+    def get_relative_position(self, station_id, channel_id):
+        return self.positions[station_id][channel_id // 2]
+
+    def get_antenna_orientation(self, station_id, channel_id):
+        phi = 135.0 if channel_id % 2 == 0 else 225.0
+        return np.deg2rad([90.0, phi, 90.0, phi + 90.0])
+
+    def get_number_of_channels(self, station_id):
+        return 2 * self.n_ant
+
+    def get_number_of_samples(self, station_id, channel_id):
+        return self.readout_samples
+
+    def get_sampling_frequency(self, station_id, channel_id):
+        return LOFAR_FS
+
+    def get_site_coordinates(self, station_id=None):
+        return 52.91, 6.87  # LOFAR core
+
+
+def make_lofar_station(ev, det, station_id, zenith, azimuth, n_samples=8192, noise=0.05,
+                       pulse_sample=6000, seed=1, cw_lines=()):
+    """One station of ``det`` as a framework Station of the event module
+    ``ev`` (the port's or the JAX package's): tests/test_lofar.py's
+    make_event, a plane-wave Gaussian-modulated pulse from (zenith,
+    azimuth) on the even (dominant) channels over Gaussian noise, plus
+    phase-stable CW lines ``cw_lines`` = ((frequency, amplitude), ...) with
+    one fixed phase per (line, channel)."""
+    rng = np.random.default_rng(seed)
+    n_dir = np.array([np.sin(zenith) * np.cos(azimuth),
+                      np.sin(zenith) * np.sin(azimuth), np.cos(zenith)])
+    delays = -(det.positions[station_id] @ n_dir) / 0.299792458    # ns
+    tt = np.arange(n_samples) / LOFAR_FS
+    cw = [(f, a, rng.uniform(0, 2 * np.pi, 2 * det.n_ant)) for f, a in cw_lines]
+    station = ev.Station(station_id)
+    for ant in range(det.n_ant):
+        t0 = pulse_sample / LOFAR_FS + delays[ant]
+        pulse = np.exp(-0.5 * ((tt - t0) / 15.0) ** 2) \
+            * np.cos(2 * np.pi * 0.055 * (tt - t0))
+        for pol in range(2):
+            cid = 2 * ant + pol
+            ch = ev.Channel(cid, channel_group_id=2 * ant)
+            trace = noise * rng.standard_normal(n_samples)
+            if pol == 0:
+                trace = trace + pulse
+            for f, a, phases in cw:
+                trace = trace + a * np.cos(2 * np.pi * f * tt + phases[cid])
+            ch.set_trace(trace, LOFAR_FS)
+            station.add_channel(ch)
+    return station
+
+
+def make_lofar_stations(ev, zenith, azimuth, station_ids=LOFAR_SUPERTERP, n_ant=48,
+                        n_samples=65536, noise=0.05, seed=0, half_width=40.0,
+                        cw_lines=((1500 / 8192 * LOFAR_FS, 0.1),
+                                  (2900 / 8192 * LOFAR_FS, 0.1))):
+    """(event, detector) of the LOFAR superterp: one station per id of
+    ``station_ids`` (LBA_OUTER: 48 dual-polarised antennas, 65,536 samples
+    at 200 MHz, readLOFARData.run's default trace length), the pulse in the
+    middle of the trace, two CW lines on bins of 8192-sample blocks."""
+    det = LofarDetector(n_ant, seed, station_ids, half_width)
+    event = ev.Event(run_number=0, event_id=1)
+    for k, sid in enumerate(station_ids):
+        event.set_station(make_lofar_station(ev, det, sid, zenith, azimuth, n_samples, noise,
+                                             n_samples // 2, seed + 1 + k, cw_lines))
+    return event, det
+
+
+def make_rit_event(n_ant=30, n_samples=2048, fs=1.0, half_width=400.0, seed=0,
+                   zenith=np.deg2rad(32.0), azimuth=np.deg2rad(70.0), x_max=650.0):
+    """tests/test_rit.py's synthetic air shower: a line emitter along the
+    axis (7 points with a Gaussian profile in depth around ``x_max``) seen by
+    ``n_ant`` antennas uniform in a square of half-width ``half_width``
+    (atmosphere model 17, the port's refractivity on the CPU). Returns
+    (positions, traces, times, axis [from the core to the source], source
+    at x_max, its distance), numpy."""
+    from nuradiomc_tpu_torch.models.atmosphere import Atmosphere, Refractivity
+    from nuradiomc_tpu_torch.utils.constants import speed_of_light
+    at = Atmosphere(17)
+    refr = Refractivity(at)
+    axis = np.array([np.sin(zenith) * np.cos(azimuth),
+                     np.sin(zenith) * np.sin(azimuth), np.cos(zenith)])
+    src_depths = np.linspace(x_max - 150, x_max + 150, 7)
+    amps = np.exp(-0.5 * ((src_depths - x_max) / 80.0) ** 2)
+    sources = [axis * at.get_distance_xmax_geometric(zenith, X, 0.0) for X in src_depths]
+    rng = np.random.default_rng(seed)
+    positions = np.c_[rng.uniform(-half_width, half_width, n_ant),
+                      rng.uniform(-half_width, half_width, n_ant), np.zeros(n_ant)]
+    # the shower front moves down the axis at c: a point at distance d emits
+    # at -d/c, so only the wavefront curvature tells the depths apart
+    delays = refr.time_delay(torch.as_tensor(np.array(sources))[:, None, :],
+                             torch.as_tensor(positions), speed_of_light).numpy()
+    arrivals = [a - np.linalg.norm(s) / speed_of_light for a, s in zip(delays, sources)]
+    t0 = min(a.min() for a in arrivals) - 300.0
+    t = np.arange(n_samples) / fs
+    times = np.tile(t, (n_ant, 1)) + t0
+    traces = np.zeros((n_ant, n_samples))
+    for amp, arr in zip(amps, arrivals):
+        traces += amp * np.exp(-0.5 * ((t[None, :] + t0 - arr[:, None]) / 5.0) ** 2) \
+            * np.cos(0.3 * (t[None, :] + t0 - arr[:, None]))
+    dist = at.get_distance_xmax_geometric(zenith, x_max, 0.0)
+    return positions, traces, times, axis, axis * dist, dist
+
+
+class H5Node(dict):
+    """An h5py-shaped group in memory: its children by name and ``.attrs``;
+    it iterates its children in name order, as an HDF5 group does."""
+
+    def __init__(self, attrs=None, **children):
+        super().__init__(children)
+        self.attrs = dict(attrs or {})
+
+    def __iter__(self):
+        return iter(sorted(super().keys()))
+
+    def keys(self):
+        return list(self)
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+
+class H5Dataset:
+    """An h5py-shaped dataset in memory: ``np.asarray`` gives its data."""
+
+    def __init__(self, data, attrs=None):
+        self.data = np.asarray(data)
+        self.attrs = dict(attrs or {})
+
+    def __array__(self, dtype=None, copy=None):
+        return self.data if dtype is None else self.data.astype(dtype)
+
+    def __len__(self):
+        return len(self.data)
+
+
+def make_coreas_star(n_arms=8, radii_cm=None, n_t=2048, dt_s=2e-10, zenith_deg=35.0,
+                     azimuth_deg=120.0, energy_gev=1e8, with_coreas_attrs=True):
+    """An h5py-shaped mapping of a CORSIKA-7/CoREAS file (what
+    ``sim.io_coreas.coreas_event`` reads): a star of ``n_arms`` x
+    len(``radii_cm``) observers (default 8 x 20 radii, 20 m to 400 m) with
+    tests/test_coreas_readers.py's inputs, CoREAS attributes and
+    pulses (amplitude 1e-3 / (1 + (r / 100 m)^2) statvolt/cm, components
+    1 : 0.3 : 0.1, a Gaussian of 8 samples at a quarter of the trace)."""
+    if radii_cm is None:
+        radii_cm = np.linspace(2000.0, 40000.0, 20)
+    inputs = {"THETAP": np.array([zenith_deg, zenith_deg]),
+              "PHIP": np.array([azimuth_deg, azimuth_deg]),
+              "MAGNET": np.array([18.5, 48.3]), "ERANGE": np.array([energy_gev, energy_gev]),
+              "RUNNR": 1, "EVTNR": 7, "PRMPAR": 14, "OBSLEV": 280000.0}
+    coreas = {"CoreCoordinateWest": 0.0, "CoreCoordinateNorth": 0.0,
+              "CoreCoordinateVertical": 280000.0, "DepthOfShowerMaximum": 650.0,
+              "DistanceOfShowerMaximum": 500000.0, "GroundLevelRefractiveIndex": 1.000292,
+              "RotationAngleForMagfieldDeclination": 0.0} if with_coreas_attrs else {}
+    observers = H5Node()
+    t = np.arange(n_t) * dt_s
+    k = np.arange(n_t)
+    for i, (r, phi) in enumerate([(rr, pp) for rr in radii_cm
+                                  for pp in np.linspace(0, 2 * np.pi, n_arms,
+                                                        endpoint=False)]):
+        data = np.zeros((n_t, 4))
+        data[:, 0] = t
+        pulse = 1e-3 / (1 + (r / 10000) ** 2) * np.exp(-0.5 * ((k - n_t // 4) / 8.0) ** 2)
+        data[:, 1] = pulse
+        data[:, 2] = 0.3 * pulse
+        data[:, 3] = 0.1 * pulse
+        observers[f"obs_{i}"] = H5Dataset(data, {"position": np.array(
+            [r * np.cos(phi), r * np.sin(phi), 0.0])})
+    return H5Node(inputs=H5Node(inputs), CoREAS=H5Node(coreas, observers=observers))
+
+
+def coreas_lpda_detector(station_id=7, n=4):
+    """tests/test_coreas_readers.py's station: ``n`` downward analytic LPDAs
+    3 m around the station center at 1 m depth, at Summit."""
+    chans = {}
+    pos = [(3, 0), (0, 3), (-3, 0), (0, -3)][:n]
+    for cid, (x, y) in enumerate(pos):
+        chans[str(cid + 1)] = {
+            "adc_n_samples": 512, "adc_sampling_frequency": 1.0,
+            "ant_orientation_phi": 0.0, "ant_orientation_theta": 180.0,
+            "ant_position_x": x, "ant_position_y": y, "ant_position_z": -1.0,
+            "ant_rotation_phi": 90.0, "ant_rotation_theta": 90.0,
+            "ant_type": "analytic_LPDA", "amp_type": "", "cab_time_delay": 0.0,
+            "adc_nbits": None, "channel_id": cid, "station_id": station_id,
+        }
+    return {"channels": chans,
+            "stations": {"1": {"station_id": station_id, "pos_altitude": 0,
+                               "pos_easting": 0, "pos_northing": 0,
+                               "pos_site": "summit"}}}

@@ -1,5 +1,5 @@
-# copied from nuradiomc_tpu/framework/event.py:1-541 without ElectricField.get_stokes_parameters, which needs the
-# reconstruction utilities (the port keeps its own copy; it imports nothing of the JAX package)
+# copied from nuradiomc_tpu/framework/event.py:1-541; ElectricField.get_stokes_parameters runs on the
+# port's utils/trace_stats.py (the port keeps its own copy; it imports nothing of the JAX package)
 """Event data model: Event / Station / SimStation / Channel / SimChannel /
 ElectricField / Shower / Particle / Trigger.
 
@@ -69,6 +69,16 @@ class ElectricField(BaseTrace, ParameterStorage):
 
     def get_channel_ids(self):
         return self._channel_ids
+
+    def get_stokes_parameters(self, window_samples=None):
+        """Stokes parameters in the stored (eTheta, ePhi) components
+        (electric_field.get_stokes_parameters:86-140; shape (4,) for
+        window_samples=None, else a running average over the window)."""
+        import torch
+
+        from nuradiomc_tpu_torch.utils.trace_stats import get_stokes
+        trace = torch.as_tensor(np.asarray(self.get_trace(), dtype=float))
+        return get_stokes(trace[1], trace[2], window_samples=window_samples).numpy()
 
     def has_channel_ids(self, ids):
         return all(i in self._channel_ids for i in ids)

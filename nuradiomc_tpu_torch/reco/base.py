@@ -91,6 +91,41 @@ def spectrum_tensor(bt, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(bt.get_frequency_spectrum()), device=device)
 
 
+def same_grid(bts):
+    """``bts`` (channels, efields) in lists of one number of samples and
+    sampling rate, in their order within each list: the batches that stack
+    into one tensor."""
+    groups = {}
+    for bt in bts:
+        groups.setdefault((bt.get_number_of_samples(), bt.get_sampling_rate()), []).append(bt)
+    return list(groups.values())
+
+
+def stack_traces(bts, device) -> torch.Tensor:
+    """[N, n] time traces of BaseTraces of one length and sampling rate on
+    ``device``: the stored arrays stacked on the host and moved in one copy,
+    those held as spectra transformed there in one batch."""
+    if all(bt.is_time_domain() for bt in bts):
+        return torch.as_tensor(np.array([bt.get_trace() for bt in bts], dtype=float),
+                               device=device)
+    if not any(bt.is_time_domain() for bt in bts):
+        spec = torch.as_tensor(np.array([bt.get_frequency_spectrum() for bt in bts]),
+                               device=device)
+        return fft.freq2time(spec, bts[0].get_sampling_rate())
+    return torch.stack([trace_tensor(bt, device) for bt in bts])
+
+
+def stack_spectra(bts, device) -> torch.Tensor:
+    """[N, F] spectra of BaseTraces of one length and sampling rate on
+    ``device``, as :func:`stack_traces` moves them."""
+    if not any(bt.is_time_domain() for bt in bts):
+        return torch.as_tensor(np.array([bt.get_frequency_spectrum() for bt in bts]),
+                               device=device)
+    if all(bt.is_time_domain() for bt in bts):
+        return fft.time2freq(stack_traces(bts, device), bts[0].get_sampling_rate())
+    return torch.stack([spectrum_tensor(bt, device) for bt in bts])
+
+
 def correlate_full(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``scipy.signal.correlate(a, b, 'full')`` of two real 1-D traces by the
     direct sum scipy picks at these lengths: out[k] = sum_n a[n + k - (M-1)] b[n],

@@ -807,3 +807,94 @@ def test_lpda_sector_on_card_matches_jax(dev, monkeypatch):
         got = [int(antenna.lpda_sector_host(zen, az, r, antenna.KIND_LPDA))
                for r in sets["rotations"]]
         assert got == list(sets["ift"]), (where, got)
+
+
+# ---- the cosmic-ray side: batched programs, card against CPU ----------------
+
+def test_lofar_beam_search_on_card_matches_cpu(dev):
+    """beamformingDirectionFitter's grid powers at every zoom level and the
+    chosen direction (tests/test_lofar.py's station, 24 antennas, 8192
+    samples) on the card against the CPU: powers within 1e-10, same grid
+    points."""
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.framework import event as ev
+    from nuradiomc_tpu_torch.framework.parameters import stationParameters
+    from nuradiomc_tpu_torch.reco import lofar
+
+    det = convert.LofarDetector(n_ant=24)
+    levels = {}
+    for where in (dev, "cpu"):
+        event = ev.Event(0, 1)
+        event.set_station(convert.make_lofar_station(ev, det, 2, np.deg2rad(35.0),
+                                                     np.deg2rad(120.0)))
+        finder = lofar.stationPulseFinder(device="cpu")
+        finder.begin(window=256, noise_window=2000)
+        finder.run(event, det, (np.deg2rad(38.0), np.deg2rad(116.0)))
+        st = event.get_station(2)
+        st.set_parameter(stationParameters.zenith, np.deg2rad(40.0))
+        st.set_parameter(stationParameters.azimuth, np.deg2rad(115.0))
+        fit = lofar.beamformingDirectionFitter(device=where)
+        fit.begin(cr_snr=6.5)
+        fit.run(event, det)
+        levels[str(where)] = fit.levels
+    for (zc, ac, pc), (zg, ag, pg) in zip(levels["cpu"], levels[str(dev)]):
+        np.testing.assert_array_equal(zg, zc)
+        np.testing.assert_array_equal(ag, ac)
+        np.testing.assert_allclose(pg, pc, rtol=1e-10)
+
+
+def test_rit_interference_on_card_matches_cpu(dev):
+    """The batched interference (tests/test_rit.py's line emitter, 30
+    antennas): a 7 x 7 lateral plane and the longitudinal profile on the
+    card against the CPU within 1e-9, points whose summed-grid length
+    differs excused."""
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.models.atmosphere import Atmosphere, Refractivity
+    from nuradiomc_tpu_torch.reco import rit
+
+    positions, traces, times, axis, source, _ = convert.make_rit_event()
+    refr = Refractivity(Atmosphere(17))
+    frame = rit.shower_frame(np.deg2rad(32.0), np.deg2rad(250.0), np.array([0.0, 18.0, -49.0]))
+    xs = np.linspace(-250.0, 250.0, 7)
+    points = (source + xs[:, None, None] * frame[0] + xs[None, :, None] * frame[1]).reshape(-1, 3)
+    points = np.concatenate([points, axis * np.linspace(3e3, 9e3, 13)[:, None]])
+    sig, lengths = {}, {}
+    for where in (dev, "cpu"):
+        itf = rit.Interferometer(traces, times, positions, refr, where)
+        sig[str(where)] = itf.signals(points)
+        lengths[str(where)] = itf.grids(points)[4]
+    same = lengths["cpu"] == lengths[str(dev)]
+    assert same.sum() >= len(points) - 2
+    np.testing.assert_allclose(sig[str(dev)][same], sig["cpu"][same], rtol=1e-9)
+
+
+def test_galactic_noise_on_card_matches_cpu(dev):
+    """channelGalacticNoiseAdder (192 pixels, seed 7) and the ice thermal
+    adder on the card against the CPU: the same host draws, spectra within
+    1e-12 of peak."""
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.detector.detector import Detector
+    from nuradiomc_tpu_torch.framework import event as ev
+    from nuradiomc_tpu_torch.reco import advanced
+
+    det = Detector(convert.coreas_lpda_detector())
+    out = {}
+    for where in (dev, "cpu"):
+        st = ev.Station(7)
+        for cid in range(4):
+            ch = ev.Channel(cid)
+            ch.set_trace(np.zeros(2048), 2.0)
+            st.add_channel(ch)
+        st.set_station_time(1.4e9)
+        g = advanced.channelGalacticNoiseAdder(device=where)
+        g.begin(seed=7, n_pixels=192)
+        g.run(ev.Event(0, 0), st, det)
+        galactic = np.array([st.get_channel(c).get_frequency_spectrum() for c in range(4)])
+        thetas = np.linspace(0, np.pi, 20)
+        th = advanced.channelIceThermalNoiseAdder(device=where)
+        th.begin({-1.0: (thetas, np.full(20, 250.0))}, nr_phi_bins=16, seed=2)
+        th.run(ev.Event(0, 0), st, det)
+        out[str(where)] = (galactic,
+                           np.array([st.get_channel(c).get_frequency_spectrum() for c in range(4)]))
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())

@@ -16,8 +16,9 @@ its entry points run on the card unless the CPU is asked for.
   the Veff tables, the time logger, the muon flux, the surface-muon
   generator, the job runner, the mesh's group padding, the measured
   hardware-response tables and functions, the SQL schema, the RNO-G site
-  table, the template creator's pulse and the noise-rate curve and
-  threshold are held to the originals on the same inputs, exactly
+  table, the template creator's pulse, the noise-rate curve and
+  threshold, the LOFAR galactic calibration tables and the atmosphere
+  model are held to the originals on the same inputs, exactly
   (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
   tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
   tests/test_torch_fullscale.py).
@@ -64,6 +65,9 @@ from nuradiomc_tpu_torch.sim import noise_rate as trate
 from nuradiomc_tpu_torch.utils import config as tconfig
 from nuradiomc_tpu_torch.utils import constants as tconstants
 from nuradiomc_tpu_torch.utils import units as tunits
+from nuradiomc_tpu_torch.reco import lofar as tlofar
+from nuradiomc_tpu_torch.reco import rit as trit
+from nuradiomc_tpu_torch.sim import io_coreas as tio_coreas
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -184,6 +188,25 @@ _ISOLATED = textwrap.dedent("""
                                   n_steps=12, device="cpu")
     noise_rate.run_phased_array_tuning(8, 256, 2.0, 1e-5, np.ones(129), [[0, 1]], 2, 16, 8,
                                        batch=8, device="cpu")
+    # the cosmic-ray slice: the LOFAR calibration tables from the port's data
+    # directory, the RIT interference, a CoREAS star read from memory, the
+    # Stokes parameters of the event data model
+    from nuradiomc_tpu_torch.reco import coreas_readers, lofar, rit
+    assert lofar._DATA.startswith(os.path.join(root, "nuradiomc_tpu_torch") + os.sep)
+    cal = lofar.stationGalacticCalibrator(device="cpu")
+    cal.begin()
+    ldet = convert.LofarDetector(n_ant=4)
+    levt = fev.Event(0, 1)
+    levt.set_station(convert.make_lofar_station(fev, ldet, 2, 0.6, 2.0, n_samples=2048))
+    cal.run(levt, ldet, unix_time=1.4e9)
+    pos, tr, ti, _, src, _ = convert.make_rit_event(n_ant=4, n_samples=256)
+    rit.interfere_traces(src, pos, tr, ti, rit.Refractivity(rit.Atmosphere(17)), device="cpu")
+    reader = coreas_readers.readCoREASDetector(device="cpu")
+    reader.begin(convert.make_coreas_star(radii_cm=np.array([2000.0, 8000.0]), n_t=64))
+    list(reader.run(Detector(convert.coreas_lpda_detector()), [[0.0, 0.0]]))
+    field = fev.ElectricField([0])
+    field.set_trace(np.random.default_rng(0).normal(size=(3, 64)), 1.0)
+    field.get_stokes_parameters()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -469,6 +492,32 @@ def test_hardware_response_copies_equal_the_originals():
         np.testing.assert_array_equal(a["phase"](ff), b["phase"](ff))
 
 
+def test_cosmic_ray_copies_equal_the_originals():
+    """The LOFAR galactic calibration tables byte for byte, the atmosphere
+    model's parameterizations and host functions exactly."""
+    from nuradiomc_tpu.models import atmosphere as jatm
+    from nuradiomc_tpu_torch.models import atmosphere as tatm
+    ref_dir = os.path.join(ROOT, "nuradiomc_tpu", "data", "galactic_calibration")
+    port_dir = os.path.join(ROOT, "nuradiomc_tpu_torch", "data", "galactic_calibration")
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(ref_dir)) and os.listdir(ref_dir)
+    for f in os.listdir(ref_dir):
+        with open(os.path.join(ref_dir, f), "rb") as a, open(os.path.join(port_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
+    assert tlofar._DATA == port_dir
+    assert sorted(tatm.ATM_MODELS) == sorted(jatm.ATM_MODELS)
+    for model, params in jatm.ATM_MODELS.items():
+        for key, value in params.items():
+            np.testing.assert_array_equal(tatm.ATM_MODELS[model][key], value)
+    assert (tatm.R_EARTH, tatm.M_TO_CM) == (jatm.R_EARTH, jatm.M_TO_CM)
+    a, b = tatm.Atmosphere(), jatm.Atmosphere()
+    d = np.linspace(0.0, 3e4, 61)
+    for zen in (0.0, 0.5, 1.3):
+        np.testing.assert_array_equal(a.get_slant_depth_at_distance(d, zen, 500.0),
+                                      b.get_slant_depth_at_distance(d, zen, 500.0))
+        np.testing.assert_array_equal(a.height_at_distance(d, zen, 500.0),
+                                      b.height_at_distance(d, zen, 500.0))
+
+
 def test_detector_backend_and_tuning_copies_equal_the_originals():
     from nuradiomc_tpu.detector import detector_sql as jsql, rnog_detector as jrd
     from nuradiomc_tpu.reco import rnog as jrnog
@@ -498,7 +547,9 @@ ENTRY_POINTS = [Simulation.__init__, convert.from_jax, convert.make_headline_inp
                 reco_tm.get_digital_trace, trt.find_solution_ice_to_air,
                 tnum.find_solutions_numeric, t3d.find_solutions_3d, t3d.refine_solutions_3d,
                 trate.run_phased_array_tuning, thr.hardwareResponseIncorporator.__init__,
-                thr.rnogHardwareResponseIncorporator.__init__]
+                thr.rnogHardwareResponseIncorporator.__init__, tlofar.find_rfi,
+                trit.interfere_traces, trit.Interferometer.__init__,
+                tio_coreas.coreasInterpolator.get_interp_efields]
 
 
 def _reco_module_classes():
@@ -535,7 +586,7 @@ def test_entry_points_default_to_the_card(fn):
                                   "surface_muon_simulation", "dryrun_simulation",
                                   "reco_module", "travel_time_table", "ice_to_air",
                                   "numeric_solver", "solver_3d", "noise_tuning",
-                                  "hardware_response"])
+                                  "hardware_response", "rfi", "rit", "beam_search"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -566,6 +617,9 @@ def test_omitted_device_without_a_card_raises(call):
         "noise_tuning": lambda: trate.run_phased_array_tuning(8, 256, 2.0, 1e-5, None,
                                                               [[0, 1]], 2, 16, 8),
         "hardware_response": lambda: thr.rnogHardwareResponseIncorporator(),
+        "rfi": lambda: tlofar.find_rfi(np.zeros((2, 16)), 0.2, 8),
+        "rit": lambda: trit.efieldInterferometricAxisReco(),
+        "beam_search": lambda: tlofar.beamformingDirectionFitter(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()
