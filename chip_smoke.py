@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 14,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 15,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
     python3 chip_smoke.py --phases 12      # the in-ice reconstruction path
     python3 chip_smoke.py --phases 13      # ray solvers, noise-rate tuning, hardware modules
     python3 chip_smoke.py --phases 14      # the cosmic-ray side (LOFAR, RIT, CoREAS, cleaning)
+    python3 chip_smoke.py --phases 15      # the recorded-data side (RNO-G runs, measured noise)
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -194,7 +195,32 @@ result line):
    noise and the energy estimator, the first 8 cores against the CPU: the
    spectra after each adder within 1e-12 of peak from the same host draws,
    the energy within 1e-10; (d) the CW notch, stop filter and readout-window
-   cutter on station 0 of (a), card against CPU within 1e-12 of peak.
+   cutter on station 0 of (a), card against CPU within 1e-12 of peak;
+15. the recorded-data side (float64, no kernel of the four; launches
+   asserted 0): (a) four RNO-G runs of 1024 events x 24 channels x 2048
+   samples (``convert.make_rnog_runs``: band-limited ADC noise, block
+   offsets, LAB4D scrambles, PA pulses on the LT events) written as
+   ``.npz`` and read back (timed apart), through ``dataProviderRNOG`` (block
+   offsets and glitch statistic a chunk at a time on the card, then cable
+   delays) with events/s, rows per chunk, peak memory and one chunk's
+   device time and busy share; every event against the CPU's run: traces
+   within 1e-12 of peak, offsets within 1e-9 of the trace's std, start
+   times, fit branches and glitch flags equal (the flags also counted
+   against the injected scrambles); ``stationHitFilter`` and
+   ``stationCoherentlySummedWaveforms`` on the LT events, hit times and
+   decisions equal, SNR, impulsivity and kurtosis within 1e-10, entropy
+   within 1e-14 (an event whose summed waveform's histogram differs
+   between the devices is excused and counted, and its card entropy is
+   held within 1e-14 to numpy's of the card's own summed waveform); (b) ``RNOGNoiseImporter``
+   (seeded) from (a)'s FORCE events onto 4096 simulated station-11 events,
+   draws equal to the CPU's, noisy traces within 1e-12 of peak (the noise
+   carries each device's block-offset fit), ``triggerSimulatorHighLow`` on
+   channels 0-3 with equal decisions, and ``ARIANNANoiseImporter`` from a
+   2048 x 8 x 256 CalibTree export onto 4096 events, draws and traces equal
+   bit for bit, events/s of each; (c) the ARA and ARIANNA-Calib readers on
+   300-event files and every antenna preprocessor on its raw pattern file,
+   each table read by ``table_vel`` at 1000 directions x 512 frequencies on
+   the card within 1e-12 of the CPU.
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -3552,13 +3578,343 @@ def phase_cosmic_ray(dev):
     return counts
 
 
+P15_RUNS, P15_EVENTS = 4, 1024      # 4096 events x 24 channels x 2048 samples
+P15_SIM = 4096                      # simulated station-11 events made noisy
+P15_ARIANNA = (2048, 8, 256)        # CalibTree entries x channels x samples
+P15_ARA_EVENTS = 300
+P15_DIRECTIONS, P15_FREQS = 1000, 512
+P15_HIGH_LOW = dict(threshold_high=25 * units.mV, threshold_low=-25 * units.mV,
+                    number_concidences=2, triggered_channels=[0, 1, 2, 3])
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p15_arrays(events):
+    """Traces [E, C, n], start times [E, C], block offsets [E, C, B] and
+    glitch flags [E, C] of the provider's events."""
+    from nuradiomc_tpu_torch.framework.parameters import channelParameters as chp
+    chans = [list(e.get_station().iter_channels()) for e in events]
+    return (np.array([[c.get_trace() for c in cs] for cs in chans]),
+            np.array([[c.get_trace_start_time() for c in cs] for cs in chans]),
+            np.array([[c[chp.block_offsets] for c in cs] for cs in chans]),
+            np.array([[c[chp.glitch] for c in cs] for cs in chans]))
+
+
+def _p15_provider(paths, device):
+    """dataProviderRNOG over the runs on ``device``: (events, provider,
+    seconds of begin (reading the runs), of the run, of its chunk passes)."""
+    from nuradiomc_tpu_torch.reco import rnog_io
+    det = convert.RNOGRunDetector()
+    provider = rnog_io.dataProviderRNOG(device=device)
+    t0 = time.perf_counter()
+    provider.begin(paths, det)
+    t_read = time.perf_counter() - t0
+    passes = [0.0]
+    real = provider.process
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = real(*args)
+        _sync(device)
+        passes[0] += time.perf_counter() - t
+        return out
+
+    provider.process = timed
+    t0 = time.perf_counter()
+    events = []
+    for evt in provider.run():
+        assert det.updated_to == evt.get_station().get_station_time()
+        events.append(evt)
+    _sync(device)
+    return events, provider, t_read, time.perf_counter() - t0, passes[0]
+
+
+def _p15_entropy_excused(dev, card_lt, cpu_lt, bad, card_entropy):
+    """Events whose entropies differ between the devices. Each is excused
+    only when the two devices' summed waveforms have different amplitude
+    histograms (a sample within rounding of a bin edge), and the card's
+    entropy must still be numpy's (``np.histogram``, ``scipy.stats.entropy``)
+    of the card's own summed waveform within 1e-14; returns the worst
+    relative error of that check."""
+    import scipy.stats
+
+    from nuradiomc_tpu_torch.utils import trace_stats as ts
+    if len(bad) == 0:
+        return 0.0
+
+    def summed(events, where):
+        st = [evt.get_station() for evt in events]
+        ref = np.array([s.get_channel(0).get_trace() for s in st])
+        others = np.array([[s.get_channel(c).get_trace() for c in (1, 2, 3)] for s in st])
+        return ts.get_coherent_sum(torch.as_tensor(others, device=where),
+                                   torch.as_tensor(ref, device=where), True).cpu().numpy()
+
+    w_card = summed([card_lt[i] for i in bad], dev)
+    w_cpu = summed([cpu_lt[i] for i in bad], "cpu")
+    worst = 0.0
+    for k, i in enumerate(bad):
+        h_card = np.histogram(w_card[k], bins=50)[0]
+        assert not np.array_equal(h_card, np.histogram(w_cpu[k], bins=50)[0]), \
+            f"event {i}: entropy differs, histograms equal"
+        dens = np.histogram(w_card[k], bins=50, density=True)[0]
+        want = scipy.stats.entropy(dens / np.sum(dens), base=2)
+        err = abs(card_entropy[i] - want) / want
+        assert err <= 1e-14, f"event {i}: card entropy {card_entropy[i]!r}, numpy's {want!r}"
+        worst = max(worst, float(err))
+    return worst
+
+
+def _p15_recorded(dev, tmp):
+    """(a) four RNO-G runs through dataProviderRNOG, the hit filter and the
+    coherent sums on the card and on the CPU; returns the run paths."""
+    from nuradiomc_tpu_torch.reco import rnog_data, rnog_io
+    t0 = time.perf_counter()
+    paths, truth = convert.make_rnog_runs(tmp, P15_RUNS, P15_EVENTS, seed=15)
+    t_make = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    card, prov, read_s, run_s, pass_s = _p15_provider(paths, dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cpu, prov_cpu, read_cpu, run_cpu, pass_cpu = _p15_provider(paths, "cpu")
+    n_ev = len(card)
+    assert n_ev == len(cpu) == P15_RUNS * P15_EVENTS
+    assert [(e.get_run_number(), e.get_id()) for e in card] == \
+        [(e.get_run_number(), e.get_id()) for e in cpu]
+    (tr_c, t0_c, off_c, gl_c), (tr_h, t0_h, off_h, gl_h) = _p15_arrays(card), _p15_arrays(cpu)
+    np.testing.assert_array_equal(t0_c, t0_h)
+    trace_err = float(np.max(np.abs(tr_c - tr_h) / np.abs(tr_h).max(-1, keepdims=True)))
+    assert trace_err <= 1e-12, trace_err
+    off_err = float(np.max(np.abs(off_c - off_h) / tr_h.std(-1, keepdims=True)))
+    assert off_err <= 1e-9, off_err
+    np.testing.assert_array_equal(gl_c, gl_h)
+    assert (prov.n_fitted, prov.n_glitch) == (prov_cpu.n_fitted, prov_cpu.n_glitch)
+    injected = np.concatenate([t["scrambled"] for t in truth])
+    hits = int((gl_c & injected).sum())
+    false_pos, missed = int((gl_c & ~injected).sum()), int((~gl_c & injected).sum())
+    n_ch = tr_c.shape[1] * n_ev
+    print(f"phase 15 (a) RNO-G runs: {P15_RUNS} x {P15_EVENTS} events x {tr_c.shape[1]} channels "
+          f"x {tr_c.shape[2]} samples (int16 ADC, {sum(os.path.getsize(p + '/mattak_export.npz') for p in paths) / 2**20:.0f} MiB compressed) "
+          f"made and written in {t_make:.2f} s, read back in {read_s:.2f} s; dataProviderRNOG on "
+          f"the card {run_s:.2f} s = {n_ev / run_s:.0f} events/s ({prov.reader.last_chunk} events "
+          f"per chunk, the chunk passes {pass_s:.3f} s of it, the rest on the host: Event and "
+          f"Channel objects, host copies, cable delays), peak device memory {peak:.2f} GiB; CPU "
+          f"{run_cpu:.2f} s = {n_ev / run_cpu:.0f} events/s (chunk passes {pass_cpu:.2f} s) "
+          f"({CARD})")
+    print(f"phase 15 (a) card vs CPU on every event: traces {trace_err:.2e} of each channel's "
+          f"peak (gate 1e-12), block offsets {off_err:.2e} of each trace's std (gate 1e-9), start "
+          f"times, fit branches ({prov.n_fitted} of {n_ch} channels fitted) and glitch flags "
+          f"({prov.n_glitch} set) equal; against the {int(injected.sum())} scrambled channels "
+          f"injected: {hits} flagged, {missed} missed, {false_pos} flagged without a scramble")
+    # one chunk's device pass under the profiler
+    raw = rnog_io.NumpyDataset(paths[0]).raw_block(np.arange(prov.reader.last_chunk))
+    chunk = torch.as_tensor(raw, device=dev).to(torch.float64) * rnog_io.ADC_TO_VOLT
+    dev_ms, wall, n_k = _device_busy(lambda: prov.process(chunk, convert.RNOG_FS))
+    label = f"phase 15 (a) one chunk's pass ({chunk.shape[0]} events, block offsets + glitches):"
+    if dev_ms is None:
+        print(f"{label} device busy share not measured; profiled call {wall:.2f} ms ({CARD})")
+    else:
+        print(f"{label} {dev_ms:.2f} ms of device kernels ({n_k} kernels) in a profiled call of "
+              f"{wall:.2f} ms = {dev_ms / wall:.1%} busy; {chunk.numel() * 8 / 1e9:.2f} GB of "
+              f"traces in ({CARD})")
+    # the hit filter and the coherent sums on the LT events
+    lt = [i for i, e in enumerate(card) if e.get_station().get_first_trigger().get_name() == "LT"]
+    card_lt, cpu_lt = [card[i] for i in lt], [cpu[i] for i in lt]
+    res = {}
+    for where, events in ((dev, card_lt), ("cpu", cpu_lt)):
+        t0 = time.perf_counter()
+        hits_out = rnog_data.stationHitFilter(device=where).run_events(events)
+        _sync(where)
+        t_hit = time.perf_counter() - t0
+        coh = rnog_data.stationCoherentlySummedWaveforms(device=where)
+        coh.begin()
+        t0 = time.perf_counter()
+        sums = coh.run_events(events)
+        _sync(where)
+        res[str(where)] = (hits_out, sums, t_hit, time.perf_counter() - t0)
+    (h_c, s_c, th_c, tc_c), (h_h, s_h, th_h, tc_h) = res[str(dev)], res["cpu"]
+    for a, b in zip(h_c, h_h):
+        np.testing.assert_array_equal(a, b)
+    worst = 0.0
+    for k in ("coherent_snr", "coherent_impulsivity", "coherent_kurtosis"):
+        a, b = s_c[k], s_h[k]
+        np.testing.assert_array_equal(a[b == 0], 0.0)      # impulsivity is clamped at 0
+        worst = max(worst, float(np.max(np.abs(a - b)[b != 0] / np.abs(b[b != 0]))))
+    assert worst <= 1e-10, worst
+    ent = np.abs(s_c["coherent_entropy"] - s_h["coherent_entropy"]) / s_h["coherent_entropy"]
+    bad = np.flatnonzero(ent > 1e-14)
+    own_err = _p15_entropy_excused(dev, card_lt, cpu_lt, bad, s_c["coherent_entropy"])
+    passed = h_c[0]
+    print(f"phase 15 (a) {len(lt)} LT events: stationHitFilter on the card {th_c:.3f} s = "
+          f"{len(lt) / th_c:.0f} events/s (CPU {th_h:.3f} s), {int(passed.sum())} pass "
+          f"({int(h_c[1].sum())} by the time checker, {int(h_c[2].sum())} by a high hit), hit "
+          f"times and decisions equal to the CPU's; stationCoherentlySummedWaveforms on the card "
+          f"{tc_c:.3f} s = {len(lt) / tc_c:.0f} events/s (CPU {tc_h:.3f} s), SNR / impulsivity "
+          f"/ kurtosis {worst:.2e} (gate 1e-10), entropy within 1e-14 in "
+          f"{len(lt) - len(bad)} events, {len(bad)} excused (their summed waveforms' histograms "
+          f"differ between the devices; the card's entropy of each within {own_err:.2e} of "
+          f"numpy's on the card's own summed waveform, gate 1e-14) ({CARD})")
+    return paths
+
+
+def _p15_noise(dev, tmp):
+    """(b) RNOGNoiseImporter from (a)'s runs onto 4096 simulated events and
+    the high/low trigger on channels 0-3; ARIANNANoiseImporter on a
+    2048 x 8 x 256 CalibTree export."""
+    from nuradiomc_tpu_torch.framework import event as fev
+    from nuradiomc_tpu_torch.reco import measured_noise, trigger_modules
+    out = {}
+    for where in (dev, "cpu"):
+        pairs = convert.make_rnog_sim_stations(fev, P15_SIM, seed=16)
+        imp = measured_noise.RNOGNoiseImporter(device=where)
+        imp.begin(tmp, random_seed=15)
+        t0 = time.perf_counter()
+        draws = imp.run_events(pairs)
+        _sync(where)
+        t_noise = time.perf_counter() - t0
+        trig = trigger_modules.triggerSimulatorHighLow(device=where)
+        t0 = time.perf_counter()
+        fired = [trig.run(evt, st, None, **P15_HIGH_LOW) for evt, st in pairs]
+        _sync(where)
+        t_trig = time.perf_counter() - t0
+        traces = np.array([[c.get_trace() for c in st.iter_channels()] for _, st in pairs])
+        out[str(where)] = (draws, traces, np.array(fired), t_noise, t_trig)
+    (d_c, tr_c, f_c, tn_c, tt_c), (d_h, tr_h, f_h, tn_h, tt_h) = out[str(dev)], out["cpu"]
+    assert d_c == d_h
+    bits = float(np.mean(tr_c == tr_h))
+    err = float(np.max(np.abs(tr_c - tr_h) / np.abs(tr_h).max(-1, keepdims=True)))
+    assert err <= 1e-12, err
+    np.testing.assert_array_equal(f_c, f_h)
+    print(f"phase 15 (b) RNOGNoiseImporter: {P15_SIM} simulated station-11 events x "
+          f"{tr_c.shape[1]} channels made noisy from (a)'s FORCE events ({len(set(d_c))} "
+          f"distinct noise events, baseline-corrected 'auto') in {tn_c:.2f} s on the card = "
+          f"{P15_SIM / tn_c:.0f} events/s (CPU {tn_h:.2f} s); the draws equal the CPU's; noisy "
+          f"traces {err:.2e} of peak (gate 1e-12; {bits:.1%} of samples bit-equal: the noise "
+          f"traces carry the block-offset fit's last-bit rounding of each device); "
+          f"triggerSimulatorHighLow on channels 0-3: {int(f_c.sum())} of {P15_SIM} fire, "
+          f"decisions equal, {tt_c:.2f} s on the card = {P15_SIM / tt_c:.0f} events/s (CPU "
+          f"{tt_h:.2f} s) ({CARD})")
+    n_tree, n_ch, n_s = P15_ARIANNA
+    path = os.path.join(tmp, "caltree_export.npz")
+    np.savez(path, amp_out=np.random.default_rng(17).standard_normal(P15_ARIANNA))
+    res = {}
+    for where in (dev, "cpu"):
+        pairs = []
+        for e in range(P15_SIM):
+            evt, st = fev.Event(1, e), fev.Station(51)
+            for c in range(n_ch):
+                ch = fev.Channel(c)
+                ch.set_trace(np.zeros(n_s), 1.0)
+                st.add_channel(ch)
+            evt.set_station(st)
+            pairs.append((evt, st))
+        imp = measured_noise.ARIANNANoiseImporter(device=where)
+        imp.begin([path], random_seed=17)
+        t0 = time.perf_counter()
+        draws = imp.run_events(pairs)
+        _sync(where)
+        res[str(where)] = (draws, np.array([[c.get_trace() for c in st.iter_channels()]
+                                            for _, st in pairs]), time.perf_counter() - t0)
+    (d_c, tr_c, t_c), (d_h, tr_h, t_h) = res[str(dev)], res["cpu"]
+    assert d_c == d_h
+    np.testing.assert_array_equal(tr_c, tr_h)
+    print(f"phase 15 (b) ARIANNANoiseImporter: {P15_SIM} events x {n_ch} channels x {n_s} samples "
+          f"from a {n_tree} x {n_ch} x {n_s} CalibTree export in {t_c:.2f} s on the card = "
+          f"{P15_SIM / t_c:.0f} events/s (CPU {t_h:.2f} s); draws equal, noisy traces equal bit "
+          f"for bit ({CARD})")
+
+
+def _p15_host(dev, tmp):
+    """(c) the ARA and ARIANNA readers (host copies) and every antenna
+    preprocessor, its table read by table_vel on the card against the CPU."""
+    import logging
+
+    from nuradiomc_tpu_torch.detector import antenna_preprocess
+    from nuradiomc_tpu_torch.ops import antenna
+    from nuradiomc_tpu_torch.reco import ara_io, arianna_io
+    logging.getLogger("nuradiomc_tpu_torch.arianna_io").setLevel(logging.CRITICAL)
+    ara = convert.make_ara_run(os.path.join(tmp, "ara.npz"), P15_ARA_EVENTS)
+    t0 = time.perf_counter()
+    reader = ara_io.readARAData()
+    reader.begin(ara)
+    ara_events = list(reader.run())
+    t_ara = time.perf_counter() - t0
+    assert len(ara_events) == P15_ARA_EVENTS
+    n = [c.get_number_of_samples() for c in ara_events[0].get_station(2).iter_channels()]
+    assert all(k % 2 == 0 and k > 0 for k in n)
+    ari = convert.make_arianna_calib_file(os.path.join(tmp, "arianna.npz"), P15_ARA_EVENTS)
+    t0 = time.perf_counter()
+    calib = arianna_io.readARIANNADataCalib()
+    calib.begin(ari)
+    ari_events = list(calib.run())
+    t_ari = time.perf_counter() - t0
+    assert len(ari_events) + calib.skipped_events + calib.skipped_events_stop == P15_ARA_EVENTS
+    print(f"phase 15 (c) readARAData: {len(ara_events)} events x 16 channels regridded in "
+          f"{t_ara:.2f} s; readARIANNADataCalib: {len(ari_events)} of {P15_ARA_EVENTS} events "
+          f"({calib.skipped_events} without a config row, {calib.skipped_events_stop} without "
+          f"a stop sample) in {t_ari:.2f} s (host)")
+    rng = np.random.default_rng(18)
+    zen = rng.uniform(0, np.pi, P15_DIRECTIONS)
+    az = rng.uniform(0, 2 * np.pi, P15_DIRECTIONS)
+    c, s = np.cos(0.3), np.sin(0.3)
+    rot = np.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]])
+    worst, secs = {}, {}
+    for kind in convert.ANTENNA_PATTERN_KINDS:
+        root = os.path.join(tmp, "patterns", kind)
+        os.makedirs(root)
+        name, args, kwargs = convert.write_antenna_pattern(root, kind)
+        t0 = time.perf_counter()
+        table = antenna.load_antenna_table(getattr(antenna_preprocess, name)(*args, **kwargs))
+        secs[kind] = time.perf_counter() - t0
+        freqs = np.linspace(table.freqs[0], table.freqs[-1], P15_FREQS)
+        vel = {}
+        for where in (dev, "cpu"):
+            tt = antenna.AntennaTable(*(torch.as_tensor(np.asarray(getattr(table, k)),
+                                                        device=where)
+                                        for k in ("freqs", "thetas", "phis", "h_theta",
+                                                  "h_phi")), orientation=table.orientation)
+            t_, p_ = antenna.table_vel(torch.as_tensor(zen, device=where),
+                                       torch.as_tensor(az, device=where),
+                                       torch.as_tensor(rot, device=where), tt,
+                                       torch.as_tensor(freqs, device=where))
+            vel[str(where)] = np.stack([t_.cpu().numpy(), p_.cpu().numpy()])
+        a, b = vel[str(dev)], vel["cpu"]
+        worst[kind] = float(np.max(np.abs(a - b)) / np.abs(b).max())
+        assert worst[kind] <= 1e-12, (kind, worst[kind])
+        assert np.abs(b).max() > 0
+    print(f"phase 15 (c) antenna preprocessors (seconds to the loaded table): "
+          + ", ".join(f"{k} {secs[k]:.3f}" for k in secs)
+          + f"; table_vel at {P15_DIRECTIONS} directions x {P15_FREQS} frequencies on the card vs "
+          f"the CPU, worst {max(worst.values()):.2e} of the VEL's peak (gate 1e-12) ({CARD})")
+
+
+def phase_recorded(dev):
+    """The recorded-data side on the card in float64 (no kernel of the four):
+    (a) RNO-G runs through dataProviderRNOG, the hit filter and the coherent
+    sums, (b) the measured-noise importers and the high/low trigger, (c) the
+    ARA and ARIANNA readers and the antenna preprocessors. Returns the launch
+    counts of the path (all 0)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    _reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rnog_") as tmp:
+        _p15_recorded(dev, tmp)
+        _p15_noise(dev, tmp)
+        _p15_host(dev, tmp)
+    counts = _launch_counts()
+    assert not any(counts.values()), counts
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s; launches {counts} ({CARD})")
+    return counts
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
           "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,),
-          "13": (phase_rays,), "14": (phase_cosmic_ray,)}
+          "13": (phase_rays,), "14": (phase_cosmic_ray,), "15": (phase_recorded,)}
 
 
 def _phases_asked(argv):
@@ -3567,7 +3923,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,14|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,15|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -3630,10 +3986,11 @@ def main() -> int:
     reco_launches = phase_reco(dev)
     rays_launches = phase_rays(dev)
     cosmic_launches = phase_cosmic_ray(dev)
-    # launches: the counts of the main-path runs (phases 3, 5 to 14)
+    recorded_launches = phase_recorded(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 15)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
                    campaign_launches, mesh_launches, reco_launches, rays_launches,
-                   cosmic_launches):
+                   cosmic_launches, recorded_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

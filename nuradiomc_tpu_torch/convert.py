@@ -1014,3 +1014,307 @@ def coreas_lpda_detector(station_id=7, n=4):
             "stations": {"1": {"station_id": station_id, "pos_altitude": 0,
                                "pos_easting": 0, "pos_northing": 0,
                                "pos_site": "summit"}}}
+
+
+RNOG_STATION = 11
+RNOG_FIRST_RUN = 1000
+RNOG_CHANNELS = 24
+RNOG_SAMPLES = 2048
+RNOG_FS = 3.2                                   # GHz
+RNOG_TRIGGERS = ("FORCE", "LT", "RADIANT0")
+RNOG_PA_PULSE_SAMPLES = (1000, 1003, 1006, 1009)   # channels 0-3, ~0.94 ns apart
+
+
+def _rnog_scramble(trace, block_size=64):
+    """The LAB4D readout fault that ``rnog_data.unscramble`` undoes: the
+    64-sample block i of the readout holds block i+2 (even i) or i-2 (odd
+    i) of the true trace."""
+    n = trace.shape[-1] // block_size
+    blocks = trace.reshape(*trace.shape[:-1], n, block_size)
+    src = np.where(np.arange(n) % 2 == 0, np.arange(n) + 2, np.arange(n) - 2) % n
+    return blocks[..., src, :].reshape(trace.shape)
+
+
+class RNOGRunDetector:
+    """The detector side that ``dataProviderRNOG`` asks of the RNO-G runs of
+    :func:`make_rnog_runs`: cable delays of 10 ns + 0.1 ns per channel id,
+    and the station time it was last updated to."""
+
+    def __init__(self):
+        self.updated_to = None
+
+    def update(self, time):
+        self.updated_to = time
+
+    def get_cable_delay(self, station_id, channel_id):
+        return (10.0 + 0.1 * channel_id) * units.ns
+
+
+def _rnog_run(path, run, n_events, seed, glitch_fraction):
+    """Draw and write one run of :func:`make_rnog_runs`; returns its truth."""
+    from nuradiomc_tpu_torch.reco.rnog_io import write_numpy_dataset
+
+    rng = np.random.default_rng(seed)
+    ff = np.fft.rfftfreq(RNOG_SAMPLES, 1.0 / RNOG_FS)
+    band = ((ff > 0.08) & (ff < 0.35)).astype(float)
+    t = np.arange(RNOG_SAMPLES) / RNOG_FS
+    white = rng.normal(size=(n_events, RNOG_CHANNELS, RNOG_SAMPLES))
+    noise = np.fft.irfft(np.fft.rfft(white) * band, RNOG_SAMPLES)
+    noise *= 8.0 / noise.std()
+    types = rng.choice(RNOG_TRIGGERS, n_events)
+    amp = np.where(types == "LT", rng.uniform(0.0, 100.0, n_events), 0.0)
+    for c, s0 in enumerate(RNOG_PA_PULSE_SAMPLES):
+        t0 = s0 / RNOG_FS
+        pulse = np.exp(-0.5 * ((t - t0) / 1.5) ** 2) * np.cos(2 * np.pi * 0.3 * (t - t0))
+        noise[:, c] += amp[:, None] * pulse
+    scrambled = np.zeros((n_events, RNOG_CHANNELS), dtype=bool)
+    for e in np.flatnonzero(rng.random(n_events) < glitch_fraction):
+        scrambled[e, rng.choice(RNOG_CHANNELS, rng.integers(1, 4), replace=False)] = True
+    noise[scrambled] = _rnog_scramble(noise[scrambled])
+    spread = rng.uniform(0.0, 6.0, (n_events, RNOG_CHANNELS, 1))
+    offsets = rng.normal(size=(n_events, RNOG_CHANNELS, RNOG_SAMPLES // 128)) * spread
+    noise += np.repeat(offsets, 128, axis=-1)
+    times = 1.7e9 + 3600.0 * (run % 1000) + 0.1 * np.arange(n_events)
+    trigger_times = times.copy()
+    trigger_times[0] = np.inf
+    write_numpy_dataset(path, RNOG_STATION, run, np.round(noise).astype(np.int16),
+                        trigger_types=types, trigger_times=trigger_times, readout_times=times,
+                        sample_rate=RNOG_FS,
+                        readout_delays=rng.uniform(0.0, 1.0, (n_events, RNOG_CHANNELS)))
+    return {"trigger_types": types, "scrambled": scrambled, "pulse_amplitude": amp}
+
+
+def make_rnog_runs(base_dir, n_runs=4, n_events=1024, seed=0, glitch_fraction=0.05):
+    """Write ``n_runs`` RNO-G runs of station 11 (24 channels x 2048 samples
+    at 3.2 GHz, int16 ADC counts) as ``rnog_io.write_numpy_dataset`` run
+    directories ``base_dir/station11/run<N>`` (N = 1000 + k) and return
+    (paths, truth).
+
+    Each event has a trigger type drawn from FORCE, LT and RADIANT0 and
+    Gaussian ADC noise band-limited to 80-350 MHz (8 counts RMS); every LT
+    event has a pulse on channels 0-3 at the hit filter's PA spacing
+    (:data:`RNOG_PA_PULSE_SAMPLES`) with a peak of 0-100 counts; in
+    ``glitch_fraction`` of the events, 1-3 channels carry the LAB4D block
+    scramble; every channel then gets 128-sample block offsets of its own
+    spread (0-6 counts), as the readout adds them. Each run's first event
+    has an infinite trigger time (the reader's fallback to the readout
+    time). ``truth`` holds per run ``trigger_types`` [E], ``scrambled``
+    [E, 24] and ``pulse_amplitude`` [E] (counts, 0 off LT). Run k draws from
+    ``np.random.default_rng([seed, k])``; the runs are drawn and written in
+    threads (numpy's draws, FFTs and zlib release the interpreter lock)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    paths = [os.path.join(base_dir, f"station{RNOG_STATION}", f"run{RNOG_FIRST_RUN + k}")
+             for k in range(n_runs)]
+    with ThreadPoolExecutor(max_workers=max(1, n_runs)) as pool:
+        jobs = [pool.submit(_rnog_run, path, RNOG_FIRST_RUN + k, n_events, [seed, k],
+                            glitch_fraction) for k, path in enumerate(paths)]
+        truth = [job.result() for job in jobs]
+    return paths, truth
+
+
+def make_rnog_sim_stations(ev, n_events, seed=0, n_channels=RNOG_CHANNELS):
+    """``n_events`` simulated station-11 events in memory, as a simulation
+    hands them to a measured-noise importer: 24 channels x 2048 samples at
+    3.2 GHz, a band-limited pulse of 0-60 mV on channels 0-3 (sample ~1000,
+    the PA spacing) and zeros elsewhere. Returns [(event, station)]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(RNOG_SAMPLES) / RNOG_FS
+    amp = rng.uniform(0.0, 60.0, n_events) * units.mV
+    shift = rng.uniform(-200.0, 200.0, n_events)
+    out = []
+    for e in range(n_events):
+        evt = ev.Event(0, e)
+        st = ev.Station(RNOG_STATION)
+        for c in range(n_channels):
+            trace = np.zeros(RNOG_SAMPLES)
+            if c < 4:
+                t0 = (RNOG_PA_PULSE_SAMPLES[c] + shift[e]) / RNOG_FS
+                trace = amp[e] * np.exp(-0.5 * ((t - t0) / 1.5) ** 2) \
+                    * np.cos(2 * np.pi * 0.3 * (t - t0))
+            ch = ev.Channel(c)
+            ch.set_trace(trace, RNOG_FS * units.GHz)
+            st.add_channel(ch)
+        evt.set_station(st)
+        out.append((evt, st))
+    return out
+
+
+ANTENNA_PATTERN_KINDS = ("wipld", "ara", "xfdtd", "hfss", "aera", "lofar", "feko",
+                         "rnog_xfdtd")
+
+
+def _write_ara_pattern(path, rng, freqs=(100.0, 300.0)):
+    """An ARASim gain table: per frequency a header, then (theta, phi, gain
+    dB, gain, phase) rows over 45 deg x 5 deg."""
+    with open(path, "w") as f:
+        for fr in freqs:
+            f.write(f"freq : {fr} MHz\nSWR : 1.5\nTheta   Phi     Gain(dB)  Gain   Phase(deg)\n")
+            for phi in np.arange(0, 356, 5):
+                for theta in np.arange(0, 181, 45):
+                    g = rng.uniform(0.1, 5.0)
+                    f.write(f"{theta} {phi} {10 * np.log10(g):.3f} {g:.6f} "
+                            f"{rng.uniform(-180, 180):.3f}\n")
+
+
+def write_antenna_pattern(root, kind, seed=0):
+    """Write a small raw antenna-pattern export of ``kind`` (one of
+    :data:`ANTENNA_PATTERN_KINDS`: the formats ``detector/
+    antenna_preprocess.py`` reads) under the directory ``root`` and return
+    (preprocessor name, args, kwargs) that turn it into a pickle there."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    root = str(root)
+    if kind == "wipld":
+        d = os.path.join(root, "wipldant")
+        os.makedirs(d)
+        freqs = (0.1, 0.3, 0.5, 0.8)
+        with open(os.path.join(d, "wipldant.ad1"), "w") as f:
+            f.write("> header line\n")
+            for fr in freqs:
+                f.write(f"{fr} 1 1 0 0 {50 + 20 * fr} {-5 * fr} {0.3 * fr - 0.2} {0.1 * fr}\n")
+        with open(os.path.join(d, "wipldant.ra1"), "w") as f:
+            for fr in freqs:
+                f.write(f"> ra1 gen 1 {fr}\n")
+                for ph in range(0, 361, 60):
+                    for th in range(-90, 91, 30):
+                        re_p, im_p, re_t, im_t = rng.standard_normal(4)
+                        f.write(f"{ph} {th} {re_p} {im_p} {re_t} {im_t} 1.0 0.0\n")
+        with open(os.path.join(d, "wipldant.orientation"), "w") as f:
+            f.write("0, 0, 1\n1, 0, 0\n")
+        return "save_preprocessed_wipld", (os.path.join(d, "wipldant.ad1"),), {}
+    if kind == "ara":
+        d = os.path.join(root, "aravpol")
+        os.makedirs(d)
+        _write_ara_pattern(os.path.join(d, "aravpol.txt"), rng)
+        return "preprocess_ara", (os.path.join(d, "aravpol.txt"),), {}
+    if kind == "xfdtd":
+        d = os.path.join(root, "xfhpol")
+        os.makedirs(d)
+        _write_ara_pattern(os.path.join(d, "xfhpol.txt"), rng)
+        with open(os.path.join(d, "xfhpol.yaml"), "w") as f:
+            f.write("boresight_direction: [0, 0, 1]\norientation: [1, 0, 0]\nn: 1.78\n"
+                    "type: Hpol\n")
+        return "preprocess_xfdtd", (os.path.join(d, "xfhpol.txt"),), {}
+    if kind == "hfss":
+        d = os.path.join(root, "hfssant")
+        os.makedirs(d)
+        angles = [(t, p) for p in (0, 120, 240) for t in (0, 90, 180)]
+        cols = ["Freq [MHz]"]
+        for t, p in angles:
+            tag = f"Phi='{p}deg' Theta='{t}deg'"
+            cols += [f"log10(mag(rEPhi)) - {tag}", f"log10(mag(rETheta)) - {tag}",
+                     f"ang_rad(rEPhi) - {tag}", f"ang_rad(rETheta) - {tag}"]
+        with open(os.path.join(d, "hfssant.csv"), "w") as f:
+            f.write(",".join(cols) + "\n")
+            for fr in (200.0, 400.0):
+                row = [str(fr)]
+                for _ in angles:
+                    m = rng.uniform(-10, 3)
+                    row += [str(m), str(m - 1), str(rng.uniform(-np.pi, np.pi)),
+                            str(rng.uniform(-np.pi, np.pi))]
+                f.write(",".join(row) + "\n")
+        return "preprocess_hfss", (os.path.join(d, "hfssant.csv"),), {}
+    if kind == "aera":
+        freqs, thetas, phis = (30.0, 55.0, 80.0), (0, 30, 60, 90), (0, 90, 180, 270)
+        pairs = [(t, p) for p in phis for t in thetas]
+        path = os.path.join(root, "aeraant.xml")
+        with open(path, "w") as f:
+            f.write("<frequency> %s </frequency>\n" % " ".join(str(x) for x in freqs))
+            f.write("<theta> %s </theta>\n" % " ".join(str(t) for t, _ in pairs))
+            f.write("<phi> %s </phi>\n" % " ".join(str(p) for _, p in pairs))
+            for fr in freqs:
+                for tag in ("EAHTheta_amp", "EAHTheta_phase", "EAHPhi_amp", "EAHPhi_phase"):
+                    vals = (rng.uniform(-180, 180, len(pairs)) if "phase" in tag
+                            else rng.uniform(0.02, 2.0, len(pairs)))
+                    f.write("<%s idfreq='%.2f'> %s </%s>\n"
+                            % (tag, fr, " ".join(repr(float(v)) for v in vals), tag))
+        return "preprocess_aera", (path,), {"output": os.path.join(root, "aeraant.pkl")}
+    if kind == "lofar":
+        rows = [(f, t, p) for f in (30.0, 50.0, 70.0) for t in (0, 45, 90)
+                for p in (0, 90, 180, 270)]
+        for comp in ("theta", "phi"):
+            with open(os.path.join(root, f"LBA_Vout_{comp}.txt"), "w") as fh:
+                fh.write("freq theta phi re im\n")
+                for f, t, p in rows:
+                    re, im = rng.standard_normal(2)
+                    fh.write(f"{f} {t} {p} {float(re)!r} {float(im)!r}\n")
+        return "preprocess_lofar_txt", (root,), {"ant": "LBA", "orientation": "Y",
+                                                 "output": os.path.join(root, "lofar.pkl")}
+    if kind == "feko":
+        from scipy import io as scipy_io
+        E = rng.standard_normal((9, 5, 7, 2, 2)).view(np.complex128).reshape(9, 5, 7, 2)
+        path = os.path.join(root, "feko.mat")
+        scipy_io.savemat(path, {"Ephi": E[..., 0], "Etheta": E[..., 1]})
+        return "preprocess_feko_mat", (path,), {
+            "polarization": "X", "downscale_freq": 2, "downscale_zenith": 1,
+            "downscale_azimuth": 2, "output": os.path.join(root, "feko.pkl")}
+    if kind == "rnog_xfdtd":
+        rows = [(f, t, p) for f in (0.1, 0.3, 0.5) for t in range(0, 181, 45)
+                for p in range(0, 360, 90)]
+        gain, phase = os.path.join(root, "gain.csv"), os.path.join(root, "phase.csv")
+        with open(gain, "w") as f:
+            f.write("freq,theta,phi,gain_phi,gain_theta\n")
+            for fr, t, p in rows:
+                f.write(f"{fr},{t},{p},{rng.uniform(0.01, 2)},{rng.uniform(0.01, 2)}\n")
+        with open(phase, "w") as f:
+            f.write("freq,theta,phi,re_phi,im_phi,re_theta,im_theta\n")
+            for fr, t, p in rows:
+                f.write(f"{fr},{t},{p}," + ",".join(str(v) for v in rng.standard_normal(4))
+                        + "\n")
+        return "preprocess_rnog_xfdtd", (gain, phase, os.path.join(root, "rnog.pkl")), {}
+    raise ValueError(f"unknown antenna pattern kind {kind!r}")
+
+
+def make_ara_run(path, n_events=300, n_channels=16, n_samples=512, seed=0):
+    """Write an ARA run export (``reco.ara_io.write_numpy_dataset``) of
+    station 2, run 42: per event and channel a calibrated graph of
+    ``n_samples`` - 0..7 samples at slightly non-uniform times (0.55-0.70 ns
+    apart, as the ARA graphs are) and 50 mV Gaussian voltages."""
+    from nuradiomc_tpu_torch.reco.ara_io import write_numpy_dataset
+
+    rng = np.random.default_rng(seed)
+    times, volts = [], []
+    for _ in range(n_events):
+        n = n_samples - rng.integers(0, 8, n_channels)
+        times.append([np.cumsum(0.55 + 0.15 * rng.random(k)) for k in n])
+        volts.append([rng.standard_normal(k) * 50.0 for k in n])
+    write_numpy_dataset(path, 42, [2] * n_events, np.arange(100, 100 + n_events), times, volts)
+    return path
+
+
+def make_arianna_calib_file(path, n_events=300, n_channels=4, n_samples=256, seed=0):
+    """Write an ARIANNA CalibTree export (``reco.arianna_io.
+    write_numpy_dataset``) of station 51, run 7 in the layout of
+    tests/test_ara_arianna_io.py's fixture, ``n_events`` long: events in
+    sequences of 50 (the last sequence without a config row), thermal and
+    forced triggers alternating, one in 20 without a stop sample, 20 mV
+    Gaussian waveforms."""
+    import datetime
+
+    from nuradiomc_tpu_torch.reco.arianna_io import write_numpy_dataset
+
+    rng = np.random.default_rng(seed)
+    t0 = datetime.datetime(2018, 3, 1, 12, 0, 0).timestamp()
+    seq = np.arange(n_events) // 50 + 1
+    n_cfg = int(seq.max()) - 1 if seq.max() > 1 else 1
+    stop = rng.integers(1, n_samples, n_events)
+    stop[::20] = -1
+    write_numpy_dataset(
+        path, trees={"AmpOutData": rng.standard_normal((n_events, n_channels, n_samples)) * 20},
+        station_ids=np.full(n_events, 51), run_numbers=np.full(n_events, 7),
+        event_numbers=np.arange(10, 10 + n_events), seq_numbers=seq,
+        unix_times=t0 + 60.0 * np.arange(n_events),
+        is_thermal=np.arange(n_events) % 2 == 0, is_forced=np.arange(n_events) % 2 == 1,
+        dt_ms=rng.uniform(1, 10, n_events), stop_samples=stop,
+        cfg_station_ids=np.full(n_cfg, 51), cfg_run_numbers=np.full(n_cfg, 7),
+        cfg_seq_numbers=np.arange(1, n_cfg + 1), cfg_n_chans=np.full(n_cfg, n_channels),
+        cfg_sampling_rates=np.ones(n_cfg), cfg_type_names=["Standard"] * n_cfg,
+        cfg_seq_start=t0 - 30.0 + 3000.0 * np.arange(n_cfg),
+        cfg_seq_stop=t0 + 3000.0 * np.arange(1, n_cfg + 1),
+        cfg_comm_durations=np.full(n_cfg, 120.0), cfg_comm_periods=np.full(n_cfg, 600.0),
+        cfg_l1_cuts=np.full(n_cfg, 0.3),
+        cfg_thresholds=np.tile(np.array([[-0.1, 0.1]]), (n_cfg, n_channels, 1)))
+    return path

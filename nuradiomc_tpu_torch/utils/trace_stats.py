@@ -16,6 +16,12 @@ import torch
 from nuradiomc_tpu_torch.ops.trace import hilbert_envelope
 
 
+def true_div(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` for a number ``d`` as a true division, as numpy's: a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal."""
+    return x / torch.as_tensor(d, dtype=x.real.dtype, device=x.device)
+
+
 def _symmetric_windows(trace: torch.Tensor, size: int) -> torch.Tensor:
     """[..., n, size] windows of ``scipy.ndimage``'s 1-D filters (origin 0:
     [i - size//2, i + (size-1)//2], mode 'reflect', which repeats the edge
@@ -91,7 +97,7 @@ def get_entropy(trace: torch.Tensor, n_hist_bins=50) -> torch.Tensor:
     first = torch.where(flat, first - 0.5, first)
     last = torch.where(flat, last + 0.5, last)
     steps = torch.arange(n_hist_bins + 1, dtype=trace.dtype, device=trace.device)
-    edges = steps * ((last - first) / n_hist_bins) + first
+    edges = steps * true_div(last - first, n_hist_bins) + first   # numpy's edges
     edges[..., -1:] = last
     idx = (((trace - first) / (last - first)) * n_hist_bins).to(torch.int64)
     idx = torch.where(idx == n_hist_bins, idx - 1, idx)
@@ -133,18 +139,26 @@ def _zscore(tr: torch.Tensor) -> torch.Tensor:
 def get_coherent_sum(trace_set: torch.Tensor, ref_trace: torch.Tensor,
                      use_envelope=False) -> torch.Tensor:
     """Coherently-summed waveform (:608-653): every trace of ``trace_set``
-    [T, n] rolled by the lag of the maximum of its z-scored full correlation
-    with the reference (all correlations as one product over the sliding
-    windows of the reference), then summed."""
+    [..., T, n] rolled by the lag of the maximum of its z-scored full
+    correlation with the reference [..., n], then added to the reference in
+    the reference's order; leading axes are stations. The correlations
+    (``scipy.signal.correlate(ref, tr, 'full') / n``, lags -(n-1)..n-1) are
+    taken through one zero-padded FFT of every trace."""
     n = ref_trace.shape[-1]
     process = (lambda tr: _zscore(hilbert_envelope(tr))) if use_envelope else _zscore
     ref_p = process(ref_trace)
     traces_p = process(trace_set)
-    windows = torch.nn.functional.pad(ref_p, (n - 1, n - 1)).unfold(-1, n, 1)
-    corr = traces_p @ windows.T / n         # scipy.signal.correlate(ref, tr, 'full') / n
-    lags = torch.argmax(corr, -1) - (n - 1)
-    idx = torch.remainder(torch.arange(n, device=trace_set.device) - lags[:, None], n)
-    return ref_trace + torch.gather(trace_set, -1, idx).sum(0)
+    size = 1 << (2 * n - 2).bit_length()          # >= 2n - 1
+    cyclic = torch.fft.irfft(torch.fft.rfft(ref_p, size)[..., None, :]
+                             * torch.conj(torch.fft.rfft(traces_p, size)), size)
+    full = torch.remainder(torch.arange(2 * n - 1, device=trace_set.device) - (n - 1), size)
+    lags = torch.argmax(cyclic[..., full], -1) - (n - 1)     # the 1/n does not move it
+    idx = torch.remainder(torch.arange(n, device=trace_set.device) - lags[..., None], n)
+    rolled = torch.gather(trace_set, -1, idx)
+    out = ref_trace
+    for k in range(rolled.shape[-2]):       # the reference's order of additions
+        out = out + rolled[..., k, :]
+    return out
 
 
 def get_stokes(trace_u: torch.Tensor, trace_v: torch.Tensor, window_samples=128,

@@ -898,3 +898,60 @@ def test_galactic_noise_on_card_matches_cpu(dev):
                            np.array([st.get_channel(c).get_frequency_spectrum() for c in range(4)]))
     for a, b in zip(out[str(dev)], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max())
+
+
+def _rnog_chunk(n_events=256):
+    """One 256-event chunk of RNO-G waveforms in volts (``convert.make_rnog_runs``,
+    written to a temporary directory and read back) and its scrambles."""
+    import tempfile
+
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.reco import rnog_io
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, truth = convert.make_rnog_runs(tmp, n_runs=1, n_events=n_events, seed=9)
+        raw = rnog_io.NumpyDataset(paths[0]).raw_block(np.arange(n_events))
+    return raw.astype(float) * rnog_io.ADC_TO_VOLT, truth[0]
+
+
+def test_rnog_block_offsets_and_glitches_on_card_match_cpu(dev):
+    """The data provider's chunk pass (block offsets "auto", glitch statistic)
+    on a 256-event chunk: offsets within 1e-9 of each trace's standard
+    deviation, corrected traces within 1e-12 of peak, the fit branch and the
+    glitch flags equal; every injected scramble flagged (the statistic's cut
+    at 0 may flag a clean channel too)."""
+    from nuradiomc_tpu_torch.reco import rnog_io
+    volts, truth = _rnog_chunk()
+    out = {}
+    for where in (dev, "cpu"):
+        provider = rnog_io.dataProviderRNOG(device=where)
+        res = provider.process(torch.as_tensor(volts, device=where), 3.2)
+        out[str(where)] = [r.cpu().numpy() for r in res]
+    (tr_c, off_c, fit_c, gl_c), (tr_h, off_h, fit_h, gl_h) = out[str(dev)], out["cpu"]
+    peak = np.abs(tr_h).max(-1, keepdims=True)
+    assert np.all(np.abs(tr_c - tr_h) <= 1e-12 * peak)
+    assert np.all(np.abs(off_c - off_h) <= 1e-9 * volts.std(-1, keepdims=True))
+    np.testing.assert_array_equal(fit_c, fit_h)
+    np.testing.assert_array_equal(gl_c, gl_h)
+    scrambled = truth["scrambled"]
+    assert not np.any(scrambled & ~gl_h), "a scrambled channel was not flagged"
+    assert gl_h.sum() >= scrambled.sum()
+
+
+def test_rnog_hit_filter_on_card_matches_cpu(dev):
+    """stationHitFilter's batched pass on the 256 events' in-ice channels:
+    hit times, both checkers and the decisions equal."""
+    from nuradiomc_tpu_torch.reco import rnog_data
+    volts, _ = _rnog_chunk()
+    traces = volts[:, rnog_data.stationHitFilter.IN_ICE_CHANNELS]
+    t0 = -250.0 - 0.1 * np.arange(traces.shape[1])
+    out = {}
+    for where in (dev, "cpu"):
+        hf = rnog_data.stationHitFilter(device=where)
+        start = torch.as_tensor(np.tile(t0, (len(traces), 1)), device=where)
+        fs = torch.full_like(start, 3.2)
+        res = hf.apply_batch(torch.as_tensor(traces, device=where),
+                             lambda i: i.to(start.dtype) / fs + start)
+        out[str(where)] = [r.cpu().numpy() for r in res]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert 0 < out["cpu"][0].sum() < len(traces)

@@ -5,7 +5,9 @@ its entry points run on the card unless the CPU is asked for.
 * Isolation: a subprocess refuses the top-level names ``jax``, ``jaxlib`` and
   ``nuradiomc_tpu`` with a meta-path hook, imports every module of
   ``nuradiomc_tpu_torch`` (``pkgutil.walk_packages``) and ``chip_smoke`` as a
-  module (without running it), and reads no file under ``nuradiomc_tpu/``.
+  module (without running it), which imports none of h5py, matplotlib, ROOT,
+  mattak and proposal (the card's machine has none of them), and reads no
+  file under ``nuradiomc_tpu/``.
 * Copies: units, constants, config merging, the filter responses of the
   three workloads' chains, the Earth-attenuation weights, the detector
   tables, the birefringence model arrays, the ice models, the GL3
@@ -21,7 +23,14 @@ its entry points run on the card unless the CPU is asked for.
   model are held to the originals on the same inputs, exactly
   (the event generator in tests/test_torch_evtgen.py, the ``.nur`` files in
   tests/test_torch_nur_output.py, the Veff tables of a campaign's output in
-  tests/test_torch_fullscale.py).
+  tests/test_torch_fullscale.py; the recorded-data slice's copies in their
+  own files: the ARA and ARIANNA readers and the antenna preprocessors in
+  tests/test_torch_ara_arianna_antenna.py, the RNO-G run writer in
+  tests/test_torch_rnog_io_noise.py, and the SKA detector with its channel
+  table, the ASCII event lists, the PROPOSAL stand-in and its table manager,
+  the event and detector browsers, the vertex plot, the data-server
+  downloads, the templates, the framework utilities, the particle names and
+  the STATUS logger in tests/test_torch_host_modules.py).
 * Default device: every entry point's ``device`` defaults to "cuda" (every
   reconstruction module class, through ``reco.base.Module``); with no card, a
   call that omits it raises instead of running on the CPU.
@@ -68,6 +77,9 @@ from nuradiomc_tpu_torch.utils import units as tunits
 from nuradiomc_tpu_torch.reco import lofar as tlofar
 from nuradiomc_tpu_torch.reco import rit as trit
 from nuradiomc_tpu_torch.sim import io_coreas as tio_coreas
+from nuradiomc_tpu_torch.reco import measured_noise as tnoise
+from nuradiomc_tpu_torch.reco import rnog_data as trnog_data
+from nuradiomc_tpu_torch.reco import rnog_io as trnog_io
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -112,6 +124,9 @@ _ISOLATED = textwrap.dedent("""
                                                   os.path.join(root, "chip_smoke.py"))
     importlib.util.module_from_spec(spec).__loader__.exec_module(
         importlib.util.module_from_spec(spec))
+    optional = ("h5py", "matplotlib", "ROOT", "mattak", "proposal")
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in optional)
+    assert not imported, imported
     from nuradiomc_tpu_torch.ops import birefringence
     from nuradiomc_tpu_torch import convert
     birefringence.load_model("southpole_A")
@@ -207,6 +222,22 @@ _ISOLATED = textwrap.dedent("""
     field = fev.ElectricField([0])
     field.set_trace(np.random.default_rng(0).normal(size=(3, 64)), 1.0)
     field.get_stokes_parameters()
+    # the recorded-data slice: RNO-G runs written and read back through the
+    # data provider, the hit filter, measured noise from the runs' forced
+    # triggers, the SKA channel table from the port's data directory
+    from nuradiomc_tpu_torch.detector import ska
+    from nuradiomc_tpu_torch.reco import measured_noise, rnog_data, rnog_io
+    assert ska._CHANNEL_FILE.startswith(os.path.join(root, "nuradiomc_tpu_torch") + os.sep)
+    ska.SKADetector()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, _ = convert.make_rnog_runs(tmp, n_runs=1, n_events=3)
+        provider = rnog_io.dataProviderRNOG(device="cpu")
+        provider.begin(paths, convert.RNOGRunDetector())
+        recorded = list(provider.run())
+        rnog_data.stationHitFilter(device="cpu").run_events(recorded)
+        importer = measured_noise.RNOGNoiseImporter(device="cpu")
+        importer.begin(tmp, random_seed=1)
+        importer.run_events(convert.make_rnog_sim_stations(fev, 2))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -586,7 +617,9 @@ def test_entry_points_default_to_the_card(fn):
                                   "surface_muon_simulation", "dryrun_simulation",
                                   "reco_module", "travel_time_table", "ice_to_air",
                                   "numeric_solver", "solver_3d", "noise_tuning",
-                                  "hardware_response", "rfi", "rit", "beam_search"])
+                                  "hardware_response", "rfi", "rit", "beam_search",
+                                  "rnog_reader", "rnog_provider", "block_offsets",
+                                  "noise_importer"])
 def test_omitted_device_without_a_card_raises(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -620,6 +653,10 @@ def test_omitted_device_without_a_card_raises(call):
         "rfi": lambda: tlofar.find_rfi(np.zeros((2, 16)), 0.2, 8),
         "rit": lambda: trit.efieldInterferometricAxisReco(),
         "beam_search": lambda: tlofar.beamformingDirectionFitter(),
+        "rnog_reader": lambda: trnog_io.readRNOGData(),
+        "rnog_provider": lambda: trnog_io.dataProviderRNOG(),
+        "block_offsets": lambda: trnog_data.channelBlockOffsets(),
+        "noise_importer": lambda: tnoise.ARIANNANoiseImporter(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()
