@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels and drive its main paths once on one GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 15,
+    python3 chip_smoke.py --phases 2       # phases 0-1 and those named (2 to 16,
     python3 chip_smoke.py --phases 8,9     # comma-separated), no result line
     python3 chip_smoke.py --phases 10      # the production-scale campaign alone
     python3 chip_smoke.py --phases 11      # processes sharing the card, the muon campaign
@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 13      # ray solvers, noise-rate tuning, hardware modules
     python3 chip_smoke.py --phases 14      # the cosmic-ray side (LOFAR, RIT, CoREAS, cleaning)
     python3 chip_smoke.py --phases 15      # the recorded-data side (RNO-G runs, measured noise)
+    python3 chip_smoke.py --phases 16      # the BGR18-weighted campaign
     python3 chip_smoke.py --phases trigger # phases 0-1 and kernel 2's part of phase 2
 
 Phases (any failure raises, so the script exits non-zero and prints no
@@ -220,7 +221,21 @@ result line):
    bit for bit, events/s of each; (c) the ARA and ARIANNA-Calib readers on
    300-event files and every antenna preprocessor on its raw pattern file,
    each table read by ``table_vel`` at 1000 directions x 512 frequencies on
-   the card within 1e-12 of the CPU.
+   the card within 1e-12 of the CPU;
+16. the BGR18/HEDIS cross-section path (float64): tests/test_bgr18.py's
+   synthetic table (dsigma/dy = A(E) y^-0.7, 21 energies x 200 y, six
+   flavors, nc/cc; ``convert.make_bgr18_table``) written to a temporary
+   directory and set with ``set_bgr18_table_path``; (a) phase 10's 50,000
+   events (its volume, 1e18 eV, seed 10) generated with
+   ``cross_sections_model="hedis_bgr18"``: the cc fraction within 0.02 of
+   the table's cc/(cc+nc) and the median inelasticity within 4 standard
+   errors of 0.5^(1/(B+1)); (b) the list through
+   ``convert.fullscale_simulation`` with ``hedis_bgr18`` weights: events/s,
+   triggered groups, Veff, peak memory, kernels 1 and 2 launched and held
+   to their plain versions on the run's own launches; (c) the first 3,000
+   event groups on the card and on the CPU: triggered sets equal, Veff at
+   rtol 1e-9; (d) the BGR18 weights of the list differ from its CTW
+   weights and lie in [0, 1].
 
 Every printed time carries the card's name and power limit. The line before
 the last is the per-kernel JSON summary; the last line is
@@ -3908,13 +3923,133 @@ def phase_recorded(dev):
     return counts
 
 
+# ---- phase 16: the BGR18/HEDIS cross-section path -------------------------------
+
+P16_CPU_GROUPS = 3000    # the first event groups of the list, run on the CPU too
+P16_CONFIG = {"weights": {"weight_mode": "core_mantle_crust_simple",
+                          "cross_section_type": "hedis_bgr18"}}
+
+
+def _p16_list():
+    """(a) phase 10's campaign list drawn with the BGR18 table, held to the
+    table's cc fraction and inelasticity law."""
+    from nuradiomc_tpu_torch.sim import cross_sections, evtgen
+    campaign = convert.FULLSCALE_LIST
+    t0 = time.perf_counter()
+    data, attrs = evtgen.generate_eventlist_cylinder(
+        None, campaign["n_events"], 1e18 * units.eV, 1e18 * units.eV, campaign["volume"],
+        seed=10, cross_sections_model="hedis_bgr18")
+    gen_s = time.perf_counter() - t0
+    _, first = np.unique(data["event_group_ids"], return_index=True)
+    flavors, energies = data["flavors"][first], data["energies"][first]
+    cc = cross_sections.get_nu_cross_section(energies, flavors, "cc", "hedis_bgr18")
+    nc = cross_sections.get_nu_cross_section(energies, flavors, "nc", "hedis_bgr18")
+    cc_frac = float(np.mean(data["interaction_type"][first] == "cc"))
+    want_cc = float(np.mean(cc / (cc + nc)))
+    y = data["inelasticity"][first]
+    b1 = convert.BGR18_SLOPE + 1
+    y_med = 0.5 ** (1 / b1)
+    se = np.sqrt(0.25 / len(y)) / (b1 * y_med ** convert.BGR18_SLOPE)
+    med = float(np.median(y))
+    print(f"phase 16a evtgen hedis_bgr18: {attrs['n_events']} events, {len(data['shower_ids'])} "
+          f"showers in {gen_s:.3f} s on the host; cc fraction {cc_frac:.4f} (table "
+          f"{want_cc:.4f}, gate 0.02), median inelasticity {med:.5f} (closed form "
+          f"{y_med:.5f}, {abs(med - y_med) / se:.2f} standard errors, gate 4) ({CARD})")
+    if abs(cc_frac - want_cc) >= 0.02 or abs(med - y_med) >= 4 * se:
+        raise AssertionError("the BGR18 list does not follow its table")
+    return data, attrs
+
+
+def _p16_campaign(dev):
+    from nuradiomc_tpu_torch.sim import earth_attenuation
+    data, attrs = _p16_list()
+    inp = io_input.from_generated(data, attrs)
+    n_events = int(attrs["n_events"])
+
+    # (b) the campaign on the card
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, res, wall, counts, calls = _campaign_run(
+        "(b) float64, 50,000 events, BGR18 weights",
+        lambda: convert.fullscale_simulation(inp, P16_CONFIG, device=dev,
+                                             dtype=torch.float64), n_events, phase="phase 16")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    sel = res["triggered"] & (res["weights"] >= 1e-5)
+    veff_km3 = res["veff"] / units.km ** 3
+    print(f"phase 16b BGR18 campaign: {int(sel.sum())} groups above the weight cut, Veff "
+          f"{veff_km3:.6f} km^3 (Veff*4pi {4 * np.pi * veff_km3:.6f} km^3 sr), "
+          f"{n_events / wall:.1f} events/s in {wall:.2f} s, peak memory {peak:.2f} GiB, "
+          f"launches {counts} ({CARD})")
+    if min(counts["placement_chain"], counts["irfft_trigger"]) < 1:
+        raise AssertionError(f"a kernel of the BGR18 campaign was not launched: {counts}")
+    if not (res["n_triggered"] > 0 and np.isfinite(res["veff"]) and res["veff"] > 0):
+        raise AssertionError("the BGR18 campaign gives no finite positive Veff")
+    _check_recorded(calls, "BGR18 campaign float64", "phase 16")
+    del calls
+
+    # (c) the first groups on the card and on the CPU
+    sub = io_input.select(inp, np.unique(inp.event_group_ids)[:P16_CPU_GROUPS])
+    out = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        out[str(where)] = convert.fullscale_simulation(sub, P16_CONFIG, device=where,
+                                                       dtype=torch.float64).run()
+        secs = time.perf_counter() - t0
+        print(f"phase 16c {P16_CPU_GROUPS} groups on {where}: {secs:.2f} s ({CARD})")
+    card, cpu = out[str(dev)], out["cpu"]
+    set_card = set(card["group_ids"][card["triggered"]].tolist())
+    set_cpu = set(cpu["group_ids"][cpu["triggered"]].tolist())
+    rel = abs(card["veff"] / cpu["veff"] - 1) if cpu["veff"] else abs(card["veff"])
+    print(f"phase 16c card against CPU: {len(set_card)} / {len(set_cpu)} triggered, "
+          f"{len(set_card ^ set_cpu)} differ; Veff {card['veff'] / units.km ** 3:.9f} / "
+          f"{cpu['veff'] / units.km ** 3:.9f} km^3, rel {rel:.2e} (gate 1e-9)")
+    if set_card != set_cpu or not len(set_cpu) or rel > 1e-9:
+        raise AssertionError("the BGR18 campaign on the card differs from the CPU's")
+
+    # (d) the BGR18 weights against the CTW weights of the same list
+    args = (data["zeniths"], data["energies"], data["flavors"])
+    w = earth_attenuation.get_weight(*args, mode="core_mantle_crust_simple",
+                                     cross_section_type="hedis_bgr18")
+    w_ctw = earth_attenuation.get_weight(*args, mode="core_mantle_crust_simple",
+                                         cross_section_type="ctw")
+    differ = float(np.mean(~np.isclose(w, w_ctw, rtol=1e-6, atol=0)))
+    print(f"phase 16d weights: BGR18 in [{w.min():.3g}, {w.max():.3g}], mean {w.mean():.6f} "
+          f"against CTW's {w_ctw.mean():.6f}; {differ:.1%} of the showers' weights differ "
+          f"beyond rtol 1e-6")
+    if not (np.all((w >= 0) & (w <= 1)) and np.all((res["weights"] >= 0) & (res["weights"] <= 1))
+            and differ > 0):
+        raise AssertionError("the BGR18 weights are outside [0, 1] or equal the CTW weights")
+    return counts
+
+
+def phase_bgr18(dev):
+    """A BGR18-weighted dipole campaign on the card (float64) from the
+    synthetic table in a temporary directory; returns the kernel launches of
+    the campaign's run. The table path is restored on exit."""
+    import tempfile
+
+    from nuradiomc_tpu_torch.sim import cross_sections
+    t_phase = time.perf_counter()
+    old = cross_sections._BGR18_PATH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bgr18_") as tmp:
+        cross_sections.set_bgr18_table_path(
+            convert.make_bgr18_table(os.path.join(tmp, "bgr18_synth.npz")))
+        try:
+            counts = _p16_campaign(dev)
+        finally:
+            cross_sections.set_bgr18_table_path(old)
+    torch.cuda.empty_cache()
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; launches {counts} ({CARD})")
+    return counts
+
+
 # the phases that ``--phases`` can name, beside ``trigger`` (kernel 2's part
 # of phase 2 alone)
 PHASES = {"2": (phase_kernels, phase_pa_kernel, phase_pa_large), "3": (phase_headline,),
           "4": (phase_simulation,), "5": (phase_pa,), "6": (phase_gen2,),
           "7": (phase_multitrigger,), "8": (phase_mooresbay,), "9": (phase_signal_chain,),
           "10": (phase_campaign,), "11": (phase_multiprocess,), "12": (phase_reco,),
-          "13": (phase_rays,), "14": (phase_cosmic_ray,), "15": (phase_recorded,)}
+          "13": (phase_rays,), "14": (phase_cosmic_ray,), "15": (phase_recorded,),
+          "16": (phase_bgr18,)}
 
 
 def _phases_asked(argv):
@@ -3923,7 +4058,7 @@ def _phases_asked(argv):
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases 2,..,15|trigger]")
+        raise SystemExit("usage: chip_smoke.py [--phases 2,..,16|trigger]")
     only = set(argv[1].split(","))
     if not only <= set(PHASES) | {"trigger"}:
         raise SystemExit(f"--phases takes {sorted(PHASES)} and 'trigger', not {argv[1]!r}")
@@ -3987,10 +4122,11 @@ def main() -> int:
     rays_launches = phase_rays(dev)
     cosmic_launches = phase_cosmic_ray(dev)
     recorded_launches = phase_recorded(dev)
-    # launches: the counts of the main-path runs (phases 3, 5 to 15)
+    bgr18_launches = phase_bgr18(dev)
+    # launches: the counts of the main-path runs (phases 3, 5 to 16)
     for counts in (pa_launches, gen2_launches, mt_launches, mb_launches, chain_launches,
                    campaign_launches, mesh_launches, reco_launches, rays_launches,
-                   cosmic_launches, recorded_launches):
+                   cosmic_launches, recorded_launches, bgr18_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     replaces = {"placement_chain": "nuradiomc_tpu/ops/placement_pallas.py:452; "

@@ -676,6 +676,40 @@ def fullscale_simulation(event_input, config=None, **kwargs):
     return dipole_simulation(event_input, config, **{"chunk_size": 2048, **kwargs})
 
 
+# ---- a BGR18/HEDIS cross-section table of the published schema ---------------
+
+# dsigma/dy = A(E) y^BGR18_SLOPE per (flavor, nc/cc) on the grids of
+# tests/test_bgr18.py: sigma(E) = A(E) / (B + 1) and the inelasticity CDF is
+# y^(B + 1), closed forms to hold the table machinery to. The published
+# BGR18_dsigma_dy_H2O.npz (a NuRadioMC data-server download) has this schema;
+# point sim/cross_sections.set_bgr18_table_path at either.
+BGR18_SLOPE = -0.7
+BGR18_FLAVORS = np.array([12, -12, 14, -14, 16, -16])
+BGR18_ENERGIES = np.logspace(15, 20, 21)     # eV
+BGR18_Y = np.logspace(-4, 0, 200)
+
+
+def _bgr18_amplitude(e_idx, i_flavor, i_nccc):
+    """A(E) of the synthetic table: an energy power law, a distinct
+    normalization per flavor and per nc (i_nccc 0) / cc (1)."""
+    return (1e-33 * (BGR18_ENERGIES[e_idx] / 1e18) ** 0.36
+            * (1.0 + 0.1 * i_flavor) * (1.0 if i_nccc else 0.4))
+
+
+def make_bgr18_table(path):
+    """Write the synthetic table (per ice nucleus, in cm^2, as the published
+    file) to ``path`` (.npz) and return ``path``."""
+    dsdy = np.zeros((len(BGR18_FLAVORS), 2, len(BGR18_ENERGIES), len(BGR18_Y)))
+    for iF in range(len(BGR18_FLAVORS)):
+        for iI in range(2):
+            for iE in range(len(BGR18_ENERGIES)):
+                dsdy[iF, iI, iE] = _bgr18_amplitude(iE, iF, iI) * BGR18_Y ** BGR18_SLOPE
+    with open(path, "wb") as f:
+        np.savez(f, dsigma_dy_ref=dsdy, nu_energies_ref=BGR18_ENERGIES, y_ref=BGR18_Y,
+                 flavors_ref=BGR18_FLAVORS, ncccs_ref=np.array(["NC", "CC"]))
+    return path
+
+
 # the campaign's four RNO-G VPols below 197 m, 5 ns more cable per channel
 FULLSCALE_PA_DETECTOR = {
     "channels": {str(i + 1): {**PA_DETECTOR["channels"][str(i + 1)],

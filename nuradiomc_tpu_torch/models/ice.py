@@ -40,6 +40,21 @@ class IceModelSimple:
         n = self.n_ice - self.delta_n * torch.exp((z - self.z_shift) / self.z_0)
         return torch.where(z - self.z_air_boundary > 0, torch.ones_like(n), n)
 
+    def average_index_of_refraction(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+        """Depth-averaged n between two depths below the surface (ice.py:45)."""
+        zmax = torch.maximum(z1, z2)
+        zmin = torch.minimum(z1, z2)
+        same = zmax == zmin
+        dz = torch.where(same, torch.ones_like(zmax), zmax - zmin)
+        avg = self.n_ice - self.delta_n * self.z_0 / dz * (
+            torch.exp((zmax - self.z_shift) / self.z_0)
+            - torch.exp((zmin - self.z_shift) / self.z_0))
+        return torch.where(same, self.index_of_refraction(zmin), avg)
+
+    @property
+    def has_reflective_bottom(self) -> bool:
+        return self.refl_z is not None
+
 
 southpole_simple = IceModelSimple(  # RICE2014/SP
     n_ice=1.78, delta_n=0.426, z_0=71.0 * units.m, z_bottom=-2820.0 * units.m)

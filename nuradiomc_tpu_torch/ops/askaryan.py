@@ -25,6 +25,9 @@ import torch
 from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
+# the parametrized spectra of this module (askaryan.py:35)
+MODELS = ("ZHS1992", "Alvarez2000", "Alvarez2009")
+
 
 def _freqs(N: int, dt: float, like: torch.Tensor):
     return torch.fft.rfftfreq(N, dt, dtype=like.dtype, device=like.device)

@@ -15,6 +15,8 @@ observables and the per-slot attenuation ``attenuation_factor_slots``.
 ``reflection_angle`` gives the surface-incidence zenith of reflected rays,
 and ``find_solution_ice_to_air`` the single solution for a receiver above
 the surface (the closed-form in-ice leg and a straight air leg).
+``delta_y`` is the solver's miss distance for a trial C0 and
+``focusing_factor`` the analytic (Bouma) focusing factor.
 """
 
 from __future__ import annotations
@@ -132,6 +134,24 @@ def _y_with_mirror(z, c0, ice: IceModelSimple, c1=0.0):
 
 def _c1_of(x1y, x1z, c0, ice: IceModelSimple):
     return x1y - _y_with_mirror(x1z, c0, ice)
+
+
+def delta_y(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
+    """Miss distance at the receiver for trial parameter C0 (raytrace.py:134,
+    get_delta_y:204-272, in-ice without bottom reflections); elementwise.
+    Positive when the path falls short of the receiver (direct branch); the
+    "turning point too deep" penalty and the mirrored overshoot branch make
+    it negative at both ends of the logC0 axis."""
+    c1 = _c1_of(x1y, x1z, c0, ice)
+    gamma_turn, z_turn = _turning_point(c0, ice)
+    y_turn = _y_of_gamma(gamma_turn, c0, c1, ice)
+    penalty = -(torch.sqrt((z_turn - x2z) ** 2 + (y_turn - x2y) ** 2)
+                + 10.0 * torch.abs(z_turn - x2z))
+    y2 = _y_of_gamma(_gamma(x2z, ice), c0, c1, ice)
+    d_direct = x2y - y2
+    d_mirror = -(x2y - (2 * y_turn - y2))
+    out = torch.where(y_turn > x2y, d_direct, d_mirror)
+    return torch.where(z_turn < x2z, penalty, out)
 
 
 def _w_up(z, c0, ice: IceModelSimple):
@@ -356,6 +376,44 @@ def travel_time(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
     ct_direct = ct_of(x2z) - ct_of(x1z)
     ct_turn = 2 * ct_of(z_turn) - ct_of(x1z) - ct_of(x2z)
     return torch.where(sol == SOL_DIRECT, ct_direct, ct_turn) / speed_of_light
+
+
+def focusing_factor(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple, limit=2.0):
+    """Analytic focusing factor (raytrace.py:717, get_focusing_analytic:786-883,
+    Bouma appendix), clipped to ``limit``; refracted trajectories, where the
+    analytic form diverges, are clamped at the limit as well."""
+    beta, alpha = _bouma_beta_alpha(c0, x1z, ice)
+    la = launch_angle(c0, x1z, ice)
+    ra = receive_angle(c0, x1y, x1z, x2y, x2z, ice)
+    s = path_length(c0, x1y, x1z, x2y, x2z, ice)
+    n1 = _n_z(x1z, ice)
+    n2 = _n_z(x2z, ice)
+
+    def w_phi(z):
+        nz = _n_z(z, ice)
+        gam = torch.clamp(nz ** 2 - beta ** 2, min=0.0)
+        return (z - ice.z_0 * torch.log(torch.sqrt(alpha * gam) + ice.n_ice * nz
+                                        - beta ** 2)) / torch.sqrt(alpha)
+
+    def w_theta(z):
+        nz = _n_z(z, ice)
+        gam = torch.clamp(nz ** 2 - beta ** 2, min=1e-30)
+        return (ice.n_ice ** 2 * z / alpha ** 1.5
+                + ice.z_0 * (ice.n_ice * nz + beta ** 2) / (alpha * torch.sqrt(gam))
+                - ice.n_ice ** 2 * ice.z_0 / alpha ** 1.5
+                * torch.log(torch.sqrt(alpha * gam) + ice.n_ice * nz - beta ** 2))
+
+    surface = torch.zeros_like(c0)
+    sol = _solution_type(c0, x1y, x1z, x2y, x2z, ice)
+    direct = sol == SOL_DIRECT
+    wt = torch.where(direct, w_theta(x2z) - w_theta(x1z),
+                     2 * w_theta(surface) - w_theta(x1z) - w_theta(x2z))
+    wp = torch.where(direct, w_phi(x2z) - w_phi(x1z),
+                     2 * w_phi(surface) - w_phi(x1z) - w_phi(x2z))
+
+    f_inv_sq = n1 * n2 * torch.abs(torch.cos(la) * torch.cos(ra)) * wt * wp / s ** 2
+    focusing = torch.sqrt(1.0 / torch.clamp(f_inv_sq, min=1e-30))
+    return torch.clamp(focusing, max=limit)
 
 
 def turning_depth(c0, ice: IceModelSimple):

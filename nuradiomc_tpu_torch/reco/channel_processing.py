@@ -113,6 +113,9 @@ def _resample(module, bt, sampling_rate):
 class channelResampler(Module):
     """FFT resampling of channel traces (modules/channelResampler.py)."""
 
+    def begin(self, debug=False):
+        pass
+
     @register_run()
     def run(self, evt, station, det, sampling_rate):
         for channel in station.iter_channels():

@@ -32,8 +32,8 @@ from nuradiomc_tpu_torch.sim import io_coreas
 from nuradiomc_tpu_torch.utils import device as device_util
 from nuradiomc_tpu_torch.utils import units
 
-# copied from nuradiomc_tpu/reco/coreas_readers.py:28-207 (without apply_hanning: the
-# detector reader windows all of its pulses in one batch)
+# copied from nuradiomc_tpu/reco/coreas_readers.py:28-207 (the detector reader
+# windows all of its pulses in one batch; apply_hanning windows one efield)
 efp = par.electricFieldParameters
 shp = par.showerParameters
 stnp = par.stationParameters
@@ -49,6 +49,16 @@ def get_random_core_positions(xmin, xmax, ymin, ymax, n_cores, seed=None):
     rng = np.random.RandomState(seed)
     return np.array([rng.uniform(xmin, xmax, n_cores),
                      rng.uniform(ymin, ymax, n_cores)]).T
+
+
+def apply_hanning(efield):
+    """Half-Hann window (10%) along the time axis of a (n_samples, n_pol)
+    efield, a tensor on its device or a numpy array
+    (readCoREASDetector.apply_hanning:59-78)."""
+    window = half_hann_window(efield.shape[0], half_percent=0.1)
+    if isinstance(efield, torch.Tensor):
+        window = torch.as_tensor(window, dtype=efield.dtype, device=efield.device)
+    return efield * window[:, None]
 
 
 def select_channels_per_station(det, station_id, requested_channel_ids):
@@ -316,6 +326,9 @@ class simulationSelector(Module):
     """Select CoREAS simulations with any in-band signal above n_std sigma of
     the out-of-band noise floor (simulationSelector.py:9-99); each efield's
     spectrum statistics on the module's device."""
+
+    def begin(self, debug=False):
+        pass
 
     @register_run()
     def run(self, evt, sim_station, det,

@@ -51,6 +51,9 @@ def _dot3(v, p):
 
 class correlationDirectionFitter(Module):
 
+    def begin(self, debug=False, log_level=None):
+        pass
+
     @register_run()
     def run(self, evt, station, det, n_index=None, ZenLim=None, AziLim=None,
             channel_pairs=((0, 2), (1, 3)), use_envelope=False):

@@ -70,6 +70,18 @@ def get_majority_logic(tts, number_of_coincidences=2,
     return bool(torch.any(ttt)), triggered_bins, triggered_bins * dt
 
 
+def get_high_triggers(trace, threshold):
+    """Rising-edge crossings above threshold (multiHighLowThreshold.py:10-16,
+    strict >)."""
+    m = trace > threshold
+    return m & ~trigger_ops._shift_right_zero(m, 1)
+
+
+def get_low_triggers(trace, threshold):
+    m = trace < threshold
+    return m & ~trigger_ops._shift_right_zero(m, 1)
+
+
 def get_multiple_high_low_trigger(trace, high_threshold, low_threshold,
                                   n_high_lows, time_coincidence=10 * units.ns,
                                   dt=1 * units.ns):

@@ -1,6 +1,5 @@
-# copied from nuradiomc_tpu/sim/cross_sections.py:1-78 and :236-289 (ctw, csms, the cross
-# section and the interaction length that earth_attenuation needs; the
-# table-driven BGR18 model is not carried)
+# copied from nuradiomc_tpu/sim/cross_sections.py:1-289 (ctw, csms, the BGR18/HEDIS
+# table machinery of :80-233, the cross section and the interaction length)
 """Neutrino-nucleon cross sections (host-side numpy, vectorized).
 
 Re-implementation of NuRadioMC/utilities/cross_sections.py: the CTW
@@ -11,6 +10,8 @@ added when those tables are available.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -78,6 +79,162 @@ def csms(energy, inttype, flavors) -> np.ndarray:
                     nu[col, np.arange(energy.size)])
 
 
+def integrate_pwpl(y, x, low=None, high=None, full_output=False):
+    """Integrate y over x assuming piecewise power laws y = A x^b per bin
+    (cross_sections.integrate_pwpl:424-533), with optional log-log
+    extrapolation to ``low``/``high``. ``full_output`` also returns the
+    cumulative integral (the CDF when y is a PDF)."""
+    y = np.asarray(y, dtype=float)
+    x = np.asarray(x, dtype=float)
+    nanmask = y == 0
+    binmask = nanmask[..., 1:] | nanmask[..., :-1]
+
+    logy = np.full_like(y, np.nan)
+    logy[~nanmask] = np.log(y[~nanmask])
+    logx = np.log(x)
+    slope = np.diff(logy) / np.diff(logx)
+    lognorm = logy[..., :-1] - slope * logx[..., :-1]
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        integrand = np.exp(
+            lognorm
+            + np.log((x[1:] ** (slope + 1) - x[:-1] ** (slope + 1))
+                     / (slope + 1)))
+    integrand[binmask] = 0
+
+    if low is not None:
+        if low < 0:
+            raise ValueError("cannot power-law integrate negative x")
+        if low == 0 and np.any(slope[..., 0] <= -1):
+            raise ValueError("cannot integrate to x=0 with slope <= -1")
+        with np.errstate(invalid="ignore", divide="ignore"):
+            int_low = np.exp(
+                lognorm[..., 0]
+                + np.log((x[0] ** (slope[..., 0] + 1)
+                          - low ** (slope[..., 0] + 1)) / (slope[..., 0] + 1)))
+        int_low = np.where(binmask[..., 0], 0, int_low)
+        integrand = np.concatenate([np.asarray(int_low)[..., None], integrand],
+                                   axis=-1)
+        x = np.concatenate([np.atleast_1d(low), x], axis=-1)
+    if high is not None:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            int_high = np.exp(
+                lognorm[..., -1]
+                + np.log((high ** (slope[..., -1] + 1)
+                          - x[-1] ** (slope[..., -1] + 1))
+                         / (slope[..., -1] + 1)))
+        int_high = np.where(binmask[..., -1], 0, int_high)
+        integrand = np.concatenate([integrand, np.asarray(int_high)[..., None]],
+                                   axis=-1)
+        x = np.concatenate([x, np.atleast_1d(high)], axis=-1)
+
+    res = np.sum(integrand, axis=-1)
+    if full_output:
+        # cumulative integral aligned with x (leading 0 inserted, :530-532)
+        return res, (np.insert(np.cumsum(integrand, axis=-1), 0, 0, axis=-1), x)
+    return res
+
+
+_BGR18_PATH = os.path.join(os.path.dirname(__file__), "..", "data",
+                           "BGR18_dsigma_dy_H2O.npz")
+_bgr18_cache = {}
+
+
+def set_bgr18_table_path(path):
+    """Point the hedis_bgr18 machinery at a table file (the published
+    BGR18_dsigma_dy_H2O.npz data-server download, or a synthetic table of
+    the same schema for tests)."""
+    global _BGR18_PATH
+    _BGR18_PATH = path
+    _bgr18_cache.clear()
+
+
+def read_differential_cross_section_bgr18():
+    """(nu_energies, yy, flavors, ncccs, dsigma_dy[flavor, ccnc, E, y]) from
+    the BGR18 npz (cross_sections._read_differential_cross_section_BGR18:
+    16-40); per-nucleon (the file stores per ice nucleus, /18)."""
+    if "table" not in _bgr18_cache:
+        if not os.path.exists(_BGR18_PATH):
+            raise FileNotFoundError(
+                f"BGR18 table not found at {_BGR18_PATH}; download "
+                "cross_sections/BGR18_dsigma_dy_H2O.npz from the NuRadioMC "
+                "data server or call set_bgr18_table_path()")
+        data = np.load(_BGR18_PATH)
+        _bgr18_cache["table"] = (
+            data["nu_energies_ref"], data["y_ref"], data["flavors_ref"],
+            np.array([str(s).lower() for s in data["ncccs_ref"]]),
+            data["dsigma_dy_ref"] * units.cm ** 2 / 18)
+    return _bgr18_cache["table"]
+
+
+def _bgr18_integrated():
+    """sigma(E) per (flavor, {nc, cc, total}) via piecewise-power-law
+    integration over y extended to [0, 1]
+    (_integrate_over_differential_cross_section_BGR18:42-63)."""
+    if "integrated" not in _bgr18_cache:
+        nu_E, yy, flavs, ncccs, dsdy = read_differential_cross_section_bgr18()
+        sig = integrate_pwpl(dsdy, yy, low=0, high=1)
+        full = np.zeros((len(flavs), 3, len(nu_E)))
+        full[:, :2] = sig
+        full[:, 2] = sig[:, 0] + sig[:, 1]
+        _bgr18_cache["integrated"] = (
+            nu_E, flavs, np.append(ncccs, "total"), full)
+    return _bgr18_cache["integrated"]
+
+
+def hedis_bgr18(energy, flavors, inttype="total"):
+    """BGR18/HEDIS tabulated cross section: log10 interpolation over energy
+    per (flavor, interaction) (get_nu_cross_section:266-303)."""
+    nu_E, flavs, ncccs, table = _bgr18_integrated()
+    energy = np.atleast_1d(np.asarray(energy, dtype=float))
+    flavors = np.broadcast_to(np.asarray(flavors), energy.shape)
+    itypes = np.broadcast_to(np.asarray(inttype), energy.shape).astype(str)
+    if np.any(energy < nu_E[0]) or np.any(energy > nu_E[-1]):
+        raise ValueError("energy outside the BGR18 table range")
+    crscn = np.zeros_like(energy)
+    for flav in np.unique(flavors):
+        for it in np.unique(itypes):
+            mask = (flavors == flav) & (itypes == it)
+            iF = int(np.argwhere(flavs == flav)[0][0])
+            iI = int(np.argwhere(ncccs == it.lower())[0][0])
+            logsig = np.interp(energy[mask], nu_E, np.log10(table[iF, iI]))
+            crscn[mask] = 10.0 ** logsig
+    return crscn
+
+
+def get_neutrino_inelasticity_bgr18(n_events, rnd=None,
+                                    nu_energies=1e18, flavors=12, ncccs="cc"):
+    """Inverse-CDF inelasticity sampling from the BGR18 differential tables
+    (inelasticities.get_neutrino_inelasticity:53-95 + the cumulative
+    piecewise-power-law CDF of _get_inverse_cdf_interpolation:99-106)."""
+    rnd = rnd or np.random.default_rng()
+    nu_E, yy, flavs, ncccs_ref, dsdy = read_differential_cross_section_bgr18()
+
+    out = np.zeros(n_events)
+    nu_energies = np.broadcast_to(np.asarray(nu_energies, dtype=float),
+                                  (n_events,))
+    flavors = np.broadcast_to(np.asarray(flavors), (n_events,))
+    ncccs = np.broadcast_to(np.asarray(ncccs), (n_events,)).astype(str)
+
+    e_idx = np.clip(np.digitize(nu_energies, nu_E), 0, len(nu_E) - 1)
+    e_binned = nu_E[e_idx]
+    for energy in np.unique(e_binned):
+        for flav in np.unique(flavors):
+            for nccc in np.unique(ncccs):
+                mask = (e_binned == energy) & (flavors == flav) & (ncccs == nccc)
+                if not np.any(mask):
+                    continue
+                iF = int(np.argwhere(flavs == flav)[0][0])
+                iI = int(np.argwhere(ncccs_ref == nccc.lower())[0][0])
+                iE = int(np.argmin(np.abs(energy - nu_E)))
+                total, (cum, y_ext) = integrate_pwpl(
+                    dsdy[iF, iI, iE], yy, low=0, high=1, full_output=True)
+                cdf = cum / total
+                out[mask] = np.interp(rnd.uniform(0, 1, int(np.sum(mask))),
+                                      cdf, y_ext)
+    return out
+
+
 def get_nu_cross_section(energy, flavors, inttype="total",
                          cross_section_type="ctw") -> np.ndarray:
     """Total / cc / nc cross section per event (get_nu_cross_section:232-390).
@@ -95,6 +252,11 @@ def get_nu_cross_section(energy, flavors, inttype="total",
             return (csms(energy, "cc", flavors)
                     + csms(energy, "nc", flavors)).reshape(energy.shape)
         return csms(energy, inttype, flavors).reshape(energy.shape)
+
+    if cross_section_type in ("hedis", "hedis_bgr18", "bgr18"):
+        if isinstance(inttype, str) and inttype == "total":
+            return hedis_bgr18(energy, flavors, "total").reshape(energy.shape)
+        return hedis_bgr18(energy, flavors, inttype).reshape(energy.shape)
 
     if cross_section_type != "ctw":
         raise NotImplementedError(

@@ -1,6 +1,6 @@
 # copied from nuradiomc_tpu/sim/evtgen.py:1-703 (generate_surface_muons from
-# :368-508), with BGR18 inelasticities raising (their tables are a download);
-# the port keeps its own copy and imports nothing of the JAX package
+# :368-508, BGR18 inelasticities from :76-90); the port keeps its own copy and
+# imports nothing of the JAX package
 """Neutrino event-list generation (host-side numpy, fully vectorized).
 
 Re-implementation of the reference generator
@@ -86,9 +86,9 @@ def get_neutrino_inelasticity(n_events, rnd=None, model="ctw",
     differential tables' inverse CDF (per energy bin, flavor, cc/nc)."""
     rnd = rnd or np.random.default_rng()
     if model.lower() in ("bgr18", "hedis_bgr18", "hedis"):
-        # the port's cross sections do not carry the BGR18 tables (a download)
-        raise NotImplementedError("BGR18 inelasticities need the BGR18 tables, which "
-                                  "the port does not carry; use model='ctw'")
+        return cross_sections.get_neutrino_inelasticity_bgr18(
+            n_events, rnd, nu_energies=nu_energies, flavors=flavors,
+            ncccs=ncccs)
     r1 = 0.36787944
     r2 = 0.63212056
     return (-np.log(r1 + rnd.uniform(0.0, 1.0, n_events) * r2)) ** 2.5

@@ -142,6 +142,16 @@ class PipelineSettings:
     def dt(self) -> float:
         return 1.0 / self.sampling_rate
 
+    # the settings carry no device: the frequency grids are host float64,
+    # from which each stage makes its tensors on the batch's device
+    @property
+    def freqs_internal(self) -> np.ndarray:
+        return np.fft.rfftfreq(self.n_internal, self.dt)
+
+    @property
+    def freqs_base(self) -> np.ndarray:
+        return np.fft.rfftfreq(self.n_base, self.dt)
+
 
 @dataclasses.dataclass(frozen=True)
 class TriggerSettings:
@@ -592,7 +602,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     real_dtype = batch.vertices.dtype
     dev = batch.vertices.device
     ctype = torch.complex64 if real_dtype == torch.float32 else torch.complex128
-    ff_int_np = np.fft.rfftfreq(s.n_internal, dt)
+    ff_int_np = s.freqs_internal
     ff_int = torch.as_tensor(ff_int_np, dtype=real_dtype, device=dev)
 
     # ---- 1. ray tracing [G, S, C] pairs, 2 solution slots -------------------

@@ -11,7 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nuradiomc_tpu_torch.utils import device as device_util
+
 _SQRT2 = 1.4142135623730951
+
+
+def freqs(num_samples: int, sampling_rate: float, device=device_util.DEFAULT,
+          dtype=torch.float64) -> torch.Tensor:
+    """Frequency bins of the rFFT for a trace of ``num_samples`` samples."""
+    return torch.fft.rfftfreq(num_samples, d=1.0 / sampling_rate, dtype=dtype,
+                              device=device_util.resolve(device))
 
 
 def freqs_np(num_samples: int, sampling_rate: float) -> np.ndarray:

@@ -955,3 +955,46 @@ def test_rnog_hit_filter_on_card_matches_cpu(dev):
     for a, b in zip(out[str(dev)], out["cpu"]):
         np.testing.assert_array_equal(a, b)
     assert 0 < out["cpu"][0].sum() < len(traces)
+
+
+def test_bgr18_campaign_on_card_matches_cpu(dev, tmp_path):
+    """A 300-event dipole campaign (r < 1 km, -1 km < z < 0) drawn with the
+    synthetic BGR18 table (``convert.make_bgr18_table``) and weighted with
+    it, in float64 on the card and on the CPU: kernels 1 and 2 launch on the
+    card, the triggered set is equal and Veff agrees at rtol 1e-9; the BGR18
+    weights differ from the CTW weights of the same list and lie in [0, 1]."""
+    from nuradiomc_tpu_torch import convert
+    from nuradiomc_tpu_torch.sim import cross_sections, earth_attenuation, evtgen, io_input
+    from nuradiomc_tpu_torch.utils import units
+
+    old = cross_sections._BGR18_PATH
+    cross_sections.set_bgr18_table_path(convert.make_bgr18_table(str(tmp_path / "bgr18.npz")))
+    try:
+        volume = {"fiducial_rmin": 0, "fiducial_rmax": 1 * units.km,
+                  "fiducial_zmin": -1 * units.km, "fiducial_zmax": 0}
+        data, attrs = evtgen.generate_eventlist_cylinder(
+            None, 300, 1e18 * units.eV, 1e18 * units.eV, volume, seed=10,
+            cross_sections_model="hedis_bgr18")
+        inp = io_input.from_generated(data, attrs)
+        config = {"weights": {"weight_mode": "core_mantle_crust_simple",
+                              "cross_section_type": "hedis_bgr18"}}
+        res = {}
+        for where in (dev, "cpu"):
+            before = (placement.launches, trigger_fused.launches)
+            res[str(where)] = convert.fullscale_simulation(
+                inp, config, device=where, dtype=torch.float64).run()
+            if where is dev:
+                assert placement.launches > before[0] and trigger_fused.launches > before[1]
+        card, cpu = res[str(dev)], res["cpu"]
+        assert cpu["triggered"].sum() >= 3
+        np.testing.assert_array_equal(card["group_ids"][card["triggered"]],
+                                      cpu["group_ids"][cpu["triggered"]])
+        np.testing.assert_allclose(card["veff"], cpu["veff"], rtol=1e-9)
+        args = (data["zeniths"], data["energies"], data["flavors"])
+        w = earth_attenuation.get_weight(*args, mode="core_mantle_crust_simple",
+                                         cross_section_type="hedis_bgr18")
+        w_ctw = earth_attenuation.get_weight(*args, mode="core_mantle_crust_simple",
+                                             cross_section_type="ctw")
+        assert np.all((w >= 0) & (w <= 1)) and not np.allclose(w, w_ctw, rtol=1e-3)
+    finally:
+        cross_sections.set_bgr18_table_path(old)
