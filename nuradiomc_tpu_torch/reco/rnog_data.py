@@ -322,7 +322,11 @@ class stationHitFilter(Module):
         group_ok = torch.zeros_like(passed)
         for group in self.GROUPS[1:]:
             i, j = self._map(group[0]), self._map(group[1])
-            group_ok |= (t_hit[..., j] - t_hit[..., i]).abs() <= self._dT
+            # a station without the group's channels (the phased array
+            # alone) has no coincidence in it; the reference reads them only
+            # for an event with a single coincident PA pair
+            if max(i, j) < t_hit.shape[-1]:
+                group_ok |= (t_hit[..., j] - t_hit[..., i]).abs() <= self._dT
         passed |= ~passed & seq.any(-1) & group_ok
         # hit checker (:164-180)
         noise_rms = torch.as_tensor(noise_rms, dtype=envelopes.dtype, device=traces.device)

@@ -53,6 +53,19 @@ class EventInput:
         return len(self.shower_ids)
 
 
+def input_defaults(n: int, columns) -> dict:
+    """The columns that an input list of ``n`` rows may lack, as the readers
+    (:func:`read_input_hdf5`, ``io_input.from_generated``) fill them in;
+    ``columns`` (a mapping: an HDF5 file or ``evtgen``'s data sets) gives
+    the energies, else the emitter amplitudes, else zeros."""
+    energies = np.asarray(columns.get("energies", columns.get("emitter_amplitudes",
+                                                               np.zeros(n))))
+    return {"zeniths": np.zeros(n), "azimuths": np.zeros(n), "energies": energies,
+            "shower_energies": energies, "shower_type": np.full(n, "had", dtype="U8"),
+            "flavors": np.zeros(n, dtype=int), "interaction_type": np.full(n, "nc", dtype="U8"),
+            "inelasticity": np.ones(n), "vertex_times": np.zeros(n)}
+
+
 def read_input_hdf5(path: str) -> EventInput:
     """Load the full input file into memory (simulation.py:1019-1057)."""
     import h5py      # imported here: only HDF5 input and output need h5py
@@ -71,12 +84,12 @@ def read_input_hdf5(path: str) -> EventInput:
             # shower kinematics — synthesize neutral defaults for those
             emitter = {k: np.asarray(f[k]) for k in f.keys()
                        if k.startswith("emitter_")}
-        amps = get("emitter_amplitudes", np.zeros(n))
+        d = input_defaults(n, f)
 
-        def strings(key, default):
+        def strings(key):
             raw = get(key)
             if raw is None:
-                return np.full(n, default, dtype="U8")
+                return d[key]
             return np.array([s.decode() if isinstance(s, bytes) else s
                              for s in raw])
 
@@ -84,16 +97,15 @@ def read_input_hdf5(path: str) -> EventInput:
             event_group_ids=get("event_group_ids"),
             shower_ids=get("shower_ids"),
             xx=get("xx"), yy=get("yy"), zz=get("zz"),
-            zeniths=get("zeniths", np.zeros(n)),
-            azimuths=get("azimuths", np.zeros(n)),
-            energies=get("energies", amps),
-            shower_energies=get("shower_energies",
-                                get("energies", amps)),
-            shower_type=strings("shower_type", "had"),
-            flavors=get("flavors", np.zeros(n, dtype=int)),
-            interaction_type=strings("interaction_type", "nc"),
-            inelasticity=get("inelasticity", np.ones(n)),
-            vertex_times=get("vertex_times", np.zeros(n)),
+            zeniths=get("zeniths", d["zeniths"]),
+            azimuths=get("azimuths", d["azimuths"]),
+            energies=get("energies", d["energies"]),
+            shower_energies=get("shower_energies", d["shower_energies"]),
+            shower_type=strings("shower_type"),
+            flavors=get("flavors", d["flavors"]),
+            interaction_type=strings("interaction_type"),
+            inelasticity=get("inelasticity", d["inelasticity"]),
+            vertex_times=get("vertex_times", d["vertex_times"]),
             attrs=dict(f.attrs),
             shower_realization_Alvarez2009=get("shower_realization_Alvarez2009"),
             shower_realization_ARZ=get("shower_realization_ARZ"),

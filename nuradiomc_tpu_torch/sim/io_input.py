@@ -38,6 +38,10 @@ INPUT_PA_NOISELESS = DATA_DIR / "pa_noiseless_input.npz"
 # waveform through an emitting antenna)
 INPUT_EMITTER_EFIELD = DATA_DIR / "emitter_events.npz"
 INPUT_EMITTER_VOLTAGE = DATA_DIR / "emitter_voltage_events.npz"
+# the export of examples/06_rno_g_station/rnog_events.hdf5 as that example
+# writes it by default (1000 events at 1e18 eV, seed 42, r < 2 km,
+# -2.5 km < z < 0)
+INPUT_RNOG = DATA_DIR / "rnog_events_1000.npz"
 
 _ARRAYS = [f.name for f in dataclasses.fields(EventInput)
            if f.name not in ("attrs", "emitter")]
@@ -56,8 +60,9 @@ def read_input_npz(path) -> EventInput:
     """The ``EventInput`` of an export written by :func:`write_input_npz`."""
     with np.load(path, allow_pickle=False) as z:
         cols = {k[4:]: z[k] for k in z.files if k.startswith("col_")}
-        attrs = {k[5:]: z[k][()] if z[k].ndim == 0 else z[k]
-                 for k in z.files if k.startswith("attr_")}
+        # a string attribute comes back as a Python str, as h5py gives it
+        attrs = {k[5:]: (str(z[k][()]) if z[k].dtype.kind == "U" else z[k][()])
+                 if z[k].ndim == 0 else z[k] for k in z.files if k.startswith("attr_")}
         emitter = {k[8:]: z[k] for k in z.files if k.startswith("emitter_")}
     return EventInput(**cols, attrs=attrs, emitter=emitter or None)
 
@@ -104,7 +109,10 @@ def from_generated(data_sets: dict, attributes: dict) -> EventInput:
 
     fields = [f.name for f in dataclasses.fields(EventInput)
               if f.name in data_sets and f.name != "attrs"]
-    return EventInput(**{name: column(name) for name in fields},
+    # the columns the HDF5 reader fills in where a list lacks them
+    defaults = io_hdf5.input_defaults(len(data_sets["shower_ids"]), data_sets)
+    return EventInput(**{**{k: v for k, v in defaults.items() if k not in data_sets},
+                         **{name: column(name) for name in fields}},
                       attrs={k: attribute(v) for k, v in attributes.items()})
 
 

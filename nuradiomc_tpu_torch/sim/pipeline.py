@@ -577,8 +577,8 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     """Run the chain on a padded batch. All tensors share one device; the
     real dtype is ``batch.vertices.dtype`` (float32 or float64). With
     ``s.add_noise`` the noise is drawn from ``noise_generator`` (a
-    ``torch.Generator`` on that device), one realization per (group,
-    channel), where the JAX function takes a ``noise_key``. With
+    ``torch.Generator`` on that device or on the host's, whose numbers are
+    moved to it), one realization per (group, channel), where the JAX function takes a ``noise_key``. With
     ``keep_traces`` the output carries window 0's readout-chain traces
     [G, C, n_base] at the internal rate; the trigger decisions still come
     from kernels 2 and 3, the traces from ``torch.fft.irfft`` of the same
@@ -924,10 +924,13 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         if s.add_noise:
             # one realization per (group, channel), added before the filter
             # (pipeline.py:1294-1310); each window draws anew
-            raw_spec = raw_spec + noise_ops.bandlimited_noise_spectrum(
-                noise_generator, (G, C_all), s.n_base, s.sampling_rate,
+            # (drawn on the generator's device, which may be the host's)
+            draws = noise_ops.draw_noise(noise_generator, (G, C_all), s.n_base, real_dtype,
+                                         s.noise_type, s.noise_sampler)
+            raw_spec = raw_spec + noise_ops.noise_spectrum_from_draws(
+                [d.to(raw_spec.device) for d in draws], s.n_base, s.sampling_rate,
                 ch_all.noise_amplitude[None, :, None], None, s.sampling_rate / 2,
-                type=s.noise_type, dtype=real_dtype, sampler=s.noise_sampler)
+                type=s.noise_type, sampler=s.noise_sampler)
 
         def rows_of(response, K):
             k = (raw_spec * response[None, :, :]).reshape(G * C_all, F_base)[:, :K]

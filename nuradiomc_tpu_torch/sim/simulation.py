@@ -146,7 +146,9 @@ class Simulation:
     float64 is the production default, float32 the benchmark configuration.
     ``mesh``: ``None`` (one process), ``"auto"`` or a ``parallel.mesh.Mesh``
     (see the module docstring); the run then takes the mesh's device, whose
-    type must be ``device``'s.
+    type must be ``device``'s. ``noise_device``: where the noise generators
+    draw (default the run's device); ``"cpu"`` draws the same numbers on any
+    device, so that a run on the card can be held exactly to one on the CPU.
     """
 
     def __init__(self, inputfilename: str, detector, config=None,
@@ -162,7 +164,8 @@ class Simulation:
                  arz_library_path: Optional[str] = None,
                  spice_pulses_path: Optional[str] = None,
                  spice_pulse_index: int = 0,
-                 device=device_util.DEFAULT, dtype=torch.float64, mesh=None):
+                 device=device_util.DEFAULT, dtype=torch.float64, mesh=None,
+                 noise_device=None):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
         if isinstance(mesh, str):
@@ -177,6 +180,7 @@ class Simulation:
                 raise ValueError(f"device {device!r} but the mesh runs on {mesh.device}")
             self.device = mesh.device
         self.dtype = dtype
+        self.noise_device = self.device if noise_device is None else torch.device(noise_device)
         self.config = config_util.get_config(config)
         self.det = detector if isinstance(detector, Detector) else Detector(detector)
         self.filter_chain = list(filter_chain)
@@ -664,7 +668,7 @@ class Simulation:
             np.ascontiguousarray(a[rows]), device=self.device) for a in batch])
 
     def _noise_generator(self, seed_offset, chunk_index, stream=0):
-        """The noise generator of one chunk on the run's device (None without
+        """The noise generator of one chunk on ``noise_device`` (None without
         noise), seeded from ``SeedSequence([seed, seed_offset, chunk_index])``
         (``stream`` appended for the ``.nur`` re-run), so a chunk draws the
         same numbers on whichever rank runs it."""
@@ -672,7 +676,7 @@ class Simulation:
             return None
         key = [int(self.config["seed"]), int(seed_offset), int(chunk_index)]
         seq = np.random.SeedSequence(key + [int(stream)] if stream else key)
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator(device=self.noise_device)
         gen.manual_seed(int(seq.generate_state(1, np.uint64)[0]))
         return gen
 
@@ -815,6 +819,9 @@ class Simulation:
             "trigger_names": list(self.trigger_names),
             "veff": veff, "veff_per_trigger": veff_per_trigger,
             "n_triggered": int(np.sum(trig_parent)),
+            # each station's decision per group: what the output file's
+            # station groups hold, for runs without h5py
+            "triggered_per_station": {sid: v[0] for sid, v in per_station.items()},
             **self._realizations,
         }
         if self.simulation_mode == "atmospheric_muon":

@@ -1,5 +1,6 @@
 # copied from nuradiomc_tpu/sim/veff.py:1-408, with projected_area and aeff_from_results
-# added (the port keeps its own copy; it imports nothing of the JAX package)
+# added and get_Veff_Aeff_single split into read_veff_rows and veff_aeff_of_rows (the
+# port keeps its own copy; it imports nothing of the JAX package)
 """Effective-volume / effective-area post-processing.
 
 Re-implementation of NuRadioMC/utilities/Veff.py: per-file Veff/Aeff with
@@ -89,10 +90,45 @@ def remove_duplicate_triggers(triggered, gids):
     return out
 
 
+# the top-level datasets and attributes of an output file that the tables read
+ROW_KEYS = ("event_group_ids", "triggered", "weights", "zeniths", "energies",
+            "multiple_triggers", "shower_ids")
+ATTR_KEYS = ("n_events", "thetamin", "thetamax", "trigger_names", "Vrms", "volume", "area")
+
+
+def read_veff_rows(filename, station=None) -> dict:
+    """What :func:`veff_aeff_of_rows` reads of one output file: its
+    top-level per-shower datasets and attributes under their HDF5 names,
+    and, with ``station=``, the station's per-group amplitudes
+    (``station_amps``) and per-ray data (``station_rays``)."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        rows = {k: np.asarray(f[k]) for k in ROW_KEYS if k in f}
+        rows.update({k: f.attrs[k] for k in ATTR_KEYS if k in f.attrs})
+        if station is not None and f"station_{station}" in f:
+            sg = f[f"station_{station}"]
+            if "event_group_ids" in sg:
+                rows["station_amps"] = {
+                    "gids": np.asarray(sg["event_group_ids"]),
+                    "amps": np.asarray(sg["maximum_amplitudes_envelope"]),
+                }
+            if "max_amp_shower_and_ray" in sg:
+                rows["station_rays"] = {
+                    "gid": np.asarray(sg["event_group_id_per_shower"]),
+                    "sid": np.asarray(sg["shower_id"]),
+                    "amps": np.asarray(sg["max_amp_shower_and_ray"]),
+                    "sol_type": np.asarray(sg["ray_tracing_solution_type"]),
+                    "reflection": np.asarray(sg["ray_tracing_reflection"]),
+                }
+    return rows
+
+
 def get_Veff_Aeff_single(filename, trigger_combinations=None,
                          bounds_theta=(0, np.pi), min_weight=1e-5,
                          station=None, veff_aeff="veff"):
-    """Veff/Aeff of one output file (Veff.py:168-480).
+    """Veff/Aeff of one output file (Veff.py:168-480): :func:`veff_aeff_of_rows`
+    of the file's :func:`read_veff_rows`.
 
     Top-level keys (veff, n_triggered, weight_sum, ...) describe the OR of
     all named triggers. ``veffs`` holds per-trigger-name entries
@@ -115,48 +151,38 @@ def get_Veff_Aeff_single(filename, trigger_combinations=None,
         For surface muons the generation *area* attr is projected
         perpendicular to the flux (Veff.py:268-275).
     """
-    import h5py
+    return veff_aeff_of_rows(read_veff_rows(filename, station), trigger_combinations,
+                             bounds_theta, min_weight, veff_aeff)
 
-    with h5py.File(filename, "r") as f:
-        gid = np.asarray(f["event_group_ids"])
-        triggered = np.asarray(f["triggered"])
-        weights = np.asarray(f["weights"])
-        zeniths = np.asarray(f["zeniths"])
-        energies = np.asarray(f["energies"])
-        n_events = int(f.attrs["n_events"])
-        thetamin = float(f.attrs.get("thetamin", 0.0))
-        thetamax = float(f.attrs.get("thetamax", np.pi))
-        trigger_names = [t.decode() if isinstance(t, bytes) else str(t)
-                         for t in f.attrs.get("trigger_names", [])]
-        mt = (np.asarray(f["multiple_triggers"])
-              if "multiple_triggers" in f else triggered[:, None])
-        vrms = float(f.attrs.get("Vrms", 1.0))
-        if veff_aeff == "veff":
-            volume = float(f.attrs["volume"])
-        elif veff_aeff == "aeff_surface_muons":
-            volume = projected_area(float(f.attrs["area"]), thetamin, thetamax)
-        else:
-            raise AttributeError(veff_aeff)
-        # per-event-group station amplitudes for the efficiency option
-        station_amps = {}
-        station_rays = {}
-        if station is not None and f"station_{station}" in f:
-            sg = f[f"station_{station}"]
-            if "event_group_ids" in sg:
-                station_amps = {
-                    "gids": np.asarray(sg["event_group_ids"]),
-                    "amps": np.asarray(sg["maximum_amplitudes_envelope"]),
-                }
-            if "max_amp_shower_and_ray" in sg:
-                station_rays = {
-                    "gid": np.asarray(sg["event_group_id_per_shower"]),
-                    "sid": np.asarray(sg["shower_id"]),
-                    "amps": np.asarray(sg["max_amp_shower_and_ray"]),
-                    "sol_type": np.asarray(sg["ray_tracing_solution_type"]),
-                    "reflection": np.asarray(sg["ray_tracing_reflection"]),
-                }
-        shower_ids = (np.asarray(f["shower_ids"]) if "shower_ids" in f
-                      else np.arange(len(gid)))
+
+def veff_aeff_of_rows(rows, trigger_combinations=None, bounds_theta=(0, np.pi),
+                      min_weight=1e-5, veff_aeff="veff"):
+    """:func:`get_Veff_Aeff_single`'s table from the rows and attributes of
+    an output file (a mapping with :func:`read_veff_rows`'s keys, or the
+    ``.npz`` of the same rows), with no file and no h5py."""
+    gid = np.asarray(rows["event_group_ids"])
+    triggered = np.asarray(rows["triggered"])
+    weights = np.asarray(rows["weights"])
+    zeniths = np.asarray(rows["zeniths"])
+    energies = np.asarray(rows["energies"])
+    n_events = int(rows["n_events"])
+    thetamin = float(rows.get("thetamin", 0.0))
+    thetamax = float(rows.get("thetamax", np.pi))
+    trigger_names = [t.decode() if isinstance(t, bytes) else str(t)
+                     for t in rows.get("trigger_names", [])]
+    mt = (np.asarray(rows["multiple_triggers"])
+          if "multiple_triggers" in rows else triggered[:, None])
+    vrms = float(rows.get("Vrms", 1.0))
+    if veff_aeff == "veff":
+        volume = float(rows["volume"])
+    elif veff_aeff == "aeff_surface_muons":
+        volume = projected_area(float(rows["area"]), thetamin, thetamax)
+    else:
+        raise AttributeError(veff_aeff)
+    station_amps = rows.get("station_amps", {})
+    station_rays = rows.get("station_rays", {})
+    shower_ids = (np.asarray(rows["shower_ids"]) if "shower_ids" in rows
+                  else np.arange(len(gid)))
 
     if not trigger_names:
         trigger_names = [f"trigger_{i}" for i in range(mt.shape[1])]

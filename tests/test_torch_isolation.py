@@ -54,6 +54,7 @@ from nuradiomc_tpu.utils import constants as jconstants
 from nuradiomc_tpu.utils import units as junits
 from nuradiomc_tpu_torch import convert
 from nuradiomc_tpu_torch.detector import detector as tdetector
+from nuradiomc_tpu_torch.examples import EXAMPLES, main_of
 from nuradiomc_tpu_torch.ops import birefringence as tbire
 from nuradiomc_tpu_torch.ops import filters as tfilters
 from nuradiomc_tpu_torch.parallel import dryrun
@@ -238,6 +239,13 @@ _ISOLATED = textwrap.dedent("""
         importer = measured_noise.RNOGNoiseImporter(device="cpu")
         importer.begin(tmp, random_seed=1)
         importer.run_events(convert.make_rnog_sim_stations(fev, 2))
+    # the example workflows: every module imported above; the host-side
+    # ones run on the CPU
+    from nuradiomc_tpu_torch.examples import EXAMPLES, main_of
+    assert {m for m, _, _ in EXAMPLES.values()} <= set(names)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("e15", "e11_a01", "e10_a01", "e12", "e03"):
+            main_of(name)(EXAMPLES[name][1], device="cpu", outdir=tmp)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
     assert not leaked, leaked
     assert not opened, opened
@@ -401,6 +409,29 @@ def test_emitter_inputs_equal_the_originals(name):
     assert sorted(got.emitter) == sorted(ref.emitter)
     for k in ref.emitter:
         np.testing.assert_array_equal(got.emitter[k], np.asarray(ref.emitter[k]))
+
+
+def test_rnog_example_input_equals_the_original(tmp_path):
+    """``data/rnog_events_1000.npz`` against the list that
+    examples/06_rno_g_station/run_rnog_station.py writes by default (its
+    generator call, regenerated here: the file is not kept in git)."""
+    from nuradiomc_tpu.sim import evtgen as jevtgen
+    from nuradiomc_tpu.sim import io_hdf5 as jio
+    from nuradiomc_tpu_torch.sim import io_input
+    path = str(tmp_path / "rnog_events.hdf5")
+    jevtgen.generate_eventlist_cylinder(
+        path, 1000, 1e18, 1e18, {"fiducial_rmin": 0, "fiducial_rmax": 2 * junits.km,
+                                 "fiducial_zmin": -2.5 * junits.km, "fiducial_zmax": 0},
+        seed=42)
+    ref = jio.read_input_hdf5(path)
+    got = io_input.read_input(io_input.INPUT_RNOG)
+    for field in io_input._ARRAYS:
+        a, b = getattr(ref, field), getattr(got, field)
+        if a is None:
+            assert b is None
+        else:
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=field)
+    assert {k: str(v) for k, v in got.attrs.items()} == {k: str(v) for k, v in ref.attrs.items()}
 
 
 def test_arz_minilib_equals_the_original():
@@ -608,6 +639,17 @@ def test_every_reco_module_takes_a_device_defaulting_to_the_card():
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_examples_default_to_the_card(name, tmp_path):
+    """Every example module's ``main`` runs on the card unless the CPU is
+    asked for: without a card, omitting ``device`` raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_of(name)(EXAMPLES[name][1], outdir=str(tmp_path))
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("call", ["Simulation", "dipole_simulation", "make_headline_inputs",

@@ -67,3 +67,20 @@ def test_same_vertex(chains):
 def test_same_direction_and_energy(chains):
     (_, fj), (_, ft) = chains
     assert ft == fj
+
+
+def test_example_module_equals_the_jax_chain(chains, tmp_path):
+    """``nuradiomc_tpu_torch.examples.e04_vertex_direction_reco`` at this
+    file's search (its registry argv) on the CPU: the vertex and fit of the
+    JAX package's chain above, on the same event."""
+    from nuradiomc_tpu_torch.examples import EXAMPLES, main_of
+
+    (vj, fj), _ = chains
+    argv = EXAMPLES["e04"][1]
+    args = dict(zip(argv[::2], argv[1::2]))
+    assert float(args["--grid"]) == TAB_KW["d_x"] == TAB_KW["d_z"]
+    assert (args["--vertex-steps"], args["--direction-steps"], args["--direction-zooms"]) == (
+        "12", "5", "1")
+    out = main_of("e04")(argv, device="cpu", outdir=str(tmp_path))
+    np.testing.assert_array_equal(out["vertex"], vj)
+    assert (*out["direction"], out["log10_energy"]) == tuple(fj)
