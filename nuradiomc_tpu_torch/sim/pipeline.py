@@ -39,6 +39,13 @@ later than the window's length after its first arrival go to the next
 window, decisions OR across windows and the trigger time is the earliest
 fired window's.
 
+With the recorder of ``utils/timing.py`` on, step 1 is the span
+``step.raytrace``, steps 2-6 ``step.signal``, step 7 ``step.placement`` and
+step 8 ``step.trigger`` (the last two once per window and around the
+window-independent work); each blocking device-to-host read is a
+``host_sync`` (``min_efield``, ``band_support``, ``birefringence``,
+``arz_select``).
+
 With ``channel_axis`` (a ``parallel.mesh.Axis`` over which C divides),
 steps 1-7 run on this rank's slice of the channels; the OR over channels
 (``candidate``, ``any_valid``, each window's ``any_rem``), the window
@@ -77,7 +84,7 @@ from nuradiomc_tpu_torch.ops import (antenna, arz as arz_ops, askaryan, birefrin
                                      trigger_fused)
 from nuradiomc_tpu_torch.ops import fft_plan
 from nuradiomc_tpu_torch.parallel import mesh as mesh_util
-from nuradiomc_tpu_torch.utils import fft, geometry
+from nuradiomc_tpu_torch.utils import fft, geometry, timing
 from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 
@@ -509,7 +516,8 @@ def _birefringence(e_theta, e_phi, valid, geom: raytrace.Geometry2D, c0, ff_int,
     Only the valid paths are propagated: their results are the same, and
     the segment loop's work shrinks with the delta_C cut."""
     F = e_theta.shape[-1]
-    sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    with timing.host_sync("birefringence"):
+        sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
     shape = valid.shape
 
     def per_path(x):
@@ -605,300 +613,308 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     ff_int_np = s.freqs_internal
     ff_int = torch.as_tensor(ff_int_np, dtype=real_dtype, device=dev)
 
-    # ---- 1. ray tracing [G, S, C] pairs, 2 solution slots -------------------
-    x1 = batch.vertices[:, :, None, :].expand(G, S, C, 3)
-    x2 = ch.positions[None, None, :, :].expand(G, S, C, 3)
-    geom = raytrace.to_2d(x1, x2)
-    def solve(x1z, x2z):
-        # with bottom reflections: 2 + 4 n_reflections slots
-        return raytrace.find_solutions_all(geom.x1y, x1z, geom.x2y, x2z, s.ice,
-                                           n_reflections=s.n_reflections,
-                                           n_bisect=s.n_bisect)
+    with timing.span("step.raytrace"):
+        # ---- 1. ray tracing [G, S, C] pairs, 2 solution slots -------------------
+        x1 = batch.vertices[:, :, None, :].expand(G, S, C, 3)
+        x2 = ch.positions[None, None, :, :].expand(G, S, C, 3)
+        geom = raytrace.to_2d(x1, x2)
+        def solve(x1z, x2z):
+            # with bottom reflections: 2 + 4 n_reflections slots
+            return raytrace.find_solutions_all(geom.x1y, x1z, geom.x2y, x2z, s.ice,
+                                               n_reflections=s.n_reflections,
+                                               n_bisect=s.n_bisect)
 
-    sols = solve(geom.x1z, geom.x2z)
-    n_rays = sols.c0.shape[-1]
-    bshape = (G, S, C, n_rays)
-    launch, receive = raytrace.launch_receive_vectors(geom, sols)
+        sols = solve(geom.x1z, geom.x2z)
+        n_rays = sols.c0.shape[-1]
+        bshape = (G, S, C, n_rays)
+        launch, receive = raytrace.launch_receive_vectors(geom, sols)
 
-    # ---- 2. viewing angle + delta_C cut ------------------------------------
-    n_vertex = s.ice.index_of_refraction(batch.vertices[..., 2])   # [G, S]
-    cherenkov = torch.arccos(1.0 / n_vertex)
-    cos_view = torch.sum(batch.prop_dir[:, :, None, None, :] * launch, dim=-1)
-    viewing_angle = torch.arccos(torch.clamp(cos_view, -1.0, 1.0))
-    delta_C = viewing_angle - cherenkov[:, :, None, None]
-    R_safe = torch.where(sols.path_length > 1.0, sols.path_length, 1.0)
+    with timing.span("step.signal"):
+        # ---- 2. viewing angle + delta_C cut ------------------------------------
+        n_vertex = s.ice.index_of_refraction(batch.vertices[..., 2])   # [G, S]
+        cherenkov = torch.arccos(1.0 / n_vertex)
+        cos_view = torch.sum(batch.prop_dir[:, :, None, None, :] * launch, dim=-1)
+        viewing_angle = torch.arccos(torch.clamp(cos_view, -1.0, 1.0))
+        delta_C = viewing_angle - cherenkov[:, :, None, None]
+        R_safe = torch.where(sols.path_length > 1.0, sols.path_length, 1.0)
 
-    sol_mask = sols.mask
-    if s.distance_cut:
-        # energy-summed polynomial vertex-distance cut (pipeline.py:716-741)
-        vd = torch.linalg.vector_norm(batch.vertices - batch.vertices[:, :1, :], dim=-1)
-        near = torch.abs(vd[:, None, :] - vd[:, :, None]) < s.distance_cut_sum_length
-        near = near & batch.shower_mask[:, None, :]
-        e_sum = torch.sum(torch.where(near, batch.energies[:, None, :], 0.0), dim=-1)
-        log10_E = torch.log10(torch.clamp(e_sum, min=1.0))
-        c = s.distance_cut_coefficients
-        log10_dmax = c[0] + c[1] * log10_E + c[2] * log10_E ** 2 + c[3] * log10_E ** 3
-        d_max = torch.clamp(10.0 ** log10_dmax, min=100.0)
-        dist = torch.linalg.vector_norm(
-            batch.vertices[:, :, None, :] - ch.positions[None, None, :, :], dim=-1)
-        sol_mask = sol_mask & (dist <= d_max[:, :, None])[..., None]
+        sol_mask = sols.mask
+        if s.distance_cut:
+            # energy-summed polynomial vertex-distance cut (pipeline.py:716-741)
+            vd = torch.linalg.vector_norm(batch.vertices - batch.vertices[:, :1, :], dim=-1)
+            near = torch.abs(vd[:, None, :] - vd[:, :, None]) < s.distance_cut_sum_length
+            near = near & batch.shower_mask[:, None, :]
+            e_sum = torch.sum(torch.where(near, batch.energies[:, None, :], 0.0), dim=-1)
+            log10_E = torch.log10(torch.clamp(e_sum, min=1.0))
+            c = s.distance_cut_coefficients
+            log10_dmax = c[0] + c[1] * log10_E + c[2] * log10_E ** 2 + c[3] * log10_E ** 3
+            d_max = torch.clamp(10.0 ** log10_dmax, min=100.0)
+            dist = torch.linalg.vector_norm(
+                batch.vertices[:, :, None, :] - ch.positions[None, None, :, :], dim=-1)
+            sol_mask = sol_mask & (dist <= d_max[:, :, None])[..., None]
 
-    # the scalar propagation factors fold into one complex scalar per path
-    # unless the efield must be materialized: birefringence mixes the two
-    # polarizations segment by segment, keep_efields returns them, an
-    # emitter's efield has its own components, and a tabulated VEL depends on
-    # the frequency per direction (pipeline.py:750-754)
-    factored = (emitter is None and not s.birefringence and not keep_efields
-                and ch.antenna_table is None)
+        # the scalar propagation factors fold into one complex scalar per path
+        # unless the efield must be materialized: birefringence mixes the two
+        # polarizations segment by segment, keep_efields returns them, an
+        # emitter's efield has its own components, and a tabulated VEL depends on
+        # the frequency per direction (pipeline.py:750-754)
+        factored = (emitter is None and not s.birefringence and not keep_efields
+                    and ch.antenna_table is None)
 
-    def per_pair(x):
-        return x[:, :, None, None].expand(bshape)
+        def per_pair(x):
+            return x[:, :, None, None].expand(bshape)
 
-    if emitter is None:
-        valid = (sol_mask & (torch.abs(delta_C) <= s.delta_C_cut)
-                 & batch.shower_mask[:, :, None, None])                 # [G,S,C,R]
+        if emitter is None:
+            valid = (sol_mask & (torch.abs(delta_C) <= s.delta_C_cut)
+                     & batch.shower_mask[:, :, None, None])                 # [G,S,C,R]
 
-        # ---- 3. Askaryan spectra [G, S, C, R, F] ---------------------------
-        if s.askaryan_model in ("ARZ2019", "ARZ2020"):
-            # the eTheta component of the semi-analytic trace as a scalar
-            # spectrum (pipeline.py:761-788), for the valid pairs only: the
-            # others are masked out of everything downstream
-            sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
+            # ---- 3. Askaryan spectra [G, S, C, R, F] ---------------------------
+            if s.askaryan_model in ("ARZ2019", "ARZ2020"):
+                # the eTheta component of the semi-analytic trace as a scalar
+                # spectrum (pipeline.py:761-788), for the valid pairs only: the
+                # others are masked out of everything downstream
+                with timing.host_sync("arz_select"):
+                    sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
 
-            def picked(x):
-                return x.reshape(-1)[sel]
+                def picked(x):
+                    return x.reshape(-1)[sel]
 
-            lib = arz_library.to(dev, real_dtype)
-            spec = torch.zeros((valid.numel(), ff_int.shape[0]), dtype=ctype, device=dev)
-            spec[sel] = arz_ops.get_frequency_spectrum(
-                picked(per_pair(batch.energies)), picked(viewing_angle), s.n_internal, dt,
-                lib, picked(per_pair(batch.is_em)), picked(per_pair(n_vertex)),
-                picked(R_safe), picked(per_pair(batch.profile_idx)),
-                version=s.askaryan_model)
-            spec = spec.reshape(*bshape, -1)
+                lib = arz_library.to(dev, real_dtype)
+                spec = torch.zeros((valid.numel(), ff_int.shape[0]), dtype=ctype, device=dev)
+                spec[sel] = arz_ops.get_frequency_spectrum(
+                    picked(per_pair(batch.energies)), picked(viewing_angle), s.n_internal, dt,
+                    lib, picked(per_pair(batch.is_em)), picked(per_pair(n_vertex)),
+                    picked(R_safe), picked(per_pair(batch.profile_idx)),
+                    version=s.askaryan_model)
+                spec = spec.reshape(*bshape, -1)
+            else:
+                spec = askaryan.get_frequency_spectrum(
+                    per_pair(batch.energies), viewing_angle, s.n_internal, dt,
+                    per_pair(batch.is_em), per_pair(n_vertex), R_safe, s.askaryan_model,
+                    k_L=per_pair(batch.k_L))
+
+            # ---- 4. polarization on-sky at the vertex --------------------------
+            axis = batch.prop_dir[:, :, None, None, :].expand(*bshape, 3)
+            pol = torch.linalg.cross(launch, torch.linalg.cross(axis, launch, dim=-1), dim=-1)
+            pol = pol / torch.clamp(torch.linalg.vector_norm(pol, dim=-1, keepdim=True), min=1e-30)
+            zen_l, az_l = geometry.cartesian_to_spherical(launch)
+            pol_onsky = geometry.ground_to_onsky(pol, zen_l, az_l)
+            if not factored:
+                e_theta = pol_onsky[..., 1:2] * spec                   # [G,S,C,R,F]
+                e_phi = pol_onsky[..., 2:3] * spec
         else:
-            spec = askaryan.get_frequency_spectrum(
-                per_pair(batch.energies), viewing_angle, s.n_internal, dt,
-                per_pair(batch.is_em), per_pair(n_vertex), R_safe, s.askaryan_model,
-                k_L=per_pair(batch.k_L))
+            # ---- 3'. emitter mode (pipeline.py:825-892): no delta_C cut ---------
+            valid = sol_mask & batch.shower_mask[:, :, None, None]
+            e_theta, e_phi = _emitter_efields(emitter, batch, launch, R_safe, n_vertex, ff_int,
+                                              s, bshape)
+            pol_onsky = torch.zeros((*bshape, 3), dtype=real_dtype, device=dev)
 
-        # ---- 4. polarization on-sky at the vertex --------------------------
-        axis = batch.prop_dir[:, :, None, None, :].expand(*bshape, 3)
-        pol = torch.linalg.cross(launch, torch.linalg.cross(axis, launch, dim=-1), dim=-1)
-        pol = pol / torch.clamp(torch.linalg.vector_norm(pol, dim=-1, keepdim=True), min=1e-30)
-        zen_l, az_l = geometry.cartesian_to_spherical(launch)
-        pol_onsky = geometry.ground_to_onsky(pol, zen_l, az_l)
-        if not factored:
-            e_theta = pol_onsky[..., 1:2] * spec                   # [G,S,C,R,F]
-            e_phi = pol_onsky[..., 2:3] * spec
-    else:
-        # ---- 3'. emitter mode (pipeline.py:825-892): no delta_C cut ---------
-        valid = sol_mask & batch.shower_mask[:, :, None, None]
-        e_theta, e_phi = _emitter_efields(emitter, batch, launch, R_safe, n_vertex, ff_int,
-                                          s, bshape)
-        pol_onsky = torch.zeros((*bshape, 3), dtype=real_dtype, device=dev)
+        # ---- 5. SP1 attenuation on the sparse grid -----------------------------
+        F_int = ff_int.shape[0]
+        if s.attenuate_ice:
+            sparse_np = _attenuation_freq_grid(tuple(ff_int_np), s.n_freq_attenuation,
+                                               s.max_detector_freq)
+            sparse = torch.as_tensor(sparse_np, dtype=real_dtype, device=dev)
+            if s.n_reflections > 0:
+                # one code path with per-slot (r, case, mirror) for the base and
+                # the bounce slots, SP1 included (pipeline.py:464-482)
+                att_vals = raytrace.attenuation_factor_slots(
+                    sols.c0, sols.sol_type, sols.reflection, sols.refl_case,
+                    geom.x1z[..., None], geom.x2z[..., None], s.ice, sparse,
+                    s.attenuation_model, n_steps=s.attenuation_steps,
+                    quadrature=s.attenuation_quadrature)
+            else:
+                att_vals = raytrace.attenuation_factor(
+                    sols.c0, geom.x1y[..., None], geom.x1z[..., None],
+                    geom.x2y[..., None], geom.x2z[..., None], s.ice, sparse,
+                    s.attenuation_model, n_steps=s.attenuation_steps,
+                    quadrature=s.attenuation_quadrature)              # [G,S,C,R,ns]
+            att_W = torch.as_tensor(_interp_matrix(tuple(sparse_np), tuple(ff_int_np)),
+                                    dtype=real_dtype, device=dev)
+            att = torch.where(ff_int > 0, att_vals @ att_W, 1.0)
+            if factored:
+                spec_att = spec * att
+            else:
+                e_theta = e_theta * att
+                e_phi = e_phi * att
+        else:
+            # a unit attenuation keeps the kernel's contract: ones @ ones = 1
+            att_vals = torch.ones((*bshape, 1), dtype=real_dtype, device=dev)
+            att_W = torch.ones((1, F_int), dtype=real_dtype, device=dev)
+            if factored:
+                spec_att = spec
 
-    # ---- 5. SP1 attenuation on the sparse grid -----------------------------
-    F_int = ff_int.shape[0]
-    if s.attenuate_ice:
-        sparse_np = _attenuation_freq_grid(tuple(ff_int_np), s.n_freq_attenuation,
-                                           s.max_detector_freq)
-        sparse = torch.as_tensor(sparse_np, dtype=real_dtype, device=dev)
+        # surface-reflection Fresnel factors, one per surface touch
+        n_surf = s.ice.index_of_refraction(torch.tensor(-1e-5, dtype=real_dtype, device=dev))
+        refl_zenith = torch.atan(1.0 / torch.sqrt(torch.clamp(
+            sols.c0 ** 2 * n_surf ** 2 - 1.0, min=1e-12)))
+        r_p = geometry.fresnel_r_p(refl_zenith, n_2=1.0, n_1=n_surf)
+        r_s = geometry.fresnel_r_s(refl_zenith, n_2=1.0, n_1=n_surf)
+        z_turn_slots = raytrace.turning_depth(sols.c0, s.ice)
+        n_touch = raytrace.surface_touches_slots(sols.sol_type, sols.reflection,
+                                                 sols.refl_case, z_turn_slots)
+        a_p = torch.ones_like(r_p)
+        a_s = torch.ones_like(r_s)
+        # a bounce slot touches the surface up to n_reflections + 1 times; all
+        # touches of a slot share its C0, hence its angle (pipeline.py:928-932)
+        for k in range(s.n_reflections + 1):
+            a_p = torch.where(n_touch > k, a_p * r_p, a_p)
+            a_s = torch.where(n_touch > k, a_s * r_s, a_s)
         if s.n_reflections > 0:
-            # one code path with per-slot (r, case, mirror) for the base and
-            # the bounce slots, SP1 included (pipeline.py:464-482)
-            att_vals = raytrace.attenuation_factor_slots(
-                sols.c0, sols.sol_type, sols.reflection, sols.refl_case,
-                geom.x1z[..., None], geom.x2z[..., None], s.ice, sparse,
-                s.attenuation_model, n_steps=s.attenuation_steps,
-                quadrature=s.attenuation_quadrature)
-        else:
-            att_vals = raytrace.attenuation_factor(
-                sols.c0, geom.x1y[..., None], geom.x1z[..., None],
-                geom.x2y[..., None], geom.x2z[..., None], s.ice, sparse,
-                s.attenuation_model, n_steps=s.attenuation_steps,
-                quadrature=s.attenuation_quadrature)              # [G,S,C,R,ns]
-        att_W = torch.as_tensor(_interp_matrix(tuple(sparse_np), tuple(ff_int_np)),
-                                dtype=real_dtype, device=dev)
-        att = torch.where(ff_int > 0, att_vals @ att_W, 1.0)
-        if factored:
-            spec_att = spec * att
-        else:
-            e_theta = e_theta * att
-            e_phi = e_phi * att
-    else:
-        # a unit attenuation keeps the kernel's contract: ones @ ones = 1
-        att_vals = torch.ones((*bshape, 1), dtype=real_dtype, device=dev)
-        att_W = torch.ones((1, F_int), dtype=real_dtype, device=dev)
-        if factored:
-            spec_att = spec
-
-    # surface-reflection Fresnel factors, one per surface touch
-    n_surf = s.ice.index_of_refraction(torch.tensor(-1e-5, dtype=real_dtype, device=dev))
-    refl_zenith = torch.atan(1.0 / torch.sqrt(torch.clamp(
-        sols.c0 ** 2 * n_surf ** 2 - 1.0, min=1e-12)))
-    r_p = geometry.fresnel_r_p(refl_zenith, n_2=1.0, n_1=n_surf)
-    r_s = geometry.fresnel_r_s(refl_zenith, n_2=1.0, n_1=n_surf)
-    z_turn_slots = raytrace.turning_depth(sols.c0, s.ice)
-    n_touch = raytrace.surface_touches_slots(sols.sol_type, sols.reflection,
-                                             sols.refl_case, z_turn_slots)
-    a_p = torch.ones_like(r_p)
-    a_s = torch.ones_like(r_s)
-    # a bounce slot touches the surface up to n_reflections + 1 times; all
-    # touches of a slot share its C0, hence its angle (pipeline.py:928-932)
-    for k in range(s.n_reflections + 1):
-        a_p = torch.where(n_touch > k, a_p * r_p, a_p)
-        a_s = torch.where(n_touch > k, a_s * r_s, a_s)
-    if s.n_reflections > 0:
-        # bottom bounces: refl_coef exp(i phase) per bounce on both
-        # components (apply_propagation_effects:3004-3011)
-        b1 = complex(s.ice.refl_coef * np.exp(1j * s.ice.refl_phase_shift))
-        for k in range(s.n_reflections):
-            bounce = sols.reflection > k
-            a_p = torch.where(bounce, a_p * b1, a_p)
-            a_s = torch.where(bounce, a_s * b1, a_s)
-    if not factored:
-        e_theta = e_theta * a_p[..., None]
-        e_phi = e_phi * a_s[..., None]
-    if s.apply_focusing:
-        # the launch angle's convergence toward a displaced receiver
-        # (pipeline.py:947-989)
-        lau_ang = torch.arccos(torch.clamp(launch[..., 2], -1.0, 1.0))
-        rec_ang = torch.arccos(torch.clamp(-receive[..., 2], -1.0, 1.0))
-        if s.focusing_mode == "implicit" and s.n_reflections == 0:
-            # the exact dz -> 0 derivative at the solved root
-            d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
-            foc_valid = sols.mask
-        else:
-            # "numeric": the finite difference of a second solve with the
-            # receiver (the 2D x1 where the pair was swapped) moved by dz.
-            # With bottom reflections always this one: the slot order of
-            # find_solutions_all is fixed, so the displaced problem's slots
-            # align one to one (pipeline.py:957-963)
-            dz = s.focusing_dz
-            x1z_d = torch.where(geom.swapped, geom.x1z + dz, geom.x1z)
-            x2z_d = torch.where(geom.swapped, geom.x2z, geom.x2z + dz)
-            sols1 = solve(x1z_d, x2z_d)
-            launch1, _ = raytrace.launch_receive_vectors(
-                geom._replace(x1z=x1z_d, x2z=x2z_d), sols1)
-            lau_ang1 = torch.arccos(torch.clamp(launch1[..., 2], -1.0, 1.0))
-            d_launch_dz = torch.abs(lau_ang1 - lau_ang) / abs(dz)
-            foc_valid = sols1.mask & sols.mask
-        r_h = torch.abs(geom.x2y - geom.x1y)[..., None]
-        dist = torch.clamp(sols.path_length, min=1.0)
-        foc = torch.sqrt(dist / torch.clamp(torch.sin(rec_ang), min=1e-6) * d_launch_dz)
-        foc = foc * torch.sqrt(dist * torch.sin(lau_ang) / torch.clamp(r_h, min=1e-6))
-        foc = torch.clamp(torch.where(foc_valid, foc, 1.0), max=s.focusing_limit)
-        # refractive-index correction between emitter and receiver
-        n1 = s.ice.index_of_refraction(batch.vertices[..., 2])[:, :, None, None]
-        n2 = s.ice.index_of_refraction(ch.positions[:, 2])[None, None, :, None]
-        foc = foc * torch.sqrt(n1 / n2)
+            # bottom bounces: refl_coef exp(i phase) per bounce on both
+            # components (apply_propagation_effects:3004-3011)
+            b1 = complex(s.ice.refl_coef * np.exp(1j * s.ice.refl_phase_shift))
+            for k in range(s.n_reflections):
+                bounce = sols.reflection > k
+                a_p = torch.where(bounce, a_p * b1, a_p)
+                a_s = torch.where(bounce, a_s * b1, a_s)
         if not factored:
-            e_theta = e_theta * foc[..., None]
-            e_phi = e_phi * foc[..., None]
-    else:
-        foc = torch.ones(bshape, dtype=real_dtype, device=dev)
-    if s.birefringence:
-        e_theta, e_phi = _birefringence(e_theta, e_phi, valid, geom, sols.c0, ff_int, s)
-    if factored:
-        amp_t_c = (pol_onsky[..., 1] * foc).to(ctype) * a_p
-        amp_p_c = (pol_onsky[..., 2] * foc).to(ctype) * a_s
-
-    # ---- 6a. candidate cut (simulation.py:283-286) -------------------------
-    min_eff = ch.min_efield_amplitude
-    if bool(torch.all(ch_all.min_efield_amplitude <= 0)):
-        ef_max = torch.zeros(bshape, dtype=real_dtype, device=dev)
-        candidate = torch.ones((G,), dtype=torch.bool, device=dev)
-    else:
-        if factored:
-            pols = [amp_t_c[..., None] * spec_att, amp_p_c[..., None] * spec_att]
+            e_theta = e_theta * a_p[..., None]
+            e_phi = e_phi * a_s[..., None]
+        if s.apply_focusing:
+            # the launch angle's convergence toward a displaced receiver
+            # (pipeline.py:947-989)
+            lau_ang = torch.arccos(torch.clamp(launch[..., 2], -1.0, 1.0))
+            rec_ang = torch.arccos(torch.clamp(-receive[..., 2], -1.0, 1.0))
+            if s.focusing_mode == "implicit" and s.n_reflections == 0:
+                # the exact dz -> 0 derivative at the solved root
+                d_launch_dz = raytrace.focusing_dtheta_dz(geom, sols, s.ice)
+                foc_valid = sols.mask
+            else:
+                # "numeric": the finite difference of a second solve with the
+                # receiver (the 2D x1 where the pair was swapped) moved by dz.
+                # With bottom reflections always this one: the slot order of
+                # find_solutions_all is fixed, so the displaced problem's slots
+                # align one to one (pipeline.py:957-963)
+                dz = s.focusing_dz
+                x1z_d = torch.where(geom.swapped, geom.x1z + dz, geom.x1z)
+                x2z_d = torch.where(geom.swapped, geom.x2z, geom.x2z + dz)
+                sols1 = solve(x1z_d, x2z_d)
+                launch1, _ = raytrace.launch_receive_vectors(
+                    geom._replace(x1z=x1z_d, x2z=x2z_d), sols1)
+                lau_ang1 = torch.arccos(torch.clamp(launch1[..., 2], -1.0, 1.0))
+                d_launch_dz = torch.abs(lau_ang1 - lau_ang) / abs(dz)
+                foc_valid = sols1.mask & sols.mask
+            r_h = torch.abs(geom.x2y - geom.x1y)[..., None]
+            dist = torch.clamp(sols.path_length, min=1.0)
+            foc = torch.sqrt(dist / torch.clamp(torch.sin(rec_ang), min=1e-6) * d_launch_dz)
+            foc = foc * torch.sqrt(dist * torch.sin(lau_ang) / torch.clamp(r_h, min=1e-6))
+            foc = torch.clamp(torch.where(foc_valid, foc, 1.0), max=s.focusing_limit)
+            # refractive-index correction between emitter and receiver
+            n1 = s.ice.index_of_refraction(batch.vertices[..., 2])[:, :, None, None]
+            n2 = s.ice.index_of_refraction(ch.positions[:, 2])[None, None, :, None]
+            foc = foc * torch.sqrt(n1 / n2)
+            if not factored:
+                e_theta = e_theta * foc[..., None]
+                e_phi = e_phi * foc[..., None]
         else:
-            pols = [e_theta, e_phi]
-        ef_traces = fft.freq2time(torch.stack(pols), s.sampling_rate, n=s.n_internal)
-        ef_max = torch.amax(torch.abs(ef_traces), dim=(0, -1))
-        ef_max = torch.where(valid, ef_max, 0.0)
-        candidate = mesh_util.all_reduce_or(
-            torch.any((ef_max > min_eff[None, None, :, None]).reshape(G, -1), dim=-1), ch_axis)
-
-    # ---- 6b. antenna response: mixing scalars + template gather ------------
-    zen_r, az_r = geometry.cartesian_to_spherical(receive)
-    if ch.antenna_table is not None:
-        # tabulated patterns: trilinear complex interpolation of the grids
-        # at every receive direction, channel by channel (pipeline.py:1048-1065)
-        tab = ch.antenna_table
-        vel = [antenna.table_vel(
-            zen_r[:, :, ci], az_r[:, :, ci], ch.rot[ci],
-            antenna.AntennaTable(freqs=tab.freqs, thetas=tab.thetas, phis=tab.phis,
-                                 h_theta=tab.h_theta[ci], h_phi=tab.h_phi[ci]), ff_int)
-            for ci in range(C)]
-        volt_spec = (torch.stack([v[0] for v in vel], dim=2) * e_theta
-                     + torch.stack([v[1] for v in vel], dim=2) * e_phi)
-    else:
-        rot_b = ch.rot[None, None, :, None, :, :].expand(*bshape, 3, 3)
-        kind_b = ch.kind[None, None, :, None].expand(bshape)
-        mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b,
-                                                        direction=receive)
-        c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
-        T = ch.templates[c_idx, sector]                                # [G,S,C,R,F]
+            foc = torch.ones(bshape, dtype=real_dtype, device=dev)
+        if s.birefringence:
+            e_theta, e_phi = _birefringence(e_theta, e_phi, valid, geom, sols.c0, ff_int, s)
         if factored:
-            combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,R]
-            volt_spec = T * combined[..., None] * spec_att
+            amp_t_c = (pol_onsky[..., 1] * foc).to(ctype) * a_p
+            amp_p_c = (pol_onsky[..., 2] * foc).to(ctype) * a_s
+
+        # ---- 6a. candidate cut (simulation.py:283-286) -------------------------
+        min_eff = ch.min_efield_amplitude
+        with timing.host_sync("min_efield"):
+            no_cut = bool(torch.all(ch_all.min_efield_amplitude <= 0))
+        if no_cut:
+            ef_max = torch.zeros(bshape, dtype=real_dtype, device=dev)
+            candidate = torch.ones((G,), dtype=torch.bool, device=dev)
         else:
-            volt_spec = (T * mix_t[..., None]) * e_theta + (T * mix_p[..., None]) * e_phi
+            if factored:
+                pols = [amp_t_c[..., None] * spec_att, amp_p_c[..., None] * spec_att]
+            else:
+                pols = [e_theta, e_phi]
+            ef_traces = fft.freq2time(torch.stack(pols), s.sampling_rate, n=s.n_internal)
+            ef_max = torch.amax(torch.abs(ef_traces), dim=(0, -1))
+            ef_max = torch.where(valid, ef_max, 0.0)
+            candidate = mesh_util.all_reduce_or(
+                torch.any((ef_max > min_eff[None, None, :, None]).reshape(G, -1), dim=-1), ch_axis)
 
-    # per-solution Hilbert-envelope maximum after the filter chain
-    volt_spec = torch.where(valid[..., None], volt_spec, 0.0)
-    volt_spec = torch.where(ff_int < 5e-3, 0.0, volt_spec)        # DC removal
-    sol_spec_filtered = volt_spec * ch.filter_response_int[None, None, :, None, :]
-    max_amp_sol = torch.amax(trace_ops.hilbert_envelope_from_rfft(
-        sol_spec_filtered, s.n_internal, s.sampling_rate), dim=-1)
+        # ---- 6b. antenna response: mixing scalars + template gather ------------
+        zen_r, az_r = geometry.cartesian_to_spherical(receive)
+        if ch.antenna_table is not None:
+            # tabulated patterns: trilinear complex interpolation of the grids
+            # at every receive direction, channel by channel (pipeline.py:1048-1065)
+            tab = ch.antenna_table
+            vel = [antenna.table_vel(
+                zen_r[:, :, ci], az_r[:, :, ci], ch.rot[ci],
+                antenna.AntennaTable(freqs=tab.freqs, thetas=tab.thetas, phis=tab.phis,
+                                     h_theta=tab.h_theta[ci], h_phi=tab.h_phi[ci]), ff_int)
+                for ci in range(C)]
+            volt_spec = (torch.stack([v[0] for v in vel], dim=2) * e_theta
+                         + torch.stack([v[1] for v in vel], dim=2) * e_phi)
+        else:
+            rot_b = ch.rot[None, None, :, None, :, :].expand(*bshape, 3, 3)
+            kind_b = ch.kind[None, None, :, None].expand(bshape)
+            mix_t, mix_p, sector = antenna.analytic_vel_mix(zen_r, az_r, rot_b, kind_b,
+                                                            direction=receive)
+            c_idx = torch.arange(C, device=dev)[None, None, :, None].expand(bshape)
+            T = ch.templates[c_idx, sector]                                # [G,S,C,R,F]
+            if factored:
+                combined = mix_t.to(ctype) * amp_t_c + mix_p.to(ctype) * amp_p_c   # [G,S,C,R]
+                volt_spec = T * combined[..., None] * spec_att
+            else:
+                volt_spec = (T * mix_t[..., None]) * e_theta + (T * mix_p[..., None]) * e_phi
 
-    # ---- 7. placement into the common time base ----------------------------
-    t_start = (batch.vertex_times[:, :, None, None] + sols.travel_time
-               - 0.5 * s.n_internal * dt + ch.cable_delays[None, None, :, None])
-    any_valid = mesh_util.all_reduce_or(torch.any(valid.reshape(G, -1), dim=-1), ch_axis)
-    cap = (s.n_base - s.n_internal) * dt
-    F_base = s.n_base // 2 + 1
-    # band limits (pipeline.py:1127-1158): with a separate trigger chain the
-    # efield grid stays full, and the placement covers both chains' supports;
-    # kept traces are user-visible waveforms, so the base grid stays full
-    separate_chain = ch.trigger_filter_response is not None
-    K_int, K_base, K_trig, K_place = F_int, F_base, F_base, F_base
-    if s.band_limit_eps > 0 and not separate_chain:
-        K_int = _band_support((ch_all.filter_response_int.cpu().numpy(),),
-                              s.band_limit_eps, F_int)
-    if s.band_limit_eps > 0 and not keep_traces:
-        K_base = _band_support((ch_all.filter_response.cpu().numpy(),),
-                               s.band_limit_eps, F_base)
-        K_trig = (_band_support((ch_all.trigger_filter_response.cpu().numpy(),),
-                                s.band_limit_eps, F_base) if separate_chain else K_base)
-        K_place = max(K_base, K_trig)
+        # per-solution Hilbert-envelope maximum after the filter chain
+        volt_spec = torch.where(valid[..., None], volt_spec, 0.0)
+        volt_spec = torch.where(ff_int < 5e-3, 0.0, volt_spec)        # DC removal
+        sol_spec_filtered = volt_spec * ch.filter_response_int[None, None, :, None, :]
+        max_amp_sol = torch.amax(trace_ops.hilbert_envelope_from_rfft(
+            sol_spec_filtered, s.n_internal, s.sampling_rate), dim=-1)
 
-    s2 = S * n_rays
-    R = G * C * s2
+    with timing.span("step.placement"):
+        # ---- 7. placement into the common time base ----------------------------
+        t_start = (batch.vertex_times[:, :, None, None] + sols.travel_time
+                   - 0.5 * s.n_internal * dt + ch.cable_delays[None, None, :, None])
+        any_valid = mesh_util.all_reduce_or(torch.any(valid.reshape(G, -1), dim=-1), ch_axis)
+        cap = (s.n_base - s.n_internal) * dt
+        F_base = s.n_base // 2 + 1
+        # band limits (pipeline.py:1127-1158): with a separate trigger chain the
+        # efield grid stays full, and the placement covers both chains' supports;
+        # kept traces are user-visible waveforms, so the base grid stays full
+        separate_chain = ch.trigger_filter_response is not None
+        K_int, K_base, K_trig, K_place = F_int, F_base, F_base, F_base
 
-    def ch_major(x):
-        # [G, S, C, 2, ...] -> rows (g, c, s, r), (s, r) fastest
-        return torch.movedim(x, 2, 1).reshape(R, *x.shape[4:]).contiguous()
+        def support(response, full):
+            with timing.host_sync("band_support"):
+                response = response.cpu().numpy()
+            return _band_support((response,), s.band_limit_eps, full)
 
-    df_base = float(s.sampling_rate / s.n_base)
-    kernel = s.placement_impl == "kernel"
-    if factored:
-        # the window-independent operands of the chain kernel
-        tpl_idx = (c_idx * 3 + sector).to(torch.int32)
-        dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
-        tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
-        chain_rows = (ch_major(spec.real)[:, :K_int].contiguous(),
-                      ch_major(spec.imag)[:, :K_int].contiguous(),
-                      ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag))
-        chain_tables = (ch_major(tpl_idx), att_W[:, :K_int].contiguous(),
-                        tpl_table[:, :K_int].contiguous())
+        if s.band_limit_eps > 0 and not separate_chain:
+            K_int = support(ch_all.filter_response_int, F_int)
+        if s.band_limit_eps > 0 and not keep_traces:
+            K_base = support(ch_all.filter_response, F_base)
+            K_trig = support(ch_all.trigger_filter_response, F_base) if separate_chain else K_base
+            K_place = max(K_base, K_trig)
 
-    def assemble_and_trigger(in_w, offset, t0_w, want_traces):
-        """One sub-event readout window (pipeline.py:1174-1460): place the
-        in-window pulses, add noise, apply the chains, run every trigger.
-        Returns (fired per trigger, time per trigger, amp [G, C], the
-        readout traces [G, C, n_base] with ``want_traces``, else None)."""
+        s2 = S * n_rays
+        R = G * C * s2
+
+        def ch_major(x):
+            # [G, S, C, 2, ...] -> rows (g, c, s, r), (s, r) fastest
+            return torch.movedim(x, 2, 1).reshape(R, *x.shape[4:]).contiguous()
+
+        df_base = float(s.sampling_rate / s.n_base)
+        kernel = s.placement_impl == "kernel"
+        if factored:
+            # the window-independent operands of the chain kernel
+            tpl_idx = (c_idx * 3 + sector).to(torch.int32)
+            dcmask = torch.as_tensor(ff_int_np >= 5e-3, device=dev)
+            tpl_table = torch.where(dcmask, ch.templates.reshape(C * 3, -1), 0.0)
+            chain_rows = (ch_major(spec.real)[:, :K_int].contiguous(),
+                          ch_major(spec.imag)[:, :K_int].contiguous(),
+                          ch_major(att_vals), ch_major(combined.real), ch_major(combined.imag))
+            chain_tables = (ch_major(tpl_idx), att_W[:, :K_int].contiguous(),
+                            tpl_table[:, :K_int].contiguous())
+
+    def place_window(in_w, offset):
+        """Step 7 of one sub-event readout window (pipeline.py:1174-1268):
+        the in-window pulses placed on the common time base; every
+        channel's raw spectrum [G, C_all, F_base] on every rank of the axis."""
         if factored:
             place = (placement.chain_placement_reduce if kernel
                      else placement.chain_placement_reduce_plain)
@@ -916,11 +932,13 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         raw_spec = torch.complex(out_re, out_im)
         if K_place < F_base:
             raw_spec = torch.nn.functional.pad(raw_spec, (0, F_base - K_place))
-        # every channel's readout spectrum on every rank of the axis
-        raw_spec = mesh_util.all_gather(raw_spec.reshape(G, C, F_base), 1, ch_axis)
+        return mesh_util.all_gather(raw_spec.reshape(G, C, F_base), 1, ch_axis)
 
-        # ---- 8. noise, filter multiply, triggers ---------------------------
-        # (on all C_all channels)
+    def trigger_window(raw_spec, t0_w, want_traces):
+        """Step 8 of one window (pipeline.py:1294-1460), on all C_all
+        channels: add noise, apply the chains, run every trigger. Returns
+        (fired per trigger, time per trigger, amp [G, C], the readout traces
+        [G, C, n_base] with ``want_traces``, else None)."""
         if s.add_noise:
             # one realization per (group, channel), added before the filter
             # (pipeline.py:1294-1310); each window draws anew
@@ -954,48 +972,54 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     per_window = []
     name_to_col = {t.name: i for i, t in enumerate(trig_list)}
     for w in range(max(1, s.n_windows)):
-        any_rem = mesh_util.all_reduce_or(torch.any(remaining.reshape(G, -1), dim=-1), ch_axis)
-        # anchored at the earliest arrival that is still to be read out
-        t0_w = mesh_util.all_reduce_min(
-            torch.amin(torch.where(remaining, t_start, 1e30).reshape(G, -1), dim=-1), ch_axis)
-        t0_w = torch.where(any_rem, t0_w, 0.0)
-        offset = t_start - t0_w[:, None, None, None]
-        in_w = remaining & (offset <= cap)
-        # only window 0's traces are kept
-        fired, times, amp_w, traces_w = assemble_and_trigger(in_w, offset, t0_w,
-                                                             keep_traces and w == 0)
-        # a window without pulses never triggers; requires-gating ANDs a
-        # trigger with an earlier-declared one inside each window
-        # (pipeline.py:1491-1512)
-        gated = []
-        for i, t in enumerate(trig_list):
-            c = fired[i] & any_valid & candidate & any_rem
-            if t.requires:
-                c = c & gated[name_to_col[t.requires]]
-            gated.append(c)
-        per_window.append((gated, times))
-        if w == 0:
-            base_t0, max_amp_tr, traces0 = t0_w, amp_w, traces_w
-        else:
-            max_amp_tr = torch.maximum(max_amp_tr, amp_w)
+        with timing.span("step.placement"):
+            any_rem = mesh_util.all_reduce_or(torch.any(remaining.reshape(G, -1), dim=-1),
+                                              ch_axis)
+            # anchored at the earliest arrival that is still to be read out
+            t0_w = mesh_util.all_reduce_min(
+                torch.amin(torch.where(remaining, t_start, 1e30).reshape(G, -1), dim=-1),
+                ch_axis)
+            t0_w = torch.where(any_rem, t0_w, 0.0)
+            offset = t_start - t0_w[:, None, None, None]
+            in_w = remaining & (offset <= cap)
+            raw_spec = place_window(in_w, offset)
+        with timing.span("step.trigger"):
+            # only window 0's traces are kept
+            fired, times, amp_w, traces_w = trigger_window(raw_spec, t0_w,
+                                                           keep_traces and w == 0)
+            # a window without pulses never triggers; requires-gating ANDs a
+            # trigger with an earlier-declared one inside each window
+            # (pipeline.py:1491-1512)
+            gated = []
+            for i, t in enumerate(trig_list):
+                c = fired[i] & any_valid & candidate & any_rem
+                if t.requires:
+                    c = c & gated[name_to_col[t.requires]]
+                gated.append(c)
+            per_window.append((gated, times))
+            if w == 0:
+                base_t0, max_amp_tr, traces0 = t0_w, amp_w, traces_w
+            else:
+                max_amp_tr = torch.maximum(max_amp_tr, amp_w)
         remaining = remaining & ~in_w
 
-    # decisions OR across windows, the time is the earliest fired window's
-    cols, times = [], []
-    for i in range(len(trig_list)):
-        fired = per_window[0][0][i]
-        tmin = torch.where(fired, per_window[0][1][i], torch.inf)
-        for gated_w, times_w in per_window[1:]:
-            fired = fired | gated_w[i]
-            tmin = torch.minimum(tmin, torch.where(gated_w[i], times_w[i], torch.inf))
-        cols.append(fired)
-        times.append(torch.where(fired, tmin, per_window[0][1][i]))
-    triggered_per = torch.stack(cols, dim=-1)
-    trigger_times_per = torch.stack(times, dim=-1)
-    triggered = torch.any(triggered_per, dim=-1)
-    tt_masked = torch.where(triggered_per, trigger_times_per, torch.inf)
-    trigger_time = torch.where(triggered, torch.amin(tt_masked, dim=-1),
-                               trigger_times_per[..., 0])
+    with timing.span("step.trigger"):
+        # decisions OR across windows, the time is the earliest fired window's
+        cols, times = [], []
+        for i in range(len(trig_list)):
+            fired = per_window[0][0][i]
+            tmin = torch.where(fired, per_window[0][1][i], torch.inf)
+            for gated_w, times_w in per_window[1:]:
+                fired = fired | gated_w[i]
+                tmin = torch.minimum(tmin, torch.where(gated_w[i], times_w[i], torch.inf))
+            cols.append(fired)
+            times.append(torch.where(fired, tmin, per_window[0][1][i]))
+        triggered_per = torch.stack(cols, dim=-1)
+        trigger_times_per = torch.stack(times, dim=-1)
+        triggered = torch.any(triggered_per, dim=-1)
+        tt_masked = torch.where(triggered_per, trigger_times_per, torch.inf)
+        trigger_time = torch.where(triggered, torch.amin(tt_masked, dim=-1),
+                                   trigger_times_per[..., 0])
 
     def gathered(x, dim=2):
         # a per-solution output [G, S, C, R, ...] over all channels

@@ -51,6 +51,13 @@ computed on every rank; rank 0 alone writes ``outputfilename`` and
 ``nur_outputfilename`` (whose re-run of the triggered groups runs on the
 mesh too).
 
+With the recorder of ``utils/timing.py`` on, a job records its spans:
+``sim.init`` (with ``sim.channels`` and ``sim.input``), ``sim.batch``,
+``sim.weights``, per chunk ``sim.h2d``, ``sim.step`` and ``sim.readback``,
+then ``sim.results`` and, where a file is written, ``sim.output``; the
+counter ``chunks``; and every blocking device-to-host read as a
+``host_sync`` (``cable_delays``, ``readback``, ``nur_readback``).
+
 Not ported yet (it raises): numeric birefringence propagation.
 """
 
@@ -80,7 +87,7 @@ from nuradiomc_tpu_torch.sim.pipeline import (AntennaTableParams, ChannelParams,
                                               EmitterParams, PipelineSettings,
                                               ShowerBatch, TriggerSettings,
                                               simulate_batch)
-from nuradiomc_tpu_torch.utils import geometry
+from nuradiomc_tpu_torch.utils import geometry, timing
 
 
 @dataclasses.dataclass
@@ -114,6 +121,13 @@ class TriggerSpec:
     pa_digitize: bool = True                # trigger ADC before phasing
     pa_adc_noise_count: int = None          # 15 if None
     requires: str = None
+
+
+def _read(t, site="readback"):
+    """``t`` on the host as numpy: a blocking device-to-host read, recorded
+    as a host sync at ``site``."""
+    with timing.host_sync(site):
+        return t.cpu().numpy()
 
 
 def _group_showers(group_ids):
@@ -166,160 +180,164 @@ class Simulation:
                  spice_pulse_index: int = 0,
                  device=device_util.DEFAULT, dtype=torch.float64, mesh=None,
                  noise_device=None):
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-        if isinstance(mesh, str):
-            if mesh != "auto":
-                raise ValueError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
-            mesh = mesh_util.make_mesh(device=torch.device(device).type)
-        self.mesh = mesh
-        if mesh is None:
-            self.device = device_util.resolve(device)
-        else:
-            if torch.device(device).type != mesh.device.type:
-                raise ValueError(f"device {device!r} but the mesh runs on {mesh.device}")
-            self.device = mesh.device
-        self.dtype = dtype
-        self.noise_device = self.device if noise_device is None else torch.device(noise_device)
-        self.config = config_util.get_config(config)
-        self.det = detector if isinstance(detector, Detector) else Detector(detector)
-        self.filter_chain = list(filter_chain)
-        self.triggers = list(triggers) if triggers is not None else [trigger]
-        if len({t.name for t in self.triggers}) != len(self.triggers):
-            raise ValueError("trigger names must be unique")
-        self.trigger = self.triggers[0]
-        # a distinct signal chain for the trigger channels; None: the
-        # triggers read the readout chain
-        self.trigger_filter_chain = (list(trigger_filter_chain)
-                                     if trigger_filter_chain is not None else None)
-        self.outputfilename = outputfilename
-        self.nur_outputfilename = nur_outputfilename
-        self.antenna_replacements = antenna_replacements or {}
-        self.antenna_models_path = antenna_models_path
-        self.spice_pulses_path = spice_pulses_path
-        self.spice_pulse_index = int(spice_pulse_index)
-        self.chunk_size = chunk_size
+        timing.new_job()
+        with timing.span("sim.init"):
+            if dtype not in (torch.float32, torch.float64):
+                raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+            if isinstance(mesh, str):
+                if mesh != "auto":
+                    raise ValueError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
+                mesh = mesh_util.make_mesh(device=torch.device(device).type)
+            self.mesh = mesh
+            if mesh is None:
+                self.device = device_util.resolve(device)
+            else:
+                if torch.device(device).type != mesh.device.type:
+                    raise ValueError(f"device {device!r} but the mesh runs on {mesh.device}")
+                self.device = mesh.device
+            self.dtype = dtype
+            self.noise_device = self.device if noise_device is None else torch.device(noise_device)
+            self.config = config_util.get_config(config)
+            self.det = detector if isinstance(detector, Detector) else Detector(detector)
+            self.filter_chain = list(filter_chain)
+            self.triggers = list(triggers) if triggers is not None else [trigger]
+            if len({t.name for t in self.triggers}) != len(self.triggers):
+                raise ValueError("trigger names must be unique")
+            self.trigger = self.triggers[0]
+            # a distinct signal chain for the trigger channels; None: the
+            # triggers read the readout chain
+            self.trigger_filter_chain = (list(trigger_filter_chain)
+                                         if trigger_filter_chain is not None else None)
+            self.outputfilename = outputfilename
+            self.nur_outputfilename = nur_outputfilename
+            self.antenna_replacements = antenna_replacements or {}
+            self.antenna_models_path = antenna_models_path
+            self.spice_pulses_path = spice_pulses_path
+            self.spice_pulse_index = int(spice_pulse_index)
+            self.chunk_size = chunk_size
 
-        self.station_id = self.det.get_station_ids()[0]
-        ch = self.det.get_station(self.station_id).channels
-        cfg = self.config
-        if cfg["signal"]["model"] not in ("ZHS1992", "Alvarez2000", "Alvarez2009",
-                                          "ARZ2019", "ARZ2020"):
-            raise NotImplementedError(
-                f"signal model {cfg['signal']['model']} is not implemented in the "
-                "pipeline (HCRB2017 is the stand-alone op ops/hcrb2017.py)")
-        self.internal_rate = float(cfg["sampling_rate"])
-        dt = 1.0 / self.internal_rate
-        # detector samples at the internal rate (simulation.py:151-153), and
-        # >= 25% headroom of the time base beyond one readout window
-        n = ch.n_samples[0] / ch.sampling_frequency[0] / dt
-        self.n_internal = int(np.ceil(n / 2.0) * 2)
-        pad = int(np.ceil(0.25 * self.n_internal / 128.0) * 128)
-        self.n_base = max(n_base, self.n_internal + pad)
-        self.ice = ice_models.get_ice_model(cfg["propagation"]["ice_model"])
+            self.station_id = self.det.get_station_ids()[0]
+            ch = self.det.get_station(self.station_id).channels
+            cfg = self.config
+            if cfg["signal"]["model"] not in ("ZHS1992", "Alvarez2000", "Alvarez2009",
+                                              "ARZ2019", "ARZ2020"):
+                raise NotImplementedError(
+                    f"signal model {cfg['signal']['model']} is not implemented in the "
+                    "pipeline (HCRB2017 is the stand-alone op ops/hcrb2017.py)")
+            self.internal_rate = float(cfg["sampling_rate"])
+            dt = 1.0 / self.internal_rate
+            # detector samples at the internal rate (simulation.py:151-153), and
+            # >= 25% headroom of the time base beyond one readout window
+            n = ch.n_samples[0] / ch.sampling_frequency[0] / dt
+            self.n_internal = int(np.ceil(n / 2.0) * 2)
+            pad = int(np.ceil(0.25 * self.n_internal / 128.0) * 128)
+            self.n_base = max(n_base, self.n_internal + pad)
+            self.ice = ice_models.get_ice_model(cfg["propagation"]["ice_model"])
 
-        # ---- Vrms calibration (simulation.py:192-232) -----------------------
-        ff_cal = np.linspace(0, 0.5 * self.internal_rate, 10000)
-        noise_temp = cfg["trigger"]["noise_temperature"]
-        vrms_cfg = cfg["trigger"]["Vrms"]
+            with timing.span("sim.channels"):
+                # ---- Vrms calibration (simulation.py:192-232) ---------------
+                ff_cal = np.linspace(0, 0.5 * self.internal_rate, 10000)
+                noise_temp = cfg["trigger"]["noise_temperature"]
+                vrms_cfg = cfg["trigger"]["Vrms"]
 
-        def thermal_vrms(bandwidth):
-            if vrms_cfg is not None:
-                return float(vrms_cfg)
-            return float(np.sqrt(float(noise_temp) * 50 * units.ohm
-                                 * bandwidth * boltzmann))
+                def thermal_vrms(bandwidth):
+                    if vrms_cfg is not None:
+                        return float(vrms_cfg)
+                    return float(np.sqrt(float(noise_temp) * 50 * units.ohm
+                                         * bandwidth * boltzmann))
 
-        self.bandwidth_per_channel = {}
-        self.Vrms_per_channel = {}
-        self.max_amplification_per_channel = {}
-        ids0 = [int(c) for c in ch.channel_ids]
-        for cid in ids0:
-            filt = self._chain_response_for(ff_cal, cid, self.filter_chain)
-            bw = np.trapezoid(np.abs(filt) ** 2, ff_cal)
-            self.bandwidth_per_channel[cid] = bw
-            self.Vrms_per_channel[cid] = thermal_vrms(bw)
-            self.max_amplification_per_channel[cid] = (
-                float(np.abs(filt).max()) if len(self.filter_chain) else 1.0)
-        self.bandwidth = self.bandwidth_per_channel[ids0[0]]
-        self.max_amplification = self.max_amplification_per_channel[ids0[0]]
-        self.Vrms = self.Vrms_per_channel[ids0[0]]
-        self.Vrms_efield = self.Vrms / self.max_amplification / units.m
-        # the trigger thresholds in sigma refer to the thermal Vrms of the
-        # trigger chain's bandwidth where a separate one is given
-        # (simulation.py:222-232)
-        if self.trigger_filter_chain is not None:
-            filt_t = self._chain_response_for(ff_cal, ids0[0], self.trigger_filter_chain)
-            self.bandwidth_trigger = np.trapezoid(np.abs(filt_t) ** 2, ff_cal)
-            self.Vrms_trigger = thermal_vrms(self.bandwidth_trigger)
-        else:
-            self.bandwidth_trigger = self.bandwidth
-            self.Vrms_trigger = self.Vrms
+                self.bandwidth_per_channel = {}
+                self.Vrms_per_channel = {}
+                self.max_amplification_per_channel = {}
+                ids0 = [int(c) for c in ch.channel_ids]
+                for cid in ids0:
+                    filt = self._chain_response_for(ff_cal, cid, self.filter_chain)
+                    bw = np.trapezoid(np.abs(filt) ** 2, ff_cal)
+                    self.bandwidth_per_channel[cid] = bw
+                    self.Vrms_per_channel[cid] = thermal_vrms(bw)
+                    self.max_amplification_per_channel[cid] = (
+                        float(np.abs(filt).max()) if len(self.filter_chain) else 1.0)
+                self.bandwidth = self.bandwidth_per_channel[ids0[0]]
+                self.max_amplification = self.max_amplification_per_channel[ids0[0]]
+                self.Vrms = self.Vrms_per_channel[ids0[0]]
+                self.Vrms_efield = self.Vrms / self.max_amplification / units.m
+                # the trigger thresholds in sigma refer to the thermal Vrms of the
+                # trigger chain's bandwidth where a separate one is given
+                # (simulation.py:222-232)
+                if self.trigger_filter_chain is not None:
+                    filt_t = self._chain_response_for(ff_cal, ids0[0], self.trigger_filter_chain)
+                    self.bandwidth_trigger = np.trapezoid(np.abs(filt_t) ** 2, ff_cal)
+                    self.Vrms_trigger = thermal_vrms(self.bandwidth_trigger)
+                else:
+                    self.bandwidth_trigger = self.bandwidth
+                    self.Vrms_trigger = self.Vrms
 
-        self.channel_params_per_station = {
-            sid: self._build_channel_params(sid) for sid in self.det.get_station_ids()}
-        self.channel_params = self.channel_params_per_station[self.station_id]
-        self.trigger_names = [t.name for t in self.triggers]
-        prop = cfg["propagation"]
-        n_reflections = int(prop.get("n_reflections", 0) or 0)
-        self.settings = PipelineSettings(
-            triggers=tuple(self._build_trigger_settings(t) for t in self.triggers),
-            ice=self.ice,
-            attenuation_model=prop["attenuation_model"],
-            askaryan_model=cfg["signal"]["model"],
-            n_internal=self.n_internal,
-            n_base=self.n_base,
-            sampling_rate=self.internal_rate,
-            n_reflections=n_reflections,
-            # sub-event readout windows: bounce rays arrive microseconds
-            # after the direct pulse, one cluster per (r, case) family, so
-            # the default is one window per cluster; propagation.n_windows
-            # overrides (simulation.py:273-281)
-            n_windows=int(prop.get("n_windows", 0) or (1 + 2 * n_reflections)),
-            delta_C_cut=float(cfg["speedup"]["delta_C_cut"]),
-            distance_cut=bool(cfg["speedup"]["distance_cut"]),
-            distance_cut_coefficients=tuple(cfg["speedup"]["distance_cut_coefficients"]),
-            distance_cut_sum_length=float(cfg["speedup"]["distance_cut_sum_length"]),
-            n_freq_attenuation=int(prop["n_freq"]),
-            max_detector_freq=float(max(
-                float(np.max(self.det.get_station(sid).channels.sampling_frequency))
-                for sid in self.det.get_station_ids())) * 0.5,
-            **({"attenuation_steps": int(prop["attenuation_steps"])}
-               if prop.get("attenuation_steps") else {}),
-            **({"attenuation_quadrature": str(prop["attenuation_quadrature"])}
-               if prop.get("attenuation_quadrature") else {}),
-            **({"n_bisect": int(prop["n_bisect"])} if prop.get("n_bisect") else {}),
-            **({"band_limit_eps": float(cfg["perf"]["band_limit_eps"])}
-               if cfg.get("perf", {}).get("band_limit_eps") else {}),
-            **({"noise_sampler": str(cfg["perf"]["noise_sampler"])}
-               if cfg.get("perf", {}).get("noise_sampler") else {}),
-            attenuate_ice=bool(prop["attenuate_ice"]),
-            apply_focusing=bool(prop["focusing"]),
-            focusing_limit=float(prop["focusing_limit"]),
-            **({"focusing_mode": str(prop["focusing_mode"])}
-               if prop.get("focusing_mode") else {}),
-            birefringence=bool(prop.get("birefringence", False)),
-            birefringence_model=str(prop.get("birefringence_model", "southpole_A")),
-            # the path is rotated into the ice-flow frame by angle_to_iceflow
-            # (deg), -131 in the default config (simulation.py:307-311)
-            birefringence_iceflow=float(np.deg2rad(prop.get("angle_to_iceflow", -131.0))),
-            add_noise=bool(cfg["noise"]),
-            noise_type="rayleigh",
-        )
-        if (self.settings.birefringence
-                and prop.get("birefringence_propagation", "analytical") != "analytical"):
-            raise NotImplementedError(
-                "only analytical birefringence propagation is implemented "
-                "(config propagation.birefringence_propagation)")
-        # the ARZ shower library (simulation.py:321-328)
-        self.arz_library = None
-        if cfg["signal"]["model"] in ("ARZ2019", "ARZ2020"):
-            if arz_library_path is None:
-                raise ValueError("ARZ models require arz_library_path "
-                                 "(reference-format shower library pickle)")
-            self.arz_library = arz_ops.load_library_pickle(arz_library_path).to(
-                self.device, self.dtype)
-        self.input = read_input(inputfilename)
-        self._emitter = self._build_emitter_params()
+                self.channel_params_per_station = {
+                    sid: self._build_channel_params(sid) for sid in self.det.get_station_ids()}
+                self.channel_params = self.channel_params_per_station[self.station_id]
+            self.trigger_names = [t.name for t in self.triggers]
+            prop = cfg["propagation"]
+            n_reflections = int(prop.get("n_reflections", 0) or 0)
+            self.settings = PipelineSettings(
+                triggers=tuple(self._build_trigger_settings(t) for t in self.triggers),
+                ice=self.ice,
+                attenuation_model=prop["attenuation_model"],
+                askaryan_model=cfg["signal"]["model"],
+                n_internal=self.n_internal,
+                n_base=self.n_base,
+                sampling_rate=self.internal_rate,
+                n_reflections=n_reflections,
+                # sub-event readout windows: bounce rays arrive microseconds
+                # after the direct pulse, one cluster per (r, case) family, so
+                # the default is one window per cluster; propagation.n_windows
+                # overrides (simulation.py:273-281)
+                n_windows=int(prop.get("n_windows", 0) or (1 + 2 * n_reflections)),
+                delta_C_cut=float(cfg["speedup"]["delta_C_cut"]),
+                distance_cut=bool(cfg["speedup"]["distance_cut"]),
+                distance_cut_coefficients=tuple(cfg["speedup"]["distance_cut_coefficients"]),
+                distance_cut_sum_length=float(cfg["speedup"]["distance_cut_sum_length"]),
+                n_freq_attenuation=int(prop["n_freq"]),
+                max_detector_freq=float(max(
+                    float(np.max(self.det.get_station(sid).channels.sampling_frequency))
+                    for sid in self.det.get_station_ids())) * 0.5,
+                **({"attenuation_steps": int(prop["attenuation_steps"])}
+                   if prop.get("attenuation_steps") else {}),
+                **({"attenuation_quadrature": str(prop["attenuation_quadrature"])}
+                   if prop.get("attenuation_quadrature") else {}),
+                **({"n_bisect": int(prop["n_bisect"])} if prop.get("n_bisect") else {}),
+                **({"band_limit_eps": float(cfg["perf"]["band_limit_eps"])}
+                   if cfg.get("perf", {}).get("band_limit_eps") else {}),
+                **({"noise_sampler": str(cfg["perf"]["noise_sampler"])}
+                   if cfg.get("perf", {}).get("noise_sampler") else {}),
+                attenuate_ice=bool(prop["attenuate_ice"]),
+                apply_focusing=bool(prop["focusing"]),
+                focusing_limit=float(prop["focusing_limit"]),
+                **({"focusing_mode": str(prop["focusing_mode"])}
+                   if prop.get("focusing_mode") else {}),
+                birefringence=bool(prop.get("birefringence", False)),
+                birefringence_model=str(prop.get("birefringence_model", "southpole_A")),
+                # the path is rotated into the ice-flow frame by angle_to_iceflow
+                # (deg), -131 in the default config (simulation.py:307-311)
+                birefringence_iceflow=float(np.deg2rad(prop.get("angle_to_iceflow", -131.0))),
+                add_noise=bool(cfg["noise"]),
+                noise_type="rayleigh",
+            )
+            if (self.settings.birefringence
+                    and prop.get("birefringence_propagation", "analytical") != "analytical"):
+                raise NotImplementedError(
+                    "only analytical birefringence propagation is implemented "
+                    "(config propagation.birefringence_propagation)")
+            # the ARZ shower library (simulation.py:321-328)
+            self.arz_library = None
+            if cfg["signal"]["model"] in ("ARZ2019", "ARZ2020"):
+                if arz_library_path is None:
+                    raise ValueError("ARZ models require arz_library_path "
+                                     "(reference-format shower library pickle)")
+                self.arz_library = arz_ops.load_library_pickle(arz_library_path).to(
+                    self.device, self.dtype)
+            with timing.span("sim.input"):
+                self.input = read_input(inputfilename)
+            self._emitter = self._build_emitter_params()
 
     def _build_emitter_params(self):
         """EmitterParams when the input declares simulation_mode "emitter"
@@ -690,10 +708,14 @@ class Simulation:
     def _run_chunk(self, station_id, batch, sl, gen, **kw):
         """``simulate_batch`` on the groups ``sl`` of the host batch (on the
         mesh's channel axis where there is one)."""
-        return simulate_batch(self._on_device(batch, sl), self.channel_params_per_station[
-            station_id], self.settings, noise_generator=gen, emitter=self._emitter,
-            arz_library=self.arz_library,
-            channel_axis=None if self.mesh is None else self.mesh.channel, **kw)
+        with timing.span("sim.h2d"):
+            chunk = self._on_device(batch, sl)
+        with timing.span("sim.step"):
+            return simulate_batch(chunk, self.channel_params_per_station[station_id],
+                                  self.settings, noise_generator=gen, emitter=self._emitter,
+                                  arz_library=self.arz_library,
+                                  channel_axis=None if self.mesh is None else self.mesh.channel,
+                                  **kw)
 
     def _run_station(self, station_id, batch, seed_offset=0):
         """The pipeline over all groups of one station, chunk by chunk (this
@@ -709,134 +731,145 @@ class Simulation:
                 "ray_tracing_reflection_case", "focusing_factor", "launch_vectors",
                 "receive_vectors", "polarization", "travel_times", "travel_distances",
                 "time_shower_and_ray", "sol_mask")
-        cd = chp.cable_delays.cpu().numpy()
+        cd = _read(chp.cable_delays, "cable_delays")
         n_chunks = -(-G // self.chunk_size)
         mine = []
         for i in self._my_chunks(n_chunks):
             sl = slice(i * self.chunk_size, min((i + 1) * self.chunk_size, G))
             out = self._run_chunk(station_id, batch, sl,
                                   self._noise_generator(seed_offset, i))
-            trig = out.triggered.cpu().numpy()
-            res = {"i": i, "triggered": trig, "max_amp": out.max_amplitude.cpu().numpy(),
-                   "trigger_time": out.trigger_time.cpu().numpy(),
-                   "triggered_per": out.triggered_per.cpu().numpy(),
-                   "trigger_times_per": out.trigger_times_per.cpu().numpy()}
-            idx = np.where(trig)[0]
-            if len(idx):
-                sel = torch.as_tensor(idx, device=self.device)
+            timing.count("chunks")
+            with timing.span("sim.readback"):
+                trig = _read(out.triggered)
+                res = {"i": i, "triggered": trig, "max_amp": _read(out.max_amplitude),
+                       "trigger_time": _read(out.trigger_time),
+                       "triggered_per": _read(out.triggered_per),
+                       "trigger_times_per": _read(out.trigger_times_per)}
+                idx = np.where(trig)[0]
+                if len(idx):
+                    sel = torch.as_tensor(idx, device=self.device)
 
-                def pick(t):
-                    return t[sel].cpu().numpy()
+                    def pick(t):
+                        return _read(t[sel])
 
-                # cartesian polarization at the antenna (HDF5_structure.rst)
-                rec = out.receive_vector[sel]
-                zen = torch.arccos(torch.clamp(rec[..., 2], -1.0, 1.0))
-                az = torch.atan2(rec[..., 1], rec[..., 0])
-                tt = pick(out.travel_time)
-                res["rows"] = {
-                    "g_idx": idx + sl.start,
-                    "max_amp_shower_and_ray": pick(out.max_amp_per_solution),
-                    "ray_tracing_C0": pick(out.c0), "ray_tracing_C1": pick(out.c1),
-                    "ray_tracing_solution_type": pick(out.sol_type),
-                    "ray_tracing_reflection": pick(out.reflection),
-                    "ray_tracing_reflection_case": pick(out.refl_case),
-                    "focusing_factor": pick(out.focusing),
-                    "launch_vectors": pick(out.launch_vector),
-                    "receive_vectors": pick(out.receive_vector),
-                    "polarization": geometry.onsky_to_ground(
-                        out.polarization[sel], zen, az).cpu().numpy(),
-                    "travel_times": tt, "travel_distances": pick(out.path_length),
-                    "time_shower_and_ray": tt + cd[None, None, :, None],
-                    "sol_mask": pick(out.sol_mask)}
-            mine.append(res)
-        chunks = mine
-        if self.mesh is not None:
-            chunks = [r for part in mesh_util.gather_objects(mine, self.mesh.event) for r in part]
-        triggered = np.zeros(G, dtype=bool)
-        max_amp = np.zeros((G, C))
-        trigger_times = np.zeros(G)
-        trig_per = np.zeros((G, T), dtype=bool)
-        tt_per = np.zeros((G, T))
-        rows = {k: [] for k in ("g_idx",) + keys}
-        for res in sorted(chunks, key=lambda r: r["i"]):
-            sl = slice(res["i"] * self.chunk_size, min((res["i"] + 1) * self.chunk_size, G))
-            triggered[sl] = res["triggered"]
-            max_amp[sl] = res["max_amp"]
-            trigger_times[sl] = res["trigger_time"]
-            trig_per[sl] = res["triggered_per"]
-            tt_per[sl] = res["trigger_times_per"]
-            for k, v in res.get("rows", {}).items():
-                rows[k].append(v)
-        return triggered, max_amp, trigger_times, rows, trig_per, tt_per
+                    # cartesian polarization at the antenna (HDF5_structure.rst)
+                    rec = out.receive_vector[sel]
+                    zen = torch.arccos(torch.clamp(rec[..., 2], -1.0, 1.0))
+                    az = torch.atan2(rec[..., 1], rec[..., 0])
+                    tt = pick(out.travel_time)
+                    res["rows"] = {
+                        "g_idx": idx + sl.start,
+                        "max_amp_shower_and_ray": pick(out.max_amp_per_solution),
+                        "ray_tracing_C0": pick(out.c0), "ray_tracing_C1": pick(out.c1),
+                        "ray_tracing_solution_type": pick(out.sol_type),
+                        "ray_tracing_reflection": pick(out.reflection),
+                        "ray_tracing_reflection_case": pick(out.refl_case),
+                        "focusing_factor": pick(out.focusing),
+                        "launch_vectors": pick(out.launch_vector),
+                        "receive_vectors": pick(out.receive_vector),
+                        "polarization": _read(geometry.onsky_to_ground(
+                            out.polarization[sel], zen, az)),
+                        "travel_times": tt, "travel_distances": pick(out.path_length),
+                        "time_shower_and_ray": tt + cd[None, None, :, None],
+                        "sol_mask": pick(out.sol_mask)}
+                mine.append(res)
+        # the station's per-group arrays from every chunk's host results
+        with timing.span("sim.results"):
+            chunks = mine
+            if self.mesh is not None:
+                chunks = [r for part in mesh_util.gather_objects(mine, self.mesh.event)
+                          for r in part]
+            triggered = np.zeros(G, dtype=bool)
+            max_amp = np.zeros((G, C))
+            trigger_times = np.zeros(G)
+            trig_per = np.zeros((G, T), dtype=bool)
+            tt_per = np.zeros((G, T))
+            rows = {k: [] for k in ("g_idx",) + keys}
+            for res in sorted(chunks, key=lambda r: r["i"]):
+                sl = slice(res["i"] * self.chunk_size, min((res["i"] + 1) * self.chunk_size, G))
+                triggered[sl] = res["triggered"]
+                max_amp[sl] = res["max_amp"]
+                trigger_times[sl] = res["trigger_time"]
+                trig_per[sl] = res["triggered_per"]
+                tt_per[sl] = res["trigger_times_per"]
+                for k, v in res.get("rows", {}).items():
+                    rows[k].append(v)
+            return triggered, max_amp, trigger_times, rows, trig_per, tt_per
 
     def run(self):
         """Run all stations; a group triggers if any station does
         (simulation.py:1072). Returns the results dict of the JAX package."""
-        group_ids, start, count, order, batch = self._build_batches()
+        with timing.span("sim.batch"):
+            group_ids, start, count, order, batch = self._build_batches()
         G = batch.energies.shape[0]
-        weights = self._weights(group_ids, start, count, order)
+        with timing.span("sim.weights"):
+            weights = self._weights(group_ids, start, count, order)
         T = len(self.triggers)
-        per_station = {}
-        triggered = np.zeros(G, dtype=bool)
-        trigger_times = np.full(G, np.inf)
-        multiple_triggers = np.zeros((G, T), dtype=bool)
-        trigger_times_per = np.full((G, T), np.inf)
-        for k, sid in enumerate(self.det.get_station_ids()):
-            trig_s, amp_s, tt_s, rows_s, trigper_s, ttper_s = self._run_station(sid, batch, k)
-            per_station[sid] = (trig_s, amp_s, tt_s, rows_s, trigper_s)
-            triggered |= trig_s
-            trigger_times = np.where(trig_s, np.minimum(trigger_times, tt_s), trigger_times)
-            multiple_triggers |= trigper_s
-            trigger_times_per = np.where(trigper_s, np.minimum(trigger_times_per, ttper_s),
-                                         trigger_times_per)
-        trigger_times = np.where(np.isfinite(trigger_times), trigger_times, 0.0)
-        trigger_times_per = np.where(np.isfinite(trigger_times_per), trigger_times_per, np.nan)
-        _, max_amp, _, _, _ = per_station[self.station_id]
+        stations = [(sid, self._run_station(sid, batch, k))
+                    for k, sid in enumerate(self.det.get_station_ids())]
+        with timing.span("sim.results"):
+            per_station = {}
+            triggered = np.zeros(G, dtype=bool)
+            trigger_times = np.full(G, np.inf)
+            multiple_triggers = np.zeros((G, T), dtype=bool)
+            trigger_times_per = np.full((G, T), np.inf)
+            for sid, (trig_s, amp_s, tt_s, rows_s, trigper_s, ttper_s) in stations:
+                per_station[sid] = (trig_s, amp_s, tt_s, rows_s, trigper_s)
+                triggered |= trig_s
+                trigger_times = np.where(trig_s, np.minimum(trigger_times, tt_s), trigger_times)
+                multiple_triggers |= trigper_s
+                trigger_times_per = np.where(trigper_s, np.minimum(trigger_times_per, ttper_s),
+                                             trigger_times_per)
+            trigger_times = np.where(np.isfinite(trigger_times), trigger_times, 0.0)
+            trigger_times_per = np.where(np.isfinite(trigger_times_per), trigger_times_per, np.nan)
+            _, max_amp, _, _, _ = per_station[self.station_id]
 
-        # Veff (simulation.py:1105-1143): minimum-weight cut as zero weight,
-        # sub-events OR-ed back to their parent group
-        min_weight = float(self.config["speedup"]["minimum_weight_cut"])
-        eff_weights = np.where(weights < min_weight, 0.0, weights)
-        n_events = int(self.input.attrs["n_events"])
-        volume = float(self.input.attrs.get("volume", np.nan))
-        uniq, inv = np.unique(group_ids, return_inverse=True)
-        trig_parent = np.zeros(len(uniq), dtype=bool)
-        np.logical_or.at(trig_parent, inv, triggered)
-        w_parent = np.zeros(len(uniq))
-        w_parent[inv] = eff_weights
-        veff = volume * float(np.sum(w_parent * trig_parent)) / n_events
-        veff_per_trigger = {}
-        for iT, name in enumerate(self.trigger_names):
-            tp = np.zeros(len(uniq), dtype=bool)
-            np.logical_or.at(tp, inv, multiple_triggers[:, iT])
-            veff_per_trigger[name] = volume * float(np.sum(w_parent * tp)) / n_events
+            # Veff (simulation.py:1105-1143): minimum-weight cut as zero weight,
+            # sub-events OR-ed back to their parent group
+            min_weight = float(self.config["speedup"]["minimum_weight_cut"])
+            eff_weights = np.where(weights < min_weight, 0.0, weights)
+            n_events = int(self.input.attrs["n_events"])
+            volume = float(self.input.attrs.get("volume", np.nan))
+            uniq, inv = np.unique(group_ids, return_inverse=True)
+            trig_parent = np.zeros(len(uniq), dtype=bool)
+            np.logical_or.at(trig_parent, inv, triggered)
+            w_parent = np.zeros(len(uniq))
+            w_parent[inv] = eff_weights
+            veff = volume * float(np.sum(w_parent * trig_parent)) / n_events
+            veff_per_trigger = {}
+            for iT, name in enumerate(self.trigger_names):
+                tp = np.zeros(len(uniq), dtype=bool)
+                np.logical_or.at(tp, inv, multiple_triggers[:, iT])
+                veff_per_trigger[name] = volume * float(np.sum(w_parent * tp)) / n_events
 
-        results = {
-            "group_ids": group_ids, "triggered": triggered, "weights": weights,
-            "max_amplitude": max_amp, "trigger_times": trigger_times,
-            "multiple_triggers": multiple_triggers,
-            "trigger_times_per_trigger": trigger_times_per,
-            "trigger_names": list(self.trigger_names),
-            "veff": veff, "veff_per_trigger": veff_per_trigger,
-            "n_triggered": int(np.sum(trig_parent)),
-            # each station's decision per group: what the output file's
-            # station groups hold, for runs without h5py
-            "triggered_per_station": {sid: v[0] for sid, v in per_station.items()},
-            **self._realizations,
-        }
-        if self.simulation_mode == "atmospheric_muon":
-            # surface muons: the generation area and zenith band carry
-            # through, and Aeff comes from the results (T03check_output.py)
-            results.update(area=float(self.input.attrs["area"]),
-                           thetamin=float(self.input.attrs["thetamin"]),
-                           thetamax=float(self.input.attrs["thetamax"]), n_events=n_events)
-            results["aeff"] = veff_util.aeff_from_results(results)
+            results = {
+                "group_ids": group_ids, "triggered": triggered, "weights": weights,
+                "max_amplitude": max_amp, "trigger_times": trigger_times,
+                "multiple_triggers": multiple_triggers,
+                "trigger_times_per_trigger": trigger_times_per,
+                "trigger_names": list(self.trigger_names),
+                "veff": veff, "veff_per_trigger": veff_per_trigger,
+                "n_triggered": int(np.sum(trig_parent)),
+                # each station's decision per group: what the output file's
+                # station groups hold, for runs without h5py
+                "triggered_per_station": {sid: v[0] for sid, v in per_station.items()},
+                **self._realizations,
+            }
+            if self.simulation_mode == "atmospheric_muon":
+                # surface muons: the generation area and zenith band carry
+                # through, and Aeff comes from the results (T03check_output.py)
+                results.update(area=float(self.input.attrs["area"]),
+                               thetamin=float(self.input.attrs["thetamin"]),
+                               thetamax=float(self.input.attrs["thetamax"]), n_events=n_events)
+                results["aeff"] = veff_util.aeff_from_results(results)
         rank0 = self.mesh is None or self.mesh.rank == 0
         if self.outputfilename is not None and rank0:
-            self._write_output(results, per_station, group_ids, start, count, order)
+            with timing.span("sim.output"):
+                self._write_output(results, per_station, group_ids, start, count, order)
         if self.nur_outputfilename is not None:
-            self._write_nur(group_ids, start, count, order, batch, triggered,
-                            multiple_triggers, trigger_times_per)
+            with timing.span("sim.output"):
+                self._write_nur(group_ids, start, count, order, batch, triggered,
+                                multiple_triggers, trigger_times_per)
         return results
 
     def _write_nur(self, group_ids, start, count, order, batch, triggered,
@@ -860,7 +893,8 @@ class Simulation:
             sel = idx[i * self.chunk_size:(i + 1) * self.chunk_size]
             out = self._run_chunk(self.station_id, batch, sel,
                                   self._noise_generator(0, i, stream=1), keep_traces=True)
-            mine.append((i, out.traces.cpu().numpy(), out.base_t0.cpu().numpy()))
+            mine.append((i, _read(out.traces, "nur_readback"),
+                         _read(out.base_t0, "nur_readback")))
         parts = mine
         if self.mesh is not None:
             parts = [r for part in mesh_util.gather_objects(mine, self.mesh.event) for r in part]
