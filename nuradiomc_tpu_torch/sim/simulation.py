@@ -55,7 +55,8 @@ With the recorder of ``utils/timing.py`` on, a job records its spans:
 ``sim.init`` (with ``sim.channels`` and ``sim.input``), ``sim.batch``,
 ``sim.weights``, per chunk ``sim.h2d``, ``sim.step`` and ``sim.readback``,
 then ``sim.results`` and, where a file is written, ``sim.output``; the
-counter ``chunks``; and every blocking device-to-host read as a
+counters ``chunks`` and ``batch.sub_events`` (the sub-events that splitting
+groups by vertex time adds); and every blocking device-to-host read as a
 ``host_sync`` (``cable_delays``, ``readback``, ``nur_readback``).
 
 Not ported yet (it raises): numeric birefringence propagation.
@@ -74,7 +75,6 @@ from nuradiomc_tpu_torch.ops import filters
 from nuradiomc_tpu_torch.parallel import mesh as mesh_util
 from nuradiomc_tpu_torch.sim import earth_attenuation
 from nuradiomc_tpu_torch.sim import veff as veff_util
-from nuradiomc_tpu_torch.sim.evtgen import group_into_events
 from nuradiomc_tpu_torch.utils import config as config_util
 from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils import device as device_util
@@ -139,15 +139,42 @@ def _group_showers(group_ids):
     return uids, start.astype(np.int64), count.astype(np.int64), order.astype(np.int64)
 
 
-def _pad_columns(columns: dict, order, start, count, s_max: int):
-    """Pad per-shower columns into [n_groups, s_max] (zeros) plus the mask."""
-    n_groups = len(start)
+def _split_sub_events(group_ids, start, count, order, times, split_gap):
+    """Split every group into sub-events where its showers' times, sorted
+    stably, step by more than ``split_gap``: ``evtgen.group_into_events``
+    over all groups at once (ties and NaN steps never split; NaN sorts
+    last). Returns ``(group_ids, start, count, order)`` of the sub-events,
+    in group order and then ascending sub-event, each sub-event's showers
+    in their order in ``order``; the dtypes are the inputs'."""
+    gpos = np.repeat(np.arange(len(start)), count)
+    t = np.asarray(times)[order]
+    by_time = np.lexsort((t, gpos))
+    g_s, t_s = gpos[by_time], t[by_time]
+    new = np.ones(len(order), dtype=bool)
+    with np.errstate(invalid="ignore"):
+        new[1:] = (g_s[1:] != g_s[:-1]) | (t_s[1:] - t_s[:-1] > split_gap)
+    # one id per sub-event, rising with the group's position
+    sub = np.empty(len(order), dtype=np.int64)
+    sub[by_time] = np.cumsum(new) - 1
+    sub_count = np.bincount(sub)
+    return (group_ids[g_s[new]], np.cumsum(sub_count) - sub_count, sub_count,
+            order[np.argsort(sub, kind="stable")])
+
+
+def _pad_rows(order, start, count, s_max: int):
+    """(rows, mask) of the [n_groups, s_max] padding: the input row of each
+    slot (the group's last where the slot is padding) and slot < count."""
     slot = np.arange(s_max)[None, :]
     mask = slot < count[:, None]
-    rows = order[np.minimum(start[:, None] + slot, len(order) - 1)]
+    return order[np.minimum(start[:, None] + slot, len(order) - 1)], mask
+
+
+def _pad_columns(columns: dict, order, start, count, s_max: int):
+    """Pad per-shower columns into [n_groups, s_max] (zeros) plus the mask."""
+    rows, mask = _pad_rows(order, start, count, s_max)
     out = {name: np.where(mask, np.asarray(col, dtype=np.float64)[rows], 0.0)
            for name, col in columns.items()}
-    return out, mask.reshape(n_groups, s_max)
+    return out, mask
 
 
 class Simulation:
@@ -574,26 +601,13 @@ class Simulation:
         """Pad per-shower rows into [G, S_max] numpy arrays (simulation.py:665)."""
         inp = self.input
         group_ids, start, count, order = _group_showers(inp.event_group_ids)
-        split_gap = float(self.config.get("split_event_time_diff", 1e6))
-        if np.any(count > 1):
-            # split a group into sub-events where vertex times gap by more
-            # than split_event_time_diff (simulation.py:678-695)
-            new_order, new_start, new_count, new_gids = [], [], [], []
-            pos = 0
-            for g in range(len(group_ids)):
-                rows = order[start[g]:start[g] + count[g]]
-                sub = group_into_events(inp.vertex_times[rows], split_gap)
-                for s_idx in np.unique(sub):
-                    sel = rows[sub == s_idx]
-                    new_order.append(sel)
-                    new_start.append(pos)
-                    new_count.append(len(sel))
-                    new_gids.append(group_ids[g])
-                    pos += len(sel)
-            order = np.concatenate(new_order)
-            start = np.asarray(new_start, dtype=np.int64)
-            count = np.asarray(new_count, dtype=np.int64)
-            group_ids = np.asarray(new_gids, dtype=group_ids.dtype)
+        # split a group into sub-events where vertex times gap by more
+        # than split_event_time_diff (simulation.py:678-695)
+        n_groups = len(group_ids)
+        group_ids, start, count, order = _split_sub_events(
+            group_ids, start, count, order, inp.vertex_times,
+            float(self.config.get("split_event_time_diff", 1e6)))
+        timing.count("batch.sub_events", len(group_ids) - n_groups)
         S = int(count.max())
         dt = np.float64 if self.dtype == torch.float64 else np.float32
         pad_src = {"xx": inp.xx, "yy": inp.yy, "zz": inp.zz,
@@ -646,9 +660,8 @@ class Simulation:
             # unpadded per input row, for the output (simulation.py:762-775)
             arz = model.startswith("ARZ")
             flat = np.zeros(inp.n_showers, dtype=np.int64 if arz else float)
-            src = profile_idx if arz else k_L
-            for g in range(len(start)):
-                flat[order[start[g]:start[g] + count[g]]] = src[g, :count[g]]
+            rows, filled = _pad_rows(order, start, count, S)
+            flat[rows[filled]] = (profile_idx if arz else k_L)[filled]
             self._realizations["shower_realization_ARZ" if arz
                                else "shower_realization_Alvarez2009"] = flat
         emitter_pol = None

@@ -27,7 +27,7 @@ import torch
 from nuradiomc_tpu.sim import evtgen, io_hdf5
 from nuradiomc_tpu_torch import convert
 from nuradiomc_tpu_torch.sim import io_input
-from nuradiomc_tpu_torch.sim.simulation import group_into_events
+from nuradiomc_tpu_torch.sim.evtgen import group_into_events
 
 torch.set_num_threads(1)
 HERE = os.path.dirname(__file__)
