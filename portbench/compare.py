@@ -5,7 +5,9 @@ Numbers compared (each against the limit of the same name in the
 configuration file's ``limits``):
 
 - ``decisions``: groups whose decision, or whose decision of any named
-  trigger, differs (an exact comparison);
+  trigger, differs, or, where both sides give ``triggered_per_station``,
+  whose decision at any station differs (an exact comparison; a group
+  counts once);
 - ``amplitude``: the widest gap of the readout amplitude per group and
   channel, over the larger of the reference's amplitude and the noise RMS;
 - ``trigger_time_ns``: the widest gap of a trigger time where both fired;
@@ -19,6 +21,25 @@ import numpy as np
 NAMES = ("decisions", "amplitude", "trigger_time_ns", "weight", "veff")
 
 
+def station_differ(prog: dict, ref: dict):
+    """Per group, whether any station's decision differs, where both sides
+    give ``triggered_per_station`` ({station id: decision per group}); a
+    station that one side lacks differs in every group. False where either
+    side gives none."""
+    p_st, r_st = prog.get("triggered_per_station"), ref.get("triggered_per_station")
+    if p_st is None or r_st is None:
+        return False
+    p_st = {int(k): np.asarray(v, dtype=bool) for k, v in p_st.items()}
+    r_st = {int(k): np.asarray(v, dtype=bool) for k, v in r_st.items()}
+    G = len(ref["group_ids"])
+    if set(p_st) != set(r_st):
+        return np.ones(G, dtype=bool)
+    differ = np.zeros(G, dtype=bool)
+    for sid, r in r_st.items():
+        differ |= p_st[sid] != r
+    return differ
+
+
 def readings(prog: dict, ref: dict, vrms: float) -> dict:
     """The numbers compared, program ``prog`` (the results dict of
     ``Simulation.run``) against the reference's ``ref``."""
@@ -26,8 +47,9 @@ def readings(prog: dict, ref: dict, vrms: float) -> dict:
         return {name: None for name in NAMES}
     p_mt = np.asarray(prog["multiple_triggers"], dtype=bool)
     r_mt = ref["multiple_triggers"]
-    decisions = int(np.sum((np.asarray(prog["triggered"], dtype=bool) != ref["triggered"])
-                           | np.any(p_mt != r_mt, axis=1)))
+    differ = ((np.asarray(prog["triggered"], dtype=bool) != ref["triggered"])
+              | np.any(p_mt != r_mt, axis=1) | station_differ(prog, ref))
+    decisions = int(np.sum(differ))
     p_amp = np.asarray(prog["max_amplitude"], dtype=np.float64)
     r_amp = ref["max_amplitude"]
     amplitude = float(np.max(np.abs(p_amp - r_amp) / np.maximum(np.abs(r_amp), vrms),

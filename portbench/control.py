@@ -1,5 +1,5 @@
-"""The control of the benchmark's comparison: the reference computed in
-float32 (chain and weights), put in the program's place, against the
+"""The control of the benchmark's comparison: the configuration's reference
+computed in float32 (chain and weights), put in the program's place, against the
 reference in float64 on the same lists; beside it the port's own float32
 path (``Simulation(dtype=torch.float32)``), which keeps its weights in
 float64. Each must fail at least one of the configuration's limits.
@@ -30,13 +30,13 @@ def readings_of(workload, seed, device, events=None, with_program=True):
     import torch
 
     from portbench import compare, harness
-    from portbench.reference.job import Job
     from portbench.traffic import generator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     bench = harness.benchmark()
     cell, entry = harness.cell_of(bench, workload)
     cfg = harness.load_config(entry)
+    Job = harness.reference_module(cfg).Job
     mix = harness.load_mix(cell["traffic"])
     if events is not None:
         mix = {**mix, "events_per_job": int(events)}

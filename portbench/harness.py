@@ -6,7 +6,16 @@ metric is found by its name in ``BENCHMARK.json``:
 comparison limits and the kernels it uses), ``portbench/traffic/<mix>.json``
 (the generator's arguments, ``events_per_job`` and the pool of lists) and
 ``portbench/metrics/<metric>.py`` (a reader from the run's record to one
-number, which may declare the span or op it needs wrapped)."""
+number, which may declare the span or op it needs wrapped).
+
+A configuration file may name its plain reference under ``"reference"``: a
+dotted module name under ``portbench.reference.`` (default
+``portbench.reference.job``) that defines ``Job(cfg, device, dtype)``, whose
+``Vrms`` is the noise RMS the amplitudes are judged against and whose
+``run(list_path, seed)`` returns the dict of the keys ``compare.readings``
+reads (``triggered_per_station`` optional). A name outside that package, or
+one that does not import, fails the run before the window. A new
+configuration brings its reference as new files beside the others."""
 
 from __future__ import annotations
 
@@ -50,6 +59,27 @@ def cell_of(bench: dict, workload: str):
 
 def load_config(entry: dict, root=ROOT) -> dict:
     return load_json(Path(root) / entry["file"])
+
+
+DEFAULT_REFERENCE = "portbench.reference.job"
+REFERENCE_PACKAGE = "portbench.reference."
+
+
+def reference_module(cfg: dict):
+    """The reference module that the configuration's ``reference`` key
+    names; ValueError, naming the key, where it is outside
+    ``portbench.reference.``, does not import or defines no ``Job``."""
+    name = cfg.get("reference", DEFAULT_REFERENCE)
+    if not isinstance(name, str) or not name.startswith(REFERENCE_PACKAGE):
+        raise ValueError(f"configuration key 'reference': {name!r} is not a module under "
+                         f"{REFERENCE_PACKAGE}")
+    try:
+        module = importlib.import_module(name)
+    except Exception as e:              # a missing or broken module alike
+        raise ValueError(f"configuration key 'reference': {name!r} does not import: {e!r}") from e
+    if not callable(getattr(module, "Job", None)):
+        raise ValueError(f"configuration key 'reference': {name!r} defines no Job")
+    return module
 
 
 def load_mix(name: str, root=ROOT) -> dict:
@@ -157,6 +187,12 @@ def run(args, *, t_start, device=None, events_per_job=None, root=ROOT, out=None,
             _build.load(name)
     marks.append(("kernels", time.perf_counter() - t_start))
     make = simulation_factory(cfg, device, dtype)
+    # after the program's import, which loads what the reference imports
+    try:
+        reference = reference_module(cfg)
+    except ValueError as e:
+        _say(err, f"portbench: {cfg_entry['file']}: {e}")
+        return 2
     recorder = None
     if trace:
         recorder = tracing.Recorder(dev if on_card else None)
@@ -268,9 +304,8 @@ def run(args, *, t_start, device=None, events_per_job=None, root=ROOT, out=None,
         rows = [[name, None, cfg["limits"][name]] for name in compare.NAMES]
         ok = False
         if chosen["res"] is not None:
-            from portbench.reference.job import Job
             t_ref = time.perf_counter()
-            ref_job = Job(cfg, device, dtype)
+            ref_job = reference.Job(cfg, device, dtype)
             ref = ref_job.run(lists[chosen["k"]], seeds[chosen["k"]])
             values = compare.readings(chosen["res"], ref, ref_job.Vrms)
             ok, rows = compare.judge(values, cfg["limits"])

@@ -9,7 +9,17 @@
 """One job of the reference: what ``Simulation(list, detector, config=...,
 filter_chain=..., trigger=..., antenna_replacements=..., chunk_size=...,
 dtype=...).run()`` returns for a single station with analytic antennas,
-worked out anew from the event list and the configuration file."""
+worked out anew from the event list and the configuration file.
+
+This is the reference of a configuration whose file names none (the
+harness's default for the key ``"reference"``). Any module that a
+configuration names there keeps this module's contract: ``Job(cfg, device,
+dtype)`` with ``Vrms`` (the noise RMS) and ``run(list_path, seed)``
+returning ``group_ids``, ``triggered``, ``multiple_triggers``,
+``trigger_times_per_trigger``, ``trigger_times``, ``max_amplitude``,
+``weights`` and ``veff`` as below, and ``triggered_per_station`` ({station
+id: decision per group}) where it decides per station; it imports nothing of
+the program."""
 
 from __future__ import annotations
 

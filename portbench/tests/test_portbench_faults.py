@@ -12,7 +12,8 @@ import torch
 from portbench import harness
 from portbench.run import parse
 
-CELLS = {"dipole_veff.nu_1e18": 300, "deep_pa.nu_1e18_noise": 200}
+CELLS = {"dipole_veff.nu_1e18": 300, "deep_pa.nu_1e18_noise": 200,
+         "dipole_veff.nutau_1e19_secondaries": 150}
 
 
 def half_batch(orig):

@@ -4,6 +4,7 @@ imports nothing of the program either; names compared whole, before the
 first dot."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -57,13 +58,24 @@ def test_prefix_is_not_the_name():
     assert PROGRAM.split(".")[0] not in NEVER
 
 
+def named_references():
+    """The default reference and every module a configuration file names
+    under ``reference``."""
+    names = {"portbench.reference.job"}
+    for path in sorted((PB / "configs").glob("*.json")):
+        names.add(json.loads(path.read_text()).get("reference", "portbench.reference.job"))
+    return sorted(names)
+
+
 def test_reference_loads_no_program():
-    """Importing the reference, the generator and the comparison loads no
-    module of the program, jax or the JAX package."""
-    code = ("import sys; sys.path.insert(0, %r)\n"
-            "import portbench.reference.job, portbench.traffic.generator, portbench.compare\n"
-            "import portbench.roofline, portbench.control\n"
-            "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(ROOT))
+    """Importing the references, the generator with its secondaries and the
+    comparison loads no module of the program, jax or the JAX package."""
+    code = ("import sys, importlib; sys.path.insert(0, %r)\n"
+            "for name in %r: importlib.import_module(name)\n"
+            "import portbench.traffic.generator, portbench.traffic.secondaries\n"
+            "import portbench.compare, portbench.roofline, portbench.control\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))"
+            % (str(ROOT), named_references()))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True).stdout
     loaded = set(eval(out))

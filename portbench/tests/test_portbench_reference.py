@@ -13,7 +13,8 @@ from portbench import compare, control, harness
 from portbench.reference.job import Job
 from portbench.traffic import generator
 
-CELLS = {"dipole_veff.nu_1e18": 400, "deep_pa.nu_1e18_noise": 300}
+CELLS = {"dipole_veff.nu_1e18": 400, "deep_pa.nu_1e18_noise": 300,
+         "dipole_veff.nutau_1e19_secondaries": 200}
 
 
 def setup(workload, events, seed=21):

@@ -2,12 +2,15 @@
 # log-uniform and power-law spectra), :73-94 (get_ccnc,
 # get_neutrino_inelasticity, the CTW model), :97-145 (set_volume_attributes,
 # generate_vertex_positions), :163-178 (list_digest) and :181-281
-# (generate_eventlist_cylinder without lepton secondaries), commit 493e4d9.
+# (generate_eventlist_cylinder), commit 493e4d9; the lepton secondaries
+# (evtgen.py:271-272, commit 9f76fe9) call the copy in secondaries.py.
 """The benchmark's one traffic generator: forced-interaction neutrino event
 lists in a cylinder or box, as NuRadioMC's ``generate_eventlist_cylinder``
 writes them, and the writer of the ``.npz`` lists that the port's
 ``Simulation`` reads. A traffic mix is a JSON file of this generator's
-arguments beside this file (``<mix>.json``)."""
+arguments beside this file (``<mix>.json``); ``"secondaries": "stochastic"``
+among them adds the showers of the outgoing muon or tau
+(``secondaries.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import hashlib
 import numpy as np
 
 from portbench.reference import cross_sections, units
+from portbench.traffic import secondaries as lepton_secondaries
 
 # the columns of the port's event input (sim/io_hdf5.py EventInput)
 LIST_COLUMNS = ("event_group_ids", "shower_ids", "xx", "yy", "zz", "zeniths", "azimuths",
@@ -106,9 +110,11 @@ def generate_eventlist_cylinder(n_events, Emin, Emax, volume,
                                 start_shower_id=0,
                                 interaction_type="ccnc",
                                 cross_sections_model="ctw",
-                                seed=None):
+                                seed=None,
+                                secondaries=None):
     """``(data, attributes)`` of a forced-interaction list; energies in eV
-    of the port's units (eV = 1), lengths in m."""
+    of the port's units (eV = 1), lengths in m. ``secondaries="stochastic"``
+    inserts the charged lepton's showers of each nu_mu / nu_tau CC event."""
     if cross_sections_model != "ctw":
         raise NotImplementedError("the benchmark's generator draws CTW interactions")
     rnd = np.random.default_rng(np.random.Philox(seed))
@@ -157,6 +163,10 @@ def generate_eventlist_cylinder(n_events, Emin, Emax, volume,
             [data["event_group_ids"], insert_rows["event_group_ids"]]), kind="stable")
         for key in list(data.keys()):
             data[key] = np.concatenate([data[key], insert_rows[key]])[order]
+    if secondaries == "stochastic":
+        lepton_secondaries.insert_lepton_secondaries(data, attributes, rnd)
+    elif secondaries is not None:
+        raise ValueError(f"secondaries {secondaries!r} is not in the benchmark's generator")
     data["shower_ids"] = np.arange(len(data["shower_energies"]), dtype=int) + start_shower_id
     attributes["total_number_of_events"] = n_events
     return data, attributes
@@ -171,14 +181,15 @@ def job_seed(seed: int, job: int) -> int:
 
 def make_list(mix: dict, seed: int, job: int) -> tuple:
     """``(data, attributes)`` of list ``job`` of a run: the mix's generator
-    arguments, ``events_per_job`` events, seeded from ``(seed, job)``."""
+    arguments, ``events_per_job`` events, seeded from ``(seed, job)``; a mix
+    without ``secondaries`` draws no lepton secondaries."""
     args = mix["generator"]
     volume = {k: float(v) * units.m for k, v in args["volume_m"].items()}
     energy = float(args["energy_eV"]) * units.eV
     return generate_eventlist_cylinder(
         mix["events_per_job"], energy, energy, volume,
         flavor=tuple(args["flavors"]), interaction_type=args["interaction_type"],
-        seed=job_seed(seed, job))
+        seed=job_seed(seed, job), secondaries=args.get("secondaries"))
 
 
 def write_list(path, data: dict, attributes: dict) -> None:
