@@ -17,8 +17,8 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 0. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-1. build the four kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
-   nvcc per source, started together;
+1. build the five kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
+   nvcc per source, started together (the ray solver with -fmad=false);
 2. each kernel against its plain PyTorch version on the card at its path's
    shapes, float32 and float64 (kernel 2 also at the sizes a real station
    brings: 8 columns x 24 channels, n_base 8192, 17 columns in two launches,
@@ -38,7 +38,10 @@ result line):
    near a count boundary to either side), and runs at 1024 groups x C 24
    (float64) and x C 64 (float32, float64), where a group is split over a
    thread-block cluster (the cluster size printed), decisions and first
-   frames equal to the plain version's (float64: in every group);
+   frames equal to the plain version's (float64: in every group); the ray
+   solver (``raytrace.find_solutions``) on the dipole cell's 100,000 pairs
+   a step, float32 and float64, n_bisect 96 (timed) and 28, every field of
+   every slot equal to ``find_solutions_plain``'s bit for bit;
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -126,7 +129,7 @@ result line):
    package's (``nuradiomc_tpu_torch/data/surface_muons_jax_sets.npz``) and
    Aeff within 0.45027 +- 2 x 0.06549 km^2; the wall time and events/s of
    every run beside its twin's;
-12. the in-ice reconstruction path (no kernel of the four; float64): (a)
+12. the in-ice reconstruction path (the ray solver alone; float64): (a)
    NuRadioReco's three ``.nur`` files in tests/golden read by the port's
    ``io_nur.EventReader``, the waveform golden's traces bit-equal to
    ``data/e2e_waveforms_reference.npz``, each file written by the port's
@@ -173,7 +176,7 @@ result line):
    CPU's and the JAX package's (``data/lpda_sector_jax_sets.npz``), kernels
    1 and 2 held to their plain versions on the run's launches; (f) the
    cosmic-ray templates on the card against the CPU within 1e-10;
-14. the cosmic-ray side (float64, no kernel of the four): (a) LOFAR's six
+14. the cosmic-ray side (float64, no kernel of the five): (a) LOFAR's six
    superterp stations (48 dual-polarised antennas, 65,536 samples at 200
    MHz, a plane-wave pulse, two CW lines; ``convert.make_lofar_stations``)
    through stationRFIFilter (blocks of 8192), stationGalacticCalibrator,
@@ -198,7 +201,7 @@ result line):
    spectra after each adder within 1e-12 of peak from the same host draws,
    the energy within 1e-10; (d) the CW notch, stop filter and readout-window
    cutter on station 0 of (a), card against CPU within 1e-12 of peak;
-15. the recorded-data side (float64, no kernel of the four; launches
+15. the recorded-data side (float64, no kernel of the five; launches
    asserted 0): (a) four RNO-G runs of 1024 events x 24 channels x 2048
    samples (``convert.make_rnog_runs``: band-limited ADC noise, block
    offsets, LAB4D scrambles, PA pulses on the LT events) written as
@@ -272,6 +275,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -291,8 +295,9 @@ from nuradiomc_tpu_torch.utils import units  # noqa: E402
 from nuradiomc_tpu_torch.framework.base_trace import BaseTrace  # noqa: E402
 from nuradiomc_tpu_torch import convert  # noqa: E402
 from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
+from nuradiomc_tpu_torch.models import ice as ice_models  # noqa: E402
 from nuradiomc_tpu_torch.ops import (_build, fft_plan, noise, pa_trigger,  # noqa: E402
-                                     phased_array, placement, trigger_fused)
+                                     phased_array, placement, raytrace, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
 from nuradiomc_tpu_torch.sim import io_input  # noqa: E402
 from nuradiomc_tpu_torch.sim.io_input import (DATA_DIR, INPUT_1E18_N3000,  # noqa: E402
@@ -331,7 +336,9 @@ GL1_JAX_SETS = DATA_DIR / "gl1_jax_sets.npz"
 FULLSCALE_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_reference.npz")
 FULLSCALE_PA_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_pa_reference.npz")
 WAVEFORMS_REF = DATA_DIR / "e2e_waveforms_reference.npz"
-KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce")
+KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce", "ray_solver")
+# the dipole cell's pairs a step (50,000 groups x 2 showers x 1 channel)
+RAY_PAIRS = 100_000
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
 
@@ -705,9 +712,101 @@ def _check_trigger_shapes(dtype, dev, gen, tag, tol_amp):
     return entry
 
 
+def _ray_pairs(n, dtype, dev, seed=20261018):
+    """(x1y, x1z, x2y, x2z) of ``raytrace.to_2d`` for n vertices of the
+    dipole cell (r < 4 km, -2.7 km < z < 0) against a VPol at -100 m."""
+    rng = np.random.default_rng(seed)
+    r, phi = 4000.0 * np.sqrt(rng.uniform(0, 1, n)), rng.uniform(0, 2 * np.pi, n)
+    x1 = torch.as_tensor(np.stack([r * np.cos(phi), r * np.sin(phi),
+                                   rng.uniform(-2700.0, 0.0, n)], -1), dtype=dtype, device=dev)
+    x2 = torch.tensor([0.0, 0.0, -100.0], dtype=dtype, device=dev).expand(n, 3)
+    g = raytrace.to_2d(x1, x2)
+    return g.x1y, g.x1z, g.x2y, g.x2z
+
+
+@functools.lru_cache(maxsize=4)
+def _ray_solver_ops(n_bisect):
+    """Operations a pair of ``find_solutions_plain`` at ``n_bisect``: the
+    output elements of its ATen pointwise ops (a transcendental, a compare
+    and a select count one each) over 64 pairs on the CPU, per pair; every
+    loop count is fixed, so the count does not depend on the pairs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                self.ops += (out[0] if isinstance(out, (tuple, list)) else out).numel()
+            return out
+
+    xs = [t.cpu().double() for t in _ray_pairs(64, torch.float64, "cpu")]
+    with Count() as c:
+        raytrace.find_solutions_plain(*xs, ice_models.southpole_2015, n_bisect)
+    return c.ops / 64
+
+
+def _ray_solver_bound(n_pairs, dtype, n_bisect):
+    """The ray solver: the plain version's pointwise operations a pair
+    (``_ray_solver_ops``), against its four inputs read and both slots'
+    outputs (six floats, a mask byte, three int32) written once."""
+    e = torch.empty((), dtype=dtype).element_size()
+    return _bound(n_pairs * (4 * e + 2 * (6 * e + 1 + 3 * 4)),
+                  n_pairs * _ray_solver_ops(n_bisect), dtype)
+
+
+def _check_ray_solver(label, args, kw, phase="phase 2", timed=True):
+    """The ray solver (``raytrace.find_solutions``, one launch) against
+    ``find_solutions_plain`` on the same operands: every field of every slot
+    equal bit for bit, NaN where the plain version gives NaN (the kernel is
+    built without FMA contraction and writes each operation as ATen does on
+    the card). With ``timed``, timed beside the plain version and its bound.
+    Returns the summary entry (times None untimed)."""
+    before = raytrace.launches
+    k = raytrace.find_solutions(*args, **kw)
+    p = raytrace.find_solutions_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if raytrace.launches != before + 1:
+        raise AssertionError(f"{label}: {raytrace.launches - before} launches, not one")
+    n_pairs, dtype = p.c0.numel() // 2, p.c0.dtype
+    n_bisect = args[5] if len(args) > 5 else kw.get("n_bisect", 96)
+    differ, max_abs = {}, 0.0
+    for name in p._fields:
+        a, b = getattr(k, name), getattr(p, name)
+        same = a == b
+        if a.is_floating_point():
+            same |= a.isnan() & b.isnan()
+            if bool(p.mask.any()):
+                max_abs = max(max_abs, float((a - b)[p.mask].abs().max()))
+        if not bool(same.all()):
+            differ[name] = int((~same).sum())
+    n_valid = int(p.mask.sum())
+    ms = plain_ms = None
+    times = ""
+    bound = _ray_solver_bound(n_pairs, dtype, n_bisect)
+    if timed:
+        ms = _median_ms(lambda: raytrace.find_solutions(*args, **kw))
+        plain_ms = _median_ms(lambda: raytrace.find_solutions_plain(*args, **kw), n_warm=1,
+                              n_runs=3)
+        times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
+                 f"({bound[1]}: {_ray_solver_ops(n_bisect):.0f} operations a pair), "
+                 f"{bound[0] / ms:.1%} of the bound ({CARD})")
+    print(f"{phase} {label}: {n_pairs} pairs, {n_valid} valid slots, {dtype}, n_bisect "
+          f"{n_bisect}; fields not bit-equal to the plain version's: {differ or 'none'}, max "
+          f"|kernel - plain| over valid slots {max_abs:.3e}{times}")
+    if differ:
+        raise AssertionError(f"{label}: the ray solver differs from its plain version in "
+                             f"{differ}")
+    if not 0 < n_valid:
+        raise AssertionError(f"{label}: no valid slot")
+    return _entry(max_abs, ms, plain_ms, bound) if timed else None
+
+
 def phase_kernels(dev):
     """Kernel vs plain version on the card, with each kernel's bound and (for
-    kernel 2) the library irfft's time; returns the float32 summary."""
+    kernel 2) the library irfft's time; returns the float32 summary (the ray
+    solver's in float64, the benchmark cells' dtype)."""
     _print_grids()
     summary = {}
     for dtype, tol_place, tol_amp in ((torch.float32, 1e-4, 1e-5),
@@ -761,6 +860,13 @@ def phase_kernels(dev):
         print(f"phase 2 placement_reduce {tag} tool shape: library rfft(irfft(V, n_int), "
               f"n_base) {_reduce_library_ms(args, kw):.3f} ms ({CARD})")
         del args
+        ray_args = (*_ray_pairs(RAY_PAIRS, dtype, dev), ice_models.southpole_2015)
+        entry = _check_ray_solver(f"ray_solver {tag} dipole pairs", ray_args, {"n_bisect": 96})
+        _check_ray_solver(f"ray_solver {tag} dipole pairs", ray_args, {"n_bisect": 28},
+                          timed=False)
+        if dtype == torch.float64:
+            summary["ray_solver"] = entry
+        del ray_args
         torch.cuda.empty_cache()
     return summary
 
@@ -810,15 +916,14 @@ def phase_headline(dev):
         raise AssertionError(f"veff_trig pin has {len(ref)} groups, the run "
                              f"{N_GROUPS}: a stale pin is a failure")
 
-    placement.launches = 0
-    trigger_fused.launches = 0
+    placement.launches = trigger_fused.launches = raytrace.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = pipeline.simulate_batch(batch, ch, settings)
     trig = out.triggered.cpu().numpy()
     first_s = time.perf_counter() - t0
     launches = {"placement_chain": placement.launches,
-                "irfft_trigger": trigger_fused.launches}
+                "irfft_trigger": trigger_fused.launches, "ray_solver": raytrace.launches}
     print(f"phase 3 launches in the main-path run: {launches}; first call "
           f"{first_s:.3f} s ({CARD})")
     if min(launches.values()) < 1:
@@ -1024,14 +1129,14 @@ def phase_simulation(dev):
     the .npz export of its input, float64 and float32 (bench settings)."""
     golden = np.load(E2E_GOLDEN)
     ref = set(int(g) for g in np.unique(golden["group_ids"]))
-    placement.launches = trigger_fused.launches = 0
+    placement.launches = trigger_fused.launches = raytrace.launches = 0
     t0 = time.perf_counter()
     res = convert.dipole_simulation(str(INPUT_1E18_N3000), chunk_size=1024, device=dev,
                                     dtype=torch.float64).run()
     wall = time.perf_counter() - t0
     mine = _triggered_groups(res)
     veff = res["veff"] / units.km ** 3
-    launches = (placement.launches, trigger_fused.launches)
+    launches = (placement.launches, trigger_fused.launches, raytrace.launches)
     print(f"phase 4 Simulation float64 on the card: {len(mine)} groups triggered "
           f"(golden {len(ref)}), {len(mine ^ ref)} differ, Veff {veff:.5f} km^3 (golden "
           f"0.22978), kernel launches {launches}, {wall:.2f} s with set-up ({CARD})")
@@ -1075,11 +1180,12 @@ def phase_pa(dev):
         gen.manual_seed(0)
         return gen
 
-    placement.launches = pa_trigger.launches = 0
+    placement.launches = pa_trigger.launches = raytrace.launches = 0
     torch.cuda.synchronize()
     out = pipeline.simulate_batch(batch, ch, settings, noise_generator=generator())
     trig = out.triggered.cpu().numpy()
-    launches = {"placement_chain": placement.launches, "pa_trigger": pa_trigger.launches}
+    launches = {"placement_chain": placement.launches, "pa_trigger": pa_trigger.launches,
+                "ray_solver": raytrace.launches}
     print(f"phase 5 launches in the main-path run: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
@@ -1156,14 +1262,16 @@ def phase_gen2(dev):
         raise AssertionError(f"gen2_trig pin has {len(ref)} groups, the run "
                              f"{GEN2_GROUPS}: a stale pin is a failure")
     placement.launches = placement.reduce_launches = trigger_fused.launches = 0
+    raytrace.launches = 0
     torch.cuda.synchronize()
     outs = [pipeline.simulate_batch(batch, ch, settings) for ch in chps]
     vec = sum(o.triggered.long() for o in outs).cpu().numpy()
     launches = {"placement_chain": placement.launches,
                 "placement_reduce": placement.reduce_launches,
-                "irfft_trigger": trigger_fused.launches}
+                "irfft_trigger": trigger_fused.launches, "ray_solver": raytrace.launches}
     print(f"phase 6 launches in the main-path run: {launches}")
-    if min(launches["placement_reduce"], launches["irfft_trigger"]) < 1:
+    if min(launches["placement_reduce"], launches["irfft_trigger"],
+           launches["ray_solver"]) < 1:
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
     for o in outs:
         if (tuple(o.max_amplitude.shape) != (GEN2_GROUPS, 2)
@@ -1295,15 +1403,15 @@ def phase_multitrigger(dev):
         gen.manual_seed(0)
         return gen
 
-    placement.launches = trigger_fused.launches = pa_trigger.launches = 0
+    placement.launches = trigger_fused.launches = pa_trigger.launches = raytrace.launches = 0
     torch.cuda.synchronize()
     out = pipeline.simulate_batch(batch, ch, settings, noise_generator=generator())
     per = out.triggered_per.cpu().numpy()
     launches = {"placement_chain": placement.launches, "irfft_trigger": trigger_fused.launches,
-                "pa_trigger": pa_trigger.launches}
+                "pa_trigger": pa_trigger.launches, "ray_solver": raytrace.launches}
     print(f"phase 7 launches in the main-path run ({T} triggers: "
           f"{[t.name for t in trig_list]}): {launches}")
-    if launches != {"placement_chain": 1, "irfft_trigger": 1, "pa_trigger": 1}:
+    if launches != {"placement_chain": 1, "irfft_trigger": 1, "pa_trigger": 1, "ray_solver": 1}:
         raise AssertionError(f"the multi-trigger step launches {launches}, not one of each")
     if (per.shape != (PA_GROUPS, T) or tuple(out.max_amplitude.shape) != (PA_GROUPS, C)
             or not bool(torch.isfinite(out.max_amplitude).all())
@@ -1392,18 +1500,20 @@ def phase_mooresbay(dev):
     print(f"phase 8 Moore's Bay slice: {G} groups x S {S} x C {C} x {n_rays} ray slots = "
           f"{G * S * C * n_rays} rows, s2 {S * n_rays}, {settings.n_windows} windows, "
           f"attenuation {settings.attenuation_model}, reflector at {settings.ice.refl_z} m")
-    placement.launches = trigger_fused.launches = 0
+    placement.launches = trigger_fused.launches = raytrace.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = pipeline.simulate_batch(batch, ch, settings)
     trig = out.triggered.cpu().numpy()
     first_s = time.perf_counter() - t0
-    launches = {"placement_chain": placement.launches, "irfft_trigger": trigger_fused.launches}
+    launches = {"placement_chain": placement.launches, "irfft_trigger": trigger_fused.launches,
+                "ray_solver": raytrace.launches}
     print(f"phase 8 launches in the main-path run: {launches}; first call {first_s:.3f} s "
           f"({CARD})")
-    if launches != {"placement_chain": settings.n_windows, "irfft_trigger": settings.n_windows}:
-        raise AssertionError(f"the Moore's Bay step launches {launches}, not one of each "
-                             f"kernel per window")
+    if launches != {"placement_chain": settings.n_windows, "irfft_trigger": settings.n_windows,
+                    "ray_solver": 1}:
+        raise AssertionError(f"the Moore's Bay step launches {launches}, not one of kernels "
+                             f"1 and 2 per window and one ray solve (the base slots)")
     if (trig.shape != (G,) or tuple(out.max_amplitude.shape) != (G, C)
             or tuple(out.c0.shape) != (G, S, C, n_rays)
             or not bool(torch.isfinite(out.max_amplitude).all())
@@ -1463,10 +1573,10 @@ def phase_mooresbay(dev):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"phase 8 kernel path: step {wall * 1e3:.1f} ms (median of 5), "
           f"{G / wall:.1f} events/s, peak device memory {peak:.2f} GiB ({CARD})")
-    placement.launches = trigger_fused.launches = 0
+    placement.launches = trigger_fused.launches = raytrace.launches = 0
     _print_busy("phase 8 kernel path", lambda: step(settings), wall * 1e3)
     print(f"phase 8 launches per step: kernel 1 {placement.launches // 2}, kernel 2 "
-          f"{trigger_fused.launches // 2}")
+          f"{trigger_fused.launches // 2}, ray solver {raytrace.launches // 2}")
     wall_p = _median_step(lambda: step(plain), n=3)
     print(f"phase 8 plain path: step {wall_p * 1e3:.1f} ms (median of 3), "
           f"{G / wall_p:.1f} events/s ({CARD})")
@@ -1534,8 +1644,9 @@ def _one_step_ms(sim):
 
 
 class _Recorder:
-    """Wraps the four kernel wrappers for one run and keeps the operands of
-    one of its launches per kernel: the first (kernels 1 and 4), or the first
+    """Wraps the five kernel wrappers for one run and keeps the operands of
+    one of its launches per kernel: the first (kernels 1 and 4, the ray
+    solver's first call that launched), or the first
     in which a trigger fires (kernels 2 and 3; else their first), since the
     checks need both decisions. Whether a launch fired is read without a
     sync: its flag is copied to pinned host memory behind a CUDA event and
@@ -1546,7 +1657,8 @@ class _Recorder:
     SITES = ((placement, "chain_placement_reduce", "placement_chain"),
              (placement, "placement_reduce", "placement_reduce"),
              (trigger_fused, "fused_irfft_trigger", "irfft_trigger"),
-             (pa_trigger, "fused_pa_trigger", "pa_trigger"))
+             (pa_trigger, "fused_pa_trigger", "pa_trigger"),
+             (raytrace, "find_solutions", "ray_solver"))
     FIRES = ("irfft_trigger", "pa_trigger")
 
     def __init__(self):
@@ -1571,7 +1683,10 @@ class _Recorder:
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kw):
+            before = raytrace.launches
             res = fn(*args, **kw)
+            if name == "ray_solver" and raytrace.launches == before:
+                return res      # CPU tensors or no pair: nothing launched
             if name not in self.FIRES:
                 self.calls.setdefault(name, (args, kw))
             elif name not in self.fired:
@@ -1603,12 +1718,13 @@ class _Recorder:
 
 def _reset_launches():
     placement.launches = placement.reduce_launches = 0
-    trigger_fused.launches = pa_trigger.launches = 0
+    trigger_fused.launches = pa_trigger.launches = raytrace.launches = 0
 
 
 def _launch_counts():
     return {"placement_chain": placement.launches, "placement_reduce": placement.reduce_launches,
-            "irfft_trigger": trigger_fused.launches, "pa_trigger": pa_trigger.launches}
+            "irfft_trigger": trigger_fused.launches, "pa_trigger": pa_trigger.launches,
+            "ray_solver": raytrace.launches}
 
 
 def _check_pa_call(label, args, kw, tol_amp, phase):
@@ -1695,6 +1811,9 @@ def _check_recorded(calls, label, phase):
               f"K {args[0].shape[1]}, n_base {kw['n_base']}, n_hi {kw['n_hi']}, decim "
               f"{kw['decim']}, x{kw['up']}, {len(kw['rolls'])} beams, {args[0].dtype}")
         _check_pa_call(f"pa_trigger {label}", args, kw, 1e-12 if f64 else 1e-5, phase)
+    if "ray_solver" in calls:
+        args, kw = calls.pop("ray_solver")
+        _check_ray_solver(f"ray_solver {label}", args, kw, phase)
 
 
 def phase_signal_chain(dev):
@@ -1703,7 +1822,7 @@ def phase_signal_chain(dev):
     set; returns the kernel launches of the four runs."""
     import tempfile
 
-    total = {"placement_chain": 0, "placement_reduce": 0, "irfft_trigger": 0}
+    total = {"placement_chain": 0, "placement_reduce": 0, "irfft_trigger": 0, "ray_solver": 0}
 
     def run(label, sim, kernel):
         """One ``Simulation`` run with its launches counted; then each kernel
@@ -2664,12 +2783,11 @@ def _p12_triggers(dev, events):
 
 
 def phase_reco(dev):
-    """The in-ice reconstruction path on the card (no kernel of the four:
-    the path runs on the port's ray solver and torch): (a) NuRadioReco's
-    files, (b) the example-03 chain, (c) the vertex at full size, (d) the
-    neutrino direction at full size, (e) the direction fitters, the IFT
-    unfolding and the trigger modules. Returns the launch counts of the
-    path (all 0)."""
+    """The in-ice reconstruction path on the card (the ray solver and
+    torch; none of the four other kernels): (a) NuRadioReco's files, (b)
+    the example-03 chain, (c) the vertex at full size, (d) the neutrino
+    direction at full size, (e) the direction fitters, the IFT unfolding
+    and the trigger modules. Returns the launch counts of the path."""
     import shutil
     import tempfile
 
@@ -2697,7 +2815,7 @@ def phase_reco(dev):
     _p12_triggers(dev, events)
     counts = _launch_counts()
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s (tables {t_tables:.1f} s); "
-          f"launches {counts} (the reconstruction path runs none of the four kernels) ({CARD})")
+          f"launches {counts} (the ray solver's; no other kernel) ({CARD})")
     return counts
 
 
@@ -3603,7 +3721,7 @@ def _p14_cleaning(dev, raw0, det):
 
 
 def phase_cosmic_ray(dev):
-    """The cosmic-ray side on the card in float64 (no kernel of the four):
+    """The cosmic-ray side on the card in float64 (no kernel of the five):
     (a) the LOFAR chain on the six superterp stations, (b) the RIT fits,
     (c) CoREAS with the noise adders and the energy estimator, (d) the
     cleaning modules. Returns the launch counts of the path (all 0)."""
@@ -3930,7 +4048,7 @@ def _p15_host(dev, tmp):
 
 
 def phase_recorded(dev):
-    """The recorded-data side on the card in float64 (no kernel of the four):
+    """The recorded-data side on the card in float64 (no kernel of the five):
     (a) RNO-G runs through dataProviderRNOG, the hit filter and the coherent
     sums, (b) the measured-noise importers and the high/low trigger, (c) the
     ARA and ARIANNA readers and the antenna preprocessors. Returns the launch
@@ -4563,7 +4681,9 @@ def main() -> int:
                                    "nuradiomc_tpu/ops/placement_pallas.py:209",
                 "irfft_trigger": "nuradiomc_tpu/ops/trigger_pallas.py:172",
                 "pa_trigger": "nuradiomc_tpu/ops/pa_pallas.py:181",
-                "placement_reduce": "nuradiomc_tpu/ops/placement_pallas.py:512"}
+                "placement_reduce": "nuradiomc_tpu/ops/placement_pallas.py:512",
+                "ray_solver": "none: nuradiomc_tpu/ops/raytrace.py:875 (find_solutions under "
+                              "vmap; XLA fuses its fori_loops)"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"nuradiomc_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name], **summary[name]}

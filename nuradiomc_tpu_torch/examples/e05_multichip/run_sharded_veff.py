@@ -29,7 +29,7 @@ import torch
 
 from nuradiomc_tpu_torch import convert
 from nuradiomc_tpu_torch.examples import _common
-from nuradiomc_tpu_torch.ops import pa_trigger, placement, trigger_fused
+from nuradiomc_tpu_torch.ops import pa_trigger, placement, raytrace, trigger_fused
 from nuradiomc_tpu_torch.parallel import dryrun
 from nuradiomc_tpu_torch.parallel import mesh as mesh_util
 from nuradiomc_tpu_torch.sim import evtgen, io_input
@@ -91,7 +91,8 @@ def _worker(rank, n_procs, device, dtype, n_events):
             "launches": {"placement_chain": placement.launches,
                          "placement_reduce": placement.reduce_launches,
                          "irfft_trigger": trigger_fused.launches,
-                         "pa_trigger": pa_trigger.launches}}
+                         "pa_trigger": pa_trigger.launches,
+                         "ray_solver": raytrace.launches}}
 
 
 def main(argv=None, *, device=None, dtype=None, outdir="."):

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``build/kernels/`` at the repository root (gitignored), named by
-a hash of its source and the shared ``csrc/*.cuh`` headers so an edited
-kernel is rebuilt, and loaded with
+-fPIC`` (and the kernel's ``EXTRA_FLAGS``) into ``build/kernels/`` at the
+repository root (gitignored), named by a hash of its source, its flags and
+the shared ``csrc/*.cuh`` headers so an edited kernel is rebuilt, and loaded
+with
 ``ctypes``. :func:`build` compiles several sources at once, one nvcc process
 each. Nothing here runs at import time.
 """
@@ -25,6 +26,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# flags of single kernels, after NVCC_FLAGS: the ray solver's products and
+# sums round one by one, as the plain version's ATen ops do
+EXTRA_FLAGS = {"ray_solver": ["-fmad=false"]}
+
 _libs: dict[str, ctypes.CDLL] = {}
 # per kernel: {"seconds": build time (0.0 when cached), "log": ptxas output}
 build_info: dict[str, dict] = {}
@@ -41,10 +46,14 @@ def _nvcc() -> str:
                        "where the CUDA toolkit is installed")
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_flags(name)).encode()
                             ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -59,7 +68,7 @@ def build(names) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.Popen([_nvcc(), *_flags(name), "-o", str(tmp), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, src, so, tmp, proc, time.perf_counter()))
     for name, src, so, tmp, proc, t0 in running:

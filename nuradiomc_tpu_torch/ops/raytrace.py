@@ -17,10 +17,16 @@ and ``find_solution_ice_to_air`` the single solution for a receiver above
 the surface (the closed-form in-ice leg and a straight air leg).
 ``delta_y`` is the solver's miss distance for a trial C0 and
 ``focusing_factor`` the analytic (Bouma) focusing factor.
+
+``find_solutions`` launches the CUDA kernel ``csrc/ray_solver.cu`` for CUDA
+tensors (the whole solve and the observables of both slots in one launch)
+and runs ``find_solutions_plain`` for CPU tensors; there is no other
+fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -31,12 +37,15 @@ import torch
 from nuradiomc_tpu_torch.utils import units
 from nuradiomc_tpu_torch.utils.constants import speed_of_light
 from nuradiomc_tpu_torch.models.ice import IceModelSimple
-from nuradiomc_tpu_torch.ops import attenuation as attenuation_ops
-from nuradiomc_tpu_torch.utils import device as device_util
+from nuradiomc_tpu_torch.ops import _build, attenuation as attenuation_ops
+from nuradiomc_tpu_torch.utils import device as device_util, timing
 
 SOL_DIRECT = 1
 SOL_REFRACTED = 2
 SOL_REFLECTED = 3
+
+# ray-solver kernel launches since the count was last set to 0
+launches = 0
 
 _LOGC0_HI = 100.0
 # |delta_y| acceptance for a grazing (tangent) solution (raytrace.py:54)
@@ -178,11 +187,18 @@ def _logc0_min(x2z, ice: IceModelSimple):
     return torch.log(c0_min - 1.0 / ice.n_ice)
 
 
+def _bisect_split(n_bisect: int):
+    """(n_narrow, n_secant): the bisections and secant steps of
+    ``_bracketed_solve`` (and of ``csrc/ray_solver.cu``) for ``n_bisect``
+    evaluations of f; the secant's two bracket evaluations count too."""
+    n_secant = max(min(4, n_bisect // 4), 0)
+    return n_bisect - n_secant - (2 if n_secant else 0), n_secant
+
+
 def _bracketed_solve(f, lo, hi, f_lo, n_bisect: int):
     """Root of a sign-changing f on [lo, hi]: bisection, then a
     bracket-clamped secant polish (raytrace.py:225)."""
-    n_secant = max(min(4, n_bisect // 4), 0)
-    n_narrow = n_bisect - n_secant - (2 if n_secant else 0)
+    n_narrow, n_secant = _bisect_split(n_bisect)
     s_lo = torch.sign(f_lo)
     for _ in range(n_narrow):
         mid = 0.5 * (lo + hi)
@@ -428,12 +444,13 @@ def surface_touches_slots(sol_type, reflection, refl_case, z_turn):
     return torch.where(z_turn >= 0, torch.clamp(n, min=0), torch.zeros_like(n))
 
 
-def find_solutions(x1y, x1z, x2y, x2z, ice: IceModelSimple,
-                   n_bisect: int = 96) -> RaySolutions:
+def find_solutions_plain(x1y, x1z, x2y, x2z, ice: IceModelSimple,
+                         n_bisect: int = 96) -> RaySolutions:
     """Solve the in-ice two-point problem for a batch of 2D geometries
     (raytrace.py:875). x2 must be above-or-level with x1 and to its right
     (``to_2d`` arranges that). Returns 2 slots (last axis), sorted by C0;
-    invalid slots hold finite garbage and mask False."""
+    invalid slots hold finite garbage and mask False. The plain version of
+    ``csrc/ray_solver.cu``: :func:`find_solutions` runs it for CPU tensors."""
     logc0, valid = _solve_two_roots(x1y, x1z, x2y, x2z, ice, n_bisect)
     c0 = _c0_from_log(logc0, ice.n_ice)
     a, b, c, d = (x[..., None] for x in (x1y, x1z, x2y, x2z))
@@ -448,6 +465,76 @@ def find_solutions(x1y, x1z, x2y, x2z, ice: IceModelSimple,
         path_length=path_length(c0, a, b, c, d, ice),
         travel_time=travel_time(c0, a, b, c, d, ice),
         reflection=zeros, refl_case=torch.ones_like(sol_type))
+
+
+@functools.lru_cache(maxsize=16)
+def _solver_scalars(ice: IceModelSimple, f64: bool):
+    """The kernel's scalars (``csrc/ray_solver.cu``, enum ``S_*``), each as
+    the plain version's ATen ops on the card see it: a Python scalar rounded
+    to the dtype, ``x / s`` as ``x * (1 / s)`` with the reciprocal rounded in
+    the dtype."""
+    dt = np.float64 if f64 else np.float32
+    b = 2.0 * ice.n_ice
+    vals = (dt(ice.n_ice), dt(ice.delta_n), dt(ice.z_0), dt(ice.z_shift), dt(ice.n_ice ** 2),
+            dt(b), dt(0.25 * b * b), dt(0.5 * b), dt(1.0 / ice.n_ice),
+            dt(1) / dt(ice.z_0), dt(1) / dt(ice.delta_n),
+            dt(ice.delta_n * math.exp((0.0 - ice.z_shift) / ice.z_0)),
+            dt(1) / dt(speed_of_light), dt(math.pi), dt(1e-12 if f64 else 1e-5), dt(1e-30),
+            dt(_TANGENT_TOL), dt(_INV_PHI), dt(_LOGC0_HI))
+    return (ctypes.c_double * len(vals))(*(float(v) for v in vals))
+
+
+def _solver_fn(dtype):
+    lib = _build.load("ray_solver")
+    fn = lib.ray_solver_f32 if dtype == torch.float32 else lib.ray_solver_f64
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_long, ctypes.POINTER(ctypes.c_double)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, lib.ray_solver_nscalars()
+
+
+def find_solutions(x1y, x1z, x2y, x2z, ice: IceModelSimple,
+                   n_bisect: int = 96) -> RaySolutions:
+    """``find_solutions_plain``'s solve and observables: the CUDA kernel
+    ``csrc/ray_solver.cu`` (one launch) for CUDA tensors, the plain version
+    for CPU tensors. On the card the inputs share one device and one dtype
+    (float32 or float64); they broadcast, and every field is shaped like
+    them with a trailing slot axis of 2."""
+    global launches
+    xs = (x1y, x1z, x2y, x2z)
+    devices = {x.device for x in xs}
+    if devices == {torch.device("cpu")}:
+        return find_solutions_plain(x1y, x1z, x2y, x2z, ice, n_bisect)
+    if len(devices) != 1:
+        raise ValueError(f"ray solver: inputs on several devices {sorted(map(str, devices))}")
+    dev = x1y.device
+    if dev.type != "cuda":
+        raise ValueError(f"ray solver: unsupported device {dev}")
+    dtype = x1y.dtype
+    if any(x.dtype != dtype for x in xs):
+        raise ValueError(f"ray solver: mixed dtypes {[x.dtype for x in xs]}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ray solver: dtype {dtype} is not float32/float64")
+    xs = torch.broadcast_tensors(*xs)
+    shape = xs[0].shape
+    xs = [x.contiguous().reshape(-1) for x in xs]
+    n = xs[0].numel()
+    # RaySolutions' fields in order: c0, c1, mask, sol_type, the four
+    # observables, reflection, refl_case
+    field_dtypes = (dtype, dtype, torch.bool, torch.int32) + (dtype,) * 4 + (torch.int32,) * 2
+    out = [torch.empty((n, 2), dtype=d, device=dev) for d in field_dtypes]
+    if n:
+        fn, n_scalars = _solver_fn(dtype)
+        scalars = _solver_scalars(ice, dtype == torch.float64)
+        if n_scalars != len(scalars):
+            raise RuntimeError(f"ray solver: the kernel takes {n_scalars} scalars, "
+                               f"the wrapper gives {len(scalars)}")
+        err = fn(*(t.data_ptr() for t in xs), *(t.data_ptr() for t in out), n, scalars,
+                 *_bisect_split(n_bisect), _build.current_stream_ptr(dev))
+        _build.check(err, "ray solver kernel")
+        launches += 1
+        timing.count("raytrace.kernel_pairs", n)
+    return RaySolutions(*(t.reshape(*shape, 2) for t in out))
 
 
 @functools.lru_cache(maxsize=16)

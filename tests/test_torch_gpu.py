@@ -14,7 +14,8 @@ within rounding of a count boundary may take the other count) and it sums
 its power windows directly where the plain version takes a cumsum
 difference, so its decisions are held on groups whose best beam power lies
 more than 1e-4 from the threshold, its first frames where both fire,
-amplitudes as above.
+amplitudes as above. The ray solver (``csrc/ray_solver.cu``) gives the plain
+version's every field bit for bit (NaN where it gives NaN).
 """
 
 import dataclasses
@@ -24,8 +25,9 @@ import pytest
 import torch
 
 from nuradiomc_tpu_torch.convert import make_headline_inputs
+from nuradiomc_tpu_torch.models import ice as ice_models
 from nuradiomc_tpu_torch.ops import (fft_plan, noise, pa_trigger, phased_array, placement,
-                                     trigger_fused)
+                                     raytrace, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline
 
 pytestmark = pytest.mark.gpu
@@ -288,6 +290,118 @@ def test_wrappers_refuse_non_contiguous_and_mixed_dtypes(dev):
         placement.placement_reduce(v, v.double(), args[7], **kw4)
     with pytest.raises(ValueError, match="n_int"):
         placement.placement_reduce(v, v, args[7], **{**kw4, "n_int": 16})
+
+
+def ray_pairs(n=4096, seed=24):
+    """(x1y, x1z, x2y, x2z) float64 CPU tensors of ``to_2d``: the dipole
+    cell's vertices (r < 4 km, -2.7 km < z < 0) against a VPol at -100 m and
+    the deep phased array's four channels (r < 3 km, -2 km < z < 0); sources
+    within 1 m of a ray's turning depth; pairs at the shadow boundary (the
+    ray that turns at the surface, +-1e-3 relative) and tangent pairs (the
+    receiver at the turning depth of the lower bracket's ray, +-1e-9); r_h =
+    0, x1z == x2z, surface vertices and repeated rows (the padded slots of a
+    group copy its last shower)."""
+    rng = np.random.default_rng(seed)
+    ice = ice_models.southpole_2015
+
+    def cyl(m, r_max, z_min):
+        r, phi = r_max * np.sqrt(rng.uniform(0, 1, m)), rng.uniform(0, 2 * np.pi, m)
+        return np.stack([r * np.cos(phi), r * np.sin(phi), rng.uniform(z_min, 0.0, m)], -1)
+
+    def rx(m, z):
+        return np.stack([np.zeros(m), np.zeros(m), np.full(m, z)], -1)
+
+    x1 = [cyl(n, 4000.0, -2700.0)] + [cyl(n // 4, 3000.0, -2000.0) for _ in range(4)]
+    x2 = [rx(n, -100.0)] + [rx(n // 4, -197.0 - k) for k in range(4)]
+    # near the turning depths of the refracted rays of the first set
+    g = raytrace.to_2d(torch.as_tensor(x1[0]), torch.as_tensor(x2[0]))
+    sols = raytrace.find_solutions_plain(g.x1y, g.x1z, g.x2y, g.x2z, ice)
+    turn = sols.mask & (sols.sol_type == raytrace.SOL_REFRACTED)
+    z_t = raytrace.turning_depth(sols.c0[turn], ice).numpy()
+    r_h = (g.x2y - g.x1y)[:, None].expand_as(turn)[turn].numpy()
+    m = z_t.size
+    x1.append(np.stack([r_h, np.zeros(m), z_t + rng.uniform(-1.0, 1.0, m)], -1))
+    x2.append(rx(m, -100.0))
+
+    # the shadow boundary (the ray that turns at the surface) and tangent
+    # rays (turning at the receiver: the lower bracket), from the closed form
+    z1 = torch.as_tensor(rng.uniform(-2700.0, -150.0, n // 4))
+    z2 = torch.full_like(z1, -100.0)
+    c0_surf = torch.full_like(z1, 1.0 / (ice.n_ice - ice.delta_n))
+    w1, w2, w0 = (raytrace._w_up(z, c0_surf, ice) for z in (z1, z2, torch.zeros_like(z1)))
+    y_b = (2 * w0 - w1 - w2).numpy() * (1 + rng.uniform(-1e-3, 1e-3, z1.numel()))
+    z2t = torch.as_tensor(rng.uniform(-600.0, -20.0, n // 4))
+    z1t = z2t - torch.as_tensor(rng.uniform(1.0, 2000.0, n // 4))
+    c0_t = raytrace._c0_from_log(raytrace._logc0_min(z2t, ice), ice.n_ice)
+    y_t = (raytrace._w_up(z2t, c0_t, ice) - raytrace._w_up(z1t, c0_t, ice)).numpy()
+    y_t = y_t * (1 + rng.uniform(-1e-9, 1e-9, y_t.size))
+    for y, za, zb in ((y_b, z1.numpy(), z2.numpy()), (y_t, z1t.numpy(), z2t.numpy())):
+        x1.append(np.stack([np.zeros_like(y), np.zeros_like(y), za], -1))
+        x2.append(np.stack([y, np.zeros_like(y), zb], -1))
+    # r_h = 0, x1z == x2z, surface vertices, repeated rows
+    k = 64
+    flat = cyl(k, 3000.0, -1.0)
+    x1 += [rx(k, 0.0) + [0, 0, 1] * cyl(k, 1.0, -2700.0), flat * [1, 1, 0] + [0, 0, -100.0],
+           flat * [1, 1, 0], np.repeat(x1[0][:k], 3, axis=0)]
+    x2 += [rx(k, -100.0), rx(k, -100.0), rx(k, -100.0), rx(3 * k, -100.0)]
+    g = raytrace.to_2d(torch.as_tensor(np.concatenate(x1)), torch.as_tensor(np.concatenate(x2)))
+    return g.x1y, g.x1z, g.x2y, g.x2z
+
+
+def _bit_equal(a, b):
+    """Elementwise: the same value, NaN counted equal to NaN (the kernel and
+    the plain version give NaN in the same invalid slots)."""
+    same = a == b
+    return same | (a.isnan() & b.isnan()) if a.is_floating_point() else same
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_bisect", [28, 96])
+def test_ray_solver_kernel_matches_plain(dev, dtype, n_bisect):
+    """Every field of every slot equal to the plain version's bit for bit:
+    the kernel is built without FMA contraction and writes each operation as
+    ATen computes it on the card. A field that drifts is reported with its
+    worst relative difference over valid slots."""
+    ice = ice_models.southpole_2015
+    xs = [t.to(dev, dtype) for t in ray_pairs()]
+    before = raytrace.launches
+    k = raytrace.find_solutions(*xs, ice, n_bisect)
+    assert raytrace.launches == before + 1
+    p = raytrace.find_solutions_plain(*xs, ice, n_bisect)
+    direct = p.mask & (p.sol_type == raytrace.SOL_DIRECT)
+    turning = p.mask & ~direct
+    assert int(direct.sum()) > 1000 and int(turning.sum()) > 1000
+    for name in p._fields:
+        a, b = getattr(k, name), getattr(p, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        same = _bit_equal(a, b)
+        if bool(same.all()):
+            continue
+        msg = f"{name}: {int((~same).sum())} of {same.numel()} slots differ"
+        if a.is_floating_point():
+            rel = ((a - b).abs() / b.abs().clamp_min(torch.finfo(dtype).tiny))[p.mask]
+            msg += f" (valid slots: worst relative difference {float(rel.max()):.3e})"
+        raise AssertionError(msg)
+
+
+def test_ray_solver_broadcasts_and_refuses(dev):
+    """Broadcast inputs give the broadcast shape; no pair, no launch; mixed
+    dtypes, mixed devices and integer inputs are refused."""
+    ice = ice_models.southpole_2015
+    x1y, x1z, x2y, x2z = (t[:6].to(dev) for t in ray_pairs(256))
+    k = raytrace.find_solutions(x1y[:, None], x1z[:, None], x2y[None, :], x2z[0], ice)
+    p = raytrace.find_solutions_plain(x1y[:, None], x1z[:, None], x2y[None, :], x2z[0], ice)
+    assert k.c0.shape == p.c0.shape == (6, 6, 2)
+    assert torch.equal(k.mask, p.mask)
+    before = raytrace.launches
+    empty = raytrace.find_solutions(*(x[:0] for x in (x1y, x1z, x2y, x2z)), ice)
+    assert empty.c0.shape == (0, 2) and raytrace.launches == before
+    with pytest.raises(ValueError, match="dtype"):
+        raytrace.find_solutions(x1y, x1z.float(), x2y, x2z, ice)
+    with pytest.raises(ValueError, match="devices"):
+        raytrace.find_solutions(x1y, x1z.cpu(), x2y, x2z, ice)
+    with pytest.raises(TypeError, match="float32/float64"):
+        raytrace.find_solutions(*(x.long() for x in (x1y, x1z, x2y, x2z)), ice)
 
 
 def test_simulate_batch_kernel_path_matches_plain_path(dev):
