@@ -61,7 +61,10 @@ def _convert_dataclass(obj, cls, **override):
 
 
 def settings_from_jax(settings) -> PipelineSettings:
-    """The port's PipelineSettings from the JAX package's (by field name)."""
+    """The port's PipelineSettings from the JAX package's (by field name).
+    Where its ``triggers`` is empty, its single-trigger fields
+    (``trigger_type``, ``highlow_coincidence``, ..., ``pa_*``) become the one
+    ``TriggerSettings`` of the port's list, as the JAX pipeline builds it."""
     src = _fields(settings)
     if src.get("stop_after"):
         raise ValueError("stop_after is a TPU profiling mode; the port has none")
@@ -69,7 +72,8 @@ def settings_from_jax(settings) -> PipelineSettings:
         raise ValueError("matmul_dtype other than float32 changes numbers and "
                          "is not ported")
     ice = _convert_dataclass(src["ice"], ice_models.IceModelSimple)
-    triggers = tuple(_convert_dataclass(t, TriggerSettings) for t in src["triggers"])
+    triggers = (tuple(_convert_dataclass(t, TriggerSettings) for t in src["triggers"])
+                or (_convert_dataclass(settings, TriggerSettings),))
     names = {f.name for f in dataclasses.fields(PipelineSettings)}
     kept = {k: v for k, v in src.items()
             if k in names and k not in _TPU_ONLY and k not in ("ice", "triggers")}
@@ -95,6 +99,8 @@ def channels_from_jax(ch, *, device, dtype) -> ChannelParams:
             out[name] = _tensor(src[name], torch.int64, device)
         elif name in _COMPLEX_FIELDS:
             out[name] = _tensor(src.get(name), _ctype(dtype), device)
+        elif name == "min_efield_amplitude" and np.all(np.asarray(src[name]) <= 0):
+            out[name] = None          # the JAX package's "no cut"
         else:
             out[name] = _tensor(src.get(name), dtype, device)
     return ChannelParams(**out)

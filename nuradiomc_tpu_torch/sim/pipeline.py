@@ -43,8 +43,7 @@ With the recorder of ``utils/timing.py`` on, step 1 is the span
 ``step.raytrace``, steps 2-6 ``step.signal``, step 7 ``step.placement`` and
 step 8 ``step.trigger`` (the last two once per window and around the
 window-independent work); each blocking device-to-host read is a
-``host_sync`` (``min_efield``, ``band_support``, ``birefringence``,
-``arz_select``).
+``host_sync`` (``band_support``, ``birefringence``, ``arz_select``).
 
 With ``channel_axis`` (a ``parallel.mesh.Axis`` over which C divides),
 steps 1-7 run on this rank's slice of the channels; the OR over channels
@@ -89,6 +88,31 @@ from nuradiomc_tpu_torch.utils.constants import speed_of_light
 
 
 @dataclasses.dataclass(frozen=True)
+class TriggerSettings:
+    """One named trigger (pipeline.py:197); thresholds in volts, ``None``
+    falls back to ChannelParams.threshold_high/low."""
+
+    name: str = "default_high_low"
+    trigger_type: str = "high_low"
+    channels: tuple = ()
+    threshold_high: float = None
+    threshold_low: float = None
+    highlow_coincidence: float = 5.0
+    number_of_coincidences: int = 1
+    channel_coincidence: float = 200.0
+    pa_rolls: tuple = ()
+    pa_window: int = 32
+    pa_step: int = 16
+    pa_upsampling: int = 1
+    pa_threshold: float = 0.0
+    pa_digitize: bool = False
+    pa_adc_fs: float = 0.5
+    pa_adc_nbits: int = 8
+    pa_adc_range: float = 0.0
+    requires: str = None
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineSettings:
     """Static configuration of the pipeline (field names as in the JAX
     package; its TPU-only fields are not carried over)."""
@@ -116,19 +140,6 @@ class PipelineSettings:
     focusing_limit: float = 2.0
     focusing_dz: float = -0.01
     focusing_mode: str = "implicit"
-    trigger_type: str = "high_low"
-    highlow_coincidence: float = 5.0
-    number_of_coincidences: int = 1
-    channel_coincidence: float = 200.0
-    pa_rolls: tuple = ()
-    pa_window: int = 32
-    pa_step: int = 16
-    pa_upsampling: int = 1
-    pa_threshold: float = 0.0
-    pa_digitize: bool = False
-    pa_adc_fs: float = 0.5
-    pa_adc_nbits: int = 8
-    pa_adc_range: float = 0.0
     # "kernel": the kernel wrappers (CUDA kernel on the card, plain version
     # on the CPU); "plain": the plain versions on any device
     placement_impl: str = "kernel"
@@ -143,7 +154,31 @@ class PipelineSettings:
     add_noise: bool = False
     noise_type: str = "rayleigh"
     noise_sampler: str = "phase"
-    triggers: tuple = ()
+    # every trigger of the station, in declaration order (``requires`` names
+    # an earlier one); the JAX package's single-trigger fields map onto one
+    # entry in ``convert.settings_from_jax``
+    triggers: tuple = (TriggerSettings(),)
+
+    def __post_init__(self):
+        # the checks that depend on the settings alone, made once here
+        if self.apply_focusing and self.focusing_mode not in ("implicit", "numeric"):
+            raise ValueError(
+                f"focusing_mode must be 'implicit' or 'numeric', got {self.focusing_mode!r}")
+        if self.n_reflections > 0 and self.ice.refl_z is None:
+            raise ValueError("n_reflections > 0 requires an ice model with a reflective bottom")
+        if (self.placement_impl not in ("kernel", "plain")
+                or self.trigger_impl not in ("kernel", "plain")):
+            raise ValueError("placement_impl / trigger_impl must be 'kernel' or 'plain'")
+        if not self.triggers:
+            raise ValueError("triggers must name at least one trigger")
+        name_to_col = {t.name: i for i, t in enumerate(self.triggers)}
+        for i, t in enumerate(self.triggers):
+            if t.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
+                raise NotImplementedError(f"trigger type {t.trigger_type}")
+            if t.requires and name_to_col.get(t.requires, i) >= i:
+                raise ValueError(
+                    f"trigger {t.name!r} requires {t.requires!r}, which "
+                    "must be declared earlier in the trigger list")
 
     @property
     def dt(self) -> float:
@@ -160,31 +195,6 @@ class PipelineSettings:
         return np.fft.rfftfreq(self.n_base, self.dt)
 
 
-@dataclasses.dataclass(frozen=True)
-class TriggerSettings:
-    """One named trigger (pipeline.py:197); thresholds in volts, ``None``
-    falls back to ChannelParams.threshold_high/low."""
-
-    name: str = "default_high_low"
-    trigger_type: str = "high_low"
-    channels: tuple = ()
-    threshold_high: float = None
-    threshold_low: float = None
-    highlow_coincidence: float = 5.0
-    number_of_coincidences: int = 1
-    channel_coincidence: float = 200.0
-    pa_rolls: tuple = ()
-    pa_window: int = 32
-    pa_step: int = 16
-    pa_upsampling: int = 1
-    pa_threshold: float = 0.0
-    pa_digitize: bool = False
-    pa_adc_fs: float = 0.5
-    pa_adc_nbits: int = 8
-    pa_adc_range: float = 0.0
-    requires: str = None
-
-
 class ChannelParams(NamedTuple):
     """Per-channel tensors of one station."""
 
@@ -198,7 +208,8 @@ class ChannelParams(NamedTuple):
     threshold_high: torch.Tensor      # [C]
     threshold_low: torch.Tensor       # [C]
     noise_amplitude: torch.Tensor     # [C]
-    min_efield_amplitude: torch.Tensor  # [C]; all <= 0 disables the cut
+    # [C]; None: no candidate cut (decided where the params are made)
+    min_efield_amplitude: Optional[torch.Tensor]
     trigger_filter_response: Optional[torch.Tensor] = None
     # tabulated antenna patterns: the VEL comes from trilinear interpolation
     # of the grids per direction; ``templates`` / ``kind`` are ignored
@@ -351,10 +362,9 @@ def _attenuation_freq_grid(ff, n_freq, max_detector_freq=None):
 _ASKARYAN_MODELS = ("ZHS1992", "Alvarez2000", "Alvarez2009", "ARZ2019", "ARZ2020")
 
 
-def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
-                 emitter, arz_library):
-    if s.apply_focusing and s.focusing_mode not in ("implicit", "numeric"):
-        raise ValueError(f"focusing_mode must be 'implicit' or 'numeric', got {s.focusing_mode!r}")
+def _check_slice(batch: ShowerBatch, s: PipelineSettings, emitter, arz_library):
+    """The checks that need the call's arguments (the settings' own run in
+    ``PipelineSettings.__post_init__``)."""
     if emitter is None and s.askaryan_model not in _ASKARYAN_MODELS:
         raise NotImplementedError(
             f"Askaryan model {s.askaryan_model} is not implemented in the pipeline; "
@@ -362,34 +372,6 @@ def _check_slice(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     if (emitter is None and s.askaryan_model.startswith("ARZ")
             and (arz_library is None or batch.profile_idx is None)):
         raise ValueError("ARZ models require arz_library and batch.profile_idx")
-    if s.n_reflections > 0 and s.ice.refl_z is None:
-        raise ValueError("n_reflections > 0 requires an ice model with a reflective bottom")
-    if s.placement_impl not in ("kernel", "plain") or s.trigger_impl not in ("kernel", "plain"):
-        raise ValueError("placement_impl / trigger_impl must be 'kernel' or 'plain'")
-
-
-def _trigger_list(s: PipelineSettings):
-    if s.triggers:
-        trig_list = s.triggers
-    else:
-        trig_list = (TriggerSettings(
-            trigger_type=s.trigger_type,
-            highlow_coincidence=s.highlow_coincidence,
-            number_of_coincidences=s.number_of_coincidences,
-            channel_coincidence=s.channel_coincidence,
-            pa_rolls=s.pa_rolls, pa_window=s.pa_window, pa_step=s.pa_step,
-            pa_upsampling=s.pa_upsampling, pa_threshold=s.pa_threshold,
-            pa_digitize=s.pa_digitize, pa_adc_fs=s.pa_adc_fs,
-            pa_adc_nbits=s.pa_adc_nbits, pa_adc_range=s.pa_adc_range),)
-    name_to_col = {t.name: i for i, t in enumerate(trig_list)}
-    for i, t in enumerate(trig_list):
-        if t.trigger_type not in ("high_low", "simple_threshold", "phased_array"):
-            raise NotImplementedError(f"trigger type {t.trigger_type}")
-        if t.requires and name_to_col.get(t.requires, i) >= i:
-            raise ValueError(
-                f"trigger {t.name!r} requires {t.requires!r}, which "
-                "must be declared earlier in the trigger list")
-    return trig_list
 
 
 def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, s: PipelineSettings, C: int):
@@ -427,9 +409,9 @@ def _phased_array_trigger(t: TriggerSettings, spec_re, spec_im, s: PipelineSetti
     return fired, frame, amp, t.pa_step / (s.sampling_rate * up)
 
 
-def _run_triggers(trig_list, trig, readout, s: PipelineSettings, ch: ChannelParams,
+def _run_triggers(trig, readout, s: PipelineSettings, ch: ChannelParams,
                   G: int, C: int):
-    """Every trigger of the list on one window's spectra (pipeline.py:541-634,
+    """Every trigger of ``s.triggers`` on one window's spectra (pipeline.py:541-634,
     :1336-1460). ``trig`` = (re, im) [G*C, K_trig] of the trigger chain;
     ``readout`` = (re, im) [G*C, K_base] of the readout chain where it is a
     separate one, else None. All high/low and threshold triggers are the
@@ -446,13 +428,13 @@ def _run_triggers(trig_list, trig, readout, s: PipelineSettings, ch: ChannelPara
     fused = (trigger_fused.fused_irfft_trigger_plain if plain
              else trigger_fused.fused_irfft_trigger)
     scale = s.sampling_rate / math.sqrt(2.0)
-    hl = [i for i, t in enumerate(trig_list) if t.trigger_type != "phased_array"]
-    pa = [i for i, t in enumerate(trig_list) if t.trigger_type == "phased_array"]
+    hl = [i for i, t in enumerate(s.triggers) if t.trigger_type != "phased_array"]
+    pa = [i for i, t in enumerate(s.triggers) if t.trigger_type == "phased_array"]
     fired_cols, time_cols = {}, {}
     amp = None
     if hl:
         th_hi_cols, th_lo_cols, kspecs = [], [], []
-        for t in (trig_list[i] for i in hl):
+        for t in (s.triggers[i] for i in hl):
             if t.threshold_high is not None:
                 hi = torch.full((C,), t.threshold_high, dtype=real_dtype, device=dev)
             else:
@@ -486,7 +468,7 @@ def _run_triggers(trig_list, trig, readout, s: PipelineSettings, ch: ChannelPara
             fired_cols[i] = fired[:, j]
             time_cols[i] = first[:, j].to(real_dtype) * dt
     for i in pa:
-        t = trig_list[i]
+        t = s.triggers[i]
         re, im, C_t = spec_re, spec_im, C
         if len(t.channels):
             sel = torch.as_tensor(list(t.channels), device=dev)
@@ -504,7 +486,7 @@ def _run_triggers(trig_list, trig, readout, s: PipelineSettings, ch: ChannelPara
         empty = spec_re.new_empty((Rc, 0))
         amp = fused(*(readout or trig), empty, empty, n_base=s.n_base, scale=scale,
                     triggers=(), C=C)[2]
-    order = range(len(trig_list))
+    order = range(len(s.triggers))
     return [fired_cols[i] for i in order], [time_cols[i] for i in order], amp
 
 
@@ -593,10 +575,9 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     full-band spectra (pipeline.py:1437, :1523-1542). ``channel_axis``:
     steps 1-7 on this rank's channels (see the module docstring); ``ch``
     holds all channels either way, and so do the outputs."""
-    _check_slice(batch, ch, s, emitter, arz_library)
+    _check_slice(batch, s, emitter, arz_library)
     if s.add_noise and noise_generator is None:
         raise ValueError("add_noise=True requires a noise_generator")
-    trig_list = _trigger_list(s)
     G, S = batch.energies.shape
     C_all = ch.positions.shape[0]
     # steps 1-7 read ``ch`` (this rank's channels), step 8 ``ch_all``
@@ -817,9 +798,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
 
         # ---- 6a. candidate cut (simulation.py:283-286) -------------------------
         min_eff = ch.min_efield_amplitude
-        with timing.host_sync("min_efield"):
-            no_cut = bool(torch.all(ch_all.min_efield_amplitude <= 0))
-        if no_cut:
+        if min_eff is None:
             ef_max = torch.zeros(bshape, dtype=real_dtype, device=dev)
             candidate = torch.ones((G,), dtype=torch.bool, device=dev)
         else:
@@ -959,7 +938,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
         # own response (pipeline.py:1437-1447); max_amplitude stays the
         # readout chain's
         trig = rows_of(ch_all.trigger_filter_response, K_trig) if separate_chain else readout
-        fired, frames, amp = _run_triggers(trig_list, trig, readout if separate_chain else None,
+        fired, frames, amp = _run_triggers(trig, readout if separate_chain else None,
                                            s, ch_all, G, C_all)
         traces = None
         if want_traces:
@@ -970,7 +949,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     # ---- 7b. sub-event windows (pipeline.py:1462-1489) ----------------------
     remaining = valid
     per_window = []
-    name_to_col = {t.name: i for i, t in enumerate(trig_list)}
+    name_to_col = {t.name: i for i, t in enumerate(s.triggers)}
     for w in range(max(1, s.n_windows)):
         with timing.span("step.placement"):
             any_rem = mesh_util.all_reduce_or(torch.any(remaining.reshape(G, -1), dim=-1),
@@ -991,7 +970,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
             # trigger with an earlier-declared one inside each window
             # (pipeline.py:1491-1512)
             gated = []
-            for i, t in enumerate(trig_list):
+            for i, t in enumerate(s.triggers):
                 c = fired[i] & any_valid & candidate & any_rem
                 if t.requires:
                     c = c & gated[name_to_col[t.requires]]
@@ -1006,7 +985,7 @@ def simulate_batch(batch: ShowerBatch, ch: ChannelParams, s: PipelineSettings,
     with timing.span("step.trigger"):
         # decisions OR across windows, the time is the earliest fired window's
         cols, times = [], []
-        for i in range(len(trig_list)):
+        for i in range(len(s.triggers)):
             fired = per_window[0][0][i]
             tmin = torch.where(fired, per_window[0][1][i], torch.inf)
             for gated_w, times_w in per_window[1:]:

@@ -57,7 +57,7 @@ With the recorder of ``utils/timing.py`` on, a job records its spans:
 then ``sim.results`` and, where a file is written, ``sim.output``; the
 counters ``chunks`` and ``batch.sub_events`` (the sub-events that splitting
 groups by vertex time adds); and every blocking device-to-host read as a
-``host_sync`` (``cable_delays``, ``readback``, ``nur_readback``).
+``host_sync`` (``readback``, ``nur_readback``).
 
 Not ported yet (it raises): numeric birefringence propagation.
 """
@@ -552,6 +552,7 @@ class Simulation:
                 self.Vrms_per_channel[cid] = self.Vrms * np.sqrt(bw / self.bandwidth)
         vrms_ch = np.array([self.Vrms_per_channel[c] for c in ids])
         bw_ch = np.array([self.bandwidth_per_channel[c] for c in ids])
+        min_efield = float(self.config["speedup"]["min_efield_amplitude"]) * self.Vrms_efield
         ctype = torch.complex64 if self.dtype == torch.float32 else torch.complex128
 
         def real(a):
@@ -590,8 +591,7 @@ class Simulation:
             threshold_high=real(np.full(C, self.trigger.threshold_high_sigma * self.Vrms)),
             threshold_low=real(np.full(C, self.trigger.threshold_low_sigma * self.Vrms)),
             noise_amplitude=real(vrms_ch / np.sqrt(bw_ch / (0.5 * self.internal_rate))),
-            min_efield_amplitude=real(np.full(
-                C, float(self.config["speedup"]["min_efield_amplitude"]) * self.Vrms_efield)),
+            min_efield_amplitude=real(np.full(C, min_efield)) if min_efield > 0 else None,
             trigger_filter_response=(None if trigger_filter_response is None
                                      else cplx(trigger_filter_response)),
             antenna_table=antenna_table,
@@ -744,7 +744,11 @@ class Simulation:
                 "ray_tracing_reflection_case", "focusing_factor", "launch_vectors",
                 "receive_vectors", "polarization", "travel_times", "travel_distances",
                 "time_shower_and_ray", "sol_mask")
-        cd = _read(chp.cable_delays, "cable_delays")
+        # the triggered rows' per-solution outputs are read back only for
+        # the output file, their one reader
+        want_rows = self.outputfilename is not None
+        real = np.float64 if self.dtype == torch.float64 else np.float32
+        cd = np.asarray(self.det.get_station(station_id).channels.cable_delay, dtype=real)
         n_chunks = -(-G // self.chunk_size)
         mine = []
         for i in self._my_chunks(n_chunks):
@@ -759,7 +763,7 @@ class Simulation:
                        "triggered_per": _read(out.triggered_per),
                        "trigger_times_per": _read(out.trigger_times_per)}
                 idx = np.where(trig)[0]
-                if len(idx):
+                if want_rows and len(idx):
                     sel = torch.as_tensor(idx, device=self.device)
 
                     def pick(t):

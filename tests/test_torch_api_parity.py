@@ -59,6 +59,9 @@ _GENERATOR = ("the port's `generator` / `noise_generator` argument",
 _SHARDING = ("parallel/mesh.py shard_batch / shard_channels on a torch.distributed Mesh",
              "a JAX NamedSharding object; each torch.distributed rank holds its "
              "own slice of a batch, so there is no sharding object to return")
+_ONE_TRIGGER_FORM = ("PipelineSettings.triggers (TriggerSettings)",
+                     "the port names every trigger in `triggers`; `convert.settings_from_jax` "
+                     "maps the JAX package's single-trigger form")
 _TPU_KNOB = ("PipelineSettings.placement_impl / trigger_impl ('kernel' or 'plain')",
              "a selector of the JAX package's TPU lowering; the port's CUDA "
              "kernels and their plain versions take its place")
@@ -97,6 +100,19 @@ DIFFERENCES = {
     "sim/pipeline.py::PipelineSettings.matmul_dtype": (
         "none: the port's transforms are FFTs, not dense DFT matrices",
         "bfloat16 inputs for the dense DFT matmuls on the TPU's matrix unit"),
+    "sim/pipeline.py::PipelineSettings.trigger_type": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.highlow_coincidence": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.number_of_coincidences": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.channel_coincidence": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_rolls": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_window": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_step": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_upsampling": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_threshold": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_digitize": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_adc_fs": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_adc_nbits": _ONE_TRIGGER_FORM,
+    "sim/pipeline.py::PipelineSettings.pa_adc_range": _ONE_TRIGGER_FORM,
     "sim/pipeline.py::PipelineSettings.stop_after": (
         "chip_smoke.py's per-kernel CUDA-event timings",
         "a profiling-only truncation ladder for fori-differenced TPU timings"),

@@ -4,7 +4,9 @@ parameter conversion.
 ``make_headline_inputs`` must reproduce ``__graft_entry__.
 _make_settings_and_inputs`` bit for bit (same default_rng(0) draw order),
 for the test shape and for the bench's 1-channel shape; ``from_jax`` must
-carry every array and every shared settings field over unchanged.
+carry every array and every shared settings field over unchanged, the JAX
+package's single-trigger fields as the one entry of ``triggers`` and an
+all-zero ``min_efield_amplitude`` (no cut) as None.
 """
 
 import dataclasses
@@ -15,7 +17,8 @@ import torch
 
 from __graft_entry__ import _make_settings_and_inputs
 from nuradiomc_tpu_torch import convert
-from nuradiomc_tpu_torch.sim.pipeline import ChannelParams, PipelineSettings, ShowerBatch
+from nuradiomc_tpu_torch.sim.pipeline import (ChannelParams, PipelineSettings, ShowerBatch,
+                                              TriggerSettings)
 
 torch.set_num_threads(1)
 
@@ -26,8 +29,9 @@ def test_make_headline_inputs_matches_graft_entry(shape):
     ps, pc, pb = convert.make_headline_inputs(*shape, device="cpu")
     for name in ChannelParams._fields:
         ref = getattr(ch, name)
-        if ref is None:
-            assert getattr(pc, name) is None
+        # the headline's min_efield_amplitude is all zeros: no cut
+        if ref is None or name == "min_efield_amplitude":
+            assert not np.any(ref) and getattr(pc, name) is None, name
             continue
         port = getattr(pc, name).numpy()
         assert port.dtype == (np.int64 if name == "kind" else np.asarray(ref).dtype)
@@ -44,19 +48,33 @@ def test_make_headline_inputs_matches_graft_entry(shape):
             continue
         assert getattr(ps, f.name) == getattr(s, f.name), f.name
     assert dataclasses.asdict(ps.ice) == dataclasses.asdict(s.ice)
+    # the JAX settings name no trigger list: its single-trigger defaults
+    assert s.triggers == () and ps.triggers == (TriggerSettings(),)
+    assert convert.settings_from_jax(s).triggers == ps.triggers
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_from_jax_round_trips(dtype):
+@pytest.mark.parametrize("form", ["trigger_list", "single_trigger"])
+def test_from_jax_round_trips(dtype, form):
     import nuradiomc_tpu.sim.pipeline as jpipe
 
     s, ch, b = _make_settings_and_inputs()
-    s = dataclasses.replace(s, band_limit_eps=1e-2, triggers=(
-        jpipe.TriggerSettings(name="a", threshold_high=1e-5, threshold_low=-1e-5),))
+    if form == "trigger_list":
+        s = dataclasses.replace(s, band_limit_eps=1e-2, triggers=(
+            jpipe.TriggerSettings(name="a", threshold_high=1e-5, threshold_low=-1e-5),))
+        want = TriggerSettings(name="a", threshold_high=1e-5, threshold_low=-1e-5)
+    else:
+        # empty triggers: the single-trigger fields make the one trigger
+        s = dataclasses.replace(s, band_limit_eps=1e-2, trigger_type="simple_threshold",
+                                number_of_coincidences=2, channel_coincidence=150.0)
+        want = TriggerSettings(trigger_type="simple_threshold", number_of_coincidences=2,
+                               channel_coincidence=150.0)
     ps, pc, pb = convert.from_jax(s, ch, b, device="cpu", dtype=dtype)
+    assert ps.triggers == (want,)
     for name, ref in ch._asdict().items():
-        if ref is None:
-            assert getattr(pc, name) is None
+        # the JAX package's all-zero min_efield_amplitude: no cut
+        if ref is None or name == "min_efield_amplitude":
+            assert not np.any(ref) and getattr(pc, name) is None, name
             continue
         port = getattr(pc, name)
         assert port.dtype == {True: convert._ctype(dtype), False: dtype}[
@@ -67,8 +85,12 @@ def test_from_jax_round_trips(dtype):
             np.testing.assert_array_equal(getattr(pb, name).numpy(),
                                           np.asarray(ref).astype(getattr(pb, name).numpy().dtype))
     assert ps.band_limit_eps == 1e-2 and ps.n_bisect == s.n_bisect
-    assert ps.triggers[0].name == "a" and ps.triggers[0].threshold_high == 1e-5
     assert ps.placement_impl == "kernel"
+    # a positive threshold is a cut, carried over as it is
+    cut = convert.channels_from_jax(ch._replace(min_efield_amplitude=np.full(4, 1e-6)),
+                                    device="cpu", dtype=dtype).min_efield_amplitude
+    assert cut.dtype == dtype
+    np.testing.assert_array_equal(cut.numpy(), np.full(4, 1e-6).astype(cut.numpy().dtype))
     with pytest.raises(ValueError):
         convert.from_jax(dataclasses.replace(s, stop_after="ray"), ch, b, device="cpu")
 

@@ -153,9 +153,11 @@ def test_mixed_trigger_list_matches_jax(jax_inputs):
 def test_requires_must_name_an_earlier_trigger(jax_inputs):
     settings, ch, batch = jax_inputs
     ps, pc, pb = convert.from_jax(settings, ch, batch, device="cpu", dtype=torch.float64)
-    late = dataclasses.replace(ps, triggers=(ps.triggers[3],) + ps.triggers[:3])
+    # the settings refuse the list when they are built, and an empty one
     with pytest.raises(ValueError, match="declared earlier"):
-        tpipe.simulate_batch(pb, pc, late)
+        dataclasses.replace(ps, triggers=(ps.triggers[3],) + ps.triggers[:3])
+    with pytest.raises(ValueError, match="at least one trigger"):
+        dataclasses.replace(ps, triggers=())
 
 
 def test_separate_trigger_chain_matches_jax(monkeypatch):

@@ -143,6 +143,9 @@ def test_unported_options_raise():
         tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, n_reflections=1))
     with pytest.raises(ValueError, match="arz_library"):
         tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, askaryan_model="ARZ2019"))
+    # the settings' own checks run when they are built
+    with pytest.raises(ValueError, match="'kernel' or 'plain'"):
+        dataclasses.replace(ps, placement_impl="pallas")
     # GL1 attenuation runs on this batch now
     out = tpipe.simulate_batch(pb, pc, dataclasses.replace(ps, attenuation_model="GL1"))
     assert out.triggered.shape == (pb.energies.shape[0],)

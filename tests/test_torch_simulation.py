@@ -9,7 +9,8 @@ assertions of tests/test_e2e.py:
   the reference integrates attenuation with scipy.quad at epsrel 1e-2);
 * float32 bench configuration (n_freq 16, GL-8, 28 solver steps, band limit
   1e-2): every golden group, and at most the documented borderline group
-  1272 extra (test_e2e.py:147-153).
+  1272 extra (test_e2e.py:147-153); its output file's arrival times are the
+  travel times plus the 19.8 ns cable delay, added in float32.
 """
 
 import os
@@ -91,8 +92,9 @@ def test_float64_output_observables(golden, run64):
                                        err_msg=f"{key} shower {sid}", **tol)
 
 
-def test_float32_bench_config_reproduces_golden(golden):
-    sim = _simulation(torch.float32,
+def test_float32_bench_config_reproduces_golden(golden, tmp_path):
+    out = str(tmp_path / "out.hdf5")
+    sim = _simulation(torch.float32, outputfilename=out,
                       propagation={"n_freq": 16, "attenuation_steps": 8, "n_bisect": 28},
                       perf={"band_limit_eps": 1e-2})
     res = sim.run()
@@ -100,6 +102,14 @@ def test_float32_bench_config_reproduces_golden(golden):
     mine = _triggered_groups(res)
     assert ref <= mine, sorted(ref - mine)
     assert mine - ref <= {1272}, sorted(mine - ref)
+    # the arrival times add the cable delay to the travel times in float32
+    with h5py.File(out, "r") as f:
+        arrival = f["station_101"]["time_shower_and_ray"][()]
+        travel = f["station_101"]["travel_times"][()]
+    solved = ~np.isnan(travel)
+    assert solved.any()
+    np.testing.assert_array_equal(
+        arrival[solved], travel[solved].astype(np.float32) + np.float32(19.8 * units.ns))
 
 
 def test_unported_configurations_raise():

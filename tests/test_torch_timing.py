@@ -4,8 +4,9 @@
   no-op context;
 * on, a tiny float64 ``Simulation`` run in two chunks gives the span tree of
   the job (construction, batch, weights, per chunk the copy, the step with its
-  four stage spans and the readback, the results), one job id, and one
-  ``host_syncs.<site>`` per blocking read the code passes;
+  four stage spans and the readback, the results, and the output where a
+  file is written), one job id, and one ``host_syncs.<site>`` per blocking
+  read the code passes, with and without an output file;
 * the results are equal bit for bit with the recorder on and off;
 * a span's stamps are on the clock of ``torch.profiler``'s events;
 * ``TimeLogger`` records through the same recorder.
@@ -28,10 +29,10 @@ FIRING = [229, 253, 291, 378]
 CHUNK = 16
 
 # blocking device-to-host reads the code passes (sim/simulation.py,
-# sim/pipeline.py): per station the cable delays once; per chunk the
-# min_efield_amplitude test once and the readback's five decisions and
-# amplitudes; per chunk with a triggered group 13 more reads (twelve
-# per-solution outputs of the triggered rows and their polarization)
+# sim/pipeline.py): per chunk the readback's five decisions and amplitudes;
+# where an output file is written, per chunk with a triggered group 13 more
+# reads (twelve per-solution outputs of the triggered rows and their
+# polarization), which only the file's writer reads
 READBACK_PER_CHUNK = 5
 READBACK_PER_FIRING_CHUNK = 13
 
@@ -45,16 +46,18 @@ def recorder_off():
     timing.take()
 
 
-def _simulation():
+def _simulation(outputfilename=None):
     full = io_input.read_input(str(io_input.INPUT_1E18_N3000))
     ids = np.concatenate([np.unique(full.event_group_ids)[:QUIET], FIRING])
     return convert.dipole_simulation(io_input.select(full, ids), chunk_size=CHUNK,
-                                     device="cpu", dtype=torch.float64)
+                                     device="cpu", dtype=torch.float64,
+                                     outputfilename=outputfilename)
 
 
 @pytest.fixture(scope="module")
-def runs():
-    """(results off, results on, the records of the run on)."""
+def runs(tmp_path_factory):
+    """(results off, results on, the records of the run on, the records of a
+    run on that writes an output file)."""
     timing.enable(False)
     timing.take()
     try:
@@ -62,10 +65,12 @@ def runs():
         timing.enable()
         on = _simulation().run()
         records = timing.take()
+        _simulation(str(tmp_path_factory.mktemp("timing") / "out.hdf5")).run()
+        written = timing.take()
     finally:
         timing.enable(False)
         timing.take()
-    return off, on, records
+    return off, on, records, written
 
 
 def test_off_records_nothing(recorder_off):
@@ -103,8 +108,11 @@ def test_recorder_api(recorder_off):
         assert s["job"] == job and s["start_ns"] <= s["end_ns"]
 
 
-def test_span_tree_of_a_two_chunk_run(runs):
-    off, on, rec = runs
+@pytest.mark.parametrize("written", [False, True], ids=["results", "output_file"])
+def test_span_tree_of_a_two_chunk_run(runs, written):
+    off, on, rec, rec_written = runs
+    if written:
+        rec = rec_written
     spans = rec["spans"]
     by_id = {s["id"]: s for s in spans}
     jobs = {s["job"] for s in spans}
@@ -113,8 +121,7 @@ def test_span_tree_of_a_two_chunk_run(runs):
     assert {s["name"] for s in spans} == {
         "sim.init", "sim.channels", "sim.input", "sim.batch", "sim.weights", "sim.h2d",
         "sim.step", "step.raytrace", "step.signal", "step.placement", "step.trigger",
-        "sim.readback", "sim.results", "sync.cable_delays", "sync.min_efield",
-        "sync.readback"}
+        "sim.readback", "sim.results", "sync.readback"} | ({"sim.output"} if written else set())
 
     def parent(s):
         return by_id[s["parent"]]["name"] if s["parent"] is not None else None
@@ -122,7 +129,7 @@ def test_span_tree_of_a_two_chunk_run(runs):
     want_parent = {"sim.channels": "sim.init", "sim.input": "sim.init",
                    "step.raytrace": "sim.step", "step.signal": "sim.step",
                    "step.placement": "sim.step", "step.trigger": "sim.step",
-                   "sync.min_efield": "step.signal", "sync.readback": "sim.readback"}
+                   "sync.readback": "sim.readback"}
     for s in spans:
         assert parent(s) == want_parent.get(s["name"]), s["name"]
         assert s["end_ns"] is not None and s["start_ns"] <= s["end_ns"]
@@ -143,17 +150,16 @@ def test_span_tree_of_a_two_chunk_run(runs):
     # the host syncs the code passes
     firing_chunks = len(np.unique(np.flatnonzero(on["triggered"]) // CHUNK))
     assert firing_chunks == 1 and on["n_triggered"] == len(FIRING)
-    want = {"host_syncs.cable_delays": 1, "host_syncs.min_efield": n_chunks,
-            "host_syncs.readback": READBACK_PER_CHUNK * n_chunks
-            + READBACK_PER_FIRING_CHUNK * firing_chunks}
+    want = {"host_syncs.readback": READBACK_PER_CHUNK * n_chunks
+            + READBACK_PER_FIRING_CHUNK * firing_chunks * written}
     assert {k: v for k, v in counters.items() if k.startswith("host_syncs.")} == want
     for name, n in want.items():
         assert sum(s["name"] == "sync." + name.split(".", 1)[1] for s in spans) == n
-    assert sum(want.values()) / n_chunks == 13.0
+    assert sum(want.values()) / n_chunks == (11.5 if written else 5.0)
 
 
 def test_results_equal_with_the_recorder_on_and_off(runs):
-    off, on, _ = runs
+    off, on, _, _ = runs
     assert off.keys() == on.keys()
 
     def same(a, b):
