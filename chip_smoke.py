@@ -17,8 +17,9 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 0. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-1. build the five kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
-   nvcc per source, started together (the ray solver with -fmad=false);
+1. build the six kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
+   nvcc per source, started together (the ray solver and the Earth's chord
+   integral with -fmad=false);
 2. each kernel against its plain PyTorch version on the card at its path's
    shapes, float32 and float64 (kernel 2 also at the sizes a real station
    brings: 8 columns x 24 channels, n_base 8192, 17 columns in two launches,
@@ -41,7 +42,12 @@ result line):
    frames equal to the plain version's (float64: in every group); the ray
    solver (``raytrace.find_solutions``) on the dipole cell's 100,000 pairs
    a step, float32 and float64, n_bisect 96 (timed) and 28, every field of
-   every slot equal to ``find_solutions_plain``'s bit for bit;
+   every slot equal to ``find_solutions_plain``'s bit for bit; the Earth's
+   chord integral (``ops.earth_slant``, float64) at 2,048 (a deep
+   phased-array job's) and 16,384 chords of 16,384 samples, both Earth
+   models, within 1e-13 relative of the numpy copy
+   (``EarthModel.slant_depth``, timed on the host as its plain version),
+   two launches bit-identical;
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -111,7 +117,8 @@ result line):
    ``nuradiomc_tpu_torch/data/e2e_waveforms_reference.npz``; (e) the noisy
    deep phased-array campaign (10,000 events, digest equal to its golden's)
    in float64 inside its statistical bands, kernels 1 and 3 held to their
-   plain versions; (f) the Gen2 tau list regenerated with stochastic
+   plain versions, its ``core_mantle_crust`` weights integrated by the chord
+   kernel (one launch); (f) the Gen2 tau list regenerated with stochastic
    secondaries equal to its export;
 11. processes sharing the card (``parallel.dryrun.spawn``: gloo, one rank
    per process, started after phase 1's build), each run against its
@@ -296,8 +303,9 @@ from nuradiomc_tpu_torch.framework.base_trace import BaseTrace  # noqa: E402
 from nuradiomc_tpu_torch import convert  # noqa: E402
 from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.models import ice as ice_models  # noqa: E402
-from nuradiomc_tpu_torch.ops import (_build, fft_plan, noise, pa_trigger,  # noqa: E402
-                                     phased_array, placement, raytrace, trigger_fused)
+from nuradiomc_tpu_torch.ops import (_build, earth_slant, fft_plan, noise,  # noqa: E402
+                                     pa_trigger, phased_array, placement, raytrace,
+                                     trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
 from nuradiomc_tpu_torch.sim import io_input  # noqa: E402
 from nuradiomc_tpu_torch.sim.io_input import (DATA_DIR, INPUT_1E18_N3000,  # noqa: E402
@@ -336,7 +344,8 @@ GL1_JAX_SETS = DATA_DIR / "gl1_jax_sets.npz"
 FULLSCALE_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_reference.npz")
 FULLSCALE_PA_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_pa_reference.npz")
 WAVEFORMS_REF = DATA_DIR / "e2e_waveforms_reference.npz"
-KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce", "ray_solver")
+KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce", "ray_solver",
+           "earth_slant")
 # the dipole cell's pairs a step (50,000 groups x 2 showers x 1 channel)
 RAY_PAIRS = 100_000
 CARD = ""                # nvidia-smi name and power limit, set by main()
@@ -803,6 +812,89 @@ def _check_ray_solver(label, args, kw, phase="phase 2", timed=True):
     return _entry(max_abs, ms, plain_ms, bound) if timed else None
 
 
+def _earth_slant_ops(n_samples, n_shells):
+    """Float64 operations a chord of the chord integral, counted as the
+    numpy copy computes it: a sample's point (t dist, three products, three
+    sums), radius (three products, two sums, a square root), shell (a
+    compare a shell), density (a division, three products, three sums, a
+    select); a term's difference, sum, product and halving and the running
+    sum; the final product by dist."""
+    return n_samples * (7 + 6 + n_shells + 8) + (n_samples - 1) * 5 + 1
+
+
+def _earth_slant_bound(n_chords, n_samples, n_shells):
+    """The chord integral: its operations (``_earth_slant_ops``) against a
+    chord's endpoint, direction and distance read and its result written
+    (64 bytes), and the sample positions read once."""
+    return _bound(64 * n_chords + 8 * n_samples,
+                  n_chords * _earth_slant_ops(n_samples, n_shells), torch.float64)
+
+
+def _check_earth_slant(dev, phase="phase 2"):
+    """The Earth's chord integral (``earth_slant.integrate``, one launch) on
+    chords drawn like the deep phased-array cell's list (vertices at r < 3
+    km, -2 km < z < 0, isotropic directions), 16,384 samples a chord, at
+    2,048 chords (a job's) and 16,384, CORE_MANTLE_CRUST and PREM: within
+    1e-13 relative of ``EarthModel.slant_depth`` on the first 2,048 chords,
+    zero where it is zero, two launches bit-identical; the kernel timed by
+    CUDA events beside its bound, the numpy copy on the host as its plain
+    version (2,048 chords), and the host wall of the whole ``slant_depth``
+    (prelude, copies, launch, read-back). Returns the summary entry of
+    CORE_MANTLE_CRUST at 2,048 chords (``max_abs_err`` in the port's units
+    of column density)."""
+    from nuradiomc_tpu_torch.sim import earth_attenuation
+
+    n_samples, n_check, n_max = 16384, 2048, 16384
+    rng = np.random.default_rng(20261018)
+    r = 3e3 * np.sqrt(rng.uniform(0, 1, n_max))
+    az = rng.uniform(0, 2 * np.pi, n_max)
+    vertex = np.c_[r * np.cos(az), r * np.sin(az), rng.uniform(-2e3, 0, n_max)]
+    theta = np.arccos(rng.uniform(-1, 1, n_max))
+    phi = rng.uniform(0, 2 * np.pi, n_max)
+    d = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], -1)
+    ts = torch.as_tensor(np.linspace(0.0, 1.0, n_samples), device=dev)
+    entry = None
+    for model in ("CORE_MANTLE_CRUST", "PREM"):
+        earth = getattr(earth_attenuation, model)
+        t0 = time.perf_counter()
+        want = earth.slant_depth(vertex[:n_check], d[:n_check], n_samples=n_samples)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        zero = want == 0
+        for n_chords in (n_check, n_max):
+            args = [torch.as_tensor(a, device=dev)
+                    for a in earth_slant.chords(earth, vertex[:n_chords], d[:n_chords])]
+            before = earth_slant.launches
+            got = [earth_slant.integrate(earth, *args, ts).cpu().numpy() for _ in range(2)]
+            if earth_slant.launches != before + 2:
+                raise AssertionError(f"earth_slant: {earth_slant.launches - before} launches, "
+                                     f"not two")
+            g = got[0][:n_check]
+            rel = float((np.abs(g - want)[~zero] / want[~zero]).max())
+            max_abs = float(np.abs(g - want).max())
+            ms = _median_ms(lambda: earth_slant.integrate(earth, *args, ts))
+            t0 = time.perf_counter()
+            earth_slant.slant_depth(earth, vertex[:n_chords], d[:n_chords], n_samples=n_samples,
+                                    device=dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            bound = _earth_slant_bound(n_chords, n_samples, len(earth.radii))
+            same = got[0].tobytes() == got[1].tobytes()
+            print(f"{phase} earth_slant {model} {n_chords} chords x {n_samples} samples, float64: "
+                  f"worst relative difference to the numpy copy (first {n_check} chords) "
+                  f"{rel:.3e}, two launches bit-identical: {same}; kernel {ms:.4f} ms, numpy "
+                  f"copy {plain_ms:.1f} ms ({n_check} chords, host), slant_depth host wall "
+                  f"{wall_ms:.3f} ms (prelude, copies, launch, read-back), bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}: "
+                  f"{_earth_slant_ops(n_samples, len(earth.radii))} operations a chord), "
+                  f"{bound[0] / ms:.1%} of the bound ({CARD})")
+            if not same or rel > 1e-13 or not np.array_equal(g == 0, zero):
+                raise AssertionError(f"earth_slant {model} {n_chords}: not within 1e-13 of the "
+                                     f"numpy copy, or launches differ")
+            if model == "CORE_MANTLE_CRUST" and n_chords == n_check:
+                entry = _entry(max_abs, ms, plain_ms, bound)
+            del args, got
+    return entry
+
+
 def phase_kernels(dev):
     """Kernel vs plain version on the card, with each kernel's bound and (for
     kernel 2) the library irfft's time; returns the float32 summary (the ray
@@ -868,6 +960,7 @@ def phase_kernels(dev):
             summary["ray_solver"] = entry
         del ray_args
         torch.cuda.empty_cache()
+    summary["earth_slant"] = _check_earth_slant(dev)
     return summary
 
 
@@ -1719,12 +1812,13 @@ class _Recorder:
 def _reset_launches():
     placement.launches = placement.reduce_launches = 0
     trigger_fused.launches = pa_trigger.launches = raytrace.launches = 0
+    earth_slant.launches = 0
 
 
 def _launch_counts():
     return {"placement_chain": placement.launches, "placement_reduce": placement.reduce_launches,
             "irfft_trigger": trigger_fused.launches, "pa_trigger": pa_trigger.launches,
-            "ray_solver": raytrace.launches}
+            "ray_solver": raytrace.launches, "earth_slant": earth_slant.launches}
 
 
 def _check_pa_call(label, args, kw, tol_amp, phase):
@@ -2085,7 +2179,7 @@ def phase_campaign(dev):
           f"{2 * 2 / np.sqrt(n_ref):.4f})")
     if abs(n_mine - n_ref) > 3 * np.sqrt(n_ref) or abs(rel) >= 2 * 2 / np.sqrt(n_ref):
         raise AssertionError("the phased-array campaign is outside its statistical bands")
-    if min(counts["placement_chain"], counts["pa_trigger"]) < 1:
+    if min(counts["placement_chain"], counts["pa_trigger"], counts["earth_slant"]) < 1:
         raise AssertionError(f"a kernel of the phased-array campaign was not launched: {counts}")
     _check_recorded(calls, "phased-array campaign float64", "phase 10e")
     del res, calls
@@ -2274,7 +2368,8 @@ def phase_multiprocess(dev):
             raise AssertionError(f"{name}: no kernel was launched")
     if not runs["pa 2x2"][4][0]["pa_trigger"]:
         raise AssertionError("kernel 3 was not launched on the mesh path")
-    # what every rank of (c) repeats on the host: the set-up and the weights
+    # what every rank of (c) repeats: the set-up and the weights (their chord
+    # integral one launch on the card)
     t0 = time.perf_counter()
     sim = convert.fullscale_pa_simulation(_p11_pa_input(), device=dev, dtype=torch.float64)
     t1 = time.perf_counter()
@@ -2282,9 +2377,9 @@ def phase_multiprocess(dev):
     t2 = time.perf_counter()
     sim._weights(gids, start, count, order)
     t3 = time.perf_counter()
-    print(f"phase 11 (c) host work of the 2048 phased-array groups that every rank repeats: "
+    print(f"phase 11 (c) work of the 2048 phased-array groups that every rank repeats: "
           f"Simulation set-up {t1 - t0:.2f} s, batches {t2 - t1:.2f} s, core_mantle_crust "
-          f"weights {t3 - t2:.2f} s ({CARD})")
+          f"weights (chords on the card) {t3 - t2:.4f} s ({CARD})")
     del sim
 
     # (e) the surface-muon Aeff campaign
@@ -4579,7 +4674,9 @@ def phase_examples(dev):
                 print(f"phase 17 {name} against the CPU ({time.perf_counter() - t0:.1f} s): "
                       f"{against}")
             del ret
-    missing = [k for k in KERNELS if totals[k] < 1]
+    # no example weighs by the path modes (they set core_mantle_crust_simple
+    # or run emitters), so the chord kernel need not launch here
+    missing = [k for k in KERNELS if totals[k] < 1 and k != "earth_slant"]
     if missing:
         raise AssertionError(f"phase 17: the examples launched no {missing}")
     _check_recorded(calls, "examples", "phase 17")
@@ -4683,7 +4780,10 @@ def main() -> int:
                 "pa_trigger": "nuradiomc_tpu/ops/pa_pallas.py:181",
                 "placement_reduce": "nuradiomc_tpu/ops/placement_pallas.py:512",
                 "ray_solver": "none: nuradiomc_tpu/ops/raytrace.py:875 (find_solutions under "
-                              "vmap; XLA fuses its fori_loops)"}
+                              "vmap; XLA fuses its fori_loops)",
+                "earth_slant": "none: the JAX package computes these weights on the host too "
+                               "(nuradiomc_tpu/sim/earth_attenuation.py:95, "
+                               "EarthModel.slant_depth)"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"nuradiomc_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name], **summary[name]}

@@ -26,9 +26,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# flags of single kernels, after NVCC_FLAGS: the ray solver's products and
-# sums round one by one, as the plain version's ATen ops do
-EXTRA_FLAGS = {"ray_solver": ["-fmad=false"]}
+# flags of single kernels, after NVCC_FLAGS: the ray solver's and the chord
+# integral's products and sums round one by one, as the plain version's ATen
+# ops and the numpy copy's do
+EXTRA_FLAGS = {"ray_solver": ["-fmad=false"], "earth_slant": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per kernel: {"seconds": build time (0.0 when cached), "log": ptxas output}

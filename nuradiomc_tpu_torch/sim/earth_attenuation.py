@@ -1,16 +1,24 @@
-# copied from nuradiomc_tpu/sim/earth_attenuation.py:1-183 (the port keeps its own copy; it imports nothing of the JAX package)
+# copied from nuradiomc_tpu/sim/earth_attenuation.py:1-183 (the port keeps its own copy; it imports nothing of the JAX package); the path modes' chord integral runs on the card (ops/earth_slant.py) when the run is on one
 """Neutrino survival weights through the Earth (host-side numpy, vectorized).
 
 Re-implementation of NuRadioMC/utilities/earth_attenuation.py: the 'simple'
 constant-density model (:63-87) and the three-layer
 'core_mantle_crust_simple' model with ARAsim 2018 parameters (:90-129),
 fully vectorized over events (the reference evaluates per event).
+
+The path modes ('core_mantle_crust', 'PREM') integrate each chord through a
+layered ``EarthModel``. With ``device`` a CUDA device that integral is one
+launch of the kernel ``csrc/earth_slant.cu`` (``ops/earth_slant.py``);
+otherwise, and for every other mode, everything runs here in numpy, and
+``EarthModel.slant_depth`` is the reference the kernel is held to.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from nuradiomc_tpu_torch.ops import earth_slant
 from nuradiomc_tpu_torch.sim import cross_sections
 from nuradiomc_tpu_torch.utils import units
 
@@ -149,8 +157,9 @@ CORE_MANTLE_CRUST = EarthModel(
 
 
 def get_path_weight(theta_nu, phi_nu, vertex_position, pnu, flavors, earth,
-                    cross_section_type="ctw"):
-    """Path-through-Earth weight using a layered model (get_weight:39-54)."""
+                    cross_section_type="ctw", device=None):
+    """Path-through-Earth weight using a layered model (get_weight:39-54);
+    the chord integral on the card where ``device`` is a CUDA device."""
     theta_nu = np.asarray(theta_nu, dtype=float)
     phi_nu = np.asarray(phi_nu, dtype=float)
     # (theta_nu, phi_nu) point back toward the source: the chord is integrated
@@ -158,7 +167,11 @@ def get_path_weight(theta_nu, phi_nu, vertex_position, pnu, flavors, earth,
     d = np.stack([np.sin(theta_nu) * np.cos(phi_nu),
                   np.sin(theta_nu) * np.sin(phi_nu),
                   np.cos(theta_nu)], axis=-1)
-    slant = earth.slant_depth(vertex_position, d, n_samples=16384)
+    if device is not None and torch.device(device).type == "cuda":
+        slant = earth_slant.slant_depth(earth, vertex_position, d, n_samples=16384,
+                                        device=device)
+    else:
+        slant = earth.slant_depth(vertex_position, d, n_samples=16384)
     L_int = cross_sections.get_interaction_length(
         pnu, density=1.0, flavor=flavors, inttype="total",
         cross_section_type=cross_section_type)
@@ -166,8 +179,10 @@ def get_path_weight(theta_nu, phi_nu, vertex_position, pnu, flavors, earth,
 
 
 def get_weight(theta_nu, pnu, flavors, mode="core_mantle_crust_simple",
-               cross_section_type="ctw", vertex_position=None, phi_nu=None):
-    """Dispatcher mirroring earth_attenuation.get_weight (:12-59)."""
+               cross_section_type="ctw", vertex_position=None, phi_nu=None, device=None):
+    """Dispatcher mirroring earth_attenuation.get_weight (:12-59). ``device``
+    is the run's device: a CUDA device takes the path modes' chord integral
+    to the card; None (the default) or the CPU keeps it in numpy."""
     if mode == "simple":
         return get_simple_weight(theta_nu, pnu, cross_section_type)
     if mode == "core_mantle_crust_simple":
@@ -175,10 +190,10 @@ def get_weight(theta_nu, pnu, flavors, mode="core_mantle_crust_simple",
                                                    cross_section_type)
     if mode == "core_mantle_crust":
         return get_path_weight(theta_nu, phi_nu, vertex_position, pnu, flavors,
-                               CORE_MANTLE_CRUST, cross_section_type)
+                               CORE_MANTLE_CRUST, cross_section_type, device)
     if mode == "PREM":
         return get_path_weight(theta_nu, phi_nu, vertex_position, pnu, flavors,
-                               PREM, cross_section_type)
+                               PREM, cross_section_type, device)
     if mode in ("None", None):
         return np.ones_like(np.asarray(theta_nu, dtype=float))
     raise NotImplementedError(f"weight mode {mode} not implemented")

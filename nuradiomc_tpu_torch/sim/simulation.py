@@ -690,7 +690,7 @@ class Simulation:
             mode=self.config["weights"]["weight_mode"],
             cross_section_type=self.config["weights"]["cross_section_type"],
             vertex_position=np.c_[inp.xx[first], inp.yy[first], inp.zz[first]],
-            phi_nu=inp.azimuths[first])
+            phi_nu=inp.azimuths[first], device=self.device)
 
     def _on_device(self, batch, rows):
         """The ``rows`` (a slice or indices) of the host batch as tensors on

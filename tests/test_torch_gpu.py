@@ -15,7 +15,11 @@ its power windows directly where the plain version takes a cumsum
 difference, so its decisions are held on groups whose best beam power lies
 more than 1e-4 from the threshold, its first frames where both fire,
 amplitudes as above. The ray solver (``csrc/ray_solver.cu``) gives the plain
-version's every field bit for bit (NaN where it gives NaN).
+version's every field bit for bit (NaN where it gives NaN). The Earth's
+chord integral (``csrc/earth_slant.cu``) gives the numpy copy's trapezoid
+terms bit for bit and sums them in another order: slant depths within 1e-13
+relative, the weights within 1e-11 (a weight's relative error is the slant's
+times slant / L_int, at most ~100 here), bit-identical across launches.
 """
 
 import dataclasses
@@ -402,6 +406,72 @@ def test_ray_solver_broadcasts_and_refuses(dev):
         raytrace.find_solutions(x1y, x1z.cpu(), x2y, x2z, ice)
     with pytest.raises(TypeError, match="float32/float64"):
         raytrace.find_solutions(*(x.long() for x in (x1y, x1z, x2y, x2z)), ice)
+
+
+def earth_chords(earth, n=2048, seed=26):
+    """(theta, phi, vertex, flavor) of n chords drawn like the deep
+    phased-array cell's list (vertices at r < 3 km, -2 km < z < 0, isotropic
+    directions), then the edges from a vertex at 1.5 km depth: near-vertical
+    down- and up-going, horizontal, grazing each inner shell boundary (just
+    inside, on and just outside it), and last a vertex on the surface whose
+    chord has length 0."""
+    rng = np.random.default_rng(seed)
+    r = 3e3 * np.sqrt(rng.uniform(0, 1, n))
+    az = rng.uniform(0, 2 * np.pi, n)
+    vertex = np.c_[r * np.cos(az), r * np.sin(az), rng.uniform(-2e3, 0, n)]
+    theta = np.arccos(rng.uniform(-1, 1, n))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    r0 = earth.earth_radius - 1.5e3
+    graze = [np.pi - np.arcsin(b * f / r0) for b in earth.radii[:-1]
+             for f in (1 - 1e-9, 1.0, 1 + 1e-9)]
+    edge = np.r_[1e-6, np.pi - 1e-6, np.pi / 2, graze]
+    vertex = np.r_[vertex, np.tile([0.0, 0.0, -1.5e3], (len(edge), 1)), [[0.0, 0.0, 0.0]]]
+    theta = np.r_[theta, edge, 0.2]
+    phi = np.r_[phi, np.zeros(len(edge)), 1.0]
+    return theta, phi, vertex, rng.choice([12, -12, 14, -14, 16, -16], len(theta))
+
+
+@pytest.mark.parametrize("model, mode", [("CORE_MANTLE_CRUST", "core_mantle_crust"),
+                                         ("PREM", "PREM")])
+def test_earth_slant_kernel_matches_numpy(dev, model, mode):
+    """The chord kernel against ``EarthModel.slant_depth`` and the weights of
+    ``get_weight(..., device=card)`` against the numpy call; two launches
+    bit-identical, each counting its chords and one ``weights`` read."""
+    from nuradiomc_tpu_torch.ops import earth_slant
+    from nuradiomc_tpu_torch.sim import earth_attenuation
+    from nuradiomc_tpu_torch.utils import timing, units
+
+    earth = getattr(earth_attenuation, model)
+    theta, phi, vertex, flavors = earth_chords(earth)
+    n = len(theta)
+    d = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], -1)
+    want = earth.slant_depth(vertex, d, n_samples=16384)
+    got, counters = [], []
+    before = earth_slant.launches
+    timing.enable(False)
+    timing.take()
+    timing.enable()
+    try:
+        for _ in range(2):
+            got.append(earth_slant.slant_depth(earth, vertex, d, n_samples=16384, device=dev))
+            counters.append(timing.take()["counters"])
+    finally:
+        timing.enable(False)
+        timing.take()
+    assert earth_slant.launches == before + 2
+    for c in counters:
+        assert sum(j.get("weights.kernel_chords", 0) for j in c.values()) == n
+        assert sum(j.get("host_syncs.weights", 0) for j in c.values()) == 1
+    assert got[0].dtype == np.float64 and got[0].tobytes() == got[1].tobytes()
+    zero = want == 0
+    assert int(zero.sum()) == 1 and np.array_equal(got[0] == 0, zero)
+    rel = np.abs(got[0] - want)[~zero] / want[~zero]
+    assert rel.max() <= 1e-13, f"worst relative slant difference {rel.max():.3e}"
+    energy = np.full(n, 1e18 * units.eV)
+    kw = dict(mode=mode, cross_section_type="ctw", vertex_position=vertex, phi_nu=phi)
+    np.testing.assert_allclose(
+        earth_attenuation.get_weight(theta, energy, flavors, device=dev, **kw),
+        earth_attenuation.get_weight(theta, energy, flavors, **kw), rtol=1e-11, atol=0)
 
 
 def test_simulate_batch_kernel_path_matches_plain_path(dev):

@@ -296,7 +296,8 @@ def test_filter_chain_response_equals_the_original(chain, n):
                                   jfilters.chain_response(freqs, stages))
 
 
-@pytest.mark.parametrize("mode", ["core_mantle_crust_simple", "simple", "PREM", "None"])
+@pytest.mark.parametrize("mode", ["core_mantle_crust_simple", "simple", "core_mantle_crust",
+                                  "PREM", "None"])
 def test_earth_attenuation_weight_equals_the_original(mode):
     rng = np.random.default_rng(4)
     n = 64
