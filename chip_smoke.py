@@ -17,9 +17,9 @@ Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
 0. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-1. build the six kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
-   nvcc per source, started together (the ray solver and the Earth's chord
-   integral with -fmad=false);
+1. build the seven kernels from nuradiomc_tpu_torch/csrc/ (sm_90a), one
+   nvcc per source, started together (the ray solver, the Earth's chord
+   integral and the birefringence scan with -fmad=false);
 2. each kernel against its plain PyTorch version on the card at its path's
    shapes, float32 and float64 (kernel 2 also at the sizes a real station
    brings: 8 columns x 24 channels, n_base 8192, 17 columns in two launches,
@@ -47,7 +47,12 @@ result line):
    phased-array job's) and 16,384 chords of 16,384 samples, both Earth
    models, within 1e-13 relative of the numpy copy
    (``EarthModel.slant_depth``, timed on the host as its plain version),
-   two launches bit-identical;
+   two launches bit-identical; the birefringence segment scan
+   (``birefringence.segment_scan``) at the gen2 cell's shapes (12,288 paths
+   from the ray solver, 256 points, F 513), float32 and float64, bit-equal
+   to ``segment_scan_plain`` (a difference reported against 1e-5 / 1e-14 of
+   each path's largest amplitude), timed beside the plain loop and its
+   bound;
 3. the headline (dipole Veff) slice: 65536 groups of the bench workload
    through ``simulate_batch`` (placement + trigger kernels), held to the
    per-group ``veff_trig`` pin of tests/golden/bench_pins.npz (at most 56
@@ -65,12 +70,13 @@ result line):
    against the plain path with the same noise (at most 8 groups differ,
    each within 1e-3 of the threshold), with its events/s;
 6. the Gen2 composed slice: 256 groups of the tau input, three stations,
-   birefringence, float32 (``convert.make_gen2_inputs``, kernels 4 and 2):
+   birefringence, float32 (``convert.make_gen2_inputs``, kernels 4 and 2,
+   the scan kernel once a station):
    the per-group station counts against the ``gen2_trig`` pin (at most 8
    flips), the kernel path against the plain path, events/s at 256 and at
    2048 groups (the whole file) with peak device memory, and the whole file
-   through ``Simulation`` in float64 with birefringence on (kernel 4) and
-   off (the factored chain: kernel 1 at s2 20), held to the JAX package's
+   through ``Simulation`` in float64 with birefringence on (kernel 4 and
+   the scan kernel) and off (the factored chain: kernel 1 at s2 20), held to the JAX package's
    groups and Veff;
 7. the multi-trigger station (kernels 1, 2 and 3): the three-trigger station
    of ``convert.multitrigger_simulation`` through ``Simulation`` in float64,
@@ -303,9 +309,9 @@ from nuradiomc_tpu_torch.framework.base_trace import BaseTrace  # noqa: E402
 from nuradiomc_tpu_torch import convert  # noqa: E402
 from nuradiomc_tpu_torch.convert import make_headline_inputs  # noqa: E402
 from nuradiomc_tpu_torch.models import ice as ice_models  # noqa: E402
-from nuradiomc_tpu_torch.ops import (_build, earth_slant, fft_plan, noise,  # noqa: E402
-                                     pa_trigger, phased_array, placement, raytrace,
-                                     trigger_fused)
+from nuradiomc_tpu_torch.ops import (_build, birefringence, earth_slant,  # noqa: E402
+                                     fft_plan, noise, pa_trigger, phased_array, placement,
+                                     raytrace, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline  # noqa: E402
 from nuradiomc_tpu_torch.sim import io_input  # noqa: E402
 from nuradiomc_tpu_torch.sim.io_input import (DATA_DIR, INPUT_1E18_N3000,  # noqa: E402
@@ -345,9 +351,12 @@ FULLSCALE_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_referen
 FULLSCALE_PA_GOLDEN = os.path.join(HERE, "tests", "golden", "veff_fullscale_pa_reference.npz")
 WAVEFORMS_REF = DATA_DIR / "e2e_waveforms_reference.npz"
 KERNELS = ("placement_chain", "irfft_trigger", "pa_trigger", "placement_reduce", "ray_solver",
-           "earth_slant")
+           "earth_slant", "birefringence_scan")
 # the dipole cell's pairs a step (50,000 groups x 2 showers x 1 channel)
 RAY_PAIRS = 100_000
+# the gen2 cell's valid paths a station and chunk, and its birefringence scan's
+# points a path and frequencies
+BIRE_PATHS, BIRE_POINTS, BIRE_FREQS = 12_288, 256, 513
 CARD = ""                # nvidia-smi name and power limit, set by main()
 
 
@@ -733,12 +742,10 @@ def _ray_pairs(n, dtype, dev, seed=20261018):
     return g.x1y, g.x1z, g.x2y, g.x2z
 
 
-@functools.lru_cache(maxsize=4)
-def _ray_solver_ops(n_bisect):
-    """Operations a pair of ``find_solutions_plain`` at ``n_bisect``: the
-    output elements of its ATen pointwise ops (a transcendental, a compare
-    and a select count one each) over 64 pairs on the CPU, per pair; every
-    loop count is fixed, so the count does not depend on the pairs."""
+def _pointwise_ops(fn, *args):
+    """The output elements of the ATen pointwise ops of ``fn(*args)`` (a
+    transcendental, a compare, a select and a complex product count one
+    each)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -750,10 +757,20 @@ def _ray_solver_ops(n_bisect):
                 self.ops += (out[0] if isinstance(out, (tuple, list)) else out).numel()
             return out
 
-    xs = [t.cpu().double() for t in _ray_pairs(64, torch.float64, "cpu")]
     with Count() as c:
-        raytrace.find_solutions_plain(*xs, ice_models.southpole_2015, n_bisect)
-    return c.ops / 64
+        fn(*args)
+    return c.ops
+
+
+@functools.lru_cache(maxsize=4)
+def _ray_solver_ops(n_bisect):
+    """Operations a pair of ``find_solutions_plain`` at ``n_bisect``: its
+    pointwise operations (``_pointwise_ops``) over 64 pairs on the CPU, per
+    pair; every loop count is fixed, so the count does not depend on the
+    pairs."""
+    xs = [t.cpu().double() for t in _ray_pairs(64, torch.float64, "cpu")]
+    return _pointwise_ops(raytrace.find_solutions_plain, *xs, ice_models.southpole_2015,
+                          n_bisect) / 64
 
 
 def _ray_solver_bound(n_pairs, dtype, n_bisect):
@@ -895,6 +912,83 @@ def _check_earth_slant(dev, phase="phase 2"):
     return entry
 
 
+@functools.lru_cache(maxsize=4)
+def _birefringence_scan_ops(n_seg, n_freq):
+    """Operations a path of ``segment_scan_plain`` at ``n_seg`` segments and
+    ``n_freq`` frequencies: its pointwise operations (``_pointwise_ops``) on
+    one path on the CPU; every op is per path, so the count scales with the
+    paths."""
+    spec = torch.ones(1, n_freq, dtype=torch.complex128)
+    seg = torch.full((1, n_seg), 0.5, dtype=torch.float64)
+    ok = torch.ones(1, n_seg, dtype=torch.bool)
+    ff = torch.linspace(0.0, 1.0, n_freq, dtype=torch.float64)
+    return _pointwise_ops(birefringence.segment_scan_plain, spec, spec, seg, seg, seg, seg, seg,
+                          ok, ff)
+
+
+def _birefringence_scan_bound(n_paths, n_seg, n_freq, dtype):
+    """The segment scan: the plain version's pointwise operations
+    (``_birefringence_scan_ops``) against both spectra read and written once,
+    the five real segment arrays and ``ok`` read once and the frequencies."""
+    e = torch.empty((), dtype=dtype).element_size()
+    nbytes = n_paths * (4 * n_freq * 2 * e + n_seg * (5 * e + 1)) + n_freq * e
+    return _bound(nbytes, n_paths * _birefringence_scan_ops(n_seg, n_freq), dtype)
+
+
+def _check_birefringence_scan(dev, phase="phase 2"):
+    """The birefringence segment scan (``birefringence.segment_scan``, one
+    launch) against ``segment_scan_plain`` at the gen2 cell's shapes: 12,288
+    valid paths from the ray solver to the cell's deep VPols, 256 points a
+    path, F 513, float32 and float64; bit-equal, every difference reported
+    against the limits 1e-5 / 1e-14 of each path's largest amplitude; timed
+    beside the plain loop and the bound, with the launch grid. Returns the
+    float64 summary entry (the cell's dtype)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry = None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-14)):
+        tag = str(dtype).replace("torch.", "")
+        path = convert.gen2_birefringence_paths(BIRE_PATHS, n_points=BIRE_POINTS, device=dev,
+                                                dtype=dtype)
+        args = convert.make_birefringence_scan_inputs(path, n_freq=BIRE_FREQS)
+        del path
+        before = birefringence.launches
+        k = birefringence.segment_scan(*args)
+        p = birefringence.segment_scan_plain(*args)
+        torch.cuda.synchronize()
+        if birefringence.launches != before + 1:
+            raise AssertionError(f"birefringence_scan: {birefringence.launches - before} "
+                                 f"launches, not one")
+        amp = torch.maximum(p[0].abs().amax(-1), p[1].abs().amax(-1))[:, None]
+        gap = max(float(((a - b).abs() / amp).max()) for a, b in zip(k, p))
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(k, p))
+        same = all(torch.equal(a, b) for a, b in zip(k, p))
+        n_bits = sum(int((a != b).sum()) for a, b in zip(k, p))
+        finite = all(bool(torch.isfinite(a).all()) for a in k)
+        del k, p
+        n_seg = args[2].shape[-1]
+        ms = _median_ms(lambda: birefringence.segment_scan(*args))
+        plain_ms = _median_ms(lambda: birefringence.segment_scan_plain(*args))
+        bound = _birefringence_scan_bound(BIRE_PATHS, n_seg, BIRE_FREQS, dtype)
+        smem = 6 * n_seg * torch.empty((), dtype=dtype).element_size()
+        print(f"{phase} birefringence_scan {tag}: {BIRE_PATHS} paths x {n_seg} segments "
+              f"({int(args[7].sum())} valid) x F {BIRE_FREQS}; bit-equal to the plain loop: "
+              f"{same} ({n_bits} complex elements differ), worst |kernel - plain| over a "
+              f"path's largest amplitude {gap:.3e} (limit {tol:.0e}), max abs {max_abs:.3e}; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}: {_birefringence_scan_ops(n_seg, BIRE_FREQS)} operations a path), "
+              f"{bound[0] / ms:.1%} of the bound; grid {BIRE_PATHS} blocks of 128 on {sms} "
+              f"SMs, {smem} B shared a block ({CARD})")
+        if not same or not finite:
+            raise AssertionError(f"birefringence_scan {tag}: not bit-equal to the plain loop "
+                                 f"({gap:.3e} of a path's largest amplitude, limit {tol:.0e}), "
+                                 f"or not finite")
+        if dtype == torch.float64:
+            entry = _entry(max_abs, ms, plain_ms, bound)
+        del args
+        torch.cuda.empty_cache()
+    return entry
+
+
 def phase_kernels(dev):
     """Kernel vs plain version on the card, with each kernel's bound and (for
     kernel 2) the library irfft's time; returns the float32 summary (the ray
@@ -961,6 +1055,7 @@ def phase_kernels(dev):
         del ray_args
         torch.cuda.empty_cache()
     summary["earth_slant"] = _check_earth_slant(dev)
+    summary["birefringence_scan"] = _check_birefringence_scan(dev)
     return summary
 
 
@@ -1355,16 +1450,17 @@ def phase_gen2(dev):
         raise AssertionError(f"gen2_trig pin has {len(ref)} groups, the run "
                              f"{GEN2_GROUPS}: a stale pin is a failure")
     placement.launches = placement.reduce_launches = trigger_fused.launches = 0
-    raytrace.launches = 0
+    raytrace.launches = birefringence.launches = 0
     torch.cuda.synchronize()
     outs = [pipeline.simulate_batch(batch, ch, settings) for ch in chps]
     vec = sum(o.triggered.long() for o in outs).cpu().numpy()
     launches = {"placement_chain": placement.launches,
                 "placement_reduce": placement.reduce_launches,
-                "irfft_trigger": trigger_fused.launches, "ray_solver": raytrace.launches}
+                "irfft_trigger": trigger_fused.launches, "ray_solver": raytrace.launches,
+                "birefringence_scan": birefringence.launches}
     print(f"phase 6 launches in the main-path run: {launches}")
     if min(launches["placement_reduce"], launches["irfft_trigger"],
-           launches["ray_solver"]) < 1:
+           launches["ray_solver"]) < 1 or launches["birefringence_scan"] != len(chps):
         raise AssertionError(f"a kernel of the path was not launched: {launches}")
     for o in outs:
         if (tuple(o.max_amplitude.shape) != (GEN2_GROUPS, 2)
@@ -1415,7 +1511,7 @@ def phase_gen2(dev):
     torch.cuda.empty_cache()
 
     for bire in (True, False):
-        placement.launches = placement.reduce_launches = 0
+        placement.launches = placement.reduce_launches = birefringence.launches = 0
         t0 = time.perf_counter()
         res = convert.gen2_simulation(
             str(INPUT_GEN2), {"propagation": {"birefringence": bire}}, chunk_size=1024,
@@ -1424,9 +1520,10 @@ def phase_gen2(dev):
         print(f"phase 6 Simulation float64, birefringence {bire}: "
               f"{res['n_triggered']} of {len(res['triggered'])} groups triggered, Veff "
               f"{res['veff'] / units.km ** 3:.5f} km^3, launches kernel 1 "
-              f"{placement.launches}, kernel 4 {placement.reduce_launches}, "
-              f"{wall:.2f} s with set-up ({CARD})")
-        used = placement.reduce_launches if bire else placement.launches
+              f"{placement.launches}, kernel 4 {placement.reduce_launches}, scan "
+              f"{birefringence.launches}, {wall:.2f} s with set-up ({CARD})")
+        used = (min(placement.reduce_launches, birefringence.launches) if bire
+                else placement.launches)
         want = GEN2_FILE[bire]
         got = (int(res["n_triggered"]), round(float(res["veff"] / units.km ** 3), 5))
         if used < 1 or got != want:
@@ -1812,13 +1909,14 @@ class _Recorder:
 def _reset_launches():
     placement.launches = placement.reduce_launches = 0
     trigger_fused.launches = pa_trigger.launches = raytrace.launches = 0
-    earth_slant.launches = 0
+    earth_slant.launches = birefringence.launches = 0
 
 
 def _launch_counts():
     return {"placement_chain": placement.launches, "placement_reduce": placement.reduce_launches,
             "irfft_trigger": trigger_fused.launches, "pa_trigger": pa_trigger.launches,
-            "ray_solver": raytrace.launches, "earth_slant": earth_slant.launches}
+            "ray_solver": raytrace.launches, "earth_slant": earth_slant.launches,
+            "birefringence_scan": birefringence.launches}
 
 
 def _check_pa_call(label, args, kw, tol_amp, phase):
@@ -4675,8 +4773,11 @@ def phase_examples(dev):
                       f"{against}")
             del ret
     # no example weighs by the path modes (they set core_mantle_crust_simple
-    # or run emitters), so the chord kernel need not launch here
-    missing = [k for k in KERNELS if totals[k] < 1 and k != "earth_slant"]
+    # or run emitters), so the chord kernel need not launch here, and none
+    # turns birefringence on, so neither need the segment scan (phase 6
+    # requires one scan launch a station)
+    missing = [k for k in KERNELS
+               if totals[k] < 1 and k not in ("earth_slant", "birefringence_scan")]
     if missing:
         raise AssertionError(f"phase 17: the examples launched no {missing}")
     _check_recorded(calls, "examples", "phase 17")
@@ -4783,7 +4884,10 @@ def main() -> int:
                               "vmap; XLA fuses its fori_loops)",
                 "earth_slant": "none: the JAX package computes these weights on the host too "
                                "(nuradiomc_tpu/sim/earth_attenuation.py:95, "
-                               "EarthModel.slant_depth)"}
+                               "EarthModel.slant_depth)",
+                "birefringence_scan": "none: nuradiomc_tpu/ops/birefringence.py:191 "
+                                      "(propagate_pulse's lax.scan over the segments, "
+                                      "vmapped over the paths)"}
     kernels = [{"name": name, "route": "cuda",
                 "source": f"nuradiomc_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces[name], "launches": launches[name], **summary[name]}

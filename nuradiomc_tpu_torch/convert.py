@@ -436,6 +436,56 @@ def make_gen2_inputs(n_groups=256, *, device=device_util.DEFAULT, dtype=torch.fl
     return sim.settings, chps, _tiled(sim._build_batches()[-1], n_groups, sim.device)
 
 
+# the gen2 cell's deep stations (portbench/configs/gen2_birefringence.json):
+# positions (x, y) in m and the phased-array VPols' depths
+GEN2_DEEP_STATIONS = ((0.0, 0.0), (1700.0, 0.0), (850.0, 1470.0))
+GEN2_DEEP_DEPTHS = (-197.0, -198.0, -199.0, -200.0)
+
+
+def gen2_birefringence_paths(n_paths=4096, *, n_points=256, seed=29,
+                             device=device_util.DEFAULT, dtype=torch.float64):
+    """[n_paths, n_points, 3]: the first ``n_paths`` valid ray paths
+    (``birefringence.path_points_3d``) from vertices of the gen2 cell's
+    volume (r < 3 km, -2.7 km < z < 0), drawn by numpy from ``seed``, to the
+    deep VPols of its three stations."""
+    from nuradiomc_tpu_torch.ops import birefringence, raytrace
+
+    rng = np.random.default_rng(seed)
+    ice = ice_models.southpole_2015
+    receivers = np.array([(x, y, z) for x, y in GEN2_DEEP_STATIONS for z in GEN2_DEEP_DEPTHS])
+    paths, n_found = [], 0
+    while n_found < n_paths:
+        n = max(n_paths // 2, 256)
+        r, phi = 3e3 * np.sqrt(rng.uniform(0, 1, n)), rng.uniform(0, 2 * np.pi, n)
+        x1 = np.c_[r * np.cos(phi), r * np.sin(phi), rng.uniform(-2700.0, 0.0, n)]
+        x2 = receivers[rng.integers(0, len(receivers), n)]
+        g = raytrace.to_2d(*(torch.as_tensor(x, dtype=dtype, device=device) for x in (x1, x2)))
+        sols = raytrace.find_solutions(g.x1y, g.x1z, g.x2y, g.x2z, ice)
+        sel = torch.nonzero(sols.mask.reshape(-1)).squeeze(1)
+        geom = raytrace.Geometry2D(*(f[:, None].expand(n, 2).reshape(-1)[sel] for f in g))
+        paths.append(birefringence.path_points_3d(sols.c0.reshape(-1)[sel], geom, ice, n_points))
+        n_found += sel.shape[0]
+    return torch.cat(paths)[:n_paths]
+
+
+def make_birefringence_scan_inputs(path, *, n_freq=513, seed=29):
+    """The segment scan's operands (spec_theta, spec_phi, cpsi, spsi, k1sq,
+    k2sq, dt_rel, ok, frequencies) along ``path`` [P, K, 3]
+    (``birefringence.segment_parameters``), with standard normal spectra
+    drawn by numpy from ``seed`` at ``n_freq`` frequencies from 0 to the
+    0.5 ns grid's 1 GHz (the gen2 cell's 513), on the path's device and in
+    its dtype."""
+    from nuradiomc_tpu_torch.ops import birefringence
+
+    rng = np.random.default_rng(seed)
+    P, dtype, device = path.shape[0], path.dtype, path.device
+    specs = [torch.as_tensor(rng.standard_normal((P, n_freq))
+                             + 1j * rng.standard_normal((P, n_freq)),
+                             dtype=_ctype(dtype), device=device) for _ in range(2)]
+    ff = torch.as_tensor(np.arange(n_freq) / max(n_freq - 1, 1), dtype=dtype, device=device)
+    return (*specs, *birefringence.segment_parameters(path, ice_models.southpole_2015), ff)
+
+
 # ---- the reflective-bottom workload (Moore's Bay, an ARIANNA-style station)
 
 def _mooresbay_channel(cid, x, y, rotation_phi):

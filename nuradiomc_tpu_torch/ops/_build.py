@@ -26,10 +26,11 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# flags of single kernels, after NVCC_FLAGS: the ray solver's and the chord
-# integral's products and sums round one by one, as the plain version's ATen
-# ops and the numpy copy's do
-EXTRA_FLAGS = {"ray_solver": ["-fmad=false"], "earth_slant": ["-fmad=false"]}
+# flags of single kernels, after NVCC_FLAGS: the ray solver's, the chord
+# integral's and the birefringence scan's products and sums round one by
+# one, as the plain versions' ATen ops and the numpy copy's do
+EXTRA_FLAGS = {"ray_solver": ["-fmad=false"], "earth_slant": ["-fmad=false"],
+               "birefringence_scan": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per kernel: {"seconds": build time (0.0 when cached), "log": ptxas output}

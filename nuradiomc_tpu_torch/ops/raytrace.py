@@ -313,7 +313,11 @@ def _dy_dz(z, c0, ice: IceModelSimple):
 
 def _z2_mirrored(c0, x1y, x1z, x2y, x2z, ice: IceModelSimple):
     c1 = _c1_of(x1y, x1z, c0, ice)
-    gamma_turn, z_turn = _turning_point(c0, ice)
+    return _z2_past_turn(c0, c1, *_turning_point(c0, ice), x1z, x2y, x2z, ice)
+
+
+def _z2_past_turn(c0, c1, gamma_turn, z_turn, x1z, x2y, x2z, ice: IceModelSimple):
+    """``_z2_mirrored`` from the path's c1 and turning point."""
     y_turn = _y_of_gamma(gamma_turn, c0, c1, ice)
     past_turn = y_turn < x2y
     return torch.where(past_turn,

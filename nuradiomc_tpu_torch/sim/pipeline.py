@@ -44,7 +44,8 @@ With the recorder of ``utils/timing.py`` on, step 1 is the span
 step 8 ``step.trigger`` (the last two once per window and around the
 window-independent work); with birefringence, its propagation is the span
 ``step.birefringence`` inside ``step.signal``, with the counter
-``birefringence.paths`` (valid paths propagated); each
+``birefringence.paths`` (valid paths propagated; on the card also
+``birefringence.kernel_paths``, the paths of the scan kernel's launch); each
 blocking device-to-host read is a ``host_sync`` (``band_support``,
 ``birefringence``, ``arz_select``).
 

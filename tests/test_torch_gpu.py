@@ -19,7 +19,12 @@ version's every field bit for bit (NaN where it gives NaN). The Earth's
 chord integral (``csrc/earth_slant.cu``) gives the numpy copy's trapezoid
 terms bit for bit and sums them in another order: slant depths within 1e-13
 relative, the weights within 1e-11 (a weight's relative error is the slant's
-times slant / L_int, at most ~100 here), bit-identical across launches.
+times slant / L_int, at most ~100 here), bit-identical across launches. The
+birefringence segment scan (``csrc/birefringence_scan.cu``) gives the plain
+loop's bits in float32 and float64: it writes the loop's operations in their
+order, with the complex product fused as ATen's CUDA build fuses it; a
+difference is reported against the limits 1e-5 (float32) / 1e-14 (float64)
+of each path's largest amplitude.
 """
 
 import dataclasses
@@ -28,10 +33,11 @@ import numpy as np
 import pytest
 import torch
 
+from nuradiomc_tpu_torch import convert
 from nuradiomc_tpu_torch.convert import make_headline_inputs
 from nuradiomc_tpu_torch.models import ice as ice_models
-from nuradiomc_tpu_torch.ops import (fft_plan, noise, pa_trigger, phased_array, placement,
-                                     raytrace, trigger_fused)
+from nuradiomc_tpu_torch.ops import (birefringence, fft_plan, noise, pa_trigger, phased_array,
+                                     placement, raytrace, trigger_fused)
 from nuradiomc_tpu_torch.sim import pipeline
 
 pytestmark = pytest.mark.gpu
@@ -474,6 +480,106 @@ def test_earth_slant_kernel_matches_numpy(dev, model, mode):
         earth_attenuation.get_weight(theta, energy, flavors, **kw), rtol=1e-11, atol=0)
 
 
+def _scan_gap(k, p):
+    """(worst |kernel - plain| over each path's largest plain amplitude in
+    either polarization, bit-equal)."""
+    amp = torch.maximum(p[0].abs().amax(-1), p[1].abs().amax(-1))[:, None]
+    amp = amp.clamp_min(torch.finfo(amp.dtype).tiny)
+    gap = max(float(((a - b).abs() / amp).max()) if a.numel() else 0.0 for a, b in zip(k, p))
+    return gap, all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-14)])
+def test_birefringence_scan_kernel_matches_plain(dev, dtype, tol):
+    """The scan kernel against ``segment_scan_plain`` at the gen2 cell's
+    shapes (3,072 paths from the ray solver, 256 points, F 513), one launch
+    counting its paths."""
+    from nuradiomc_tpu_torch.utils import timing
+
+    args = convert.make_birefringence_scan_inputs(
+        convert.gen2_birefringence_paths(3072, device=dev, dtype=dtype))
+    before = birefringence.launches
+    timing.enable(False)
+    timing.take()
+    timing.enable()
+    try:
+        k = birefringence.segment_scan(*args)
+        counters = timing.take()["counters"]
+    finally:
+        timing.enable(False)
+        timing.take()
+    assert birefringence.launches == before + 1
+    assert sum(c.get("birefringence.kernel_paths", 0) for c in counters.values()) == 3072
+    p = birefringence.segment_scan_plain(*args)
+    assert all(a.dtype == b.dtype and a.shape == b.shape for a, b in zip(k, p))
+    gap, same = _scan_gap(k, p)
+    assert same, f"{dtype}: not bit-equal; worst gap {gap:.3e} of a path's largest " \
+                 f"amplitude (limit {tol:.0e})"
+    assert not torch.equal(p[1], args[1]), "the scan left the spectra as they were"
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-14)])
+@pytest.mark.parametrize("n_freq", [1, 100, 129, 513])
+def test_birefringence_scan_kernel_edges(dev, dtype, tol, n_freq):
+    """Skipped segments (zero length, NaN and infinite points, a path with
+    no valid segment) leave the state as the plain loop does; F below, at
+    and past the block's stride of 128."""
+    path = convert.gen2_birefringence_paths(256, device=dev, dtype=dtype)
+    path[:16, 11] = path[:16, 10]                 # zero-length segment 10
+    path[16:32, 50, 2] = float("nan")             # segments 49 and 50
+    path[32:48, 100] = float("inf")               # segments 99 and 100
+    path[48] = float("nan")                       # no valid segment
+    args = convert.make_birefringence_scan_inputs(path, n_freq=n_freq)
+    ok = args[7]
+    assert not bool(ok[:16, 10].any()) and not bool(ok[16:48].all(-1).any())
+    assert not bool(ok[48].any())
+    k = birefringence.segment_scan(*args)
+    p = birefringence.segment_scan_plain(*args)
+    gap, same = _scan_gap(k, p)
+    assert same, f"not bit-equal; worst gap {gap:.3e} (limit {tol:.0e})"
+    assert all(bool(torch.isfinite(a).all()) for a in k)
+    assert torch.equal(k[0][48], args[0][48]) and torch.equal(k[1][48], args[1][48])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_birefringence_scan_kernel_long_paths_and_no_paths(dev, dtype):
+    """2,100 segments a path (past 48 KB of shared memory in both dtypes)
+    against the plain loop; P = 0 launches nothing; more segments than a
+    block's shared memory holds are refused."""
+    args = convert.make_birefringence_scan_inputs(
+        convert.gen2_birefringence_paths(64, n_points=2101, device=dev, dtype=dtype), n_freq=65)
+    before = birefringence.launches
+    gap, same = _scan_gap(birefringence.segment_scan(*args),
+                          birefringence.segment_scan_plain(*args))
+    assert same, f"not bit-equal; worst gap {gap:.3e}"
+    assert birefringence.launches == before + 1
+    empty = [a[:0] for a in args[:8]] + [args[8]]
+    out = birefringence.segment_scan(*empty)
+    assert [tuple(o.shape) for o in out] == [(0, 65)] * 2 and birefringence.launches == before + 1
+    n_max = 232448 // (6 * torch.empty((), dtype=dtype).element_size())
+    big = [a[:2, :1].expand(2, n_max + 1).contiguous() for a in args[2:8]]
+    with pytest.raises(ValueError, match="segments"):
+        birefringence.segment_scan(args[0][:2], args[1][:2], *big, args[8])
+
+
+def test_birefringence_scan_refuses(dev):
+    """Non-contiguous input, mixed dtypes, mismatched shapes and inputs on
+    two devices are refused on the card, before any launch."""
+    args = list(convert.make_birefringence_scan_inputs(
+        convert.gen2_birefringence_paths(64, n_points=32, device=dev), n_freq=33))
+    before = birefringence.launches
+    cases = {"contiguous": (0, args[0].t().contiguous().t()),
+             "dtypes": (4, args[4].float()),
+             "shapes": (6, args[6][:, :-1].contiguous()),
+             "several devices": (2, args[2].cpu())}
+    for match, (i, bad) in cases.items():
+        with pytest.raises(ValueError, match=match):
+            birefringence.segment_scan(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError, match="shapes"):
+        birefringence.segment_scan(*args[:8], args[8][:-1].contiguous())
+    assert birefringence.launches == before
+
+
 def test_simulate_batch_kernel_path_matches_plain_path(dev):
     s, ch, b = make_headline_inputs(512, 2, 4, 512, 2048, device=dev, dtype=torch.float32)
     s = dataclasses.replace(s, band_limit_eps=1e-2)
@@ -649,13 +755,16 @@ def test_pa_simulation_float64_on_card(dev):
 
 def test_gen2_kernel_path_matches_plain_path(dev):
     """The Gen2 composed workload (birefringence, S 10, 3 stations) through
-    kernels 4 and 2 against the plain path on the card, float32."""
+    kernels 4 and 2 against the plain path on the card, float32; the kernel
+    path's scan is one launch a station."""
     from nuradiomc_tpu_torch.convert import make_gen2_inputs
     s, chps, b = make_gen2_inputs(256, device=dev, dtype=torch.float32)
     plain = dataclasses.replace(s, placement_impl="plain", trigger_impl="plain")
     before = placement.reduce_launches
     for ch in chps:
+        scans = birefringence.launches
         out = pipeline.simulate_batch(b, ch, s)
+        assert birefringence.launches == scans + 1
         ref = pipeline.simulate_batch(b, ch, plain)
         assert torch.equal(out.triggered, ref.triggered)
         torch.testing.assert_close(out.max_amplitude, ref.max_amplitude, rtol=1e-4, atol=0)
